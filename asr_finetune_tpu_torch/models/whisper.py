@@ -1,0 +1,346 @@
+"""Whisper encoder-decoder in PyTorch over explicit parameter trees.
+
+Counterpart of asr_finetune_tpu/models/whisper.py, serving half: the
+encoder, the cross-attention K/V precompute and the two per-token decode
+steps (the plain reference step and the fused-kernel step). Parameters are
+a nested dict of tensors with the JAX tree's keys and layouts: per-layer
+weights stacked on a leading axis ((L, d_in, d_out), biases (L, d)), the
+decode cache dense (L, B, T, d). The layer loops are Python loops over
+views of the stacked tensors; the fused kernels take the full stacked
+tensors plus the layer index and read layer l in place.
+
+Numerics follow the JAX functions: matmuls in the compute dtype with the
+weights cast at use (`dense`; free after `cast_matmul_weights_` has cast
+them once), layer-norm statistics in fp32, the conv stem in fp32, exact-erf
+GELU, logits in fp32 from compute-dtype operands.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .configs import WhisperConfig
+from ..ops import decoder_fused as DF
+from ..ops.attention import attention as _attention_dispatch
+from ..ops.attention import xla_attention
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# initialization
+# ---------------------------------------------------------------------------
+
+def sinusoidal_positions(length: int, channels: int) -> np.ndarray:
+    """Whisper's fixed sinusoid table (sin | cos concatenated on channels)."""
+    assert channels % 2 == 0
+    log_timescale = np.log(10000.0) / (channels // 2 - 1)
+    inv_timescales = np.exp(-log_timescale * np.arange(channels // 2))
+    scaled = np.arange(length)[:, None] * inv_timescales[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(np.float32)
+
+
+def init_params(cfg: WhisperConfig, seed: int = 0, device="cpu") -> Params:
+    """Random init in Whisper's layout (the JAX init_params' distributions:
+    uniform ±1/sqrt(d_in) weights, zero biases, unit LN scales, N(0, 0.02)
+    embeddings). A torch.Generator on `device` draws the numbers, so a
+    large model initialises on the card; the values differ from JAX's."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    L_e, L_d, d, ff = cfg.encoder_layers, cfg.decoder_layers, cfg.d_model, cfg.d_ff
+
+    def uniform(d_in, *shape):
+        return ((torch.rand(shape, generator=g, device=device) * 2 - 1)
+                / math.sqrt(d_in))
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=device)
+
+    def ln(L=None):
+        shape = (d,) if L is None else (L, d)
+        return {"scale": torch.ones(shape, device=device), "bias": zeros(*shape)}
+
+    def attn(L):
+        return {"q": {"w": uniform(d, L, d, d), "b": zeros(L, d)},
+                "k": {"w": uniform(d, L, d, d)},       # no bias, as in Whisper
+                "v": {"w": uniform(d, L, d, d), "b": zeros(L, d)},
+                "o": {"w": uniform(d, L, d, d), "b": zeros(L, d)}}
+
+    def mlp(L):
+        return {"fc1": {"w": uniform(d, L, d, ff), "b": zeros(L, ff)},
+                "fc2": {"w": uniform(ff, L, ff, d), "b": zeros(L, d)}}
+
+    n_mels = cfg.num_mel_bins
+    encoder = {
+        "conv1": {"w": uniform(3 * n_mels, 3, n_mels, d), "b": zeros(d)},
+        "conv2": {"w": uniform(3 * d, 3, d, d), "b": zeros(d)},
+        "layers": {"ln1": ln(L_e), "attn": attn(L_e), "ln2": ln(L_e),
+                   "mlp": mlp(L_e)},
+        "ln_post": ln(),
+    }
+    decoder = {
+        "embed": torch.randn((cfg.vocab_size, d), generator=g, device=device) * 0.02,
+        "pos": torch.randn((cfg.max_target_positions, d), generator=g,
+                           device=device) * 0.02,
+        "layers": {"ln1": ln(L_d), "self_attn": attn(L_d), "ln2": ln(L_d),
+                   "cross_attn": attn(L_d), "ln3": ln(L_d), "mlp": mlp(L_d)},
+        "ln_post": ln(),
+    }
+    return {"encoder": encoder, "decoder": decoder,
+            "encoder_pos": torch.from_numpy(sinusoidal_positions(
+                cfg.max_source_positions, d)).to(device)}
+
+
+def cast_matmul_weights_(params: Params, dtype: torch.dtype) -> Params:
+    """Cast, in place, every weight that is only ever used in `dtype`: the
+    layers' projections and biases, the token and position embeddings. The
+    layer norms and the fp32 conv stem stay as they are. Each old tensor is
+    released as its cast replaces it, so the peak is one leaf above the
+    model. What the model computes in `dtype` is unchanged: `dense`,
+    `_embed` and `tied_logits_weight` cast the same values at use."""
+    def cast(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                if not k.startswith("ln"):
+                    cast(v)
+            else:
+                tree[k] = v.to(dtype)
+
+    cast(params["encoder"]["layers"])
+    dec = params["decoder"]
+    cast(dec["layers"])
+    dec["embed"], dec["pos"] = dec["embed"].to(dtype), dec["pos"].to(dtype)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# building blocks
+# ---------------------------------------------------------------------------
+
+def _layer(tree: Params, l: int) -> Params:
+    """Layer l of a stacked subtree: the same dict with every tensor
+    replaced by its view [l]."""
+    return {k: _layer(v, l) if isinstance(v, dict) else v[l]
+            for k, v in tree.items()}
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """Accumulation dtype: fp32, unless already wider."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def layer_norm(x: torch.Tensor, ln: Params, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with fp32 statistics regardless of compute dtype."""
+    acc = _acc(x.dtype)
+    x32 = x.to(acc)
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = ((x32 - mean) ** 2).mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    y = y * ln["scale"].to(acc) + ln["bias"].to(acc)
+    return y.to(x.dtype)
+
+
+def dense(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """x @ W (+ b), the weight and bias cast to x's dtype at use."""
+    y = torch.matmul(x, p["w"].to(x.dtype))
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    b, t, d = x.shape
+    return x.reshape(b, t, heads, d // heads)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, t, h, hd = x.shape
+    return x.reshape(b, t, h * hd)
+
+
+def mha(x: torch.Tensor, kv_src: torch.Tensor, p: Params, heads: int,
+        mask: Optional[torch.Tensor] = None,
+        causal: bool = False) -> torch.Tensor:
+    """Full (non-incremental) multi-head attention; non-causal unmasked
+    calls run the encoder-attention kernel (ops/attention.attention)."""
+    q = _split_heads(dense(x, p["q"]), heads)
+    k = _split_heads(dense(kv_src, p["k"]), heads)
+    v = _split_heads(dense(kv_src, p["v"]), heads)
+    out = _attention_dispatch(q, k, v, mask, causal=causal)
+    return dense(_merge_heads(out), p["o"])
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x)   # exact erf form, as jax.nn.gelu(approximate=False)
+
+
+def mlp_block(x: torch.Tensor, p: Params) -> torch.Tensor:
+    return dense(_gelu(dense(x, p["fc1"])), p["fc2"])
+
+
+# ---------------------------------------------------------------------------
+# encoder
+# ---------------------------------------------------------------------------
+
+def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+            stride: int) -> torch.Tensor:
+    """(B, T, C) conv, kernel 3, padding 1, w (3, C_in, C_out), in fp32 (the
+    stem is <0.5% of the encoder's FLOPs; on the card TF32 is off)."""
+    acc = _acc(x.dtype)
+    y = F.conv1d(x.to(acc).transpose(1, 2), w.to(acc).permute(2, 1, 0),
+                 stride=stride, padding=1)
+    return y.transpose(1, 2) + b.to(acc)
+
+
+def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
+           compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """mel (B, frames, n_mels) → encoder states (B, frames//2, d_model)."""
+    enc = params["encoder"]
+    x = _gelu(_conv1d(mel, enc["conv1"]["w"], enc["conv1"]["b"], 1))
+    x = _gelu(_conv1d(x, enc["conv2"]["w"], enc["conv2"]["b"], 2))
+    x = x.to(compute_dtype)
+    x = x + params["encoder_pos"][: x.shape[1]].to(compute_dtype)[None]
+    for l in range(cfg.encoder_layers):
+        lp = _layer(enc["layers"], l)
+        h = layer_norm(x, lp["ln1"])
+        x = x + mha(h, h, lp["attn"], cfg.encoder_heads)
+        h = layer_norm(x, lp["ln2"])
+        x = x + mlp_block(h, lp["mlp"])
+    return layer_norm(x, enc["ln_post"])
+
+
+# ---------------------------------------------------------------------------
+# incremental decoding with a KV cache (evaluation/decode.py)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: WhisperConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16, dense: bool = False,
+               device="cpu") -> Params:
+    """Zeroed self-attention cache: (L, B, T, d) for decode_step_fused
+    (dense=True), (L, B, T, H, hd) for decode_step."""
+    L, H = cfg.decoder_layers, cfg.decoder_heads
+    hd = cfg.d_model // H
+    shape = (L, batch, max_len, H * hd) if dense else (L, batch, max_len, H, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def precompute_cross_kv(params: Params, enc_out: torch.Tensor,
+                        cfg: WhisperConfig) -> Params:
+    """Cross-attention K/V once per utterance: (L, B, S, H, hd) each."""
+    ca = params["decoder"]["layers"]["cross_attn"]
+    H = cfg.decoder_heads
+    ks, vs = [], []
+    for l in range(cfg.decoder_layers):
+        ks.append(_split_heads(dense(enc_out, _layer(ca["k"], l)), H))
+        vs.append(_split_heads(dense(enc_out, _layer(ca["v"], l)), H))
+    return {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def tied_logits_weight(embed: torch.Tensor,
+                       compute_dtype: torch.dtype) -> torch.Tensor:
+    """The tied output projection (V, d) as fp32 values of the embedding
+    rounded to the compute dtype: an fp32 product with it is the JAX einsum
+    of compute-dtype operands with fp32 accumulation and output (rounding
+    the logits to bf16 would change argmax ties)."""
+    return embed.to(compute_dtype).float()
+
+
+def _embed(dec: Params, token: torch.Tensor, pos: int,
+           compute_dtype: torch.dtype) -> torch.Tensor:
+    return (dec["embed"][token].to(compute_dtype)
+            + dec["pos"][pos].to(compute_dtype))                   # (B, d)
+
+
+def _logits(x: torch.Tensor, dec: Params, compute_dtype: torch.dtype,
+            logits_w: Optional[torch.Tensor]) -> torch.Tensor:
+    w = logits_w if logits_w is not None else tied_logits_weight(
+        dec["embed"], compute_dtype)
+    return torch.matmul(x.to(compute_dtype).to(w.dtype), w.t())
+
+
+def decode_step(params: Params, token: torch.Tensor, pos: int,
+                cache: Params, cross_kv: Params, cfg: WhisperConfig,
+                compute_dtype: torch.dtype = torch.bfloat16,
+                logits_w: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Params]:
+    """One autoregressive step, plain PyTorch (the reference the fused step
+    is held against). token (B,), pos the current position; returns
+    (logits (B, vocab) fp32, cache), the cache (L, B, T, H, hd) written in
+    place at pos. logits_w: tied_logits_weight(...), made once per decode."""
+    dec = params["decoder"]
+    x = _embed(dec, token, pos, compute_dtype)[:, None, :]        # (B, 1, d)
+    H = cfg.decoder_heads
+    ck, cv = cache["k"], cache["v"]
+    valid = (torch.arange(ck.shape[2], device=x.device) <= pos)[None, None, None, :]
+    for l in range(cfg.decoder_layers):
+        lp = _layer(dec["layers"], l)
+        sa, ca = lp["self_attn"], lp["cross_attn"]
+        h = layer_norm(x, lp["ln1"])
+        q = _split_heads(dense(h, sa["q"]), H)
+        ck[l, :, pos] = _split_heads(dense(h, sa["k"]), H)[:, 0].to(ck.dtype)
+        cv[l, :, pos] = _split_heads(dense(h, sa["v"]), H)[:, 0].to(cv.dtype)
+        a = xla_attention(q, ck[l].to(x.dtype), cv[l].to(x.dtype), valid)
+        x = x + dense(_merge_heads(a), sa["o"])
+
+        h = layer_norm(x, lp["ln2"])
+        q2 = _split_heads(dense(h, ca["q"]), H)
+        a2 = xla_attention(q2, cross_kv["k"][l].to(x.dtype),
+                           cross_kv["v"][l].to(x.dtype))
+        x = x + dense(_merge_heads(a2), ca["o"])
+
+        h = layer_norm(x, lp["ln3"])
+        x = x + mlp_block(h, lp["mlp"])
+    x = layer_norm(x, dec["ln_post"])
+    return _logits(x[:, 0], dec, compute_dtype, logits_w), cache
+
+
+def decode_step_fused(params: Params, token: torch.Tensor, pos: int,
+                      cache: Params, cross_kv: Params, cfg: WhisperConfig,
+                      s_valid: int,
+                      compute_dtype: torch.dtype = torch.bfloat16,
+                      logits_w: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Params]:
+    """One autoregressive step through the fused layer kernels
+    (ops/decoder_fused.py): per layer fused_qkv, self-attention fused_attn,
+    cross-attention fused_attn and fused_mlp, each reading layer l of the
+    stacked weights / cache / cross K/V in place.
+
+    Requirements (arranged by evaluation/decode.py `_prepare_fused`): the
+    decoder weights cast to the compute dtype, the cache from
+    init_cache(dense=True), cross K/V dense (L, B, S_pad, d) with s_valid
+    the real source length."""
+    if cfg.d_model // cfg.decoder_heads != DF.HEAD_DIM:
+        raise ValueError(
+            f"decode_step_fused requires {DF.HEAD_DIM}-dim heads; got "
+            f"{cfg.d_model // cfg.decoder_heads}. Use decode_step for this model.")
+    dec = params["decoder"]
+    lay = dec["layers"]
+    sa, ca, mlp = lay["self_attn"], lay["cross_attn"], lay["mlp"]
+    x = _embed(dec, token, pos, compute_dtype)
+    ck, cv = cache["k"], cache["v"]
+    xk, xv = cross_kv["k"], cross_kv["v"]
+    for l in range(cfg.decoder_layers):
+        q, k_new, v_new = DF.fused_qkv(
+            x, lay["ln1"]["scale"], lay["ln1"]["bias"],
+            sa["q"]["w"], sa["q"]["b"], sa["k"]["w"], sa["v"]["w"], sa["v"]["b"],
+            kv_dtype=ck.dtype, layer_idx=l)
+        # in-place index assignment of the (l, :, pos, :) row: the JAX
+        # step's dynamic_update_slice on the loop carry
+        ck[l, :, pos] = k_new
+        cv[l, :, pos] = v_new
+        x = DF.fused_attn(x, ck, cv, sa["o"]["w"], sa["o"]["b"], q=q, pos=pos,
+                          layer_idx=l)
+        x = DF.fused_attn(x, xk, xv, ca["o"]["w"], ca["o"]["b"],
+                          s_valid=s_valid, ln_scale=lay["ln2"]["scale"],
+                          ln_bias=lay["ln2"]["bias"], wq=ca["q"]["w"],
+                          bq=ca["q"]["b"], layer_idx=l)
+        x = DF.fused_mlp(x, lay["ln3"]["scale"], lay["ln3"]["bias"],
+                         mlp["fc1"]["w"], mlp["fc1"]["b"],
+                         mlp["fc2"]["w"], mlp["fc2"]["b"], layer_idx=l)
+    x = layer_norm(x, dec["ln_post"])
+    return _logits(x, dec, compute_dtype, logits_w), cache

@@ -1,0 +1,568 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (asr_finetune_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py        # from the root of a checkout; one CUDA card, nvcc
+
+1. prints the card's name and power limit (nvidia-smi);
+2. builds the CUDA kernels from csrc/ (one nvcc per source, in parallel);
+3. holds every kernel against its plain PyTorch version at whisper-large-v3
+   shapes (B=4, and the decoder kernels also at 12 rows) in bf16 and fp32,
+   within the limits stated at F32_LIMITS, and times kernel, plain version and, for
+   the encoder attention, F.scaled_dot_product_attention as a yardstick (the
+   port never calls it);
+4. runs an fp32 greedy decode at large-v3 width and 2+2 layers through the
+   fused kernels and through the plain decode step: the tokens must be equal;
+5. the main path: transcribes four seeded synthetic 16 kHz wavs (one longer
+   than 30 s) with `asr_finetune_tpu_torch.cli.transcribe` at large-v3
+   (32+32 layers, random weights from a seed, bf16), asserts every kernel's
+   launch count against the count the path implies, prints utterances/s,
+   ms/token and peak memory;
+6. prints the card line again, one JSON line `{"kernels": [...]}`, and last
+   `{"ok": true, "device": {...}}`.
+
+Any failed check raises: the script then exits non-zero and prints no
+result line. It imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import tempfile
+import time
+import wave
+
+import numpy as np
+
+# H100 SXM data sheet (dense): the rates a bound is reckoned against
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+B, D, H, FF, L = 4, 1280, 20, 5120, 32          # whisper-large-v3, batch 4
+T_ENC, S_PAD = 1500, 1536                        # encoder frames, padded source
+SELF_T, SELF_POS = 128, 63                       # main-path cache, last step of 64
+# Limits against the plain version on the same inputs. fp32: |err| <= 1e-4 +
+# 1e-4|ref| (the sums run in another order) and RMS(err) <= 1e-5 RMS(ref).
+# bf16: |err| <= atol + 2^-7|ref|: the kernel and its plain version round
+# the same intermediates to bf16, so an output at a rounding boundary may
+# land one bf16 step (at most 2^-7 of its value) apart; atol bounds what
+# reaches the output beyond that step from flips upstream. And RMS(err) <=
+# rms_rel x RMS(ref), which a systematic fault (a wrong mask, tile or row
+# group) breaks long before it breaks the max. Both bf16 limits, per kernel,
+# are 4x the largest reading on an H100 over B=4 and 12 rows (PERF.md), atol
+# no less than 1e-5.
+F32_LIMITS = (1e-4, 1e-4, 1e-5)          # (atol, rtol, rms_rel), every kernel
+BF16_RTOL = 2.0 ** -7
+BF16_LIMITS = {                          # kernel: (atol, rms_rel)
+    "fused_qkv": (1e-5, 4e-6),
+    "fused_attn_self": (4e-4, 6e-4),
+    "fused_attn_cross": (1.2e-3, 2.7e-3),
+    "fused_mlp": (2e-4, 6e-4),
+    "encoder_attention": (2.1e-3, 9.2e-3),
+}
+REPLACES = {
+    "encoder_attention": "asr_finetune_tpu/ops/encoder_attention.py:286",
+    "fused_qkv": "asr_finetune_tpu/ops/decoder_fused.py:150",
+    "fused_attn_self": "asr_finetune_tpu/ops/decoder_fused.py:310",
+    "fused_attn_cross": "asr_finetune_tpu/ops/decoder_fused.py:310",
+    "fused_mlp": "asr_finetune_tpu/ops/decoder_fused.py:681",
+}
+SOURCES = {
+    "encoder_attention": "asr_finetune_tpu_torch/csrc/encoder_attention.cu",
+    **{k: "asr_finetune_tpu_torch/csrc/decoder_fused.cu"
+       for k in ("fused_qkv", "fused_attn_self", "fused_attn_cross", "fused_mlp")},
+}
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def eager_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean time per eager call of fn(), by CUDA events: when the host
+    launches slower than the device runs, this is the host's time."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, calls: int, replays: int = 5) -> float:
+    """Device time per call of fn(): `calls` calls captured in one CUDA
+    graph, the graph replayed and timed by CUDA events, so the host's launch
+    overhead is not in the number."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
+
+
+def compare(name, out, ref, dtype_name):
+    """Holds out against ref (tuples compared element by element) within the
+    limits above for kernel `name`. Prints the readings and returns the max
+    abs error and the RMS error over the RMS of ref."""
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    err = excess = rms_rel = 0.0
+    for o, r in zip(outs, refs):
+        o, r = o.float(), r.float()
+        if not bool(o.isfinite().all()):
+            raise AssertionError(f"{name} [{dtype_name}]: non-finite output")
+        diff = (o - r).abs()
+        if dtype_name == "float32":
+            atol, rtol, rel_max = F32_LIMITS
+        else:
+            (atol, rel_max), rtol = BF16_LIMITS[name], BF16_RTOL
+        over = diff - rtol * r.abs()
+        bad = over > atol
+        rel = float(diff.square().mean().sqrt() / r.square().mean().sqrt())
+        if bool(bad.any()) or rel > rel_max:
+            raise AssertionError(
+                f"{name} [{dtype_name}]: {int(bad.sum())} elements off, max abs "
+                f"err {float(diff.max()):.3e}, max excess over {rtol:.3g}|ref| "
+                f"{float(over.max()):.3e} (atol {atol}), RMS err / RMS ref "
+                f"{rel:.3e} (limit {rel_max})")
+        err = max(err, float(diff.max()))
+        excess = max(excess, float(over.max()))
+        rms_rel = max(rms_rel, rel)
+    print(f"{name} [{dtype_name}]: max abs err {err:.3e}, max excess over the "
+          f"rounding step {excess:.3e}, RMS err / RMS ref {rms_rel:.3e}")
+    return err, rms_rel
+
+
+def bound(nbytes: float, flops: float, dtype_name: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_kernels():
+    """Phase 3: each kernel against its plain version, bf16 and fp32; bf16
+    (the main path's dtype) is also timed. Returns {name: row}."""
+    import torch
+    import torch.nn.functional as F
+    from asr_finetune_tpu_torch.ops import decoder_fused as DF
+    from asr_finetune_tpu_torch.ops import encoder_attention as EA
+
+    dev = torch.device("cuda")
+    rows = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).split(".")[-1]
+        es = dt.itemsize
+        g = torch.Generator(device=dev).manual_seed(0)
+
+        def rn(*shape, scale=1.0, dtype=dt):
+            return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+        f32 = torch.float32
+        x = rn(B, D)
+        ln_s, ln_b = 1 + rn(L, D, scale=0.1, dtype=f32), rn(L, D, scale=0.1, dtype=f32)
+        wq, wk, wv, wo = (rn(L, D, D, scale=D ** -0.5) for _ in range(4))
+        bq, bv, bo = (rn(L, D, scale=0.1) for _ in range(3))
+        w1, b1 = rn(L, D, FF, scale=D ** -0.5), rn(L, FF, scale=0.1)
+        w2, b2 = rn(L, FF, D, scale=FF ** -0.5), rn(L, D, scale=0.1)
+        timed = dt is torch.bfloat16
+
+        def row(name, err, fn, plain_fn, nbytes, flops, library_fn=None,
+                calls=64):
+            """Times fn (the kernel wrapper), plain_fn and library_fn on the
+            device, fn also eagerly, and records the JSON row."""
+            ms = device_ms(fn, calls)
+            eager = eager_ms(fn, calls)
+            plain_ms = device_ms(plain_fn, max(calls // 8, 2))
+            library_ms = None if library_fn is None else device_ms(library_fn, calls)
+            b_ms, b_by = bound(nbytes, flops, dn)
+            rows[name] = {"name": name, "route": "cuda", "source": SOURCES[name],
+                          "replaces": REPLACES[name], "launches": 0,
+                          "max_abs_err": err[0], "rms_rel_err": err[1],
+                          "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "library_ms": library_ms}
+            print(f"  {name} [{dn}] kernel {ms:.4f} ms (device; eager call "
+                  f"{eager:.4f} ms)  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
+                  f"({b_by})"
+                  + ("" if library_ms is None else f"  library {library_ms:.4f} ms"))
+
+        # --- fused_qkv, layer 31 of the 32-layer stack
+        li = L - 1
+        out = DF.fused_qkv(x, ln_s, ln_b, wq, bq, wk, wv, bv, layer_idx=li)
+        ref = DF.fused_qkv_plain(x, ln_s[li], ln_b[li], wq[li], bq[li], wk[li],
+                                 wv[li], bv[li])
+        print(f"fused_qkv [{dn}] layer {li}:")
+        err = compare("fused_qkv", out, ref, dn)
+        if timed:
+            it = iter(range(10 ** 9))
+            row("fused_qkv", err,
+                lambda: DF.fused_qkv(x, ln_s, ln_b, wq, bq, wk, wv, bv,
+                                     layer_idx=next(it) % L),
+                lambda: DF.fused_qkv_plain(x, ln_s[li], ln_b[li], wq[li], bq[li],
+                                           wk[li], wv[li], bv[li]),
+                B * D * es + 2 * D * 4 + 3 * D * D * es + 2 * D * es
+                + B * D * 4 + 2 * B * D * es, 2 * B * D * 3 * D)
+
+        # --- fused_attn self at pos 0, 127, 200 of a 256 cache
+        q = rn(B, D, scale=0.125, dtype=f32)
+        kc, vc = rn(L, B, 256, D), rn(L, B, 256, D)
+        for pos in (0, 127, 200):
+            out = DF.fused_attn(x, kc, vc, wo, bo, q=q, pos=pos, layer_idx=li)
+            ref = DF.fused_attn_plain(x, kc[li], vc[li], wo[li], bo[li], q=q,
+                                      n_valid=pos + 1)
+            print(f"fused_attn self [{dn}] pos {pos}:")
+            compare("fused_attn_self", out, ref, dn)
+        if timed:  # the main path's shape: a 128 cache at its last step
+            ks, vs = rn(L, B, SELF_T, D), rn(L, B, SELF_T, D)
+            out = DF.fused_attn(x, ks, vs, wo, bo, q=q, pos=SELF_POS, layer_idx=li)
+            ref = DF.fused_attn_plain(x, ks[li], vs[li], wo[li], bo[li], q=q,
+                                      n_valid=SELF_POS + 1)
+            print(f"fused_attn self [{dn}] cache {SELF_T} pos {SELF_POS}:")
+            err = compare("fused_attn_self", out, ref, dn)
+            it = iter(range(10 ** 9))
+            nv = SELF_POS + 1
+            row("fused_attn_self", err,
+                lambda: DF.fused_attn(x, ks, vs, wo, bo, q=q, pos=SELF_POS,
+                                      layer_idx=next(it) % L),
+                lambda: DF.fused_attn_plain(x, ks[li], vs[li], wo[li], bo[li], q=q,
+                                            n_valid=nv),
+                2 * B * D * es + B * D * 4 + 2 * B * nv * D * es + D * D * es + D * es,
+                2 * 2 * B * nv * D + 2 * B * D * D)
+            del ks, vs
+
+        # --- fused_attn cross at S=1536, s_valid=1500
+        kx, vx = rn(L, B, S_PAD, D), rn(L, B, S_PAD, D)
+        xc = rn(B, D)
+        cross = dict(s_valid=T_ENC, ln_scale=ln_s, ln_bias=ln_b, wq=wq, bq=bq)
+        out = DF.fused_attn(xc, kx, vx, wo, bo, layer_idx=li, **cross)
+        ref = DF.fused_attn_plain(xc, kx[li], vx[li], wo[li], bo[li], n_valid=T_ENC,
+                                  ln_scale=ln_s[li], ln_bias=ln_b[li], wq=wq[li],
+                                  bq=bq[li])
+        print(f"fused_attn cross [{dn}] S {S_PAD} s_valid {T_ENC}:")
+        err = compare("fused_attn_cross", out, ref, dn)
+        if timed:
+            it = iter(range(10 ** 9))
+            row("fused_attn_cross", err,
+                lambda: DF.fused_attn(xc, kx, vx, wo, bo, layer_idx=next(it) % L,
+                                      **cross),
+                lambda: DF.fused_attn_plain(
+                    xc, kx[li], vx[li], wo[li], bo[li], n_valid=T_ENC,
+                    ln_scale=ln_s[li], ln_bias=ln_b[li], wq=wq[li], bq=bq[li]),
+                2 * B * D * es + 2 * D * 4 + 2 * D * D * es + 2 * D * es
+                + 2 * B * T_ENC * D * es,
+                2 * B * D * D * 2 + 2 * 2 * B * T_ENC * D)
+        del kx, vx
+
+        # --- fused_mlp at ff=5120
+        out = DF.fused_mlp(x, ln_s, ln_b, w1, b1, w2, b2, layer_idx=li)
+        ref = DF.fused_mlp_plain(x, ln_s[li], ln_b[li], w1[li], b1[li], w2[li], b2[li])
+        print(f"fused_mlp [{dn}] ff {FF}:")
+        err = compare("fused_mlp", out, ref, dn)
+        if timed:
+            it = iter(range(10 ** 9))
+            row("fused_mlp", err,
+                lambda: DF.fused_mlp(x, ln_s, ln_b, w1, b1, w2, b2,
+                                     layer_idx=next(it) % L),
+                lambda: DF.fused_mlp_plain(x, ln_s[li], ln_b[li], w1[li], b1[li],
+                                           w2[li], b2[li]),
+                2 * B * D * es + 2 * D * 4 + 2 * D * FF * es + (FF + D) * es,
+                2 * 2 * B * D * FF)
+            # the fixed cost of a GEMV launch: fused_mlp at ff=16 is two
+            # near-empty GEMV launches (the LN prologue, reduction, epilogue)
+            w1e, b1e = rn(L, D, 16, scale=D ** -0.5), rn(L, 16, scale=0.1)
+            w2e = rn(L, 16, D, scale=0.25)
+            it = iter(range(10 ** 9))
+            ms = device_ms(lambda: DF.fused_mlp(x, ln_s, ln_b, w1e, b1e, w2e, b2,
+                                                layer_idx=next(it) % L), 64)
+            print(f"  fused_mlp at ff=16 (two near-empty GEMV launches) [{dn}]: "
+                  f"{ms:.4f} ms")
+        check_row_groups(DF, rn, dn, ln_s[li], ln_b[li], wq[li], bq[li], wk[li], wv[li],
+                         bv[li], wo[li], bo[li], w1[li], b1[li], w2[li], b2[li])
+        del wq, wk, wv, wo, w1, w2
+
+        # --- encoder attention at T=1500
+        qe, ke, ve = (rn(B, T_ENC, D) for _ in range(3))
+        out = EA.dense_attention_packed(qe, ke, ve, 64, T_ENC)
+        ref = EA.dense_attention_packed_plain(qe, ke, ve, 64, T_ENC)
+        print(f"encoder_attention [{dn}] T {T_ENC}:")
+        err = compare("encoder_attention", out, ref, dn)
+        # s_valid < T masks the tail as the JAX kernel does
+        out = EA.dense_attention_packed(qe, ke, ve, 64, 1000)
+        ref = EA.dense_attention_packed_plain(qe, ke, ve, 64, 1000)
+        print(f"encoder_attention [{dn}] T {T_ENC} s_valid 1000:")
+        compare("encoder_attention", out, ref, dn)
+        if timed:
+            heads = [a.view(B, T_ENC, H, 64).transpose(1, 2) for a in (qe, ke, ve)]
+            row("encoder_attention", err,
+                lambda: EA.dense_attention_packed(qe, ke, ve, 64, T_ENC),
+                lambda: EA.dense_attention_packed_plain(qe, ke, ve, 64, T_ENC),
+                4 * B * T_ENC * D * es, 4 * B * H * T_ENC * T_ENC * 64,
+                library_fn=lambda: F.scaled_dot_product_attention(*heads), calls=8)
+        del qe, ke, ve
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_row_groups(DF, rn, dn, ls, lb, wq, bq, wk, wv, bv, wo, bo, w1,
+                     b1, w2, b2, rows=12):
+    """The decoder kernels at 12 rows (the GEMVs run them as a group of 8 and
+    one of 4) with one layer's unstacked weights, against the plain versions."""
+    import torch
+    x = rn(rows, D)
+    print(f"decoder kernels [{dn}] at {rows} rows (row groups of 8):")
+    compare("fused_qkv", DF.fused_qkv(x, ls, lb, wq, bq, wk, wv, bv),
+            DF.fused_qkv_plain(x, ls, lb, wq, bq, wk, wv, bv), dn)
+    q = rn(rows, D, scale=0.125, dtype=torch.float32)
+    kc, vc = rn(rows, SELF_T, D), rn(rows, SELF_T, D)
+    compare("fused_attn_self", DF.fused_attn(x, kc, vc, wo, bo, q=q, pos=SELF_POS),
+            DF.fused_attn_plain(x, kc, vc, wo, bo, q=q, n_valid=SELF_POS + 1), dn)
+    kx, vx = rn(rows, S_PAD, D), rn(rows, S_PAD, D)
+    cross = dict(ln_scale=ls, ln_bias=lb, wq=wq, bq=bq)
+    compare("fused_attn_cross", DF.fused_attn(x, kx, vx, wo, bo, s_valid=T_ENC, **cross),
+            DF.fused_attn_plain(x, kx, vx, wo, bo, n_valid=T_ENC, **cross), dn)
+    compare("fused_mlp", DF.fused_mlp(x, ls, lb, w1, b1, w2, b2),
+            DF.fused_mlp_plain(x, ls, lb, w1, b1, w2, b2), dn)
+
+
+def check_decode():
+    """Phase 4: fp32 greedy decode at large-v3 width, 2+2 layers, B=2, 24
+    tokens: the fused kernels and the plain decode step give equal tokens."""
+    import torch
+    from asr_finetune_tpu_torch.evaluation import decode as D_
+    from asr_finetune_tpu_torch.models import whisper as W
+    from asr_finetune_tpu_torch.models.configs import get_config
+
+    cfg = dataclasses.replace(get_config("large-v3"), encoder_layers=2,
+                              decoder_layers=2)
+    dev = torch.device("cuda")
+    params = W.init_params(cfg, seed=1, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    mel = torch.randn((2, 3000, cfg.num_mel_bins), generator=g, device=dev)
+    forced = [cfg.sot_token_id, cfg.first_language_token_id,
+              cfg.transcribe_token_id, cfg.no_timestamps_token_id]
+    kw = dict(max_length=24, compute_dtype=torch.float32)
+    t_fused, l_fused = D_.greedy_decode(params, mel, cfg, forced, fused=True, **kw)
+    t_plain, l_plain = D_.greedy_decode(params, mel, cfg, forced, fused=False, **kw)
+    if not (torch.equal(t_fused, t_plain) and torch.equal(l_fused, l_plain)):
+        raise AssertionError(f"fused decode tokens {t_fused.tolist()} != plain "
+                             f"{t_plain.tolist()}")
+    print(f"fp32 greedy decode, large-v3 width, 2+2 layers: fused == plain "
+          f"({t_fused.shape[1]} tokens x {t_fused.shape[0]} rows)")
+
+
+def _write_wav(path, seconds, rng, sr=16000):
+    t = np.arange(int(seconds * sr)) / sr
+    sig = sum(np.sin(2 * np.pi * f * t) * a
+              for f, a in zip(rng.uniform(80, 2000, 3), rng.uniform(0.05, 0.3, 3)))
+    sig = sig + rng.standard_normal(t.shape) * 0.01
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((np.clip(sig, -1, 1) * 32767).astype("<i2").tobytes())
+
+
+def main_path(rows):
+    """Phase 5: transcribe four wavs with whisper-large-v3 through the CLI."""
+    import torch
+    from asr_finetune_tpu_torch.cli import transcribe
+    from asr_finetune_tpu_torch.evaluation import decode as decode_lib
+    from asr_finetune_tpu_torch.models import whisper as W
+    from asr_finetune_tpu_torch.ops import decoder_fused as DF
+    from asr_finetune_tpu_torch.ops import encoder_attention as EA
+
+    max_len = 64
+    stats = {"encode": 0, "steps": 0, "decode_s": 0.0, "loop_s": 0.0,
+             "tokens": []}
+    orig_encode, orig_step, orig_greedy = (W.encode, W.decode_step_fused,
+                                           decode_lib.greedy_decode)
+
+    def encode(*a, **k):
+        stats["encode"] += 1
+        return orig_encode(*a, **k)
+
+    def step(*a, **k):
+        if stats["steps"] == 0 or a[2] == 0:
+            torch.cuda.synchronize()
+            stats["loop_t0"] = time.perf_counter()
+        stats["steps"] += 1
+        return orig_step(*a, **k)
+
+    def greedy(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_greedy(*a, **k)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stats["decode_s"] += t1 - t0
+        stats["loop_s"] += t1 - stats["loop_t0"]
+        stats["tokens"].append(out[0].cpu())
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(0)
+        wavs = []
+        for i, sec in enumerate((4.0, 9.5, 31.5, 17.0)):   # one > 30 s: 2 windows
+            p = f"{tmp}/utt{i}.wav"
+            _write_wav(p, sec, rng)
+            wavs.append(p)
+        W.encode, W.decode_step_fused, decode_lib.greedy_decode = encode, step, greedy
+        EA.reset_launches()
+        DF.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            results = transcribe.main([
+                "--inputs", *wavs, "--output", f"{tmp}/out.jsonl",
+                "--model_type", "large-v3", "--bf16",
+                "--per_device_eval_batch_size", str(B),
+                "--generation_max_length", str(max_len), "--device", "cuda"])
+        finally:
+            W.encode, W.decode_step_fused, decode_lib.greedy_decode = (
+                orig_encode, orig_step, orig_greedy)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**EA.LAUNCHES, **DF.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+        lines = open(f"{tmp}/out.jsonl").read().splitlines()
+
+    if len(results) != 4 or [r["file"] for r in results] != wavs or len(lines) != 4:
+        raise AssertionError(f"expected 4 transcripts in input order, got {results}")
+    if not all(isinstance(r["text"], str) for r in results):
+        raise AssertionError("non-text transcript")
+    # 5 windows in batches of 4 → 2 encoder batches
+    if stats["encode"] != 2:
+        raise AssertionError(f"expected 2 encoder batches, ran {stats['encode']}")
+    for tok in stats["tokens"]:
+        if tok.shape != (B, max_len) or int(tok.min()) < 0 or int(tok.max()) >= 51866:
+            raise AssertionError(f"bad token matrix {tuple(tok.shape)}")
+        if tok[:, :4].tolist() != [[257, 258, 261, 262]] * B:   # byte-fallback prefix
+            raise AssertionError(f"forced prefix not honoured: {tok[:, :4].tolist()}")
+    n_dec = 32
+    expect = {"encoder_attention": n_dec * stats["encode"]}
+    for k in ("fused_qkv", "fused_attn_self", "fused_attn_cross", "fused_mlp"):
+        expect[k] = n_dec * stats["steps"]
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != expected {expect}")
+    for k, n in launches.items():
+        rows[k]["launches"] = n
+    print(f"main path: whisper-large-v3 (32+32 layers, bf16, random init), "
+          f"4 wavs / 5 windows / {stats['encode']} batches of {B}, "
+          f"{stats['steps']} decode steps")
+    print(f"main path: wall {wall:.3f} s incl. model init; encode+decode "
+          f"{stats['decode_s']:.3f} s; {4 / stats['decode_s']:.3f} utterances/s "
+          f"(encode+decode); {1e3 * stats['loop_s'] / stats['steps']:.3f} ms/token "
+          f"(token loop, batch {B}); peak memory {peak / 2**30:.2f} GiB")
+    print(f"main path: launches {json.dumps(launches)}")
+    for r in results:
+        print(f"  {r['file'].rsplit('/', 1)[-1]}: {len(r['text'])} chars")
+
+
+def step_breakdown():
+    """One whisper-large-v3 decode step (B=4, bf16, cache 128 at pos 63):
+    device time (a CUDA graph of the step, replayed) against the eager step,
+    which the host's launches bound."""
+    import torch
+    from asr_finetune_tpu_torch.evaluation import decode as decode_lib
+    from asr_finetune_tpu_torch.models import whisper as W
+    from asr_finetune_tpu_torch.models.configs import get_config
+
+    cfg = get_config("large-v3")
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    params = decode_lib._cast_decoder_weights(
+        W.init_params(cfg, seed=0, device=dev), bf16)
+    g = torch.Generator(device=dev).manual_seed(3)
+    ckv = {k: torch.randn((L, B, S_PAD, D), generator=g, device=dev).to(bf16)
+           for k in ("k", "v")}
+    cache = W.init_cache(cfg, B, SELF_T, bf16, dense=True, device=dev)
+    logits_w = W.tied_logits_weight(params["decoder"]["embed"], bf16)
+    tok = torch.zeros((B,), dtype=torch.long, device=dev)
+
+    def step():
+        W.decode_step_fused(params, tok, SELF_POS, cache, ckv, cfg, T_ENC, bf16,
+                            logits_w)
+
+    dev_ms = device_ms(step, calls=4)
+    host_ms = eager_ms(step, iters=8)
+    print(f"decode step, large-v3 B={B} bf16: device {dev_ms:.3f} ms (graph "
+          f"replay), eager {host_ms:.3f} ms -> device busy "
+          f"{100 * dev_ms / host_ms:.1f}% of the eager step")
+
+    # device time by CUDA kernel over 4 eager steps (torch.profiler, CUPTI);
+    # only the kernels themselves: CPU ops such as aten::copy_ also carry
+    # their kernels' device time and would count it twice
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            step()
+        torch.cuda.synchronize()
+    by_kernel = sorted(((e.self_device_time_total, e.count, e.key)
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and e.self_device_time_total > 0),
+                       reverse=True)
+    total = sum(t for t, _, _ in by_kernel)
+    print(f"decode step by CUDA kernel (profiler, per step; device total "
+          f"{total / 4e3:.3f} ms):")
+    for t, n, key in by_kernel[:10]:
+        print(f"  {t / 4e3:8.3f} ms  {n // 4:5d} launches  {key[:90]}")
+
+
+def build():
+    from asr_finetune_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(f"kernels built from {_build.CSRC} in {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(_build.sources())})")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    print(card_line())
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    from asr_finetune_tpu_torch.device import resolve_device
+    resolve_device("cuda")   # pins fp32 products to fp32 (no TF32)
+    build()
+    rows = check_kernels()
+    check_decode()
+    main_path(rows)
+    step_breakdown()
+    print(card_line())
+    print(json.dumps({"kernels": list(rows.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
