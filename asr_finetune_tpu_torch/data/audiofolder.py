@@ -1,14 +1,22 @@
-"""WAV reading for the port (counterpart of asr_finetune_tpu/data/audiofolder.py).
+"""Audiofolder datasets for the port (counterpart of asr_finetune_tpu/data/audiofolder.py).
 
-Only `read_wav` is on the ported transcription path; it is a copy of the
-JAX package's self-contained PCM/float WAV reader (16/24/32-bit int and
-float32, downmix to mono, linear resampling to 16 kHz).
+Directories of .wav files plus a metadata.csv (HF `audiofolder`
+convention). A copy of the JAX package's module: the self-contained
+PCM/float WAV reader `read_wav` (16/24/32-bit int and float32, downmix to
+mono, linear resampling to 16 kHz) and `AudioFolderReader`, which presents
+the (idx, audio, text) read API the data pipeline expects.
 """
 from __future__ import annotations
 
+import csv
+import logging
+import os
 import wave
+from typing import List, Sequence, Tuple
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
 
 SAMPLE_RATE = 16_000
 
@@ -46,3 +54,52 @@ def read_wav(path: str, target_rate: int = SAMPLE_RATE) -> np.ndarray:
         x = np.interp(np.linspace(0, len(x) - 1, n_out),
                       np.arange(len(x)), x).astype(np.float32)
     return x.astype(np.float32)
+
+
+class AudioFolderReader:
+    """Reader over one or more audiofolder dirs (wavs + metadata.csv).
+
+    metadata.csv columns: file_name,transcription (a `sentence` or `text`
+    column is accepted too). Bad wavs are dropped from a read with a
+    warning, as the HDF5 reader drops bad rows."""
+
+    TEXT_COLUMNS = ("transcription", "sentence", "text")
+
+    def __init__(self, folders: Sequence[str]):
+        if isinstance(folders, str):
+            folders = [folders]
+        self.items: List[Tuple[str, str]] = []
+        for folder in folders:
+            meta = os.path.join(folder, "metadata.csv")
+            if not os.path.exists(meta):
+                raise FileNotFoundError(meta)
+            with open(meta, newline="", encoding="utf-8") as f:
+                rows = list(csv.DictReader(f))
+            if not rows:
+                continue
+            text_col = next((c for c in self.TEXT_COLUMNS if c in rows[0]), None)
+            if text_col is None:
+                raise ValueError(f"{meta}: no transcription column "
+                                 f"(have {list(rows[0])})")
+            for r in rows:
+                self.items.append((os.path.join(folder, r["file_name"]),
+                                   r[text_col]))
+        logger.info("audiofolder: %d utterances from %d folder(s)",
+                    len(self.items), len(folders))
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def transcript_lengths(self) -> np.ndarray:
+        """group_by_length sort key (transcript char counts)."""
+        return np.asarray([len(t) for _, t in self.items], np.int32)
+
+    def read(self, indices: Sequence[int]) -> List[Tuple[int, np.ndarray, str]]:
+        out = []
+        for i in indices:
+            path, text = self.items[int(i)]
+            try:
+                out.append((int(i), read_wav(path), text))
+            except Exception as e:  # noqa: BLE001 — drop bad rows like hdf5.py
+                logger.warning("dropping bad wav %s: %s", path, e)
+        return out

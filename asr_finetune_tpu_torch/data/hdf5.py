@@ -49,6 +49,11 @@ class Hdf5AudioReader:
                 logger.warning("dropping bad row %d: %s", idx, e)
         return out
 
+    def transcript_lengths(self) -> np.ndarray:
+        """Per-row transcript char counts, the group_by_length sort key."""
+        return np.asarray([len(t) for t in self.file["transcription"][...]],
+                          np.int32)
+
     def close(self):
         if self._file is not None:
             self._file.close()

@@ -1,18 +1,28 @@
 """Whisper encoder-decoder in PyTorch over explicit parameter trees.
 
-Counterpart of asr_finetune_tpu/models/whisper.py, serving half: the
-encoder, the cross-attention K/V precompute and the two per-token decode
-steps (the plain reference step and the fused-kernel step). Parameters are
-a nested dict of tensors with the JAX tree's keys and layouts: per-layer
-weights stacked on a leading axis ((L, d_in, d_out), biases (L, d)), the
-decode cache dense (L, B, T, d). The layer loops are Python loops over
-views of the stacked tensors; the fused kernels take the full stacked
+Counterpart of asr_finetune_tpu/models/whisper.py: the encoder, the
+teacher-forced decoder and full forward with the loss (training), the
+cross-attention K/V precompute and the two per-token decode steps (the
+plain reference step and the fused-kernel step). Parameters are a nested
+dict of tensors with the JAX tree's keys and layouts: per-layer weights
+stacked on a leading axis ((L, d_in, d_out), biases (L, d)), the decode
+cache dense (L, B, T, d). The layer loops are Python loops over views of
+the stacked tensors (`torch.unbind`, so a layer's gradients reach the
+stacked leaf through one stack); the fused kernels take the full stacked
 tensors plus the layer index and read layer l in place.
 
 Numerics follow the JAX functions: matmuls in the compute dtype with the
 weights cast at use (`dense`; free after `cast_matmul_weights_` has cast
-them once), layer-norm statistics in fp32, the conv stem in fp32, exact-erf
-GELU, logits in fp32 from compute-dtype operands.
+them once for serving; training keeps fp32 masters and casts at every use,
+as the JAX train step does), layer-norm statistics in fp32, the conv stem in
+fp32, exact-erf GELU, logits in fp32 from compute-dtype operands.
+
+Rematerialisation (`remat=True`) is `torch.utils.checkpoint` (non-reentrant)
+per half-block: the saved points are each layer's input and the residual
+stream between its half-blocks, the JAX `blk_mid` points
+(ASR_TPU_REMAT_SAVE=mid). The JAX package's extra named save points
+(`enc_qkv`, `enc_mlp_h`, `dec_*`) are not ported; they change memory and
+time, never numbers.
 """
 from __future__ import annotations
 
@@ -22,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .configs import WhisperConfig
 from ..ops import decoder_fused as DF
@@ -128,6 +139,29 @@ def _layer(tree: Params, l: int) -> Params:
             for k, v in tree.items()}
 
 
+def _unbind_layers(tree: Params, n: int) -> list:
+    """The n layers of a stacked subtree as a list of per-layer dicts of
+    views. One unbind per leaf: in a backward the layers' gradients are
+    stacked into the leaf once, where per-layer indexing would add a
+    full-size zero-padded gradient per layer."""
+    out = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = (_unbind_layers(v, n) if isinstance(v, dict)
+                 else torch.unbind(v, 0))
+        for l in range(n):
+            out[l][k] = parts[l]
+    return out
+
+
+def _maybe_remat(fn, remat: bool, *args):
+    """fn(*args), under non-reentrant activation checkpointing when remat is
+    on and autograd is recording: only args are kept for the backward, which
+    runs fn again to rebuild what it needs."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _acc(dtype: torch.dtype) -> torch.dtype:
     """Accumulation dtype: fp32, unless already wider."""
     return torch.promote_types(dtype, torch.float32)
@@ -164,13 +198,14 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def mha(x: torch.Tensor, kv_src: torch.Tensor, p: Params, heads: int,
         mask: Optional[torch.Tensor] = None,
-        causal: bool = False) -> torch.Tensor:
-    """Full (non-incremental) multi-head attention; non-causal unmasked
-    calls run the encoder-attention kernel (ops/attention.attention)."""
+        causal: bool = False, impl: str = "auto") -> torch.Tensor:
+    """Full (non-incremental) multi-head attention; with impl "auto",
+    non-causal unmasked calls run the encoder-attention kernel
+    (ops/attention.attention)."""
     q = _split_heads(dense(x, p["q"]), heads)
     k = _split_heads(dense(kv_src, p["k"]), heads)
     v = _split_heads(dense(kv_src, p["v"]), heads)
-    out = _attention_dispatch(q, k, v, mask, causal=causal)
+    out = _attention_dispatch(q, k, v, mask, causal=causal, impl=impl)
     return dense(_merge_heads(out), p["o"])
 
 
@@ -196,21 +231,88 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.transpose(1, 2) + b.to(acc)
 
 
+def _enc_attn_half(x, lp, heads: int, impl: str):
+    h = layer_norm(x, lp["ln1"])
+    return x + mha(h, h, lp["attn"], heads, impl=impl)      # blk_mid
+
+
+def _mlp_half(x, ln, mlp):
+    return x + mlp_block(layer_norm(x, ln), mlp)
+
+
 def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
-           compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """mel (B, frames, n_mels) → encoder states (B, frames//2, d_model)."""
+           compute_dtype: torch.dtype = torch.bfloat16,
+           remat: bool = False, attn_impl: str = "auto") -> torch.Tensor:
+    """mel (B, frames, n_mels) → encoder states (B, frames//2, d_model).
+    remat: recompute each half-block in the backward (see the module
+    docstring); attn_impl: "auto" (the attention kernel) or "xla"."""
     enc = params["encoder"]
     x = _gelu(_conv1d(mel, enc["conv1"]["w"], enc["conv1"]["b"], 1))
     x = _gelu(_conv1d(x, enc["conv2"]["w"], enc["conv2"]["b"], 2))
     x = x.to(compute_dtype)
     x = x + params["encoder_pos"][: x.shape[1]].to(compute_dtype)[None]
-    for l in range(cfg.encoder_layers):
-        lp = _layer(enc["layers"], l)
-        h = layer_norm(x, lp["ln1"])
-        x = x + mha(h, h, lp["attn"], cfg.encoder_heads)
-        h = layer_norm(x, lp["ln2"])
-        x = x + mlp_block(h, lp["mlp"])
+    for lp in _unbind_layers(enc["layers"], cfg.encoder_layers):
+        x = _maybe_remat(_enc_attn_half, remat, x, lp, cfg.encoder_heads,
+                         attn_impl)
+        x = _maybe_remat(_mlp_half, remat, x, lp["ln2"], lp["mlp"])
     return layer_norm(x, enc["ln_post"])
+
+
+# ---------------------------------------------------------------------------
+# decoder (teacher-forced / full sequence)
+# ---------------------------------------------------------------------------
+
+def _dec_self_half(x, lp, heads: int, impl: str):
+    h = layer_norm(x, lp["ln1"])
+    return x + mha(h, h, lp["self_attn"], heads, causal=True, impl=impl)
+
+
+def _dec_cross_half(x, enc_out, lp, heads: int, impl: str):
+    h = layer_norm(x, lp["ln2"])
+    return x + mha(h, enc_out, lp["cross_attn"], heads, impl=impl)
+
+
+def decode_train(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
+                 cfg: WhisperConfig,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 remat: bool = False, attn_impl: str = "auto",
+                 return_hidden: bool = False) -> torch.Tensor:
+    """Teacher-forced decode: tokens (B, T) → logits (B, T, vocab) fp32.
+
+    attn_impl selects the causal self-attention's path; the
+    cross-attention is promoted from "xla" to "auto" (the kernel), as in
+    the JAX function. return_hidden: the post-ln hidden states (B, T, d)
+    instead of logits, for the fused chunked loss (ops/fused_ce.py)."""
+    dec = params["decoder"]
+    T = tokens.shape[1]
+    x = dec["embed"].to(compute_dtype)[tokens]
+    x = x + dec["pos"][:T].to(compute_dtype)[None]
+    cross_impl = "auto" if attn_impl == "xla" else attn_impl
+    H = cfg.decoder_heads
+    for lp in _unbind_layers(dec["layers"], cfg.decoder_layers):
+        x = _maybe_remat(_dec_self_half, remat, x, lp, H, attn_impl)
+        x = _maybe_remat(_dec_cross_half, remat, x, enc_out, lp, H, cross_impl)
+        x = _maybe_remat(_mlp_half, remat, x, lp["ln3"], lp["mlp"])
+    x = layer_norm(x, dec["ln_post"])
+    if return_hidden:
+        return x
+    # tied output projection; logits in fp32 for a stable softmax/loss
+    return torch.matmul(x.float(),
+                        tied_logits_weight(dec["embed"], compute_dtype).t())
+
+
+def forward(params: Params, mel: torch.Tensor, tokens: torch.Tensor,
+            cfg: WhisperConfig, compute_dtype: torch.dtype = torch.bfloat16,
+            remat: bool = False, attn_impl: str = "auto",
+            decoder_attn_impl: Optional[str] = None,
+            return_hidden: bool = False) -> torch.Tensor:
+    """Full teacher-forced forward: (mel, decoder_input_ids) → logits.
+    attn_impl selects the encoder attention, decoder_attn_impl the
+    decoder's (defaults to attn_impl)."""
+    enc_out = encode(params, mel, cfg, compute_dtype, remat, attn_impl)
+    dec_impl = attn_impl if decoder_attn_impl is None else decoder_attn_impl
+    return decode_train(params, tokens, enc_out, cfg, compute_dtype, remat,
+                        dec_impl, return_hidden=return_hidden)
 
 
 # ---------------------------------------------------------------------------
@@ -344,3 +446,27 @@ def decode_step_fused(params: Params, token: torch.Tensor, pos: int,
                          mlp["fc2"]["w"], mlp["fc2"]["b"], layer_idx=l)
     x = layer_norm(x, dec["ln_post"])
     return _logits(x, dec, compute_dtype, logits_w), cache
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+IGNORE_ID = -100  # label positions to ignore (the collator's pad mask)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  label_smoothing: float = 0.0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean token cross-entropy over labels != IGNORE_ID, with optional
+    label smoothing (mean-logprob form). Returns (loss, num_tokens)."""
+    mask = labels != IGNORE_ID
+    safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.to(_acc(logits.dtype)), dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    if label_smoothing > 0.0:
+        smooth = -logp.mean(dim=-1)
+        nll = (1.0 - label_smoothing) * nll + label_smoothing * smooth
+    nll = torch.where(mask, nll, torch.zeros_like(nll))
+    n = torch.clamp(mask.sum(), min=1)
+    return nll.sum() / n, n

@@ -1,10 +1,13 @@
 """Attention dispatch (counterpart of asr_finetune_tpu/ops/attention.py).
 
 Non-causal unmasked attention goes to the encoder-attention kernel
-(ops/encoder_attention.py; its plain version on the CPU); masked or causal
-calls take plain softmax attention with `xla_attention`'s semantics. The
-TPU-only pieces of the JAX module are not ported: the upstream Pallas
-`flash` call, its block-size table (`_pick_block`) and the VMEM bound that
+(ops/encoder_attention.py; its plain version on the CPU) unless the caller
+asks for impl="xla"; masked or causal calls take plain softmax attention
+with `xla_attention`'s semantics. `impl` is the JAX package's knob
+(`TrainStepConfig.attn_impl` / `decoder_attn_impl`): "auto" (the kernel
+where it applies) or "xla" (plain attention). The TPU-only pieces of the
+JAX module are not ported: the upstream Pallas `flash` call and its
+impl="flash", its block-size table (`_pick_block`) and the VMEM bound that
 gated the dense kernel.
 """
 from __future__ import annotations
@@ -40,11 +43,18 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+IMPLS = ("auto", "xla")
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: Optional[torch.Tensor] = None,
-              causal: bool = False) -> torch.Tensor:
-    """(B, T, H, hd) attention: the encoder-attention kernel for non-causal
-    unmasked calls (the encoder's self-attention), plain softmax otherwise."""
-    if mask is None and not causal:
+              causal: bool = False, impl: str = "auto") -> torch.Tensor:
+    """(B, T, H, hd) attention: with impl "auto" the encoder-attention
+    kernel for non-causal unmasked calls (the encoder's self-attention, the
+    teacher-forced cross-attention), plain softmax otherwise; impl "xla"
+    always plain softmax."""
+    if impl not in IMPLS:
+        raise ValueError(f"attention impl {impl!r}: have {IMPLS}")
+    if impl == "auto" and mask is None and not causal:
         return encoder_attention(q, k, v)
     return xla_attention(q, k, v, mask, causal)

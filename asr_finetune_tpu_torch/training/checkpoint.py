@@ -1,0 +1,144 @@
+"""Checkpoint / resume for the port: full state, metric-scored retention,
+step-exact resume.
+
+Counterpart of asr_finetune_tpu/training/checkpoint.py (`CheckpointManager`
+:29), whose semantics it keeps:
+- `save(step, state, metrics)` every save_steps and at the end; a save of a
+  step already saved is a no-op (returns False);
+- retention: with a metric, the `max_to_keep` best by it (min or max) plus
+  every checkpoint saved without metrics (orbax's BestN with
+  keep_checkpoints_without_metrics), else the `max_to_keep` newest;
+- `latest_step`, `all_steps`, `restore(state_like, step)`.
+
+Storage is `torch.save`, not Orbax (not on the card's machine): one
+directory per step, `state.pt` with the step, the optimizer count and every
+parameter / moment tensor by its tree path, and `metrics.json`. A save is
+written to a temporary directory and renamed, so a crash never leaves a
+half checkpoint that `latest_step` would pick. Port checkpoints do not load
+in the JAX package. Restore copies into the live tensors in place, so the
+parameters keep their identity (and requires_grad).
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from .train_step import leaves
+
+STATE_FILE = "state.pt"
+METRICS_FILE = "metrics.json"
+
+
+def _step_dir(directory: str, step: int) -> str:
+    return os.path.join(directory, f"step_{step:08d}")
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, max_to_keep: int = 2,
+                 metric: Optional[str] = None, mode: str = "min"):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.max_to_keep = max_to_keep
+        self.metric = metric
+        self.minimize = mode in ("min", "minimize")
+
+    # ------------------------------------------------------------- queries
+
+    def all_steps(self) -> List[int]:
+        out = []
+        for name in os.listdir(self.directory):
+            if name.startswith("step_") and os.path.exists(
+                    os.path.join(self.directory, name, STATE_FILE)):
+                out.append(int(name[len("step_"):]))
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def metrics(self, step: int) -> Optional[Dict[str, float]]:
+        path = os.path.join(_step_dir(self.directory, step), METRICS_FILE)
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return json.load(f) or None
+
+    def _score(self, step: int) -> Optional[float]:
+        m = self.metrics(step)
+        if m is None or self.metric not in m:
+            return None
+        return m[self.metric] if self.minimize else -m[self.metric]
+
+    # --------------------------------------------------------------- save
+
+    def save(self, step: int, state: Dict[str, Any],
+             metrics: Optional[Dict[str, float]] = None) -> bool:
+        if step in self.all_steps():
+            return False
+        final = _step_dir(self.directory, step)
+        tmp = final + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        opt = state["opt_state"]
+        payload = {
+            "step": int(state["step"]),
+            "opt_count": int(opt["count"]),
+            "params": {k: p.detach() for k, p in leaves(state["params"])},
+            "mu": {k: m for (k, _), m in zip(leaves(state["params"]), opt["mu"])},
+            "nu": {k: v for (k, _), v in zip(leaves(state["params"]), opt["nu"])},
+        }
+        torch.save(payload, os.path.join(tmp, STATE_FILE))
+        with open(os.path.join(tmp, METRICS_FILE), "w") as f:
+            json.dump({k: float(v) for k, v in (metrics or {}).items()}, f)
+        os.replace(tmp, final)
+        self._prune()
+        return True
+
+    def _prune(self) -> None:
+        steps = self.all_steps()
+        if len(steps) <= self.max_to_keep:
+            return
+        if self.metric:
+            scored = sorted((s, st) for st in steps
+                            if (s := self._score(st)) is not None)
+            keep = {st for _, st in scored[: self.max_to_keep]}
+            keep |= {st for st in steps if self._score(st) is None}
+        else:
+            keep = set(steps[-self.max_to_keep:])
+        for st in steps:
+            if st not in keep:
+                shutil.rmtree(_step_dir(self.directory, st), ignore_errors=True)
+
+    # ------------------------------------------------------------ restore
+
+    def restore(self, state_like: Dict[str, Any],
+                step: Optional[int] = None) -> Dict[str, Any]:
+        """Load `step` (default: the latest) into state_like's tensors in
+        place; returns state_like."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        path = os.path.join(_step_dir(self.directory, step), STATE_FILE)
+        params = leaves(state_like["params"])
+        dev = params[0][1].device
+        saved = torch.load(path, map_location=dev, weights_only=True)
+        opt = state_like["opt_state"]
+        with torch.no_grad():
+            for (k, p), m, v in zip(params, opt["mu"], opt["nu"]):
+                p.copy_(saved["params"][k])
+                m.copy_(saved["mu"][k])
+                v.copy_(saved["nu"][k])
+        opt["count"] = saved["opt_count"]
+        state_like["step"] = saved["step"]
+        return state_like
+
+
+def save_trial_manifest(directory: str, payload: Dict[str, Any]) -> None:
+    """Reproducibility sidecar: the run's result, hp overrides and flags."""
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "trial_manifest.json"), "w") as f:
+        json.dump(payload, f, indent=2, default=str)

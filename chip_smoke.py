@@ -9,16 +9,27 @@
    shapes (B=4, and the decoder kernels also at 12 rows) in bf16 and fp32,
    within the limits stated at F32_LIMITS, and times kernel, plain version and, for
    the encoder attention, F.scaled_dot_product_attention as a yardstick (the
-   port never calls it);
+   port never calls it); the encoder-attention backward likewise, at the
+   encoder's self-attention and the teacher-forced cross-attention shapes,
+   with the forward's logsumexp, and SDPA's backward as its yardstick;
 4. runs an fp32 greedy decode at large-v3 width and 2+2 layers through the
    fused kernels and through the plain decode step: the tokens must be equal;
-5. the main path: transcribes four seeded synthetic 16 kHz wavs (one longer
-   than 30 s) with `asr_finetune_tpu_torch.cli.transcribe` at large-v3
-   (32+32 layers, random weights from a seed, bf16), asserts every kernel's
-   launch count against the count the path implies, prints utterances/s,
-   ms/token and peak memory;
-6. prints the card line again, one JSON line `{"kernels": [...]}`, and last
-   `{"ok": true, "device": {...}}`.
+   and one fp32 train step at that size: its gradients through the attention
+   kernels must equal those through plain attention, and with remat on
+   those with it off;
+5. the serving main path: transcribes four seeded synthetic 16 kHz wavs (one
+   longer than 30 s) with `asr_finetune_tpu_torch.cli.transcribe` at
+   large-v3 (32+32 layers, random weights from a seed, bf16), asserts every
+   kernel's launch count against the count the path implies, prints
+   utterances/s, ms/token and peak memory;
+6. the training main path: `asr_finetune_tpu_torch.cli.train` with the
+   repo's largev3_debug.config, whisper-large-v3 full fine-tuning (32+32
+   layers, bf16 compute, fp32 masters, remat), 4 steps of batch 4 on 20
+   seeded wavs, eval with WER and a checkpoint; asserts the results and the
+   launch counts, prints ms/step, utterances/s, tokens/s, peak memory, the
+   checkpoint's write time, and one step's device time by CUDA kernel;
+7. one decode step's device time by CUDA kernel; then the card line again,
+   one JSON line `{"kernels": [...]}`, and last `{"ok": true, "device": {...}}`.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. It imports nothing of JAX or of the JAX package.
@@ -41,6 +52,15 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 B, D, H, FF, L = 4, 1280, 20, 5120, 32          # whisper-large-v3, batch 4
 T_ENC, S_PAD = 1500, 1536                        # encoder frames, padded source
 SELF_T, SELF_POS = 128, 63                       # main-path cache, last step of 64
+CROSS_TQ = 192                                   # training label bucket of the main path
+TRAIN_CONFIG = "asr_finetune_tpu/configs/largev3_debug.config"
+TRAIN_STEPS, TRAIN_UTTS, TRAIN_GEN_LEN = 4, 20, 32
+# fp32 gradients of one train step at large-v3 width, 2+2 layers: the
+# largest over the leaves of max |diff| / max |grad|, kernels against plain
+# attention and remat on against off. Each limit is ~4x (kernels) and ~10x
+# (remat: cuBLAS may reorder the recomputed products, and the reading moved
+# 4.7e-8 -> 9.4e-8 between two runs) the largest reading on an H100 (PERF.md).
+GRAD_LIMITS = {"kernels vs plain": 6e-6, "remat vs not": 1e-6}
 # Limits against the plain version on the same inputs. fp32: |err| <= 1e-4 +
 # 1e-4|ref| (the sums run in another order) and RMS(err) <= 1e-5 RMS(ref).
 # bf16: |err| <= atol + 2^-7|ref|: the kernel and its plain version round
@@ -59,9 +79,11 @@ BF16_LIMITS = {                          # kernel: (atol, rms_rel)
     "fused_attn_cross": (1.2e-3, 2.7e-3),
     "fused_mlp": (2e-4, 6e-4),
     "encoder_attention": (2.1e-3, 9.2e-3),
+    "encoder_attention_bwd": (1.1e-3, 6.8e-4),
 }
 REPLACES = {
     "encoder_attention": "asr_finetune_tpu/ops/encoder_attention.py:286",
+    "encoder_attention_bwd": "asr_finetune_tpu/ops/encoder_attention.py:311",
     "fused_qkv": "asr_finetune_tpu/ops/decoder_fused.py:150",
     "fused_attn_self": "asr_finetune_tpu/ops/decoder_fused.py:310",
     "fused_attn_cross": "asr_finetune_tpu/ops/decoder_fused.py:310",
@@ -69,6 +91,7 @@ REPLACES = {
 }
 SOURCES = {
     "encoder_attention": "asr_finetune_tpu_torch/csrc/encoder_attention.cu",
+    "encoder_attention_bwd": "asr_finetune_tpu_torch/csrc/encoder_attention.cu",
     **{k: "asr_finetune_tpu_torch/csrc/decoder_fused.cu"
        for k in ("fused_qkv", "fused_attn_self", "fused_attn_cross", "fused_mlp")},
 }
@@ -348,6 +371,105 @@ def check_row_groups(DF, rn, dn, ls, lb, wq, bq, wk, wv, bv, wo, bo, w1,
             DF.fused_mlp_plain(x, ls, lb, w1, b1, w2, b2), dn)
 
 
+def kernel_times(prof, calls: int) -> list:
+    """(device ms per call, launches per call, name) of every CUDA kernel in
+    a torch.profiler run of `calls` calls, largest first. Only the kernels
+    themselves: CPU ops such as aten::copy_ also carry their kernels' device
+    time and would count it twice."""
+    from torch.autograd import DeviceType
+    return sorted(((e.self_device_time_total / calls / 1e3, e.count / calls, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  reverse=True)
+
+
+def profiled_ms(fn, calls: int = 8) -> float:
+    """Device time per call of fn(): the sum of its CUDA kernels' time under
+    torch.profiler (for work a CUDA graph cannot capture, such as an autograd
+    backward of a graph recorded outside the capture)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ms for ms, _, _ in kernel_times(prof, calls))
+
+
+def check_attention_bwd(rows):
+    """Phase 3b: the encoder-attention backward kernel against its plain
+    version at whisper-large-v3 shapes (B=4, 20 heads of 64): the encoder's
+    self-attention (T 1500, and s_valid 1000) and the teacher-forced
+    cross-attention (Tq 192, the label bucket of the main path, Tk 1500), in
+    bf16 and fp32; the forward's logsumexp against the plain one. In bf16,
+    times the kernel, the plain backward and, as a yardstick the port never
+    calls, the backward of F.scaled_dot_product_attention (flash) on a
+    retained graph."""
+    import torch
+    import torch.nn.functional as F
+    from asr_finetune_tpu_torch.ops import encoder_attention as EA
+
+    dev = torch.device("cuda")
+    timed = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).split(".")[-1]
+        g = torch.Generator(device=dev).manual_seed(4)
+        worst = (0.0, 0.0)
+        for shape, Tq, Tk in (("self", T_ENC, T_ENC), ("cross", CROSS_TQ, T_ENC)):
+            q, do = ((torch.randn((B, Tq, D), generator=g, device=dev)).to(dt)
+                     for _ in range(2))
+            k, v = ((torch.randn((B, Tk, D), generator=g, device=dev)).to(dt)
+                    for _ in range(2))
+            for s_valid in ((Tk, 1000) if shape == "self" else (Tk,)):
+                print(f"encoder_attention_bwd [{dn}] {shape} Tq {Tq} Tk {Tk} "
+                      f"s_valid {s_valid}:")
+                _, lse = EA._dense_attention_packed_cuda(q, k, v, 64, s_valid,
+                                                         with_lse=True)
+                compare("encoder_attention_lse", lse,
+                        EA.attention_lse_plain(q, k, 64, s_valid), "float32")
+                grads = EA._dense_attention_packed_bwd_cuda(q, k, v, do, lse, 64,
+                                                            s_valid)
+                err = compare("encoder_attention_bwd", grads,
+                              EA.dense_attention_packed_bwd_plain(q, k, v, do, 64,
+                                                                  s_valid), dn)
+                worst = tuple(max(a, b) for a, b in zip(worst, err))
+                del grads
+            if dt is torch.bfloat16:
+                qh, kh, vh = (a.view(B, -1, H, 64).transpose(1, 2).detach()
+                              .requires_grad_() for a in (q, k, v))
+                oh = F.scaled_dot_product_attention(qh, kh, vh)
+                doh = do.view(B, Tq, H, 64).transpose(1, 2)
+                nbytes = B * H * (3 * Tq + 4 * Tk) * 64 * dt.itemsize + B * H * Tq * 4
+                b_ms, b_by = bound(nbytes, 5 * 2 * B * H * Tq * Tk * 64, dn)
+                _, lse = EA._dense_attention_packed_cuda(q, k, v, 64, Tk, with_lse=True)
+                timed[shape] = {
+                    "ms": device_ms(lambda: EA._dense_attention_packed_bwd_cuda(
+                        q, k, v, do, lse, 64, Tk), 8),
+                    "plain_ms": device_ms(lambda: EA.dense_attention_packed_bwd_plain(
+                        q, k, v, do, 64, Tk), 2),
+                    "library_ms": profiled_ms(lambda: torch.autograd.grad(
+                        oh, (qh, kh, vh), doh, retain_graph=True)),
+                    "bound_ms": b_ms, "bound_by": b_by}
+                t = timed[shape]
+                print(f"  encoder_attention_bwd [{dn}] {shape}: kernel {t['ms']:.4f} ms "
+                      f"(device)  plain {t['plain_ms']:.4f} ms  bound {b_ms:.4f} ms "
+                      f"({b_by})  SDPA backward {t['library_ms']:.4f} ms")
+                del qh, kh, vh, oh
+            del q, k, v, do, lse
+            torch.cuda.empty_cache()
+        if dt is torch.bfloat16:
+            s, c = timed["self"], timed["cross"]
+            rows["encoder_attention_bwd"] = {
+                "name": "encoder_attention_bwd", "route": "cuda",
+                "source": SOURCES["encoder_attention_bwd"],
+                "replaces": REPLACES["encoder_attention_bwd"], "launches": 0,
+                "max_abs_err": worst[0], "rms_rel_err": worst[1], **s,
+                **{f"cross_{k}": v for k, v in c.items()}}
+
+
 def check_decode():
     """Phase 4: fp32 greedy decode at large-v3 width, 2+2 layers, B=2, 24
     tokens: the fused kernels and the plain decode step give equal tokens."""
@@ -463,13 +585,12 @@ def main_path(rows):
         if tok[:, :4].tolist() != [[257, 258, 261, 262]] * B:   # byte-fallback prefix
             raise AssertionError(f"forced prefix not honoured: {tok[:, :4].tolist()}")
     n_dec = 32
-    expect = {"encoder_attention": n_dec * stats["encode"]}
+    expect = {"encoder_attention": n_dec * stats["encode"], "encoder_attention_bwd": 0}
     for k in ("fused_qkv", "fused_attn_self", "fused_attn_cross", "fused_mlp"):
         expect[k] = n_dec * stats["steps"]
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
-    for k, n in launches.items():
-        rows[k]["launches"] = n
+    record_launches(rows, "transcribe", launches)
     print(f"main path: whisper-large-v3 (32+32 layers, bf16, random init), "
           f"4 wavs / 5 windows / {stats['encode']} batches of {B}, "
           f"{stats['steps']} decode steps")
@@ -480,6 +601,341 @@ def main_path(rows):
     print(f"main path: launches {json.dumps(launches)}")
     for r in results:
         print(f"  {r['file'].rsplit('/', 1)[-1]}: {len(r['text'])} chars")
+
+
+def record_launches(rows, path: str, launches) -> None:
+    """Adds one main path's launch counts to the kernels' rows: "launches" is
+    the sum over the paths, "launches_by_path" each path's own count."""
+    for k, n in launches.items():
+        by_path = rows[k].setdefault("launches_by_path", {})
+        by_path[path] = n
+        rows[k]["launches"] = sum(by_path.values())
+
+
+def check_train_grads(device: str = "cuda", model: str = "large-v3"):
+    """Phase 4b: one full-fine-tuning step's gradients at whisper-large-v3
+    width (d 1280, 20 heads, ff 5120, vocab 51866), 2+2 layers, fp32, batch
+    2, labels at the 192 bucket: through the attention kernels (attn_impl
+    "auto": forward with lse, backward kernel) against plain attention
+    under autograd (attn_impl "xla", and the cross-attention, which the
+    decoder promotes to "auto", held plain as well); and with remat on
+    against off, within GRAD_LIMITS. `device` and `model` let the same
+    function run a small model on the CPU."""
+    import torch
+    from asr_finetune_tpu_torch.models import whisper as W
+    from asr_finetune_tpu_torch.models.configs import get_config
+    from asr_finetune_tpu_torch.ops import attention as A
+    from asr_finetune_tpu_torch.ops import encoder_attention as EA
+    from asr_finetune_tpu_torch.training import optim
+    from asr_finetune_tpu_torch.training import train_step as TS
+
+    cfg = dataclasses.replace(get_config(model), encoder_layers=2, decoder_layers=2)
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(5)
+    bsz = 2
+    tokens = torch.randint(0, cfg.eos_token_id, (bsz, CROSS_TQ), generator=g, device=dev)
+    labels = torch.cat([tokens[:, 1:], torch.full((bsz, 1), cfg.eos_token_id,
+                                                  device=dev)], 1)
+    labels[0, 120:] = -100                      # a padded row, as the collator pads
+    batch = {"mel": torch.randn((bsz, 3000, cfg.num_mel_bins), generator=g, device=dev),
+             "decoder_input_ids": tokens, "labels": labels}
+
+    def grads(**kw):
+        params = W.init_params(cfg, seed=6, device=dev)
+        TS.make_train_state(params, optim.make_optimizer(1e-5, 10))
+        EA.reset_launches()
+        gs, m = TS.compute_grads(params, batch, cfg, TS.TrainStepConfig(
+            compute_dtype=torch.float32, **kw))
+        return [x.detach().clone() for x in gs], float(m["loss"]), dict(EA.LAUNCHES)
+
+    def worst(a, b):
+        return max(float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+                   for x, y in zip(a, b))
+
+    g_k, loss_k, n_k = grads(remat=False)
+    g_r, loss_r, n_r = grads(remat=True)
+    orig = A.encoder_attention
+    A.encoder_attention = lambda q, k, v: A.xla_attention(q, k, v)
+    try:
+        g_p, loss_p, n_p = grads(remat=False, attn_impl="xla")
+    finally:
+        A.encoder_attention = orig
+    # 2 encoder self-attentions + 2 cross-attentions; remat runs the forward again
+    want = ({"encoder_attention": 4, "encoder_attention_bwd": 4},
+            {"encoder_attention": 8, "encoder_attention_bwd": 4},
+            {"encoder_attention": 0, "encoder_attention_bwd": 0})
+    if (n_k, n_r, n_p) != want:
+        raise AssertionError(f"gradient check launches {(n_k, n_r, n_p)} != {want}")
+    readings = {"kernels vs plain": worst(g_k, g_p), "remat vs not": worst(g_r, g_k)}
+    print(f"train-step gradients, {model} width, 2+2 layers, fp32: loss kernels "
+          f"{loss_k:.7f} plain {loss_p:.7f} remat {loss_r:.7f}; max |diff| / max |grad| "
+          f"over the {len(g_k)} leaves: "
+          + ", ".join(f"{k} {v:.3e} (limit {GRAD_LIMITS[k]})" for k, v in readings.items()))
+    if not all(map(np.isfinite, (loss_k, loss_r, loss_p))) \
+            or abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or loss_r != loss_k \
+            or any(v > GRAD_LIMITS[k] for k, v in readings.items()):
+        raise AssertionError("train-step gradients through the kernels differ")
+
+
+GERMAN_WORDS = ("und", "der", "die", "wir", "haben", "damals", "Großmutter", "Krieg",
+                "Schule", "über", "Flüchtlinge", "Erinnerung", "Dorf", "Vater",
+                "Mutter", "wurde", "nach", "Hause", "gekommen", "Jahre", "später",
+                "Arbeit", "Fabrik", "mussten", "zurück", "Straße", "Kinder",
+                "gespielt", "Nachbarn", "erzählt", "ich", "weiß", "nicht", "mehr",
+                "genau", "wann", "ähnlich", "schön", "Brücke", "Bahnhof")
+
+
+def write_audiofolder(folder, n: int, seed: int = 0) -> None:
+    """n seeded wavs of 3-28 s and German-looking transcripts of 100-150
+    characters (byte-fallback labels of 104-170 tokens: the 192 bucket) as
+    an HF audiofolder: the wavs plus metadata.csv."""
+    import csv
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        name = f"utt{i:03d}.wav"
+        _write_wav(f"{folder}/{name}", rng.uniform(3.0, 28.0), rng)
+        want = int(rng.integers(100, 151))
+        words = []
+        while len(" ".join(words)) < want:
+            words.append(GERMAN_WORDS[int(rng.integers(len(GERMAN_WORDS)))])
+        text = " ".join(words)[:want - 1].rstrip() + "."
+        rows.append((name, text[0].upper() + text[1:]))
+    with open(f"{folder}/metadata.csv", "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f)
+        w.writerow(["file_name", "transcription"])
+        w.writerows(rows)
+
+
+def kernel_category(name: str) -> str:
+    low = name.lower()
+    if "enc_attn_bwd" in low:
+        return "attention backward (enc_attn_bwd_*)"
+    if "enc_attn_fwd" in low:
+        return "attention forward (enc_attn_fwd_*)"
+    if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")):
+        return "matrix products (cuBLAS)"
+    if "multi_tensor" in low or "foreach" in low:
+        return "foreach (optimizer, norms)"
+    if "conv" in low or "cudnn" in low:
+        return "conv stem (cuDNN)"
+    return "elementwise, reductions, copies"
+
+
+def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
+                    extra=()):
+    """Phase 6, the training main path: `asr_finetune_tpu_torch.cli.train`
+    with the repo's largev3_debug.config (whisper-large-v3, full fine-tuning,
+    batch 4, AdamW b2 0.98, bf16 compute over fp32 master weights, per-layer
+    remat, log-mel on the device, fused chunked CE), random init from its
+    seed, cut to 4 steps with an eval (loss + greedy-decode WER) and a
+    checkpoint at step 4, on 20 seeded wavs (16 train, 4 validation). Asserts
+    finite loss and grad norm, changed parameters, the eval record's
+    eval_loss_wer = 0.3 loss + 0.7 wer, the checkpoint, and every kernel's
+    launch count; prints the training figures and where one step's device
+    time goes (torch.profiler over step 4). `device`, `model` and `extra`
+    (more CLI flags) let the same function run a small model on the CPU."""
+    import os
+    import shutil
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from asr_finetune_tpu_torch.cli import train as train_cli
+    from asr_finetune_tpu_torch.models import whisper as W
+    from asr_finetune_tpu_torch.ops import decoder_fused as DF
+    from asr_finetune_tpu_torch.ops import encoder_attention as EA
+    from asr_finetune_tpu_torch.training import checkpoint as ckpt_lib
+    from asr_finetune_tpu_torch.training import trainer as trainer_lib
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    st = {"steps": [], "evals": 0, "dec_steps": 0, "saves": [], "eval_s": 0.0}
+    orig = (trainer_lib.make_train_step, trainer_lib.make_eval_loss_step,
+            W.decode_step_fused, ckpt_lib.CheckpointManager.save,
+            trainer_lib.Trainer.evaluate)
+
+    def make_train_step(*a, **k):
+        inner = orig[0](*a, **k)
+
+        def step(state, batch):
+            if not st["steps"]:
+                st["state"] = state
+                st["before"] = {n: t.detach().clone() for n, t in _probe(state)}
+            sync()
+            t0 = time.perf_counter()
+            if len(st["steps"]) == TRAIN_STEPS - 1 and on_card:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    m = inner(state, batch)
+                    sync()
+                st["prof"] = prof
+            else:
+                m = inner(state, batch)
+                sync()
+            st["steps"].append({"s": time.perf_counter() - t0, "loss": float(m["loss"]),
+                                "grad_norm": float(m["grad_norm"]),
+                                "tokens": int(m["tokens"]),
+                                "shape": tuple(batch["labels"].shape)})
+            return m
+        return step
+
+    def make_eval_loss_step(*a, **k):
+        inner = orig[1](*a, **k)
+
+        def step(state, batch):
+            st["evals"] += 1
+            return inner(state, batch)
+        return step
+
+    def decode_step_fused(*a, **k):
+        st["dec_steps"] += 1
+        return orig[2](*a, **k)
+
+    def save(self, step, state, metrics=None):
+        # the checkpoint is fp32 params + both AdamW moments: check the disk first
+        need = sum(t.numel() * t.element_size() for t in state["opt_state"]["mu"]) * 3
+        free = shutil.disk_usage(self.directory).free
+        if free < need * 1.05 + 2 ** 30:
+            raise RuntimeError(f"checkpoint of step {step} needs {need / 1e9:.1f} GB, "
+                               f"{free / 1e9:.1f} GB free under {self.directory}")
+        sync()
+        t0 = time.perf_counter()
+        saved = orig[3](self, step, state, metrics)
+        if saved:
+            d = os.path.join(self.directory, f"step_{step:08d}")
+            size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+            st["saves"].append((step, time.perf_counter() - t0, size))
+        return saved
+
+    def evaluate(self, step):
+        sync()
+        t0 = time.perf_counter()
+        out = orig[4](self, step)
+        sync()
+        st["eval_s"] += time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out_dir = f"{tmp}/data", f"{tmp}/out"
+        os.makedirs(data)
+        write_audiofolder(data, TRAIN_UTTS)
+        argv = ["-c", TRAIN_CONFIG, "--model_type", model, "--device", device,
+                "--no-debug", "--data_mode", "folder", "--dataset_name", data,
+                "--val_split", "0.2", "--max_steps", str(TRAIN_STEPS),
+                "--eval_steps", str(TRAIN_STEPS), "--save_steps", str(TRAIN_STEPS),
+                "--logging_steps", "2", "--eval_sample_fraction", "1.0",
+                "--generation_max_length", str(TRAIN_GEN_LEN), "--wer_weight", "0.7",
+                "--output_dir", out_dir, *extra]
+        (trainer_lib.make_train_step, trainer_lib.make_eval_loss_step,
+         W.decode_step_fused, ckpt_lib.CheckpointManager.save,
+         trainer_lib.Trainer.evaluate) = (make_train_step, make_eval_loss_step,
+                                          decode_step_fused, save, evaluate)
+        EA.reset_launches()
+        DF.reset_launches()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            result = train_cli.main(argv)
+        finally:
+            (trainer_lib.make_train_step, trainer_lib.make_eval_loss_step,
+             W.decode_step_fused, ckpt_lib.CheckpointManager.save,
+             trainer_lib.Trainer.evaluate) = orig
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {**EA.LAUNCHES, **DF.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        run_dir = f"{out_dir}/v3_large_debug"
+        with open(f"{run_dir}/metrics.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        ckpts = sorted(os.listdir(f"{run_dir}/checkpoints"))
+        changed = {n: float((t.detach() - st["before"][n]).abs().max())
+                   for n, t in _probe(st["state"])}
+        del st["state"], st["before"]
+
+    steps = st["steps"]
+    print(f"train main path: cli.train -c {TRAIN_CONFIG}, {model}, {len(steps)} steps, "
+          f"wall {wall:.3f} s incl. model init, data, eval and checkpoint; result "
+          f"{json.dumps(result)}")
+    for i, s in enumerate(steps):
+        print(f"  step {i + 1}: {1e3 * s['s']:.3f} ms  loss {s['loss']:.5f}  grad_norm "
+              f"{s['grad_norm']:.5f}  tokens {s['tokens']}  labels {s['shape']}")
+    if len(steps) != TRAIN_STEPS or not all(
+            np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps):
+        raise AssertionError(f"expected {TRAIN_STEPS} steps with finite loss and grad norm")
+    if any(s["shape"] != (B, CROSS_TQ) for s in steps):
+        raise AssertionError(f"labels not at batch {B} x the {CROSS_TQ} bucket")
+    if not all(v > 0 for v in changed.values()):
+        raise AssertionError(f"parameters did not change: {changed}")
+    evals = [r for r in records if "eval_loss_wer" in r]
+    if len(evals) != 1 or evals[0]["step"] != TRAIN_STEPS:
+        raise AssertionError(f"expected one eval record at step {TRAIN_STEPS}: {records}")
+    ev = evals[0]
+    fused = 0.3 * ev["eval_loss"] + 0.7 * ev["eval_wer"]
+    if not np.isfinite(ev["eval_loss_wer"]) or abs(ev["eval_loss_wer"] - fused) > 1e-6 * abs(fused):
+        raise AssertionError(f"eval_loss_wer {ev['eval_loss_wer']} != 0.3 loss + 0.7 wer "
+                             f"= {fused}")
+    if ckpts != [f"step_{TRAIN_STEPS:08d}"] or [s for s, _, _ in st["saves"]] != [TRAIN_STEPS]:
+        raise AssertionError(f"expected one checkpoint at step {TRAIN_STEPS}: {ckpts}, "
+                             f"{st['saves']}")
+    # per step: 32 encoder + 32 cross-attention forwards, again in the remat
+    # recompute, and their 64 backwards; per eval batch: the loss pass's 64
+    # forwards and the decode's 32 encoder forwards; per decode step one
+    # launch of each decoder kernel in each of the 32 layers
+    n_enc, n_dec = 32, 32
+    if model != "large-v3":
+        from asr_finetune_tpu_torch.models.configs import get_config
+        n_enc, n_dec = get_config(model).encoder_layers, get_config(model).decoder_layers
+    expect = {"encoder_attention": TRAIN_STEPS * 2 * (n_enc + n_dec)
+              + st["evals"] * (n_enc + n_dec + n_enc),
+              "encoder_attention_bwd": TRAIN_STEPS * (n_enc + n_dec)}
+    for k in ("fused_qkv", "fused_attn_self", "fused_attn_cross", "fused_mlp"):
+        expect[k] = n_dec * st["dec_steps"]
+    if st["evals"] != 1 or st["dec_steps"] == 0 or launches != expect:
+        raise AssertionError(f"launch counts {launches} != expected {expect} "
+                             f"({st['evals']} eval batches, {st['dec_steps']} decode steps)")
+    record_launches(rows, "train", launches)
+    step_s = float(np.mean([s["s"] for s in steps[1:-1]]))
+    tokens = float(np.mean([s["tokens"] for s in steps[1:-1]]))
+    save_step, save_s, save_bytes = st["saves"][0]
+    print(f"train main path: {1e3 * step_s:.3f} ms/step end to end (steps 2-3; step 1 "
+          f"{1e3 * steps[0]['s']:.3f} ms); {B / step_s:.3f} utterances/s; "
+          f"{tokens / step_s:.1f} label tokens/s; peak memory {peak / 2**30:.2f} GiB")
+    print(f"train main path: eval {st['eval_s']:.3f} s ({st['evals']} batch, "
+          f"{st['dec_steps']} decode steps); eval_loss {ev['eval_loss']:.5f} eval_wer "
+          f"{ev['eval_wer']:.3f} eval_loss_wer {ev['eval_loss_wer']:.5f}")
+    print(f"train main path: checkpoint of step {save_step}: {save_bytes / 1e9:.3f} GB "
+          f"written in {save_s:.3f} s ({save_bytes / 1e9 / save_s:.3f} GB/s), then deleted")
+    print(f"train main path: launches {json.dumps(launches)}")
+    if on_card:
+        by_kernel = kernel_times(st["prof"], 1)
+        busy = sum(ms for ms, _, _ in by_kernel)
+        cats: dict = {}
+        for ms, n, key in by_kernel:
+            c = cats.setdefault(kernel_category(key), [0.0, 0])
+            c[0] += ms
+            c[1] += int(n)
+        print(f"train step 4 by CUDA kernel (torch.profiler): device busy {busy:.3f} ms "
+              f"of {1e3 * step_s:.3f} ms/step -> device idle {100 * (1 - busy / (1e3 * step_s)):.1f}% "
+              f"of an unprofiled step")
+        for c, (ms, n) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
+            print(f"  {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {n:6d} launches  {c}")
+        print("  largest kernels:")
+        for ms, n, key in by_kernel[:12]:
+            print(f"  {ms:9.3f} ms  {int(n):6d} launches  {key[:90]}")
+
+
+def _probe(state):
+    """A few leaves whose change shows the update reached the whole model:
+    the first encoder layer's q, the last decoder layer's fc2, the tied
+    embedding."""
+    p = state["params"]
+    return [("encoder.attn.q.w", p["encoder"]["layers"]["attn"]["q"]["w"]),
+            ("decoder.mlp.fc2.w", p["decoder"]["layers"]["mlp"]["fc2"]["w"]),
+            ("decoder.embed", p["decoder"]["embed"])]
 
 
 def step_breakdown():
@@ -553,8 +1009,11 @@ def main() -> int:
     resolve_device("cuda")   # pins fp32 products to fp32 (no TF32)
     build()
     rows = check_kernels()
+    check_attention_bwd(rows)
     check_decode()
+    check_train_grads()
     main_path(rows)
+    train_main_path(rows)
     step_breakdown()
     print(card_line())
     print(json.dumps({"kernels": list(rows.values())}))

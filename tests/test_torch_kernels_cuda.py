@@ -9,7 +9,8 @@ files). On a machine with the card:
 (--noconftest: tests/conftest.py imports jax, which that machine may lack.)
 
 Small shapes (d=256, 4 heads of 64, B=3, 8 and 12: the GEMVs take rows in
-groups of 8). Tolerance: fp32 1e-4 + 1e-4|ref| (the sum order differs from
+groups of 8; the attention backward at B=3 and 8, self and cross shapes,
+s_valid < Tk). Tolerance: fp32 1e-4 + 1e-4|ref| (the sum order differs from
 the plain version's); bf16 4e-3 + 2^-7|ref| (both round the same
 intermediates to bf16, so an output at a rounding boundary may land one
 bf16 step, at most 2^-7 of its value, apart), as chip_smoke.py."""
@@ -87,6 +88,36 @@ def test_encoder_attention_matches_plain(dev, dtype, Tq, Tk, s_valid):
     k, v = (_rn(g, dev, 2, Tk, 4 * 64, dtype=dtype) for _ in range(2))
     out = EA.dense_attention_packed(q, k, v, 64, s_valid)
     _close(out, EA.dense_attention_packed_plain(q, k, v, 64, s_valid), dtype)
+
+
+@pytest.mark.parametrize("B", [3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq,Tk,s_valid", [(150, 150, 150), (40, 300, 213)])
+def test_encoder_attention_bwd_matches_plain(dev, dtype, B, Tq, Tk, s_valid):
+    """The autograd Function on the card: the forward kernel's lse against
+    the plain logsumexp, its backward kernel's (dq, dk, dv) against the plain
+    backward, and one launch of each kernel."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = _rn(g, dev, B, Tq, 4 * 64, dtype=dtype).requires_grad_()
+    k, v = (_rn(g, dev, B, Tk, 4 * 64, dtype=dtype).requires_grad_() for _ in range(2))
+    do = _rn(g, dev, B, Tq, 4 * 64, dtype=dtype)
+    _, lse = EA._dense_attention_packed_cuda(q.detach(), k.detach(), v.detach(), 64,
+                                             s_valid, with_lse=True)
+    np.testing.assert_allclose(
+        lse.cpu().numpy(), EA.attention_lse_plain(q.detach(), k.detach(), 64,
+                                                  s_valid).cpu().numpy(),
+        rtol=1e-5, atol=1e-5)
+    EA.reset_launches()
+    out = EA.dense_attention_packed(q, k, v, 64, s_valid)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert EA.LAUNCHES == {"encoder_attention": 1, "encoder_attention_bwd": 1}
+    ref = EA.dense_attention_packed_bwd_plain(q.detach(), k.detach(), v.detach(), do,
+                                              64, s_valid)
+    for gr, r in zip(grads, ref):
+        assert gr.dtype == dtype
+        _close(gr, r, dtype)
+    for gr in grads[1:]:                     # masked keys get no gradient
+        assert int(gr[:, s_valid:].count_nonzero()) == 0
 
 
 def test_wrappers_reject_bad_operands(dev):
