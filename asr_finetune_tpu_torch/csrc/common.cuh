@@ -1,6 +1,6 @@
 // Helpers shared by the port's CUDA sources: element conversion for the two
-// dtypes the kernels take (float, __nv_bfloat16), 16-byte vector loads of 8
-// elements, and block reductions.
+// dtypes the kernels take (float, __nv_bfloat16), vector loads of 8 elements
+// (float, bf16, int8), and block reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,6 +43,16 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&w)[8]) {
     const float2 f = __bfloat1622float2(h[i]);
     w[2 * i] = f.x;
     w[2 * i + 1] = f.y;
+  }
+}
+
+// 8 consecutive int8 values → float (exact); p must be 8-byte aligned
+__device__ __forceinline__ void load8(const int8_t* p, float (&w)[8]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    w[i] = static_cast<float>(static_cast<int8_t>((u.x >> (8 * i)) & 0xffu));
+    w[4 + i] = static_cast<float>(static_cast<int8_t>((u.y >> (8 * i)) & 0xffu));
   }
 }
 

@@ -13,6 +13,15 @@
 // weights and (L, B, T, d) caches through a pointer offset set by the
 // wrapper: no slice is ever copied.
 //
+// int8 weights (the Pallas kernels' w*_scale option, :127-147, :310-447,
+// :649-738): each projection of a launch may be int8 with an fp32
+// per-output-channel scale while its neighbours are float (a merged-LoRA
+// int8 base). The GEMV then streams 8 int8 bytes per lane per k instead of
+// 16 (bf16) or 32 (fp32) bytes, widens them to float (exact: |w| <= 127),
+// and the epilogue multiplies the fp32 sum by w_scale[n] before the bias,
+// GELU, q scale or residual. blockIdx.y picks the projection, so the branch
+// is uniform per block.
+//
 // Bound on the card: bytes. Each call streams its layer's weights (and, for
 // attention, its K/V rows) once per group of up to 8 rows: at B=4 every
 // weight element feeds 8 flops against 2 bytes (bf16), ~4 flop per byte
@@ -68,11 +77,17 @@ enum Prologue { PRO_LN = 0, PRO_INPUT = 1 };
 enum Epilogue { EPI_Q = 0, EPI_PLAIN = 1, EPI_BIAS = 2, EPI_GELU = 3, EPI_RESID = 4 };
 
 struct Proj {
-  const void* w;     // (K, N) row-major, dtype T
-  const void* bias;  // (N,) dtype T, or null for EPI_PLAIN
-  void* out;         // (B, N): fp32 for EPI_Q, else T
+  const void* w;         // (K, N) row-major, dtype T, or int8 when w8
+  const void* bias;      // (N,) dtype T, or null for EPI_PLAIN
+  void* out;             // (B, N): fp32 for EPI_Q, else T
   int epi;
+  const float* w_scale;  // (N,) fp32 per-output-channel scale of an int8 w, else null
+  int w8;                // the weight is int8
 };
+
+Proj proj(const void* w, const void* bias, void* out, int epi, const float* w_scale) {
+  return Proj{w, bias, out, epi, w_scale, w_scale != nullptr};
+}
 
 struct GemvParams {
   int B, K, N, prologue;
@@ -133,6 +148,7 @@ __device__ __forceinline__ void epilogue(const GemvParams& p, const Proj& pr, in
                                          float v) {
   const long long i = (long long)b * p.N + n;
   const T* bias = static_cast<const T*>(pr.bias);
+  if (pr.w8) v = __fmul_rn(v, pr.w_scale[n]);  // the int8 scale commutes through the sum
   switch (pr.epi) {
     case EPI_Q:
       static_cast<float*>(pr.out)[i] = (v + to_f(bias[n])) * p.q_scale;
@@ -151,6 +167,26 @@ __device__ __forceinline__ void epilogue(const GemvParams& p, const Proj& pr, in
       break;
   }
   static_cast<T*>(pr.out)[i] = from_f<T>(v);
+}
+
+// acc[b][c] += sum over this thread's k of h[b, k] W[k, n0 + c]; W already
+// offset to the thread's 8 columns
+template <typename WT, int MAXB>
+__device__ __forceinline__ void gemv_accumulate(const WT* W, const float* h_s, int B, int K,
+                                                int N, int kl, float (&acc)[MAXB][VEC]) {
+#pragma unroll 8
+  for (int k = kl; k < K; k += KL) {
+    float w[VEC];
+    load8(W + (long long)k * N, w);
+#pragma unroll
+    for (int b = 0; b < MAXB; ++b) {
+      if (b < B) {
+        const float hv = h_s[b * K + k];
+#pragma unroll
+        for (int c = 0; c < VEC; ++c) acc[b][c] = fmaf(hv, w[c], acc[b][c]);
+      }
+    }
+  }
 }
 
 template <typename T, int MAXB>
@@ -172,7 +208,6 @@ __global__ void __launch_bounds__(THREADS) gemv_kernel(const GemvParams p) {
   const Proj& pr = p.proj[blockIdx.y];
   const int kl = tid / CL, cl = tid % CL;
   const int n0 = blockIdx.x * NB;
-  const T* W = static_cast<const T*>(pr.w) + n0 + cl * VEC;
 
   float acc[MAXB][VEC];
 #pragma unroll
@@ -180,18 +215,11 @@ __global__ void __launch_bounds__(THREADS) gemv_kernel(const GemvParams p) {
 #pragma unroll
     for (int c = 0; c < VEC; ++c) acc[b][c] = 0.f;
 
-#pragma unroll 8
-  for (int k = kl; k < K; k += KL) {
-    float w[VEC];
-    load8(W + (long long)k * N, w);
-#pragma unroll
-    for (int b = 0; b < MAXB; ++b) {
-      if (b < B) {
-        const float hv = h_s[b * K + k];
-#pragma unroll
-        for (int c = 0; c < VEC; ++c) acc[b][c] = fmaf(hv, w[c], acc[b][c]);
-      }
-    }
+  if (pr.w8) {
+    gemv_accumulate<int8_t, MAXB>(static_cast<const int8_t*>(pr.w) + n0 + cl * VEC, h_s, B, K,
+                                  N, kl, acc);
+  } else {
+    gemv_accumulate<T, MAXB>(static_cast<const T*>(pr.w) + n0 + cl * VEC, h_s, B, K, N, kl, acc);
   }
 
   // the 16 k-lanes of a warp differ in lane bits 1..4
@@ -395,24 +423,26 @@ GemvParams base_params(int B, int K, int N, int prologue, const void* x, const f
 
 template <typename T>
 cudaError_t qkv(const void* x, const float* ln_s, const float* ln_b, const void* wq,
-                const void* bq, const void* wk, const void* wv, const void* bv, float* q_out,
+                const void* bq, const void* wk, const void* wv, const void* bv,
+                const float* sq, const float* sk, const float* sv, float* q_out,
                 void* k_out, void* v_out, int B, int d, cudaStream_t st) {
   GemvParams p = base_params(B, d, d, PRO_LN, x, ln_s, ln_b);
-  p.proj[0] = Proj{wq, bq, q_out, EPI_Q};
-  p.proj[1] = Proj{wk, nullptr, k_out, EPI_PLAIN};
-  p.proj[2] = Proj{wv, bv, v_out, EPI_BIAS};
+  p.proj[0] = proj(wq, bq, q_out, EPI_Q, sq);
+  p.proj[1] = proj(wk, nullptr, k_out, EPI_PLAIN, sk);
+  p.proj[2] = proj(wv, bv, v_out, EPI_BIAS, sv);
   return gemv<T>(p, 3, st);
 }
 
 template <typename T>
 cudaError_t attn(const void* x, const float* q_in, const float* ln_s, const float* ln_b,
                  const void* wq, const void* bq, const void* k, const void* v,
-                 const void* wo, const void* bo, float* q_buf, float* part, void* o_buf,
-                 void* out, int B, int T_len, int d, int n_valid, cudaStream_t st) {
+                 const void* wo, const void* bo, const float* sq, const float* so,
+                 float* q_buf, float* part, void* o_buf, void* out, int B, int T_len, int d,
+                 int n_valid, cudaStream_t st) {
   const float* q = q_in;
   if (q == nullptr) {  // cross mode: q = (LN(x)@wq + bq) * 64^-0.5
     GemvParams pq = base_params(B, d, d, PRO_LN, x, ln_s, ln_b);
-    pq.proj[0] = Proj{wq, bq, q_buf, EPI_Q};
+    pq.proj[0] = proj(wq, bq, q_buf, EPI_Q, sq);
     const cudaError_t e = gemv<T>(pq, 1, st);
     if (e != cudaSuccess) return e;
     q = q_buf;
@@ -429,62 +459,67 @@ cudaError_t attn(const void* x, const float* q_in, const float* ln_s, const floa
   if (e != cudaSuccess) return e;
   GemvParams po = base_params(B, d, d, PRO_INPUT, o_buf, nullptr, nullptr);
   po.resid = x;
-  po.proj[0] = Proj{wo, bo, out, EPI_RESID};
+  po.proj[0] = proj(wo, bo, out, EPI_RESID, so);
   return gemv<T>(po, 1, st);
 }
 
 template <typename T>
 cudaError_t mlp(const void* x, const float* ln_s, const float* ln_b, const void* w1,
-                const void* b1, const void* w2, const void* b2, void* g_buf, void* out, int B,
-                int d, int ff, cudaStream_t st) {
+                const void* b1, const void* w2, const void* b2, const float* s1,
+                const float* s2, void* g_buf, void* out, int B, int d, int ff,
+                cudaStream_t st) {
   GemvParams p1 = base_params(B, d, ff, PRO_LN, x, ln_s, ln_b);
-  p1.proj[0] = Proj{w1, b1, g_buf, EPI_GELU};
+  p1.proj[0] = proj(w1, b1, g_buf, EPI_GELU, s1);
   cudaError_t e = gemv<T>(p1, 1, st);
   if (e != cudaSuccess) return e;
   GemvParams p2 = base_params(B, ff, d, PRO_INPUT, g_buf, nullptr, nullptr);
   p2.resid = x;
-  p2.proj[0] = Proj{w2, b2, out, EPI_RESID};
+  p2.proj[0] = proj(w2, b2, out, EPI_RESID, s2);
   return gemv<T>(p2, 1, st);
 }
 
 }  // namespace
 
-// C entries. dtype: 0 = float32, 1 = bfloat16 (activations, weights, biases
-// and caches); LN scale/bias and q are fp32. Pointers are already offset to
-// the layer; every (B, n) array is contiguous. Scratch: q_buf (B, d) fp32,
-// part (B, d/64, ceil(T/256), 66) fp32, o_buf (B, d) and g_buf (B, ff) in
-// dtype.
+// C entries. dtype: 0 = float32, 1 = bfloat16 (activations, float weights,
+// biases and caches); LN scale/bias and q are fp32. A weight whose scale
+// pointer (sq, sk, sv, so, s1, s2: (N,) fp32) is non-null is int8. Pointers
+// are already offset to the layer; every (B, n) array is contiguous.
+// Scratch: q_buf (B, d) fp32, part (B, d/64, ceil(T/256), 66) fp32, o_buf
+// (B, d) and g_buf (B, ff) in dtype.
 
 extern "C" int fused_qkv_fwd(int dtype, const void* x, const float* ln_s, const float* ln_b,
                              const void* wq, const void* bq, const void* wk, const void* wv,
-                             const void* bv, float* q_out, void* k_out, void* v_out, int B,
-                             int d, void* stream) {
+                             const void* bv, const float* sq, const float* sk, const float* sv,
+                             float* q_out, void* k_out, void* v_out, int B, int d,
+                             void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      dtype == 0 ? qkv<float>(x, ln_s, ln_b, wq, bq, wk, wv, bv, q_out, k_out, v_out, B, d, st)
-                 : qkv<__nv_bfloat16>(x, ln_s, ln_b, wq, bq, wk, wv, bv, q_out, k_out, v_out,
-                                      B, d, st));
+      dtype == 0 ? qkv<float>(x, ln_s, ln_b, wq, bq, wk, wv, bv, sq, sk, sv, q_out, k_out,
+                              v_out, B, d, st)
+                 : qkv<__nv_bfloat16>(x, ln_s, ln_b, wq, bq, wk, wv, bv, sq, sk, sv, q_out,
+                                      k_out, v_out, B, d, st));
 }
 
 extern "C" int fused_attn_fwd(int dtype, const void* x, const float* q, const float* ln_s,
                               const float* ln_b, const void* wq, const void* bq, const void* k,
-                              const void* v, const void* wo, const void* bo, float* q_buf,
-                              float* part, void* o_buf, void* out, int B, int T_len, int d,
-                              int n_valid, void* stream) {
+                              const void* v, const void* wo, const void* bo, const float* sq,
+                              const float* so, float* q_buf, float* part, void* o_buf,
+                              void* out, int B, int T_len, int d, int n_valid, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      dtype == 0 ? attn<float>(x, q, ln_s, ln_b, wq, bq, k, v, wo, bo, q_buf, part, o_buf,
-                               out, B, T_len, d, n_valid, st)
-                 : attn<__nv_bfloat16>(x, q, ln_s, ln_b, wq, bq, k, v, wo, bo, q_buf, part,
-                                       o_buf, out, B, T_len, d, n_valid, st));
+      dtype == 0 ? attn<float>(x, q, ln_s, ln_b, wq, bq, k, v, wo, bo, sq, so, q_buf, part,
+                               o_buf, out, B, T_len, d, n_valid, st)
+                 : attn<__nv_bfloat16>(x, q, ln_s, ln_b, wq, bq, k, v, wo, bo, sq, so, q_buf,
+                                       part, o_buf, out, B, T_len, d, n_valid, st));
 }
 
 extern "C" int fused_mlp_fwd(int dtype, const void* x, const float* ln_s, const float* ln_b,
                              const void* w1, const void* b1, const void* w2, const void* b2,
-                             void* g_buf, void* out, int B, int d, int ff, void* stream) {
+                             const float* s1, const float* s2, void* g_buf, void* out, int B,
+                             int d, int ff, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      dtype == 0 ? mlp<float>(x, ln_s, ln_b, w1, b1, w2, b2, g_buf, out, B, d, ff, st)
-                 : mlp<__nv_bfloat16>(x, ln_s, ln_b, w1, b1, w2, b2, g_buf, out, B, d, ff,
-                                      st));
+      dtype == 0 ? mlp<float>(x, ln_s, ln_b, w1, b1, w2, b2, s1, s2, g_buf, out, B, d, ff, st)
+                 : mlp<__nv_bfloat16>(x, ln_s, ln_b, w1, b1, w2, b2, s1, s2, g_buf, out, B, d,
+                                      ff, st));
 }

@@ -7,13 +7,17 @@ timestamp grammar behave as in the JAX greedy_decode.
 
 Fused path: by default on a CUDA device when the decoder's head dim is 64,
 each step runs the fused layer kernels (W.decode_step_fused) after
-`_cast_decoder_weights` and `_prepare_fused`. The plain W.decode_step runs
+`_cast_decoder_weights` and `_prepare_fused`; LoRA adapters are merged into
+the weights first (training/lora.merge_adapters), so over an int8 base the
+kernels meet mixed int8/float weights. The plain W.decode_step runs
 otherwise: on the CPU, for other head dims, or when the caller passes
-fused=False.
+fused=False; it takes the adapters unmerged. `quant` (ops/quant.QuantConfig)
+is how the encoder and the cross K/V precompute multiply int8 weights.
+w_int8 quantizes the decoder's float weights for the token loop.
 
 Pending, and raising NotImplementedError rather than served some other way:
-beam search (needs the fused_attn_beam kernel), int8 cross-KV (kv_int8) and
-int8 decoder weights (w_int8), which need the int8 options of the kernels.
+beam search (needs the fused_attn_beam kernel) and int8 cross-KV (kv_int8,
+the k_scale/v_scale option of fused_attn).
 """
 from __future__ import annotations
 
@@ -24,6 +28,8 @@ import torch
 from ..models import whisper as W
 from ..models.configs import WhisperConfig
 from ..ops import decoder_fused
+from ..ops import quant as Q
+from ..training.lora import merge_adapters
 
 Params = dict
 
@@ -49,12 +55,20 @@ def _round_up(n: int, m: int) -> int:
 
 
 def _cast_decoder_weights(params: Params, dtype: torch.dtype) -> Params:
-    """Pre-cast the decoder's matmul weights and biases (not the layer-norm
-    params, which the kernels read in fp32) so the fused kernels stream
-    compute-dtype bytes. Free when they are in dtype already, as after
-    run.build_model with --bf16 (W.cast_matmul_weights_)."""
+    """Pre-cast the decoder's float matmul weights and biases (not the
+    layer-norm params, which the kernels read in fp32) so the fused kernels
+    stream compute-dtype bytes. int8 weights stay int8 and their `*_scale`
+    stays fp32: the kernels apply it after the product, and a cast would
+    stack a bf16 rounding on the int8 error. Free when the weights are in
+    dtype already, as after run.build_model with --bf16
+    (W.cast_matmul_weights_)."""
+    def leaf(k, v):
+        if k.endswith("_scale") or not v.is_floating_point():
+            return v
+        return v.to(dtype)
+
     def cast(t):
-        return {k: cast(v) if isinstance(v, dict) else v.to(dtype)
+        return {k: cast(v) if isinstance(v, dict) else leaf(k, v)
                 for k, v in t.items()}
 
     layers = dict(params["decoder"]["layers"])
@@ -146,14 +160,19 @@ def _apply_timestamp_rules(logits: torch.Tensor, prev: torch.Tensor,
     return logits.masked_fill(force_ts[:, None] & ~is_ts_tok[None, :], neg)
 
 
-def _check_pending(kv_int8: bool, w_int8: bool) -> None:
+def _quantize_decoder_weights(params: Params) -> Params:
+    """int8 decoder weights for the token loop (w_int8): applied after the
+    encode and the cross K/V precompute, so the one-time full-sequence math
+    stays in full precision; the fused kernels and the plain step both read
+    the int8 form."""
+    dec = dict(params["decoder"], layers=Q.quantize_tree_int8(params["decoder"]["layers"]))
+    return {**params, "decoder": dec}
+
+
+def _check_pending(kv_int8: bool) -> None:
     if kv_int8:
         raise NotImplementedError("kv_int8: int8 cross-KV needs the int8 K/V "
                                   "option of the fused_attn kernel, not ported yet")
-    if w_int8:
-        raise NotImplementedError("w_int8: int8 decoder weights need the int8 "
-                                  "weight options of fused_qkv/fused_attn/"
-                                  "fused_mlp, not ported yet")
 
 
 def greedy_decode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
@@ -165,7 +184,9 @@ def greedy_decode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
                   no_timestamps_id: Optional[int] = None,
                   kv_int8: bool = False,
                   w_int8: bool = False,
-                  fused: Optional[bool] = None
+                  fused: Optional[bool] = None,
+                  adapters: Optional[Params] = None,
+                  quant: Optional[Q.QuantConfig] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (tokens (B, max_length), lengths (B,)), int64 on mel's device.
 
@@ -174,8 +195,9 @@ def greedy_decode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
     suppress_tokens get -inf logits at every step, begin_suppress_tokens at
     the first unforced position only; with timestamp_begin set, Whisper's
     timestamp grammar is enforced. fused (default: on a CUDA device with
-    64-dim heads) runs each step through the fused kernels."""
-    _check_pending(kv_int8, w_int8)
+    64-dim heads) runs each step through the fused kernels, with the
+    adapters merged into the weights first."""
+    _check_pending(kv_int8)
     device = mel.device
     B = mel.shape[0]
     eot = cfg.eos_token_id
@@ -197,14 +219,19 @@ def greedy_decode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
             f"(d_model={cfg.d_model}, heads={cfg.decoder_heads})")
 
     with torch.no_grad():
-        enc_out = W.encode(params, mel, cfg, compute_dtype)
-        cross_kv = W.precompute_cross_kv(params, enc_out, cfg)
+        if fused and adapters is not None:
+            params, adapters = merge_adapters(params, adapters), None
+        enc_out = W.encode(params, mel, cfg, compute_dtype, adapters=adapters,
+                           quant=quant)
+        cross_kv = W.precompute_cross_kv(params, enc_out, cfg, adapters, quant)
         if fused:
             params = _cast_decoder_weights(params, compute_dtype)
             cross_kv, s_real, cache_len = _prepare_fused(
                 enc_out, cross_kv, max_length, compute_dtype)
         else:
             cache_len = max_length
+        if w_int8:
+            params = _quantize_decoder_weights(params)
         cache = W.init_cache(cfg, B, cache_len, dtype=compute_dtype,
                              dense=fused, device=device)
         logits_w = W.tied_logits_weight(params["decoder"]["embed"], compute_dtype)
@@ -222,7 +249,8 @@ def greedy_decode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
                     compute_dtype, logits_w)
             else:
                 logits, cache = W.decode_step(
-                    params, cur, t, cache, cross_kv, cfg, compute_dtype, logits_w)
+                    params, cur, t, cache, cross_kv, cfg, compute_dtype, logits_w,
+                    adapters, quant)
             if bias is not None:
                 logits = logits + bias
             is_begin = (t + 1) == n_forced
@@ -271,17 +299,20 @@ def make_decode_fn(cfg: WhisperConfig, forced_tokens: Sequence[int],
                    timestamp_begin: Optional[int] = None,
                    no_timestamps_id: Optional[int] = None,
                    kv_int8: bool = False, w_int8: bool = False,
-                   fused: Optional[bool] = None):
-    """Decode entry of the transcription CLI: fn(params, mel) → (tokens,
-    lengths). num_beams > 1 raises (beam search is not ported)."""
+                   fused: Optional[bool] = None,
+                   quant: Optional[Q.QuantConfig] = None):
+    """Decode entry of the transcription CLI and the trainer's eval:
+    fn(params, mel, adapters=None) → (tokens, lengths). num_beams > 1
+    raises (beam search is not ported)."""
     del length_penalty  # a beam-search parameter
     if num_beams > 1:
         beam_decode()
-    _check_pending(kv_int8, w_int8)   # raise now, not at the first batch
+    _check_pending(kv_int8)   # raise now, not at the first batch
 
-    def fn(params, mel):
+    def fn(params, mel, adapters=None):
         return greedy_decode(params, mel, cfg, forced_tokens, max_length,
                              compute_dtype, suppress_tokens,
                              begin_suppress_tokens, timestamp_begin,
-                             no_timestamps_id, fused=fused)
+                             no_timestamps_id, w_int8=w_int8, fused=fused,
+                             adapters=adapters, quant=quant)
     return fn

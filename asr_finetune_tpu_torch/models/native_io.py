@@ -7,7 +7,9 @@ carrying the WhisperConfig under "whisper_config".
 `params_from_numpy` is the weight carry between the two packages: it turns
 that flat dict into the port's parameters, a nested dict of tensors with the
 JAX tree's keys and layouts, so every stacked (L, ...) weight keeps its
-shape and a kernel can reach layer l by a pointer offset.
+shape and a kernel can reach layer l by a pointer offset. Any tree of that
+form carries: an int8 base ({"w_q8": int8, "w_scale": fp32} leaves stay
+int8 and fp32) and an adapter tree (training/lora.py) alike.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ Params = Dict[str, Any]
 def params_from_numpy(flat: Dict[str, np.ndarray], device,
                       dtype: torch.dtype = torch.float32) -> Params:
     """{"a/b/c": array} → nested {"a": {"b": {"c": tensor}}} on `device`;
-    floating arrays become `dtype`, others keep theirs."""
+    floating arrays become `dtype`, others (int8 weights, token ids) keep
+    theirs."""
     tree: Params = {}
     for key, a in flat.items():
         parts = key.split("/")
@@ -44,14 +47,16 @@ def params_from_numpy(flat: Dict[str, np.ndarray], device,
 
 
 def params_to_numpy(params: Params, prefix: str = "") -> Dict[str, np.ndarray]:
-    """Inverse of params_from_numpy: nested tensors → flat {path: array}."""
+    """Inverse of params_from_numpy: nested tensors → flat {path: array},
+    int8 as int8; a bf16 leaf as its fp32 values (numpy has no bf16)."""
     out: Dict[str, np.ndarray] = {}
     for k, v in params.items():
         key = f"{prefix}/{k}" if prefix else str(k)
         if isinstance(v, dict):
             out.update(params_to_numpy(v, key))
         else:
-            out[key] = v.detach().cpu().numpy()
+            v = v.detach().cpu()
+            out[key] = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
     return out
 
 

@@ -23,9 +23,18 @@ stream between its half-blocks, the JAX `blk_mid` points
 (ASR_TPU_REMAT_SAVE=mid). The JAX package's extra named save points
 (`enc_qkv`, `enc_mlp_h`, `dec_*`) are not ported; they change memory and
 time, never numbers.
+
+PEFT (training/lora.py): `adapters`, a tree beside the frozen base, adds a
+low-rank delta to every adapted q/v projection (`dense`); lora dropout on
+the adapter input is `LoraDropout`. A frozen base may be int8
+({"w_q8", "w_scale"}, ops/quant.py): `dense` dequantizes it into the
+compute dtype, or, when the `quant` config asks for it (--int8_matmul),
+computes the product as W8A8 through the kernel (ops/quant.int8_matmul).
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -36,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .configs import WhisperConfig
 from ..ops import decoder_fused as DF
+from ..ops import quant as Q
 from ..ops.attention import attention as _attention_dispatch
 from ..ops.attention import xla_attention
 
@@ -178,9 +188,56 @@ def layer_norm(x: torch.Tensor, ln: Params, eps: float = 1e-5) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def dense(x: torch.Tensor, p: Params) -> torch.Tensor:
-    """x @ W (+ b), the weight and bias cast to x's dtype at use."""
-    y = torch.matmul(x, p["w"].to(x.dtype))
+@dataclasses.dataclass(frozen=True)
+class LoraDropout:
+    """lora_dropout on the adapter input (peft semantics: the frozen base
+    path never sees it). Each site (a projection of a layer) draws its mask
+    from a torch.Generator seeded by (seed, step, site), so a mask repeats
+    for the same seed and step, differs across steps and sites, and the
+    remat recompute redraws exactly the mask of the forward. The JAX
+    package draws from lax.rng_bit_generator, whose bits depend on the
+    backend: the two masks have one law, not one stream."""
+    rate: float
+    seed: int
+    step: int = 0
+
+    def __call__(self, x: torch.Tensor, site: str) -> torch.Tensor:
+        if self.rate <= 0.0:
+            return x
+        digest = hashlib.blake2b(f"{self.seed}/{self.step}/{site}".encode(),
+                                 digest_size=8).digest()
+        g = torch.Generator(device=x.device)
+        g.manual_seed(int.from_bytes(digest, "little") >> 1)
+        u = torch.rand(x.shape, generator=g, device=x.device)
+        return torch.where(u >= self.rate, x / (1.0 - self.rate),
+                           torch.zeros_like(x))
+
+
+def _lora_delta(x: torch.Tensor, lora: Params, dropout: Optional[LoraDropout],
+                site: str) -> torch.Tensor:
+    """scaling · ((drop(x) @ a) · e) @ b, in x's dtype (one layer's a (d_in,
+    r), e (1, r), b (r, d_out), scaling ())."""
+    xa = x if dropout is None else dropout(x, site)
+    y = torch.matmul(torch.matmul(xa, lora["a"].to(x.dtype)) * lora["e"].to(x.dtype),
+                     lora["b"].to(x.dtype))
+    return y * lora["scaling"].to(x.dtype)
+
+
+def dense(x: torch.Tensor, p: Params, lora: Optional[Params] = None,
+          dropout: Optional[LoraDropout] = None, site: str = "",
+          quant: Optional[Q.QuantConfig] = None) -> torch.Tensor:
+    """x @ W (+ adapter delta) (+ b), the weight and bias cast to x's dtype at
+    use. An int8 weight is dequantized into x's dtype, or with quant.matmul
+    multiplied as W8A8 (ops/quant.int8_matmul)."""
+    if Q.QUANT_KEY in p:
+        if quant is not None and quant.matmul:
+            y = Q.int8_matmul(x, p[Q.QUANT_KEY], p[Q.SCALE_KEY], quant)
+        else:
+            y = torch.matmul(x, Q.dequantize_weight(p, x.dtype))
+    else:
+        y = torch.matmul(x, p["w"].to(x.dtype))
+    if lora is not None:
+        y = y + _lora_delta(x, lora, dropout, site)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -198,23 +255,28 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def mha(x: torch.Tensor, kv_src: torch.Tensor, p: Params, heads: int,
         mask: Optional[torch.Tensor] = None,
-        causal: bool = False, impl: str = "auto") -> torch.Tensor:
+        causal: bool = False, impl: str = "auto",
+        lora: Optional[Params] = None, dropout: Optional[LoraDropout] = None,
+        site: str = "", quant: Optional[Q.QuantConfig] = None) -> torch.Tensor:
     """Full (non-incremental) multi-head attention; with impl "auto",
     non-causal unmasked calls run the encoder-attention kernel
-    (ops/attention.attention)."""
-    q = _split_heads(dense(x, p["q"]), heads)
-    k = _split_heads(dense(kv_src, p["k"]), heads)
-    v = _split_heads(dense(kv_src, p["v"]), heads)
+    (ops/attention.attention). lora: this layer's {"q", "v"} adapters."""
+    lq = lora.get("q") if lora else None
+    lv = lora.get("v") if lora else None
+    q = _split_heads(dense(x, p["q"], lq, dropout, site + "/q", quant), heads)
+    k = _split_heads(dense(kv_src, p["k"], quant=quant), heads)
+    v = _split_heads(dense(kv_src, p["v"], lv, dropout, site + "/v", quant), heads)
     out = _attention_dispatch(q, k, v, mask, causal=causal, impl=impl)
-    return dense(_merge_heads(out), p["o"])
+    return dense(_merge_heads(out), p["o"], quant=quant)
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)   # exact erf form, as jax.nn.gelu(approximate=False)
 
 
-def mlp_block(x: torch.Tensor, p: Params) -> torch.Tensor:
-    return dense(_gelu(dense(x, p["fc1"])), p["fc2"])
+def mlp_block(x: torch.Tensor, p: Params,
+              quant: Optional[Q.QuantConfig] = None) -> torch.Tensor:
+    return dense(_gelu(dense(x, p["fc1"], quant=quant)), p["fc2"], quant=quant)
 
 
 # ---------------------------------------------------------------------------
@@ -231,30 +293,43 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.transpose(1, 2) + b.to(acc)
 
 
-def _enc_attn_half(x, lp, heads: int, impl: str):
+def _enc_attn_half(x, lp, la, heads: int, impl: str, dropout, site: str, quant):
     h = layer_norm(x, lp["ln1"])
-    return x + mha(h, h, lp["attn"], heads, impl=impl)      # blk_mid
+    return x + mha(h, h, lp["attn"], heads, impl=impl, lora=la,      # blk_mid
+                   dropout=dropout, site=site, quant=quant)
 
 
-def _mlp_half(x, ln, mlp):
-    return x + mlp_block(layer_norm(x, ln), mlp)
+def _mlp_half(x, ln, mlp, quant):
+    return x + mlp_block(layer_norm(x, ln), mlp, quant)
+
+
+def _layer_adapters(adapters: Optional[Params], part: str, n: int) -> list:
+    """The n per-layer adapter dicts of adapters[part], or n Nones."""
+    tree = adapters.get(part) if adapters else None
+    return _unbind_layers(tree, n) if tree else [None] * n
 
 
 def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
            compute_dtype: torch.dtype = torch.bfloat16,
-           remat: bool = False, attn_impl: str = "auto") -> torch.Tensor:
+           remat: bool = False, attn_impl: str = "auto",
+           adapters: Optional[Params] = None,
+           dropout: Optional[LoraDropout] = None,
+           quant: Optional[Q.QuantConfig] = None) -> torch.Tensor:
     """mel (B, frames, n_mels) → encoder states (B, frames//2, d_model).
     remat: recompute each half-block in the backward (see the module
-    docstring); attn_impl: "auto" (the attention kernel) or "xla"."""
+    docstring); attn_impl: "auto" (the attention kernel) or "xla";
+    adapters["encoder"]: q/v adapters of the self-attention."""
     enc = params["encoder"]
     x = _gelu(_conv1d(mel, enc["conv1"]["w"], enc["conv1"]["b"], 1))
     x = _gelu(_conv1d(x, enc["conv2"]["w"], enc["conv2"]["b"], 2))
     x = x.to(compute_dtype)
     x = x + params["encoder_pos"][: x.shape[1]].to(compute_dtype)[None]
-    for lp in _unbind_layers(enc["layers"], cfg.encoder_layers):
-        x = _maybe_remat(_enc_attn_half, remat, x, lp, cfg.encoder_heads,
-                         attn_impl)
-        x = _maybe_remat(_mlp_half, remat, x, lp["ln2"], lp["mlp"])
+    L = cfg.encoder_layers
+    las = _layer_adapters(adapters, "encoder", L)
+    for l, lp in enumerate(_unbind_layers(enc["layers"], L)):
+        x = _maybe_remat(_enc_attn_half, remat, x, lp, las[l], cfg.encoder_heads,
+                         attn_impl, dropout, f"enc/{l}", quant)
+        x = _maybe_remat(_mlp_half, remat, x, lp["ln2"], lp["mlp"], quant)
     return layer_norm(x, enc["ln_post"])
 
 
@@ -262,37 +337,50 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
 # decoder (teacher-forced / full sequence)
 # ---------------------------------------------------------------------------
 
-def _dec_self_half(x, lp, heads: int, impl: str):
+def _dec_self_half(x, lp, la, heads: int, impl: str, dropout, site: str, quant):
     h = layer_norm(x, lp["ln1"])
-    return x + mha(h, h, lp["self_attn"], heads, causal=True, impl=impl)
+    return x + mha(h, h, lp["self_attn"], heads, causal=True, impl=impl,
+                   lora=la.get("self_attn") if la else None, dropout=dropout,
+                   site=site + "/self", quant=quant)
 
 
-def _dec_cross_half(x, enc_out, lp, heads: int, impl: str):
+def _dec_cross_half(x, enc_out, lp, la, heads: int, impl: str, dropout,
+                    site: str, quant):
     h = layer_norm(x, lp["ln2"])
-    return x + mha(h, enc_out, lp["cross_attn"], heads, impl=impl)
+    return x + mha(h, enc_out, lp["cross_attn"], heads, impl=impl,
+                   lora=la.get("cross_attn") if la else None, dropout=dropout,
+                   site=site + "/cross", quant=quant)
 
 
 def decode_train(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
                  cfg: WhisperConfig,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  remat: bool = False, attn_impl: str = "auto",
-                 return_hidden: bool = False) -> torch.Tensor:
+                 return_hidden: bool = False,
+                 adapters: Optional[Params] = None,
+                 dropout: Optional[LoraDropout] = None,
+                 quant: Optional[Q.QuantConfig] = None) -> torch.Tensor:
     """Teacher-forced decode: tokens (B, T) → logits (B, T, vocab) fp32.
 
     attn_impl selects the causal self-attention's path; the
     cross-attention is promoted from "xla" to "auto" (the kernel), as in
     the JAX function. return_hidden: the post-ln hidden states (B, T, d)
-    instead of logits, for the fused chunked loss (ops/fused_ce.py)."""
+    instead of logits, for the fused chunked loss (ops/fused_ce.py).
+    adapters["decoder"]: self/cross-attention q/v adapters."""
     dec = params["decoder"]
     T = tokens.shape[1]
     x = dec["embed"].to(compute_dtype)[tokens]
     x = x + dec["pos"][:T].to(compute_dtype)[None]
     cross_impl = "auto" if attn_impl == "xla" else attn_impl
-    H = cfg.decoder_heads
-    for lp in _unbind_layers(dec["layers"], cfg.decoder_layers):
-        x = _maybe_remat(_dec_self_half, remat, x, lp, H, attn_impl)
-        x = _maybe_remat(_dec_cross_half, remat, x, enc_out, lp, H, cross_impl)
-        x = _maybe_remat(_mlp_half, remat, x, lp["ln3"], lp["mlp"])
+    H, L = cfg.decoder_heads, cfg.decoder_layers
+    las = _layer_adapters(adapters, "decoder", L)
+    for l, lp in enumerate(_unbind_layers(dec["layers"], L)):
+        site = f"dec/{l}"
+        x = _maybe_remat(_dec_self_half, remat, x, lp, las[l], H, attn_impl,
+                         dropout, site, quant)
+        x = _maybe_remat(_dec_cross_half, remat, x, enc_out, lp, las[l], H,
+                         cross_impl, dropout, site, quant)
+        x = _maybe_remat(_mlp_half, remat, x, lp["ln3"], lp["mlp"], quant)
     x = layer_norm(x, dec["ln_post"])
     if return_hidden:
         return x
@@ -305,14 +393,18 @@ def forward(params: Params, mel: torch.Tensor, tokens: torch.Tensor,
             cfg: WhisperConfig, compute_dtype: torch.dtype = torch.bfloat16,
             remat: bool = False, attn_impl: str = "auto",
             decoder_attn_impl: Optional[str] = None,
-            return_hidden: bool = False) -> torch.Tensor:
+            return_hidden: bool = False,
+            adapters: Optional[Params] = None,
+            dropout: Optional[LoraDropout] = None,
+            quant: Optional[Q.QuantConfig] = None) -> torch.Tensor:
     """Full teacher-forced forward: (mel, decoder_input_ids) → logits.
     attn_impl selects the encoder attention, decoder_attn_impl the
     decoder's (defaults to attn_impl)."""
-    enc_out = encode(params, mel, cfg, compute_dtype, remat, attn_impl)
+    enc_out = encode(params, mel, cfg, compute_dtype, remat, attn_impl,
+                     adapters, dropout, quant)
     dec_impl = attn_impl if decoder_attn_impl is None else decoder_attn_impl
     return decode_train(params, tokens, enc_out, cfg, compute_dtype, remat,
-                        dec_impl, return_hidden=return_hidden)
+                        dec_impl, return_hidden, adapters, dropout, quant)
 
 
 # ---------------------------------------------------------------------------
@@ -332,14 +424,18 @@ def init_cache(cfg: WhisperConfig, batch: int, max_len: int,
 
 
 def precompute_cross_kv(params: Params, enc_out: torch.Tensor,
-                        cfg: WhisperConfig) -> Params:
-    """Cross-attention K/V once per utterance: (L, B, S, H, hd) each."""
+                        cfg: WhisperConfig, adapters: Optional[Params] = None,
+                        quant: Optional[Q.QuantConfig] = None) -> Params:
+    """Cross-attention K/V once per utterance: (L, B, S, H, hd) each (the
+    v projection with its cross-attention adapter, when given)."""
     ca = params["decoder"]["layers"]["cross_attn"]
+    ad = adapters.get("decoder") if adapters else None
     H = cfg.decoder_heads
     ks, vs = [], []
     for l in range(cfg.decoder_layers):
-        ks.append(_split_heads(dense(enc_out, _layer(ca["k"], l)), H))
-        vs.append(_split_heads(dense(enc_out, _layer(ca["v"], l)), H))
+        lv = _layer(ad["cross_attn"]["v"], l) if ad else None
+        ks.append(_split_heads(dense(enc_out, _layer(ca["k"], l), quant=quant), H))
+        vs.append(_split_heads(dense(enc_out, _layer(ca["v"], l), lv, quant=quant), H))
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
@@ -368,35 +464,42 @@ def _logits(x: torch.Tensor, dec: Params, compute_dtype: torch.dtype,
 def decode_step(params: Params, token: torch.Tensor, pos: int,
                 cache: Params, cross_kv: Params, cfg: WhisperConfig,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                logits_w: Optional[torch.Tensor] = None
+                logits_w: Optional[torch.Tensor] = None,
+                adapters: Optional[Params] = None,
+                quant: Optional[Q.QuantConfig] = None
                 ) -> Tuple[torch.Tensor, Params]:
     """One autoregressive step, plain PyTorch (the reference the fused step
     is held against). token (B,), pos the current position; returns
     (logits (B, vocab) fp32, cache), the cache (L, B, T, H, hd) written in
-    place at pos. logits_w: tied_logits_weight(...), made once per decode."""
+    place at pos. logits_w: tied_logits_weight(...), made once per decode;
+    adapters: unmerged decoder adapters."""
     dec = params["decoder"]
     x = _embed(dec, token, pos, compute_dtype)[:, None, :]        # (B, 1, d)
     H = cfg.decoder_heads
     ck, cv = cache["k"], cache["v"]
     valid = (torch.arange(ck.shape[2], device=x.device) <= pos)[None, None, None, :]
+    ad = adapters.get("decoder") if adapters else None
     for l in range(cfg.decoder_layers):
         lp = _layer(dec["layers"], l)
+        la = _layer(ad, l) if ad else {}
+        sl, cl = la.get("self_attn", {}), la.get("cross_attn", {})
         sa, ca = lp["self_attn"], lp["cross_attn"]
         h = layer_norm(x, lp["ln1"])
-        q = _split_heads(dense(h, sa["q"]), H)
-        ck[l, :, pos] = _split_heads(dense(h, sa["k"]), H)[:, 0].to(ck.dtype)
-        cv[l, :, pos] = _split_heads(dense(h, sa["v"]), H)[:, 0].to(cv.dtype)
+        q = _split_heads(dense(h, sa["q"], sl.get("q"), quant=quant), H)
+        ck[l, :, pos] = _split_heads(dense(h, sa["k"], quant=quant), H)[:, 0].to(ck.dtype)
+        cv[l, :, pos] = _split_heads(dense(h, sa["v"], sl.get("v"), quant=quant),
+                                     H)[:, 0].to(cv.dtype)
         a = xla_attention(q, ck[l].to(x.dtype), cv[l].to(x.dtype), valid)
-        x = x + dense(_merge_heads(a), sa["o"])
+        x = x + dense(_merge_heads(a), sa["o"], quant=quant)
 
         h = layer_norm(x, lp["ln2"])
-        q2 = _split_heads(dense(h, ca["q"]), H)
+        q2 = _split_heads(dense(h, ca["q"], cl.get("q"), quant=quant), H)
         a2 = xla_attention(q2, cross_kv["k"][l].to(x.dtype),
                            cross_kv["v"][l].to(x.dtype))
-        x = x + dense(_merge_heads(a2), ca["o"])
+        x = x + dense(_merge_heads(a2), ca["o"], quant=quant)
 
         h = layer_norm(x, lp["ln3"])
-        x = x + mlp_block(h, lp["mlp"])
+        x = x + mlp_block(h, lp["mlp"], quant)
     x = layer_norm(x, dec["ln_post"])
     return _logits(x[:, 0], dec, compute_dtype, logits_w), cache
 
@@ -413,7 +516,9 @@ def decode_step_fused(params: Params, token: torch.Tensor, pos: int,
     stacked weights / cache / cross K/V in place.
 
     Requirements (arranged by evaluation/decode.py `_prepare_fused`): the
-    decoder weights cast to the compute dtype, the cache from
+    adapters merged, the decoder's float weights cast to the compute dtype
+    (an int8 projection {"w_q8", "w_scale"} passes its scale to the kernel,
+    which applies it after the product), the cache from
     init_cache(dense=True), cross K/V dense (L, B, S_pad, d) with s_valid
     the real source length."""
     if cfg.d_model // cfg.decoder_heads != DF.HEAD_DIM:
@@ -423,27 +528,39 @@ def decode_step_fused(params: Params, token: torch.Tensor, pos: int,
     dec = params["decoder"]
     lay = dec["layers"]
     sa, ca, mlp = lay["self_attn"], lay["cross_attn"], lay["mlp"]
+
+    def wpart(p):
+        """(weight, int8 per-channel scale or None): a merged int8 base is
+        mixed, each projection int8 or float on its own."""
+        if Q.QUANT_KEY in p:
+            return p[Q.QUANT_KEY], p[Q.SCALE_KEY]
+        return p["w"], None
+
+    (wq, sq), (wk, sk), (wv, sv), (wo, so) = (wpart(sa[n]) for n in "qkvo")
+    (cq, csq), (co, cso) = wpart(ca["q"]), wpart(ca["o"])
+    (w1, s1), (w2, s2) = wpart(mlp["fc1"]), wpart(mlp["fc2"])
     x = _embed(dec, token, pos, compute_dtype)
     ck, cv = cache["k"], cache["v"]
     xk, xv = cross_kv["k"], cross_kv["v"]
     for l in range(cfg.decoder_layers):
         q, k_new, v_new = DF.fused_qkv(
             x, lay["ln1"]["scale"], lay["ln1"]["bias"],
-            sa["q"]["w"], sa["q"]["b"], sa["k"]["w"], sa["v"]["w"], sa["v"]["b"],
-            kv_dtype=ck.dtype, layer_idx=l)
+            wq, sa["q"]["b"], wk, wv, sa["v"]["b"],
+            wq_scale=sq, wk_scale=sk, wv_scale=sv, kv_dtype=ck.dtype, layer_idx=l)
         # in-place index assignment of the (l, :, pos, :) row: the JAX
         # step's dynamic_update_slice on the loop carry
         ck[l, :, pos] = k_new
         cv[l, :, pos] = v_new
-        x = DF.fused_attn(x, ck, cv, sa["o"]["w"], sa["o"]["b"], q=q, pos=pos,
-                          layer_idx=l)
-        x = DF.fused_attn(x, xk, xv, ca["o"]["w"], ca["o"]["b"],
+        x = DF.fused_attn(x, ck, cv, wo, sa["o"]["b"], q=q, pos=pos,
+                          wo_scale=so, layer_idx=l)
+        x = DF.fused_attn(x, xk, xv, co, ca["o"]["b"],
                           s_valid=s_valid, ln_scale=lay["ln2"]["scale"],
-                          ln_bias=lay["ln2"]["bias"], wq=ca["q"]["w"],
-                          bq=ca["q"]["b"], layer_idx=l)
+                          ln_bias=lay["ln2"]["bias"], wq=cq,
+                          bq=ca["q"]["b"], wq_scale=csq, wo_scale=cso,
+                          layer_idx=l)
         x = DF.fused_mlp(x, lay["ln3"]["scale"], lay["ln3"]["bias"],
-                         mlp["fc1"]["w"], mlp["fc1"]["b"],
-                         mlp["fc2"]["w"], mlp["fc2"]["b"], layer_idx=l)
+                         w1, mlp["fc1"]["b"], w2, mlp["fc2"]["b"],
+                         w1_scale=s1, w2_scale=s2, layer_idx=l)
     x = layer_norm(x, dec["ln_post"])
     return _logits(x, dec, compute_dtype, logits_w), cache
 

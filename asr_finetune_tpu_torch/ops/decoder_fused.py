@@ -22,9 +22,16 @@ PyTorch version beside it. One wrapper call may launch more than one CUDA
 kernel (fused_attn: the cross q projection, attention partials, their
 combine, the wo projection), and counts once in LAUNCHES.
 
-Pending (raise NotImplementedError): the int8 options of the Pallas kernels
-(k_scale/v_scale int8 KV, w*_scale int8 weights), kv_group > 1 (shared
-beam cross-KV) and fused_attn_beam.
+int8 weights (the JAX kernels' w*_scale option): any projection may be int8
+({"w_q8", "w_scale"} of ops/quant.py) while its neighbours in the same call
+are float, as in a merged-LoRA int8 base (adapted q/v float, the rest
+int8). Pass the int8 weight with its per-output-channel fp32 scale ((1, N),
+stacked (L, 1, N)); the product runs over the int8 values widened to the
+activation dtype (exact) and the scale multiplies its fp32 sum before the
+bias, GELU, q scale or residual, as the Pallas kernels do.
+
+Pending (raise NotImplementedError): int8 KV (k_scale/v_scale), kv_group > 1
+(shared beam cross-KV) and fused_attn_beam.
 """
 from __future__ import annotations
 
@@ -40,9 +47,10 @@ HEAD_DIM = 64     # every released Whisper variant uses 64-dim heads
 CHUNK = 256       # keys per attention block (csrc CHUNK)
 _NB = 16          # output columns per GEMV block (csrc NB)
 
-# wrapper launches on the card, by kernel name (chip_smoke.py reads them)
-LAUNCHES = {"fused_qkv": 0, "fused_attn_self": 0, "fused_attn_cross": 0,
-            "fused_mlp": 0}
+# wrapper launches on the card, by kernel name (chip_smoke.py reads them); a
+# launch with any int8 weight counts under the name + "_int8"
+LAUNCHES = {f"{k}{v}": 0 for k in ("fused_qkv", "fused_attn_self", "fused_attn_cross",
+                                  "fused_mlp") for v in ("", "_int8")}
 
 
 def reset_launches() -> None:
@@ -50,12 +58,15 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _pending(what: str, **opts) -> None:
-    set_opts = [k for k, v in opts.items() if v is not None]
-    if set_opts:
+def _count(name: str, *scales) -> None:
+    LAUNCHES[name + ("_int8" if any(s is not None for s in scales) else "")] += 1
+
+
+def _pending_kv_int8(k_scale, v_scale) -> None:
+    if k_scale is not None or v_scale is not None:
         raise NotImplementedError(
-            f"{what}: {', '.join(set_opts)} (the int8 options of the Pallas "
-            "kernel) are not ported yet")
+            "fused_attn: k_scale/v_scale (the int8 KV option of the Pallas "
+            "kernel) is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -72,33 +83,38 @@ def _ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (x32 - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
 
 
-def _proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _proj(h: torch.Tensor, w: torch.Tensor, dtype: torch.dtype,
+          scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """h (already in the activation dtype, as fp32) @ w cast to that dtype,
-    fp32 accumulation: jnp.dot(h, w, preferred_element_type=f32)."""
-    return torch.matmul(h, w.float())
+    fp32 accumulation: jnp.dot(h, w, preferred_element_type=f32); an int8 w
+    (exact in any dtype) then takes its per-column scale."""
+    y = torch.matmul(h, w.to(dtype).float())
+    return y if scale is None else y * scale.reshape(-1).float()
 
 
-def fused_qkv_plain(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, kv_dtype=None):
+def fused_qkv_plain(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, kv_dtype=None,
+                    wq_scale=None, wk_scale=None, wv_scale=None):
     """One layer: x (B, d) → q (B, d) fp32 pre-scaled by hd^-0.5, k, v."""
     kv_dtype = kv_dtype or x.dtype
     h = _ln(x, ln_scale, ln_bias).to(x.dtype).float()
-    q = (_proj(h, wq.to(x.dtype)) + bq.float()) * HEAD_DIM ** -0.5
-    k = _proj(h, wk.to(x.dtype)).to(kv_dtype)
-    v = (_proj(h, wv.to(x.dtype)) + bv.float()).to(kv_dtype)
+    q = (_proj(h, wq, x.dtype, wq_scale) + bq.float()) * HEAD_DIM ** -0.5
+    k = _proj(h, wk, x.dtype, wk_scale).to(kv_dtype)
+    v = (_proj(h, wv, x.dtype, wv_scale) + bv.float()).to(kv_dtype)
     return q, k, v
 
 
-def _cross_q(x, ln_scale, ln_bias, wq, bq):
+def _cross_q(x, ln_scale, ln_bias, wq, bq, wq_scale):
     h = _ln(x, ln_scale, ln_bias).to(x.dtype).float()
-    return (_proj(h, wq.to(x.dtype)) + bq.float()) * HEAD_DIM ** -0.5
+    return (_proj(h, wq, x.dtype, wq_scale) + bq.float()) * HEAD_DIM ** -0.5
 
 
 def fused_attn_plain(x, k, v, wo, bo, q=None, n_valid=None, ln_scale=None,
-                     ln_bias=None, wq=None, bq=None):
+                     ln_bias=None, wq=None, bq=None, wq_scale=None,
+                     wo_scale=None):
     """One layer: single-query attention of x's rows over k/v (B, T, d)
     restricted to keys t < n_valid, then o @ wo + bo + x."""
     if q is None:
-        q = _cross_q(x, ln_scale, ln_bias, wq, bq)
+        q = _cross_q(x, ln_scale, ln_bias, wq, bq, wq_scale)
     B, _, d = k.shape
     H = d // HEAD_DIM
     kh = k[:, :n_valid].float().reshape(B, n_valid, H, HEAD_DIM)
@@ -109,15 +125,16 @@ def fused_attn_plain(x, k, v, wo, bo, q=None, n_valid=None, ln_scale=None,
     l = e.sum(dim=-1, keepdim=True)
     pv = torch.einsum("bht,bthd->bhd", e.to(v.dtype).float(), vh)
     o = (pv / l).reshape(B, d).to(x.dtype).float()
-    out = _proj(o, wo.to(x.dtype)) + bo.float() + x.float()
+    out = _proj(o, wo, x.dtype, wo_scale) + bo.float() + x.float()
     return out.to(x.dtype)
 
 
-def fused_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2):
+def fused_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, w1_scale=None,
+                    w2_scale=None):
     """One layer: x (B, d) → gelu(LN(x) @ w1 + b1) @ w2 + b2 + x."""
     h = _ln(x, ln_scale, ln_bias).to(x.dtype).float()
-    g = torch.nn.functional.gelu(_proj(h, w1.to(x.dtype)) + b1.float())  # exact erf
-    out = _proj(g.to(x.dtype).float(), w2.to(x.dtype)) + b2.float() + x.float()
+    g = torch.nn.functional.gelu(_proj(h, w1, x.dtype, w1_scale) + b1.float())  # exact erf
+    out = _proj(g.to(x.dtype).float(), w2, x.dtype, w2_scale) + b2.float() + x.float()
     return out.to(x.dtype)
 
 
@@ -158,6 +175,18 @@ def _ptr(a: torch.Tensor, ndim: int, dtype, shape, *, layer_idx,
     return a.data_ptr() + off
 
 
+def _weight(ptr, w: torch.Tensor, scale: Optional[torch.Tensor], T,
+            shape) -> Tuple[int, Optional[int]]:
+    """(weight address, scale address or None): a float weight in the
+    activation dtype T, or an int8 weight with its fp32 (1, N) scale
+    ((N,) accepted unstacked; stacked (L, 1, N))."""
+    if scale is None:
+        return ptr(w, 2, T, shape), None
+    if scale.dim() == 1:
+        scale = scale.reshape(1, -1)
+    return ptr(w, 2, torch.int8, shape), ptr(scale, 2, torch.float32, (1, shape[1]))
+
+
 def _check_x(x: torch.Tensor, what: str) -> Tuple[int, int]:
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"{what}: x must be a contiguous (B, d) tensor")
@@ -180,21 +209,21 @@ def fused_qkv(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
     """x (B, d) → (q (B, d) fp32 pre-scaled by hd^-0.5, k (B, d), v (B, d)).
 
     With layer_idx the weights come stacked ((L, d, d), biases (L, d)) and
-    the kernel reads layer layer_idx in place."""
-    _pending("fused_qkv", wq_scale=wq_scale, wk_scale=wk_scale,
-             wv_scale=wv_scale)
+    the kernel reads layer layer_idx in place. w*_scale: an int8 weight's
+    per-output-channel scale (the module docstring)."""
     if x.device.type == "cpu":
         return fused_qkv_plain(
             x, _at(ln_scale, layer_idx, 1), _at(ln_bias, layer_idx, 1),
             _at(wq, layer_idx, 2), _at(bq, layer_idx, 1),
             _at(wk, layer_idx, 2), _at(wv, layer_idx, 2),
-            _at(bv, layer_idx, 1), kv_dtype)
+            _at(bv, layer_idx, 1), kv_dtype, _at(wq_scale, layer_idx, 2),
+            _at(wk_scale, layer_idx, 2), _at(wv_scale, layer_idx, 2))
     return _fused_qkv_cuda(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, kv_dtype,
-                           layer_idx)
+                           layer_idx, wq_scale, wk_scale, wv_scale)
 
 
 def _fused_qkv_cuda(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, kv_dtype,
-                    layer_idx):
+                    layer_idx, wq_scale, wk_scale, wv_scale):
     B, d = _check_x(x, "fused_qkv")
     if (kv_dtype or x.dtype) != x.dtype:
         raise TypeError("the CUDA fused_qkv writes k/v in x's dtype")
@@ -203,17 +232,19 @@ def _fused_qkv_cuda(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, kv_dtype,
     q = torch.empty((B, d), dtype=f32, device=x.device)
     k = torch.empty_like(x)
     v = torch.empty_like(x)
+    wq_p, sq_p = _weight(ptr, wq, wq_scale, T, (d, d))
+    wk_p, sk_p = _weight(ptr, wk, wk_scale, T, (d, d))
+    wv_p, sv_p = _weight(ptr, wv, wv_scale, T, (d, d))
     lib = _lib()
     err = lib.fused_qkv_fwd(
         _build.dtype_code(x), x.data_ptr(),
         ptr(ln_scale, 1, f32, (d,)),
         ptr(ln_bias, 1, f32, (d,)),
-        ptr(wq, 2, T, (d, d)), ptr(bq, 1, T, (d,)),
-        ptr(wk, 2, T, (d, d)), ptr(wv, 2, T, (d, d)),
-        ptr(bv, 1, T, (d,)),
+        wq_p, ptr(bq, 1, T, (d,)), wk_p, wv_p, ptr(bv, 1, T, (d,)),
+        sq_p, sk_p, sv_p,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), B, d, _build.stream_ptr(x))
     _build.check(lib, err, "fused_qkv")
-    LAUNCHES["fused_qkv"] += 1
+    _count("fused_qkv", sq_p, sk_p, sv_p)
     return q, k, v
 
 
@@ -230,9 +261,9 @@ def fused_attn(x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     layer_idx. Self-attention: pass q (B, d) fp32 from fused_qkv and pos —
     keys at col > pos are masked. Cross-attention: pass ln_scale/ln_bias/
     wq/bq instead (q computed inside) and s_valid = the real source length
-    (the padded tail beyond it is masked)."""
-    _pending("fused_attn", k_scale=k_scale, v_scale=v_scale,
-             wq_scale=wq_scale, wo_scale=wo_scale)
+    (the padded tail beyond it is masked). wq_scale (cross mode) and
+    wo_scale: int8 weights' per-output-channel scales."""
+    _pending_kv_int8(k_scale, v_scale)
     if kv_group != 1:
         raise NotImplementedError("fused_attn: kv_group > 1 (shared beam "
                                   "cross-KV) is not ported yet")
@@ -247,13 +278,15 @@ def fused_attn(x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _at(wo, layer_idx, 2), _at(bo, layer_idx, 1), q=q,
             n_valid=n_valid, ln_scale=_at(ln_scale, layer_idx, 1),
             ln_bias=_at(ln_bias, layer_idx, 1), wq=_at(wq, layer_idx, 2),
-            bq=_at(bq, layer_idx, 1))
+            bq=_at(bq, layer_idx, 1),
+            wq_scale=None if self_mode else _at(wq_scale, layer_idx, 2),
+            wo_scale=_at(wo_scale, layer_idx, 2))
     return _fused_attn_cuda(x, k, v, wo, bo, q, n_valid, ln_scale, ln_bias,
-                            wq, bq, layer_idx)
+                            wq, bq, layer_idx, wq_scale, wo_scale)
 
 
 def _fused_attn_cuda(x, k, v, wo, bo, q, n_valid, ln_scale, ln_bias, wq, bq,
-                     layer_idx):
+                     layer_idx, wq_scale, wo_scale):
     self_mode = q is not None
     B, d = _check_x(x, "fused_attn")
     T, f32 = x.dtype, torch.float32
@@ -269,25 +302,27 @@ def _fused_attn_cuda(x, k, v, wo, bo, q, n_valid, ln_scale, ln_bias, wq, bq,
     if self_mode:
         if q.shape != (B, d) or q.dtype != f32 or not q.is_contiguous():
             raise ValueError("fused_attn: q must be a contiguous (B, d) fp32 tensor")
-        q_ptr, ln_s, ln_b, wq_p, bq_p, q_buf = q.data_ptr(), None, None, None, None, None
+        q_ptr, ln_s, ln_b, q_buf = q.data_ptr(), None, None, None
+        wq_p = sq_p = bq_p = None
     else:
         q_buf = torch.empty((B, d), dtype=f32, device=x.device)
         q_ptr = None
         ln_s = ptr(ln_scale, 1, f32, (d,))
         ln_b = ptr(ln_bias, 1, f32, (d,))
-        wq_p = ptr(wq, 2, T, (d, d))
+        wq_p, sq_p = _weight(ptr, wq, wq_scale, T, (d, d))
         bq_p = ptr(bq, 1, T, (d,))
+    wo_p, so_p = _weight(ptr, wo, wo_scale, T, (d, d))
     lib = _lib()
     err = lib.fused_attn_fwd(
         _build.dtype_code(x), x.data_ptr(), q_ptr, ln_s, ln_b, wq_p, bq_p,
         ptr(k, 3, T, (B, T_len, d)),
         ptr(v, 3, T, (B, T_len, d)),
-        ptr(wo, 2, T, (d, d)), ptr(bo, 1, T, (d,)),
+        wo_p, ptr(bo, 1, T, (d,)), sq_p, so_p,
         None if q_buf is None else q_buf.data_ptr(), part.data_ptr(),
         o_buf.data_ptr(), out.data_ptr(), B, T_len, d, n_valid,
         _build.stream_ptr(x))
     _build.check(lib, err, "fused_attn")
-    LAUNCHES["fused_attn_self" if self_mode else "fused_attn_cross"] += 1
+    _count("fused_attn_self" if self_mode else "fused_attn_cross", sq_p, so_p)
     return out
 
 
@@ -296,17 +331,20 @@ def fused_mlp(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
               b2: torch.Tensor, w1_scale=None, w2_scale=None,
               layer_idx=None) -> torch.Tensor:
     """x (B, d) → ln → fc1 (d, ff) → exact GELU → fc2 (ff, d) → + x. With
-    layer_idx the weights come stacked ((L, d, ff) etc.)."""
-    _pending("fused_mlp", w1_scale=w1_scale, w2_scale=w2_scale)
+    layer_idx the weights come stacked ((L, d, ff) etc.). w1_scale /
+    w2_scale: int8 weights' per-output-channel scales."""
     if x.device.type == "cpu":
         return fused_mlp_plain(
             x, _at(ln_scale, layer_idx, 1), _at(ln_bias, layer_idx, 1),
             _at(w1, layer_idx, 2), _at(b1, layer_idx, 1),
-            _at(w2, layer_idx, 2), _at(b2, layer_idx, 1))
-    return _fused_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, layer_idx)
+            _at(w2, layer_idx, 2), _at(b2, layer_idx, 1),
+            _at(w1_scale, layer_idx, 2), _at(w2_scale, layer_idx, 2))
+    return _fused_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, layer_idx,
+                           w1_scale, w2_scale)
 
 
-def _fused_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, layer_idx):
+def _fused_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, layer_idx, w1_scale,
+                    w2_scale):
     B, d = _check_x(x, "fused_mlp")
     T, f32 = x.dtype, torch.float32
     ptr = functools.partial(_ptr, layer_idx=layer_idx, device=x.device)
@@ -315,16 +353,17 @@ def _fused_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, layer_idx):
         raise ValueError(f"fused_mlp: ff={ff} is not a multiple of {_NB}")
     g = torch.empty((B, ff), dtype=T, device=x.device)
     out = torch.empty_like(x)
+    w1_p, s1_p = _weight(ptr, w1, w1_scale, T, (d, ff))
+    w2_p, s2_p = _weight(ptr, w2, w2_scale, T, (ff, d))
     lib = _lib()
     err = lib.fused_mlp_fwd(
         _build.dtype_code(x), x.data_ptr(),
         ptr(ln_scale, 1, f32, (d,)),
         ptr(ln_bias, 1, f32, (d,)),
-        ptr(w1, 2, T, (d, ff)), ptr(b1, 1, T, (ff,)),
-        ptr(w2, 2, T, (ff, d)), ptr(b2, 1, T, (d,)),
+        w1_p, ptr(b1, 1, T, (ff,)), w2_p, ptr(b2, 1, T, (d,)), s1_p, s2_p,
         g.data_ptr(), out.data_ptr(), B, d, ff, _build.stream_ptr(x))
     _build.check(lib, err, "fused_mlp")
-    LAUNCHES["fused_mlp"] += 1
+    _count("fused_mlp", s1_p, s2_p)
     return out
 
 
@@ -336,9 +375,9 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("decoder_fused")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.fused_qkv_fwd.argtypes = [I] + [P] * 11 + [I, I, P]
-        lib.fused_attn_fwd.argtypes = [I] + [P] * 14 + [I, I, I, I, P]
-        lib.fused_mlp_fwd.argtypes = [I] + [P] * 9 + [I, I, I, P]
+        lib.fused_qkv_fwd.argtypes = [I] + [P] * 14 + [I, I, P]
+        lib.fused_attn_fwd.argtypes = [I] + [P] * 16 + [I, I, I, I, P]
+        lib.fused_mlp_fwd.argtypes = [I] + [P] * 11 + [I, I, I, P]
         for fn in (lib.fused_qkv_fwd, lib.fused_attn_fwd, lib.fused_mlp_fwd):
             fn.restype = I
         _LIB = lib

@@ -4,15 +4,20 @@
 directory from --model_path, or random-initialises --model_type (smoke-test
 mode: byte-fallback tokenizer, special ids aligned with it, as the JAX
 build_model does), on --device. For serving (`train=False`), --bf16 casts
-the matmul weights to bf16 once here; for training the weights stay fp32
-masters and the step casts them at use, as the JAX train step does.
+the matmul weights to bf16 once here; for full fine-tuning the weights stay
+fp32 masters and the step casts them at use, as the JAX train step does.
+With --peft (JAX run.py:87-106) it also draws the LoRA/AdaLoRA adapters
+(--lora_targets all: encoder and decoder q/v) and freezes the base: int8
+per output channel with --load_in_8bit (the other leaves stay fp32), else
+every leaf cast to bf16.
 
-`build_data` and `run_trial` are the training half, single process, full
-fine-tuning: reader + collator + length-grouped sampler + prefetch, the
-validation split into eval shards, AdamW, the train step, checkpoints and
-the Trainer. Not ported, and raising NotImplementedError: --peft,
---load_in_8bit, --spec_augment, --offload_optimizer / --offload_param,
---tp > 1, --host_logmel and parquet data.
+`build_data` and `run_trial` are the training half, single process:
+reader + collator + length-grouped sampler + prefetch, the validation split
+into eval shards, AdamW (in PEFT over the trained adapter leaves), the train
+step, the int8 outlier calibration, checkpoints (adapters only in PEFT) and
+the Trainer. Not ported, and raising NotImplementedError: --spec_augment,
+--offload_optimizer / --offload_param, --tp > 1, --host_logmel, beams,
+--decode_kv_int8 and parquet data.
 """
 from __future__ import annotations
 
@@ -34,9 +39,12 @@ from .models import whisper as W
 from .models.configs import WhisperConfig, get_config
 from .models.convert_hf import load_pretrained
 from .models.tokenizer import load_tokenizer
+from .ops import quant as quant_lib
+from .training import lora as lora_lib
 from .training import optim as optim_lib
 from .training.checkpoint import CheckpointManager, save_trial_manifest
-from .training.train_step import TrainStepConfig, make_train_state
+from .training.train_step import (TrainStepConfig, make_eval_loss_step,
+                                  make_train_state)
 from .training.trainer import Trainer, TrainerConfig
 from .utils.logging_utils import MetricsLogger, dump_config, setup_logging
 
@@ -51,15 +59,27 @@ class BuiltModel:
     device: torch.device
     suppress_tokens: Optional[list] = None  # whisper generation_config list
     begin_suppress_tokens: Optional[list] = None
+    adapters: Optional[Dict[str, Any]] = None
+    lora: Optional[lora_lib.LoraConfig] = None
 
 
-def build_model(args, train: bool = False) -> BuiltModel:
+def _cast_tree_(tree: Dict[str, Any], dtype: torch.dtype) -> None:
+    """Every leaf cast to dtype, in place, each old tensor released as its
+    cast replaces it."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _cast_tree_(v, dtype)
+        else:
+            tree[k] = v.to(dtype)
+
+
+def build_model(args, train: bool = False,
+                hp: Optional[Dict[str, Any]] = None) -> BuiltModel:
     """The model for serving (train=False: --bf16 casts the matmul weights
-    once) or for training (fp32 master weights whatever --bf16 says)."""
-    if args.peft or args.load_in_8bit:
-        raise NotImplementedError(
-            "--peft / --load_in_8bit: LoRA adapters and the int8 base are "
-            "not ported yet")
+    once), for full fine-tuning (fp32 master weights whatever --bf16 says)
+    or, with --peft, a frozen base and fresh adapters. hp: the trial's
+    overrides of rank and alpha."""
+    hp = hp or {}
     device = resolve_device(args.device)
     if args.model_path:
         if native_io.is_native_checkpoint(args.model_path):
@@ -79,13 +99,29 @@ def build_model(args, train: bool = False) -> BuiltModel:
             cfg, eos_token_id=tokenizer.special.eot,
             sot_token_id=tokenizer.special.sot,
             pad_token_id=tokenizer.special.pad)
-    if args.bf16 and not train:
+    adapters = lcfg = None
+    if args.peft:
+        lcfg = lora_lib.LoraConfig(
+            rank=int(hp.get("rank", args.lora_rank)),
+            alpha=float(hp.get("alpha", args.lora_alpha)),
+            adalora=args.adalora, target_rank=args.adalora_target_rank or None)
+        g = torch.Generator(device=device)
+        g.manual_seed(args.random_seed + 1)
+        adapters = lora_lib.init_adapters(g, cfg, lcfg,
+                                          encoder=args.lora_targets == "all",
+                                          device=device)
+        if args.load_in_8bit:
+            params = quant_lib.quantize_tree_int8(params)
+        else:
+            _cast_tree_(params, torch.bfloat16)
+    elif args.bf16 and not train:
         # serving computes every product in bf16: cast the weights once
-        # rather than at every use, and hand the dead fp32 originals back to
-        # the driver instead of keeping them reserved in the caching allocator
+        # rather than at every use
         W.cast_matmul_weights_(params, torch.bfloat16)
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
+    if device.type == "cuda" and (args.peft or not train):
+        # release the dead originals' device memory instead of keeping it
+        # reserved in the caching allocator
+        torch.cuda.empty_cache()
 
     suppress = begin_suppress = None
     if args.model_path:
@@ -96,7 +132,8 @@ def build_model(args, train: bool = False) -> BuiltModel:
             suppress = gen_cfg.get("suppress_tokens")
             # HF suppresses these only at the first free position (" ", eos)
             begin_suppress = gen_cfg.get("begin_suppress_tokens")
-    return BuiltModel(cfg, params, tokenizer, device, suppress, begin_suppress)
+    return BuiltModel(cfg, params, tokenizer, device, suppress, begin_suppress,
+                      adapters, lcfg)
 
 
 def _check_pending_training(args) -> None:
@@ -106,11 +143,12 @@ def _check_pending_training(args) -> None:
         ("--offload_param", args.offload_param),
         ("--tp > 1", args.tp > 1),
         ("--host_logmel", args.host_logmel),
+        ("--decode_kv_int8", args.decode_kv_int8),
         ("--generation_num_beams > 1", args.generation_num_beams > 1)) if on]
     if pending:
         raise NotImplementedError(
-            f"{', '.join(pending)}: not ported yet (the port trains full "
-            "fine-tuning on one card, log-mel on the device, greedy WER eval)")
+            f"{', '.join(pending)}: not ported yet (the port trains on one "
+            "card, log-mel on the device, greedy WER eval)")
 
 
 def _resolve_path(args, name: str) -> str:
@@ -200,9 +238,34 @@ def build_data(args, tokenizer, model_cfg: WhisperConfig, device: torch.device):
     return train_iter_factory, eval_batches_fn, len(train_indices), num_shards
 
 
+def calibrate_outliers(args, built: BuiltModel, step_cfg: TrainStepConfig,
+                       state: Dict[str, Any], eval_batches_fn) -> Dict:
+    """bitsandbytes-faithful outlier calibration (JAX run.py:375-426): record
+    the column amax of every W8A8 product over the first 4 rows of eval
+    batch 0, in a forward without remat and with the dynamic top-k form, and
+    install the columns >= --int8_outlier_threshold, at most 2·k per (d_in,
+    d_out) class, as step_cfg.quant's static sets. The forward runs the
+    train step's kernels: the JAX package calibrates with plain attention
+    only because its Pallas TPU kernels cannot run on the CPU devices it
+    calibrates on."""
+    from .data.pipeline import to_device
+    batch = eval_batches_fn(0)[0]
+    rows = {k: np.asarray(batch[k])[:4] for k in ("audio", "decoder_input_ids", "labels")
+            if k in batch}
+    estep = make_eval_loss_step(built.cfg, dataclasses.replace(step_cfg, remat=False))
+    cstate = {"params": state["params"], "adapters": state.get("adapters")}
+    idx_map = quant_lib.calibrate_int8_outliers(
+        lambda: estep(cstate, to_device(rows, built.device)), step_cfg.quant,
+        threshold=args.int8_outlier_threshold, max_cols=args.int8_outlier_cols * 2)
+    logger.info("int8 outlier calibration (thr %.1f): %s", args.int8_outlier_threshold,
+                {k: len(v) for k, v in idx_map.items()})
+    return idx_map
+
+
 def setup_trial(args, hp: Optional[Dict[str, Any]] = None) -> Trainer:
     """Everything of one training run up to the first step: model (fp32
-    masters), AdamW, train state, data, checkpoints and the Trainer."""
+    masters, or a frozen base and adapters), AdamW, train state, data, the
+    int8 outlier calibration, checkpoints and the Trainer."""
     hp = dict(hp or {})
     setup_logging(logging.DEBUG if args.debug else logging.INFO)
     _check_pending_training(args)
@@ -210,27 +273,41 @@ def setup_trial(args, hp: Optional[Dict[str, Any]] = None) -> Trainer:
     os.makedirs(out_dir, exist_ok=True)
     dump_config(out_dir, {**vars(args), **{f"hp.{k}": v for k, v in hp.items()}})
 
-    built = build_model(args, train=True)
+    built = build_model(args, train=True, hp=hp)
     cfg = built.cfg
+    peft = built.adapters is not None
     warmup_steps = hp.get("warmup_steps", args.warmup_steps or None)
     warmup_ratio = hp.get("warmup_ratio", args.warmup_ratio or None)
+    # PEFT: train only a/b (+ e under AdaLoRA); scaling is a constant
+    freeze = (optim_lib.adapter_freeze_mask(built.adapters, args.adalora)
+              if peft else None)
     opt = optim_lib.make_optimizer(
         float(hp.get("learning_rate", args.learning_rate)), args.max_steps,
         str(hp.get("lr_scheduler_type", args.lr_scheduler_type)),
         warmup_steps=int(warmup_steps) if warmup_steps else None,
         warmup_ratio=float(warmup_ratio) if warmup_ratio else None,
         weight_decay=float(hp.get("weight_decay", args.weight_decay)),
-        max_grad_norm=args.max_grad_norm)
+        max_grad_norm=args.max_grad_norm, trainable_mask=freeze)
+    int8_base = peft and args.load_in_8bit
     step_cfg = TrainStepConfig(
+        mode="peft" if peft else "full",
         accum_steps=args.gradient_accumulation_steps,
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
         remat=args.gradient_checkpointing,
         label_smoothing=args.label_smoothing,
-        on_device_logmel=True, n_mels=cfg.num_mel_bins)
-    state = make_train_state(built.params, opt)
+        on_device_logmel=True, n_mels=cfg.num_mel_bins,
+        max_steps=args.max_steps, lora=built.lora, seed=args.random_seed,
+        quant=(quant_lib.QuantConfig(matmul=args.int8_matmul,
+                                     outlier_cols=args.int8_outlier_cols)
+               if int8_base else None))
+    state = make_train_state(built.params, opt, built.adapters,
+                             adalora=peft and args.adalora)
 
     train_iter_factory, eval_batches_fn, n_train, num_shards = build_data(
         args, built.tokenizer, cfg, built.device)
+    if (int8_base and args.int8_matmul and args.int8_outlier_cols
+            and args.int8_outlier_calibrate):
+        calibrate_outliers(args, built, step_cfg, state, eval_batches_fn)
     max_steps = args.max_steps or (
         (n_train // max(args.per_device_train_batch_size, 1))
         * args.num_train_epochs)
@@ -251,7 +328,7 @@ def setup_trial(args, hp: Optional[Dict[str, Any]] = None) -> Trainer:
     ckpt = CheckpointManager(
         os.path.join(out_dir, "checkpoints"), max_to_keep=args.num_to_keep,
         metric=tcfg.metric_for_best_model,
-        mode="max" if tcfg.greater_is_better else "min")
+        mode="max" if tcfg.greater_is_better else "min", adapter_only=peft)
     return Trainer(cfg, state, opt, step_cfg, tcfg, built.tokenizer,
                    built.device, train_iter=train_iter_factory,
                    eval_batches_fn=eval_batches_fn, checkpoints=ckpt,

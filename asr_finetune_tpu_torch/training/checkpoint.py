@@ -1,5 +1,5 @@
-"""Checkpoint / resume for the port: full state, metric-scored retention,
-step-exact resume.
+"""Checkpoint / resume for the port: full state or adapters only,
+metric-scored retention, step-exact resume.
 
 Counterpart of asr_finetune_tpu/training/checkpoint.py (`CheckpointManager`
 :29), whose semantics it keeps:
@@ -11,12 +11,16 @@ Counterpart of asr_finetune_tpu/training/checkpoint.py (`CheckpointManager`
 - `latest_step`, `all_steps`, `restore(state_like, step)`.
 
 Storage is `torch.save`, not Orbax (not on the card's machine): one
-directory per step, `state.pt` with the step, the optimizer count and every
-parameter / moment tensor by its tree path, and `metrics.json`. A save is
-written to a temporary directory and renamed, so a crash never leaves a
-half checkpoint that `latest_step` would pick. Port checkpoints do not load
-in the JAX package. Restore copies into the live tensors in place, so the
-parameters keep their identity (and requires_grad).
+directory per step, `state.pt` with the step, the optimizer count, every
+parameter and moment tensor by its tree path ("mu"/"nu" keyed by the paths
+the optimizer trains) and, in PEFT, the "adapters", "sensitivity" and
+"rank_mask" trees by path; and `metrics.json`. `adapter_only` (the JAX
+manager's option, :53-58, :77-89; the reference's SavePeftModelCallback)
+drops the frozen base "params": a restore then leaves the live base as it
+is. A save is written to a temporary directory and renamed, so a crash never
+leaves a half checkpoint that `latest_step` would pick. Port checkpoints do
+not load in the JAX package. Restore copies into the live tensors in place,
+so the parameters keep their identity (and requires_grad).
 """
 from __future__ import annotations
 
@@ -27,10 +31,11 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from .train_step import leaves
+from .optim import leaves
 
 STATE_FILE = "state.pt"
 METRICS_FILE = "metrics.json"
+TREES = ("params", "adapters", "sensitivity", "rank_mask")
 
 
 def _step_dir(directory: str, step: int) -> str:
@@ -39,12 +44,19 @@ def _step_dir(directory: str, step: int) -> str:
 
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 2,
-                 metric: Optional[str] = None, mode: str = "min"):
+                 metric: Optional[str] = None, mode: str = "min",
+                 adapter_only: bool = False):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.metric = metric
         self.minimize = mode in ("min", "minimize")
+        self.adapter_only = adapter_only
+
+    def _trees(self, state: Dict[str, Any]) -> List[str]:
+        """The trees of `state` a checkpoint holds."""
+        return [t for t in TREES if state.get(t) is not None
+                and not (t == "params" and self.adapter_only)]
 
     # ------------------------------------------------------------- queries
 
@@ -87,9 +99,10 @@ class CheckpointManager:
         payload = {
             "step": int(state["step"]),
             "opt_count": int(opt["count"]),
-            "params": {k: p.detach() for k, p in leaves(state["params"])},
-            "mu": {k: m for (k, _), m in zip(leaves(state["params"]), opt["mu"])},
-            "nu": {k: v for (k, _), v in zip(leaves(state["params"]), opt["nu"])},
+            "mu": dict(zip(opt["names"], opt["mu"])),
+            "nu": dict(zip(opt["names"], opt["nu"])),
+            **{t: {k: p.detach() for k, p in leaves(state[t])}
+               for t in self._trees(state)},
         }
         torch.save(payload, os.path.join(tmp, STATE_FILE))
         with open(os.path.join(tmp, METRICS_FILE), "w") as f:
@@ -123,13 +136,14 @@ class CheckpointManager:
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         path = os.path.join(_step_dir(self.directory, step), STATE_FILE)
-        params = leaves(state_like["params"])
-        dev = params[0][1].device
-        saved = torch.load(path, map_location=dev, weights_only=True)
         opt = state_like["opt_state"]
+        dev = opt["mu"][0].device
+        saved = torch.load(path, map_location=dev, weights_only=True)
         with torch.no_grad():
-            for (k, p), m, v in zip(params, opt["mu"], opt["nu"]):
-                p.copy_(saved["params"][k])
+            for t in self._trees(state_like):
+                for k, p in leaves(state_like[t]):
+                    p.copy_(saved[t][k])
+            for k, m, v in zip(opt["names"], opt["mu"], opt["nu"]):
                 m.copy_(saved["mu"][k])
                 v.copy_(saved["nu"][k])
         opt["count"] = saved["opt_count"]

@@ -18,15 +18,46 @@ The moments are fp32 tensors beside the parameters. The update runs leaf
 by leaf (the stacked tree has a few dozen leaves), so its scratch is two
 copies of the largest leaf, not of the model; the clip factor stays on the
 device (no host sync).
+
+PEFT (`adapter_freeze_mask`, :22, and `make_optimizer(trainable_mask=...)`,
+:84-89, optax.multi_transform with set_to_zero): the optimizer updates only
+the leaves the mask marks trained (`AdamW.trainable`); a frozen leaf (the
+adapters' `scaling`, plain LoRA's `e`) gets no update, no weight decay, no
+moments and no share of the clip norm.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 Schedule = Callable[[int], float]
+
+
+def leaves(tree: Dict[str, Any], prefix: str = "") -> List[Tuple[str, Any]]:
+    """(path, leaf) of every leaf of a nested dict, in a fixed order (sorted
+    keys; paths "/"-joined)."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        key = f"{prefix}/{k}" if prefix else k
+        out.extend(leaves(v, key) if isinstance(v, dict) else [(key, v)])
+    return out
+
+
+def adapter_freeze_mask(adapters: Dict[str, Any], adalora: bool) -> Dict[str, Any]:
+    """Trainability mask of an adapter tree (True = trained): `scaling` is
+    the constant alpha / rank, and `e` trains only under AdaLoRA."""
+    def walk(node):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            else:
+                out[k] = not (k == "scaling" or (k == "e" and not adalora))
+        return out
+    return walk(adapters)
 
 
 def _linear(init: float, end: float, steps: int) -> Schedule:
@@ -84,11 +115,22 @@ class AdamW:
 
     def __init__(self, schedule: Schedule, b1: float = 0.9, b2: float = 0.98,
                  eps: float = 1e-8, weight_decay: float = 0.0,
-                 max_grad_norm: float = 1.0):
+                 max_grad_norm: float = 1.0,
+                 trainable_mask: Optional[Dict[str, Any]] = None):
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
+        self.trainable_mask = trainable_mask
+
+    def trainable(self, tree: Dict[str, Any]) -> List[Tuple[str, torch.Tensor]]:
+        """(path, leaf) of every leaf of `tree` this optimizer updates, in
+        sorted-path order: all of them, or those the trainable mask marks."""
+        pairs = leaves(tree)
+        if self.trainable_mask is None:
+            return pairs
+        keep = dict(leaves(self.trainable_mask))
+        return [(k, t) for k, t in pairs if keep[k]]
 
     def init(self, params: List[torch.Tensor]) -> Dict[str, object]:
         """{"count": updates applied, "mu", "nu": fp32 zeros like params}."""
@@ -135,8 +177,9 @@ def make_optimizer(learning_rate: float, max_steps: int,
                    adam_beta1: float = 0.9,
                    adam_beta2: float = 0.98,
                    adam_eps: float = 1e-8,
-                   max_grad_norm: float = 1.0) -> AdamW:
+                   max_grad_norm: float = 1.0,
+                   trainable_mask: Optional[Dict[str, Any]] = None) -> AdamW:
     sched = make_lr_schedule(learning_rate, max_steps, scheduler,
                              warmup_steps, warmup_ratio)
     return AdamW(sched, adam_beta1, adam_beta2, adam_eps, weight_decay,
-                 max_grad_norm)
+                 max_grad_norm, trainable_mask)

@@ -9,7 +9,9 @@ Counterpart of asr_finetune_tpu/training/trainer.py (`Trainer.train` /
 - every eval_steps (from eval_delay on) one random validation shard is
   evaluated: loss over its batches and, unless disabled, WER of the greedy
   decode (evaluation/decode.make_decode_fn: the fused decoder kernels on a
-  card) → eval_loss_wer = (1 - w) eval_loss + w eval_wer;
+  card) → eval_loss_wer = (1 - w) eval_loss + w eval_wer; in PEFT the loss
+  runs over the unmerged adapters and the decode gets the rank-masked
+  adapters, which it merges into the (int8 or bf16) base;
 - a checkpoint every save_steps (a multiple of eval_steps, so it is scored
   on fresh metrics) and at the end; resume restores the latest one and
   restarts the data stream at its step.
@@ -33,6 +35,7 @@ from ..evaluation.normalize import normalize
 from ..models.configs import WhisperConfig
 from ..ops import logmel as logmel_ops
 from ..utils.logging_utils import MetricsLogger, memory_stats
+from . import lora as lora_lib
 from .checkpoint import CheckpointManager
 from .optim import AdamW
 from .train_step import TrainStepConfig, make_eval_loss_step, make_train_step
@@ -115,7 +118,8 @@ class Trainer:
             timestamp_begin=(sp.timestamp_begin if cfg.return_timestamps
                              else None),
             no_timestamps_id=sp.no_timestamps,
-            kv_int8=cfg.decode_kv_int8, w_int8=cfg.decode_w_int8)
+            kv_int8=cfg.decode_kv_int8, w_int8=cfg.decode_w_int8,
+            quant=step_cfg.quant)
         self.last_eval_metrics: Dict[str, float] = {}
 
     # ------------------------------------------------------------------ eval
@@ -143,7 +147,12 @@ class Trainer:
                 if mel is None:
                     mel = logmel_ops.log_mel_spectrogram(
                         dev_batch["audio"], n_mels=self.step_cfg.n_mels)
-                tokens, _ = self._decode(self.state["params"], mel)
+                adapters = self.state.get("adapters")
+                if adapters is not None:
+                    with torch.no_grad():
+                        adapters = lora_lib.apply_rank_mask(
+                            adapters, self.state.get("rank_mask"))
+                tokens, _ = self._decode(self.state["params"], mel, adapters)
                 texts = self.tokenizer.batch_decode(tokens[:n_valid].cpu().tolist())
                 hyps.extend(normalize(t) for t in texts)
                 refs.extend(normalize(str(t)) for t in batch["text"][:n_valid])

@@ -9,14 +9,21 @@
    shapes (B=4, and the decoder kernels also at 12 rows) in bf16 and fp32,
    within the limits stated at F32_LIMITS, and times kernel, plain version and, for
    the encoder attention, F.scaled_dot_product_attention as a yardstick (the
-   port never calls it); the encoder-attention backward likewise, at the
+   port never calls it): the decoder kernels over float, mixed int8/float
+   and all-int8 weights; the encoder-attention forward; its backward at the
    encoder's self-attention and the teacher-forced cross-attention shapes,
-   with the forward's logsumexp, and SDPA's backward as its yardstick;
+   with the forward's logsumexp, and SDPA's backward as its yardstick; the
+   W8A8 kernel bit for bit at the PEFT main path's six product shapes, pure
+   and with the outlier keep-mask and addend, timed beside torch._int_mm (the
+   int8 dot alone) and the bf16 product with the dequantized weight;
 4. runs an fp32 greedy decode at large-v3 width and 2+2 layers through the
-   fused kernels and through the plain decode step: the tokens must be equal;
-   and one fp32 train step at that size: its gradients through the attention
-   kernels must equal those through plain attention, and with remat on
-   those with it off;
+   fused kernels and through the plain decode step: the tokens must be equal,
+   over a float base and over a merged int8 base; one fp32 train step at that
+   size: its gradients through the attention kernels must equal those
+   through plain attention, and with remat on those with it off; and one
+   fp32 PEFT step over an int8 base: adapter gradients through the W8A8
+   kernel against its plain version, and over the dequantized base through
+   the attention kernels against plain attention;
 5. the serving main path: transcribes four seeded synthetic 16 kHz wavs (one
    longer than 30 s) with `asr_finetune_tpu_torch.cli.transcribe` at
    large-v3 (32+32 layers, random weights from a seed, bf16), asserts every
@@ -28,7 +35,13 @@
    seeded wavs, eval with WER and a checkpoint; asserts the results and the
    launch counts, prints ms/step, utterances/s, tokens/s, peak memory, the
    checkpoint's write time, and one step's device time by CUDA kernel;
-7. one decode step's device time by CUDA kernel; then the card line again,
+7. the PEFT main path: `cli.train` with the repo's largev3_peft_debug.config
+   and --int8_matmul (AdaLoRA rank 8 on every q/v, int8 frozen base, every
+   frozen product through the W8A8 kernel, the outlier calibration, eval
+   decode through the int8 options of the decoder kernels, an adapter-only
+   checkpoint), the same 20 wavs and cut; the same assertions and figures,
+   the calibrated outlier columns;
+8. one decode step's device time by CUDA kernel; then the card line again,
    one JSON line `{"kernels": [...]}`, and last `{"ok": true, "device": {...}}`.
 
 Any failed check raises: the script then exits non-zero and prints no
@@ -48,19 +61,32 @@ import numpy as np
 
 # H100 SXM data sheet (dense): the rates a bound is reckoned against
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 B, D, H, FF, L = 4, 1280, 20, 5120, 32          # whisper-large-v3, batch 4
 T_ENC, S_PAD = 1500, 1536                        # encoder frames, padded source
 SELF_T, SELF_POS = 128, 63                       # main-path cache, last step of 64
 CROSS_TQ = 192                                   # training label bucket of the main path
 TRAIN_CONFIG = "asr_finetune_tpu/configs/largev3_debug.config"
+PEFT_CONFIG = "asr_finetune_tpu/configs/largev3_peft_debug.config"
 TRAIN_STEPS, TRAIN_UTTS, TRAIN_GEN_LEN = 4, 20, 32
+# the W8A8 products of the PEFT main path (batch 4): encoder rows B x 1500,
+# decoder rows B x the 192 label bucket
+W8A8_SHAPES = (("encoder q/k/v/o", B * T_ENC, D, D), ("encoder fc1", B * T_ENC, D, FF),
+               ("encoder fc2", B * T_ENC, FF, D), ("decoder q/k/v/o", B * CROSS_TQ, D, D),
+               ("decoder fc1", B * CROSS_TQ, D, FF), ("decoder fc2", B * CROSS_TQ, FF, D))
 # fp32 gradients of one train step at large-v3 width, 2+2 layers: the
 # largest over the leaves of max |diff| / max |grad|, kernels against plain
 # attention and remat on against off. Each limit is ~4x (kernels) and ~10x
 # (remat: cuBLAS may reorder the recomputed products, and the reading moved
 # 4.7e-8 -> 9.4e-8 between two runs) the largest reading on an H100 (PERF.md).
 GRAD_LIMITS = {"kernels vs plain": 6e-6, "remat vs not": 1e-6}
+# one fp32 PEFT step over the int8 base, 2+2 layers: with W8A8, the kernel
+# against its plain version changes no bit, so no gradient either; over the
+# base dequantized (no int8 rounding of activations, which would turn the
+# attention kernels' last-bit differences into steps of 1/127 of a row's
+# amax), the attention kernels against plain attention, ~4x the largest
+# reading on an H100 (7.9e-6, PERF.md)
+PEFT_GRAD_LIMITS = {"w8a8 kernel vs plain": 0.0, "attention kernels vs plain": 3.2e-5}
 # Limits against the plain version on the same inputs. fp32: |err| <= 1e-4 +
 # 1e-4|ref| (the sums run in another order) and RMS(err) <= 1e-5 RMS(ref).
 # bf16: |err| <= atol + 2^-7|ref|: the kernel and its plain version round
@@ -69,17 +95,24 @@ GRAD_LIMITS = {"kernels vs plain": 6e-6, "remat vs not": 1e-6}
 # reaches the output beyond that step from flips upstream. And RMS(err) <=
 # rms_rel x RMS(ref), which a systematic fault (a wrong mask, tile or row
 # group) breaks long before it breaks the max. Both bf16 limits, per kernel,
-# are 4x the largest reading on an H100 over B=4 and 12 rows (PERF.md), atol
-# no less than 1e-5.
+# are 4x the largest reading on an H100 over B=4 and 12 rows and over the
+# seeded inputs each has had (PERF.md), atol no less than 1e-5. An RMS ratio
+# counts a handful of outputs a bf16 step apart, so it moves with the inputs:
+# fused_qkv read 1e-6 and then 7.9e-6, the int8-weight self-attention 0 and
+# then 1.5e-4.
 F32_LIMITS = (1e-4, 1e-4, 1e-5)          # (atol, rtol, rms_rel), every kernel
 BF16_RTOL = 2.0 ** -7
 BF16_LIMITS = {                          # kernel: (atol, rms_rel)
-    "fused_qkv": (1e-5, 4e-6),
+    "fused_qkv": (1e-5, 3.2e-5),
     "fused_attn_self": (4e-4, 6e-4),
     "fused_attn_cross": (1.2e-3, 2.7e-3),
     "fused_mlp": (2e-4, 6e-4),
     "encoder_attention": (2.1e-3, 9.2e-3),
     "encoder_attention_bwd": (1.1e-3, 6.8e-4),
+    "fused_qkv_int8": (1e-5, 1.3e-4),
+    "fused_attn_self_int8": (5.3e-5, 6e-4),
+    "fused_attn_cross_int8": (1.3e-3, 2.8e-3),
+    "fused_mlp_int8": (7.1e-5, 3.5e-4),
 }
 REPLACES = {
     "encoder_attention": "asr_finetune_tpu/ops/encoder_attention.py:286",
@@ -88,13 +121,43 @@ REPLACES = {
     "fused_attn_self": "asr_finetune_tpu/ops/decoder_fused.py:310",
     "fused_attn_cross": "asr_finetune_tpu/ops/decoder_fused.py:310",
     "fused_mlp": "asr_finetune_tpu/ops/decoder_fused.py:681",
+    "w8a8": "asr_finetune_tpu/ops/w8a8_fused.py:93",
 }
+REPLACES.update({k + "_int8": v for k, v in list(REPLACES.items()) if k.startswith("fused_")})
 SOURCES = {
     "encoder_attention": "asr_finetune_tpu_torch/csrc/encoder_attention.cu",
     "encoder_attention_bwd": "asr_finetune_tpu_torch/csrc/encoder_attention.cu",
-    **{k: "asr_finetune_tpu_torch/csrc/decoder_fused.cu"
-       for k in ("fused_qkv", "fused_attn_self", "fused_attn_cross", "fused_mlp")},
+    **{k + v: "asr_finetune_tpu_torch/csrc/decoder_fused.cu"
+       for k in ("fused_qkv", "fused_attn_self", "fused_attn_cross", "fused_mlp")
+       for v in ("", "_int8")},
+    "w8a8": "asr_finetune_tpu_torch/csrc/w8a8.cu",
 }
+DECODER = ("fused_qkv", "fused_attn_self", "fused_attn_cross", "fused_mlp")
+# the decoder kernels' weights in phase 3a: the projections that are int8
+# ({w_q8, w_scale}); "mixed" is a merged-LoRA int8 base (q, v float)
+WEIGHT_KINDS = {"float": (), "mixed": ("k", "o", "fc1", "fc2"),
+                "all-int8": ("q", "k", "v", "o", "fc1", "fc2")}
+
+
+def all_launches() -> dict:
+    """Every kernel wrapper's launch count."""
+    from asr_finetune_tpu_torch.ops import decoder_fused as DF
+    from asr_finetune_tpu_torch.ops import encoder_attention as EA
+    from asr_finetune_tpu_torch.ops import w8a8_fused as WF
+    return {**EA.LAUNCHES, **DF.LAUNCHES, **WF.LAUNCHES}
+
+
+def reset_all_launches() -> None:
+    from asr_finetune_tpu_torch.ops import decoder_fused as DF
+    from asr_finetune_tpu_torch.ops import encoder_attention as EA
+    from asr_finetune_tpu_torch.ops import w8a8_fused as WF
+    for mod in (EA, DF, WF):
+        mod.reset_launches()
+
+
+def expect_launches(**counts) -> dict:
+    """Every kernel's expected launch count: `counts`, and 0 for the rest."""
+    return {k: counts.get(k, 0) for k in all_launches()}
 
 
 def card_line() -> str:
@@ -186,149 +249,189 @@ def bound(nbytes: float, flops: float, dtype_name: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernels():
-    """Phase 3: each kernel against its plain version, bf16 and fp32; bf16
-    (the main path's dtype) is also timed. Returns {name: row}."""
-    import torch
-    import torch.nn.functional as F
-    from asr_finetune_tpu_torch.ops import decoder_fused as DF
-    from asr_finetune_tpu_torch.ops import encoder_attention as EA
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors, each counted once (an int8 weight at one byte an
+    element); None is skipped."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
-    dev = torch.device("cuda")
-    rows = {}
+
+def time_row(rows, name, err, fn, plain_fn, moved, flops, dtype_name,
+             library_fn=None, calls=64):
+    """Times fn (the kernel wrapper), plain_fn and library_fn on the device,
+    fn also eagerly, and records kernel `name`'s JSON row; the bound is that
+    of `moved` bytes and `flops` operations of dtype_name."""
+    ms = device_ms(fn, calls)
+    eager = eager_ms(fn, calls)
+    plain_ms = device_ms(plain_fn, max(calls // 8, 2))
+    library_ms = None if library_fn is None else device_ms(library_fn, calls)
+    b_ms, b_by = bound(moved, flops, dtype_name)
+    rows[name] = {"name": name, "route": "cuda", "source": SOURCES[name],
+                  "replaces": REPLACES[name], "launches": 0,
+                  "max_abs_err": err[0], "rms_rel_err": err[1],
+                  "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                  "library_ms": library_ms}
+    print(f"  {name} [{dtype_name}] kernel {ms:.4f} ms (device; eager call "
+          f"{eager:.4f} ms)  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})"
+          + ("" if library_ms is None else f"  library {library_ms:.4f} ms"))
+
+
+def decoder_calls(DF, x, q, w, b, ln, kv, pos, stacked):
+    """The four decoder kernels on x's rows: {name: (kernel fn(layer), plain
+    fn, operands read, flops)}. w {projection: (weight, int8 scale or
+    None)}, b {projection: bias} and ln (scale, bias) are stacked over L
+    layers; the kernel reads them at `layer` in place (stacked) or is handed
+    layer L-1's (`layer` ignored), the plain version layer L-1's. kv
+    {"self", "cross"}: (k, v) caches, (L, rows, T, d) when stacked, else
+    (rows, T, d); the self-attention sees keys 0..pos."""
+    li, n, nv = L - 1, x.shape[0], pos + 1
+    w1 = {k: (t[li], None if s is None else s[li]) for k, (t, s) in w.items()}
+    b1 = {k: t[li] for k, t in b.items()}
+    ln1 = tuple(t[li] for t in ln)
+    kv1 = {k: tuple(t[li] for t in pair) if stacked else pair for k, pair in kv.items()}
+    (ks, vs), (kx, vx) = kv1["self"], kv1["cross"]
+
+    def op(layer):
+        return (w, b, ln, kv, layer) if stacked else (w1, b1, ln1, kv1, None)
+
+    def qkv(layer):
+        w_, b_, ln_, _, l = op(layer)
+        return DF.fused_qkv(x, *ln_, w_["q"][0], b_["q"], w_["k"][0], w_["v"][0], b_["v"],
+                            wq_scale=w_["q"][1], wk_scale=w_["k"][1], wv_scale=w_["v"][1],
+                            layer_idx=l)
+
+    def attn_self(layer):
+        w_, b_, _, kv_, l = op(layer)
+        return DF.fused_attn(x, *kv_["self"], w_["o"][0], b_["o"], q=q, pos=pos,
+                             wo_scale=w_["o"][1], layer_idx=l)
+
+    def attn_cross(layer):
+        w_, b_, ln_, kv_, l = op(layer)
+        return DF.fused_attn(x, *kv_["cross"], w_["o"][0], b_["o"], s_valid=T_ENC,
+                             ln_scale=ln_[0], ln_bias=ln_[1], wq=w_["q"][0], bq=b_["q"],
+                             wq_scale=w_["q"][1], wo_scale=w_["o"][1], layer_idx=l)
+
+    def mlp(layer):
+        w_, b_, ln_, _, l = op(layer)
+        return DF.fused_mlp(x, *ln_, w_["fc1"][0], b_["fc1"], w_["fc2"][0], b_["fc2"],
+                            w1_scale=w_["fc1"][1], w2_scale=w_["fc2"][1], layer_idx=l)
+
+    return {
+        "fused_qkv": (
+            qkv,
+            lambda: DF.fused_qkv_plain(x, *ln1, w1["q"][0], b1["q"], w1["k"][0], w1["v"][0],
+                                       b1["v"], wq_scale=w1["q"][1], wk_scale=w1["k"][1],
+                                       wv_scale=w1["v"][1]),
+            (x, *ln1, *w1["q"], b1["q"], *w1["k"], *w1["v"], b1["v"]), 2 * n * D * 3 * D),
+        "fused_attn_self": (
+            attn_self,
+            lambda: DF.fused_attn_plain(x, ks, vs, w1["o"][0], b1["o"], q=q, n_valid=nv,
+                                        wo_scale=w1["o"][1]),
+            (x, q, ks[:, :nv], vs[:, :nv], *w1["o"], b1["o"]),
+            2 * 2 * n * nv * D + 2 * n * D * D),
+        "fused_attn_cross": (
+            attn_cross,
+            lambda: DF.fused_attn_plain(x, kx, vx, w1["o"][0], b1["o"], n_valid=T_ENC,
+                                        ln_scale=ln1[0], ln_bias=ln1[1], wq=w1["q"][0],
+                                        bq=b1["q"], wq_scale=w1["q"][1], wo_scale=w1["o"][1]),
+            (x, *ln1, *w1["q"], b1["q"], kx[:, :T_ENC], vx[:, :T_ENC], *w1["o"], b1["o"]),
+            2 * 2 * n * D * D + 2 * 2 * n * T_ENC * D),
+        "fused_mlp": (
+            mlp,
+            lambda: DF.fused_mlp_plain(x, *ln1, w1["fc1"][0], b1["fc1"], w1["fc2"][0],
+                                       b1["fc2"], w1_scale=w1["fc1"][1],
+                                       w2_scale=w1["fc2"][1]),
+            (x, *ln1, *w1["fc1"], b1["fc1"], *w1["fc2"], b1["fc2"]), 2 * 2 * n * D * FF),
+    }
+
+
+def check_decoder_kernels(rows):
+    """Phase 3a: the four decoder kernels against their plain versions at
+    whisper-large-v3 shapes, bf16 and fp32, over each kind of weights in
+    WEIGHT_KINDS: float, and int8 with per-channel scales, mixed as the PEFT
+    eval decode has them or all int8. At B=4 with stacked weights read at
+    layer 31 of 32: the self-attention at pos 0, 127, 200 of a 256 cache
+    and at the main path's cache 128, pos 63; the cross-attention at S 1536,
+    s_valid 1500. At 12 rows (the GEMVs run them as a group of 8 and one of
+    4) with one layer's weights unstacked. In bf16 the main path's shapes
+    (B=4) are timed with the calls cycling through the 32 layers, against
+    a bound that counts each operand read and each output written once:
+    float weights give the "fused_*" rows, mixed the "fused_*_int8" rows."""
+    import torch
+    from asr_finetune_tpu_torch.ops import decoder_fused as DF
+    from asr_finetune_tpu_torch.ops import quant as Q
+
+    dev, f32 = torch.device("cuda"), torch.float32
     for dt in (torch.bfloat16, torch.float32):
         dn = str(dt).split(".")[-1]
-        es = dt.itemsize
         g = torch.Generator(device=dev).manual_seed(0)
 
         def rn(*shape, scale=1.0, dtype=dt):
             return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
-        f32 = torch.float32
-        x = rn(B, D)
-        ln_s, ln_b = 1 + rn(L, D, scale=0.1, dtype=f32), rn(L, D, scale=0.1, dtype=f32)
-        wq, wk, wv, wo = (rn(L, D, D, scale=D ** -0.5) for _ in range(4))
-        bq, bv, bo = (rn(L, D, scale=0.1) for _ in range(3))
-        w1, b1 = rn(L, D, FF, scale=D ** -0.5), rn(L, FF, scale=0.1)
-        w2, b2 = rn(L, FF, D, scale=FF ** -0.5), rn(L, D, scale=0.1)
-        timed = dt is torch.bfloat16
-
-        def row(name, err, fn, plain_fn, nbytes, flops, library_fn=None,
-                calls=64):
-            """Times fn (the kernel wrapper), plain_fn and library_fn on the
-            device, fn also eagerly, and records the JSON row."""
-            ms = device_ms(fn, calls)
-            eager = eager_ms(fn, calls)
-            plain_ms = device_ms(plain_fn, max(calls // 8, 2))
-            library_ms = None if library_fn is None else device_ms(library_fn, calls)
-            b_ms, b_by = bound(nbytes, flops, dn)
-            rows[name] = {"name": name, "route": "cuda", "source": SOURCES[name],
-                          "replaces": REPLACES[name], "launches": 0,
-                          "max_abs_err": err[0], "rms_rel_err": err[1],
-                          "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": b_ms, "bound_by": b_by,
-                          "library_ms": library_ms}
-            print(f"  {name} [{dn}] kernel {ms:.4f} ms (device; eager call "
-                  f"{eager:.4f} ms)  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
-                  f"({b_by})"
-                  + ("" if library_ms is None else f"  library {library_ms:.4f} ms"))
-
-        # --- fused_qkv, layer 31 of the 32-layer stack
-        li = L - 1
-        out = DF.fused_qkv(x, ln_s, ln_b, wq, bq, wk, wv, bv, layer_idx=li)
-        ref = DF.fused_qkv_plain(x, ln_s[li], ln_b[li], wq[li], bq[li], wk[li],
-                                 wv[li], bv[li])
-        print(f"fused_qkv [{dn}] layer {li}:")
-        err = compare("fused_qkv", out, ref, dn)
-        if timed:
-            it = iter(range(10 ** 9))
-            row("fused_qkv", err,
-                lambda: DF.fused_qkv(x, ln_s, ln_b, wq, bq, wk, wv, bv,
-                                     layer_idx=next(it) % L),
-                lambda: DF.fused_qkv_plain(x, ln_s[li], ln_b[li], wq[li], bq[li],
-                                           wk[li], wv[li], bv[li]),
-                B * D * es + 2 * D * 4 + 3 * D * D * es + 2 * D * es
-                + B * D * 4 + 2 * B * D * es, 2 * B * D * 3 * D)
-
-        # --- fused_attn self at pos 0, 127, 200 of a 256 cache
-        q = rn(B, D, scale=0.125, dtype=f32)
-        kc, vc = rn(L, B, 256, D), rn(L, B, 256, D)
-        for pos in (0, 127, 200):
-            out = DF.fused_attn(x, kc, vc, wo, bo, q=q, pos=pos, layer_idx=li)
-            ref = DF.fused_attn_plain(x, kc[li], vc[li], wo[li], bo[li], q=q,
-                                      n_valid=pos + 1)
-            print(f"fused_attn self [{dn}] pos {pos}:")
-            compare("fused_attn_self", out, ref, dn)
-        if timed:  # the main path's shape: a 128 cache at its last step
-            ks, vs = rn(L, B, SELF_T, D), rn(L, B, SELF_T, D)
-            out = DF.fused_attn(x, ks, vs, wo, bo, q=q, pos=SELF_POS, layer_idx=li)
-            ref = DF.fused_attn_plain(x, ks[li], vs[li], wo[li], bo[li], q=q,
-                                      n_valid=SELF_POS + 1)
-            print(f"fused_attn self [{dn}] cache {SELF_T} pos {SELF_POS}:")
-            err = compare("fused_attn_self", out, ref, dn)
-            it = iter(range(10 ** 9))
-            nv = SELF_POS + 1
-            row("fused_attn_self", err,
-                lambda: DF.fused_attn(x, ks, vs, wo, bo, q=q, pos=SELF_POS,
-                                      layer_idx=next(it) % L),
-                lambda: DF.fused_attn_plain(x, ks[li], vs[li], wo[li], bo[li], q=q,
-                                            n_valid=nv),
-                2 * B * D * es + B * D * 4 + 2 * B * nv * D * es + D * D * es + D * es,
-                2 * 2 * B * nv * D + 2 * B * D * D)
-            del ks, vs
-
-        # --- fused_attn cross at S=1536, s_valid=1500
-        kx, vx = rn(L, B, S_PAD, D), rn(L, B, S_PAD, D)
-        xc = rn(B, D)
-        cross = dict(s_valid=T_ENC, ln_scale=ln_s, ln_bias=ln_b, wq=wq, bq=bq)
-        out = DF.fused_attn(xc, kx, vx, wo, bo, layer_idx=li, **cross)
-        ref = DF.fused_attn_plain(xc, kx[li], vx[li], wo[li], bo[li], n_valid=T_ENC,
-                                  ln_scale=ln_s[li], ln_bias=ln_b[li], wq=wq[li],
-                                  bq=bq[li])
-        print(f"fused_attn cross [{dn}] S {S_PAD} s_valid {T_ENC}:")
-        err = compare("fused_attn_cross", out, ref, dn)
-        if timed:
-            it = iter(range(10 ** 9))
-            row("fused_attn_cross", err,
-                lambda: DF.fused_attn(xc, kx, vx, wo, bo, layer_idx=next(it) % L,
-                                      **cross),
-                lambda: DF.fused_attn_plain(
-                    xc, kx[li], vx[li], wo[li], bo[li], n_valid=T_ENC,
-                    ln_scale=ln_s[li], ln_bias=ln_b[li], wq=wq[li], bq=bq[li]),
-                2 * B * D * es + 2 * D * 4 + 2 * D * D * es + 2 * D * es
-                + 2 * B * T_ENC * D * es,
-                2 * B * D * D * 2 + 2 * 2 * B * T_ENC * D)
-        del kx, vx
-
-        # --- fused_mlp at ff=5120
-        out = DF.fused_mlp(x, ln_s, ln_b, w1, b1, w2, b2, layer_idx=li)
-        ref = DF.fused_mlp_plain(x, ln_s[li], ln_b[li], w1[li], b1[li], w2[li], b2[li])
-        print(f"fused_mlp [{dn}] ff {FF}:")
-        err = compare("fused_mlp", out, ref, dn)
-        if timed:
-            it = iter(range(10 ** 9))
-            row("fused_mlp", err,
-                lambda: DF.fused_mlp(x, ln_s, ln_b, w1, b1, w2, b2,
-                                     layer_idx=next(it) % L),
-                lambda: DF.fused_mlp_plain(x, ln_s[li], ln_b[li], w1[li], b1[li],
-                                           w2[li], b2[li]),
-                2 * B * D * es + 2 * D * 4 + 2 * D * FF * es + (FF + D) * es,
-                2 * 2 * B * D * FF)
+        ln = (1 + rn(L, D, scale=0.1, dtype=f32), rn(L, D, scale=0.1, dtype=f32))
+        w32 = {k: rn(L, D, D, scale=D ** -0.5, dtype=f32) for k in "qkvo"}
+        w32["fc1"] = rn(L, D, FF, scale=D ** -0.5, dtype=f32)
+        w32["fc2"] = rn(L, FF, D, scale=FF ** -0.5, dtype=f32)
+        b = {k: rn(L, FF if k == "fc1" else D, scale=0.1) for k in ("q", "v", "o", "fc1", "fc2")}
+        x, q = rn(B, D), rn(B, D, scale=0.125, dtype=f32)
+        cross = (rn(L, B, S_PAD, D), rn(L, B, S_PAD, D))
+        kv = {256: {"self": (rn(L, B, 256, D), rn(L, B, 256, D)), "cross": cross},
+              B: {"self": (rn(L, B, SELF_T, D), rn(L, B, SELF_T, D)), "cross": cross},
+              12: {"self": (rn(12, SELF_T, D), rn(12, SELF_T, D)),
+                   "cross": (rn(12, S_PAD, D), rn(12, S_PAD, D))}}
+        x12, q12 = rn(12, D), rn(12, D, scale=0.125, dtype=f32)
+        for kind, int8 in WEIGHT_KINDS.items():
+            w = {}
+            for k, t in w32.items():
+                qw = Q.quantize_weight(t) if k in int8 else None
+                w[k] = (t.to(dt), None) if qw is None else (qw[Q.QUANT_KEY], qw[Q.SCALE_KEY])
+            sfx = "_int8" if int8 else ""
+            for pos in (0, 127, 200):
+                fn, plain, _, _ = decoder_calls(DF, x, q, w, b, ln, kv[256], pos,
+                                                True)["fused_attn_self"]
+                print(f"fused_attn self, {kind} weights [{dn}] cache 256 pos {pos}:")
+                compare("fused_attn_self" + sfx, fn(L - 1), plain(), dn)
+            for n_rows, xr, qr in ((B, x, q), (12, x12, q12)):
+                print(f"decoder kernels, {kind} weights [{dn}] at {n_rows} rows (self "
+                      f"cache {SELF_T} pos {SELF_POS}, cross S {S_PAD} s_valid {T_ENC}):")
+                calls = decoder_calls(DF, xr, qr, w, b, ln, kv[n_rows], SELF_POS, n_rows == B)
+                for name, (fn, plain, reads, flops) in calls.items():
+                    out = fn(L - 1)
+                    err = compare(name + sfx, out, plain(), dn)
+                    if dt is torch.bfloat16 and n_rows == B and kind != "all-int8":
+                        it = iter(range(10 ** 9))
+                        time_row(rows, name + sfx, err, lambda: fn(next(it) % L), plain,
+                                 nbytes(*reads) + nbytes(*(out if isinstance(out, tuple)
+                                                           else (out,))), flops, dn)
+            del w
+        if dt is torch.bfloat16:
             # the fixed cost of a GEMV launch: fused_mlp at ff=16 is two
             # near-empty GEMV launches (the LN prologue, reduction, epilogue)
             w1e, b1e = rn(L, D, 16, scale=D ** -0.5), rn(L, 16, scale=0.1)
             w2e = rn(L, 16, D, scale=0.25)
             it = iter(range(10 ** 9))
-            ms = device_ms(lambda: DF.fused_mlp(x, ln_s, ln_b, w1e, b1e, w2e, b2,
+            ms = device_ms(lambda: DF.fused_mlp(x, *ln, w1e, b1e, w2e, b["fc2"],
                                                 layer_idx=next(it) % L), 64)
             print(f"  fused_mlp at ff=16 (two near-empty GEMV launches) [{dn}]: "
                   f"{ms:.4f} ms")
-        check_row_groups(DF, rn, dn, ln_s[li], ln_b[li], wq[li], bq[li], wk[li], wv[li],
-                         bv[li], wo[li], bo[li], w1[li], b1[li], w2[li], b2[li])
-        del wq, wk, wv, wo, w1, w2
+        del w32, kv, cross
+        torch.cuda.empty_cache()
 
-        # --- encoder attention at T=1500
-        qe, ke, ve = (rn(B, T_ENC, D) for _ in range(3))
+
+def check_encoder_attention(rows):
+    """Phase 3b: the encoder-attention forward against its plain version at
+    T=1500 (and s_valid 1000), bf16 and fp32; bf16 timed beside
+    F.scaled_dot_product_attention as a yardstick (the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from asr_finetune_tpu_torch.ops import encoder_attention as EA
+
+    dev = torch.device("cuda")
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).split(".")[-1]
+        g = torch.Generator(device=dev).manual_seed(1)
+        qe, ke, ve = ((torch.randn((B, T_ENC, D), generator=g, device=dev)).to(dt)
+                      for _ in range(3))
         out = EA.dense_attention_packed(qe, ke, ve, 64, T_ENC)
         ref = EA.dense_attention_packed_plain(qe, ke, ve, 64, T_ENC)
         print(f"encoder_attention [{dn}] T {T_ENC}:")
@@ -338,37 +441,15 @@ def check_kernels():
         ref = EA.dense_attention_packed_plain(qe, ke, ve, 64, 1000)
         print(f"encoder_attention [{dn}] T {T_ENC} s_valid 1000:")
         compare("encoder_attention", out, ref, dn)
-        if timed:
+        if dt is torch.bfloat16:
             heads = [a.view(B, T_ENC, H, 64).transpose(1, 2) for a in (qe, ke, ve)]
-            row("encoder_attention", err,
-                lambda: EA.dense_attention_packed(qe, ke, ve, 64, T_ENC),
-                lambda: EA.dense_attention_packed_plain(qe, ke, ve, 64, T_ENC),
-                4 * B * T_ENC * D * es, 4 * B * H * T_ENC * T_ENC * 64,
-                library_fn=lambda: F.scaled_dot_product_attention(*heads), calls=8)
-        del qe, ke, ve
+            time_row(rows, "encoder_attention", err,
+                     lambda: EA.dense_attention_packed(qe, ke, ve, 64, T_ENC),
+                     lambda: EA.dense_attention_packed_plain(qe, ke, ve, 64, T_ENC),
+                     4 * B * T_ENC * D * dt.itemsize, 4 * B * H * T_ENC * T_ENC * 64, dn,
+                     library_fn=lambda: F.scaled_dot_product_attention(*heads), calls=8)
+        del qe, ke, ve, out, ref
         torch.cuda.empty_cache()
-    return rows
-
-
-def check_row_groups(DF, rn, dn, ls, lb, wq, bq, wk, wv, bv, wo, bo, w1,
-                     b1, w2, b2, rows=12):
-    """The decoder kernels at 12 rows (the GEMVs run them as a group of 8 and
-    one of 4) with one layer's unstacked weights, against the plain versions."""
-    import torch
-    x = rn(rows, D)
-    print(f"decoder kernels [{dn}] at {rows} rows (row groups of 8):")
-    compare("fused_qkv", DF.fused_qkv(x, ls, lb, wq, bq, wk, wv, bv),
-            DF.fused_qkv_plain(x, ls, lb, wq, bq, wk, wv, bv), dn)
-    q = rn(rows, D, scale=0.125, dtype=torch.float32)
-    kc, vc = rn(rows, SELF_T, D), rn(rows, SELF_T, D)
-    compare("fused_attn_self", DF.fused_attn(x, kc, vc, wo, bo, q=q, pos=SELF_POS),
-            DF.fused_attn_plain(x, kc, vc, wo, bo, q=q, n_valid=SELF_POS + 1), dn)
-    kx, vx = rn(rows, S_PAD, D), rn(rows, S_PAD, D)
-    cross = dict(ln_scale=ls, ln_bias=lb, wq=wq, bq=bq)
-    compare("fused_attn_cross", DF.fused_attn(x, kx, vx, wo, bo, s_valid=T_ENC, **cross),
-            DF.fused_attn_plain(x, kx, vx, wo, bo, n_valid=T_ENC, **cross), dn)
-    compare("fused_mlp", DF.fused_mlp(x, ls, lb, w1, b1, w2, b2),
-            DF.fused_mlp_plain(x, ls, lb, w1, b1, w2, b2), dn)
 
 
 def kernel_times(prof, calls: int) -> list:
@@ -381,6 +462,45 @@ def kernel_times(prof, calls: int) -> list:
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                   reverse=True)
+
+
+def host_times(prof) -> list:
+    """(host ms, calls, name) of every CPU-side event of a torch.profiler
+    run by its self time, largest first: the aten ops' Python-free C++ time
+    and the CUDA runtime calls (launches, synchronisations, allocations)."""
+    from torch.autograd import DeviceType
+    return sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0),
+                  reverse=True)
+
+
+def host_usage() -> np.ndarray:
+    """[CPU s of this thread, CPU s of the process (all threads: autograd
+    runs a CUDA backward on a thread of its own), s in Python's garbage
+    collector, full (generation 2) collections]: a step's difference says
+    where its host time goes."""
+    import gc
+    if _gc_timer not in gc.callbacks:
+        gc.callbacks.append(_gc_timer)
+    return np.array([time.thread_time(), time.process_time(), _GC["s"], _GC["full"]],
+                    dtype=np.float64)
+
+
+_GC = {"s": 0.0, "full": 0, "t0": 0.0}
+
+
+def _gc_timer(phase: str, info: dict) -> None:
+    if phase == "start":
+        _GC["t0"] = time.perf_counter()
+    else:
+        _GC["s"] += time.perf_counter() - _GC["t0"]
+        _GC["full"] += info["generation"] == 2
+
+
+def host_usage_text(u) -> str:
+    return (f"main thread on a CPU {1e3 * u[0]:.3f} ms, all threads {1e3 * u[1]:.3f} ms, "
+            f"garbage collection {1e3 * u[2]:.3f} ms ({u[3]:g} full collections)")
 
 
 def profiled_ms(fn, calls: int = 8) -> float:
@@ -400,7 +520,7 @@ def profiled_ms(fn, calls: int = 8) -> float:
 
 
 def check_attention_bwd(rows):
-    """Phase 3b: the encoder-attention backward kernel against its plain
+    """Phase 3c: the encoder-attention backward kernel against its plain
     version at whisper-large-v3 shapes (B=4, 20 heads of 64): the encoder's
     self-attention (T 1500, and s_valid 1000) and the teacher-forced
     cross-attention (Tq 192, the label bucket of the main path, Tk 1500), in
@@ -470,6 +590,73 @@ def check_attention_bwd(rows):
                 **{f"cross_{k}": v for k, v in c.items()}}
 
 
+def check_w8a8(rows):
+    """Phase 3d: the W8A8 kernel against its plain version at the PEFT main
+    path's six product shapes, bf16 and fp32, pure and with the outlier
+    keep-mask and addend of the dynamic top-8 form (on inputs with a few
+    large feature columns): equal bit for bit. In bf16 (the main path's)
+    times, per shape, the kernel, the plain version, torch._int_mm on the
+    same int8 operands (the int8 dot alone, a yardstick), and the bf16
+    product with the dequantized weight (the product --no-int8_matmul
+    runs); the row's headline shape is the encoder's q/k/v/o."""
+    import torch
+    from asr_finetune_tpu_torch.ops import quant as Q
+    from asr_finetune_tpu_torch.ops import w8a8_fused as WF
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    shapes = []
+    for name, m, K, N in W8A8_SHAPES:
+        q = Q.quantize_weight(torch.randn((K, N), generator=g, device=dev) * K ** -0.5)
+        w8, ws = q["w_q8"], q["w_scale"]
+        for dt in (torch.bfloat16, torch.float32):
+            dn = str(dt).split(".")[-1]
+            x = torch.randn((m, K), generator=g, device=dev)
+            x[:, 5::K // 6] *= 12.0              # emergent outlier features
+            x = x.to(dt)
+            for form in ("pure", "outliers"):
+                keep = addend = None
+                if form == "outliers":
+                    keep, addend = Q._outlier_split(
+                        x, w8, ws, Q.QuantConfig(matmul=True, outlier_cols=8))
+                out = WF.w8a8(x, w8, ws, keep, addend)
+                ref = WF.w8a8_plain(x, w8, ws, keep, addend)
+                if not torch.equal(out, ref):
+                    raise AssertionError(
+                        f"w8a8 [{dn}] {name} {form}: {int((out != ref).sum())} elements "
+                        f"differ, max abs {float((out.float() - ref.float()).abs().max()):.3e}")
+            print(f"w8a8 [{dn}] {name} m {m} K {K} N {N}: kernel == plain bit for bit "
+                  "(pure, outliers)")
+            if dt is not torch.bfloat16:
+                continue
+            x32 = x.float()
+            xs = torch.clamp(x32.abs().amax(-1, keepdim=True), min=1e-8) * WF.INV_127
+            x8 = torch.clamp(torch.round(x32 / xs), -127, 127).to(torch.int8)
+            w8_cm = w8.t().contiguous().t()      # cuBLASLt's int8 layout
+            w_deq = Q.dequantize_weight(q, dt)
+            b_ms, b_by = bound(m * K * 2 + K * N + N * 4 + m * N * 2, 2 * m * K * N, "int8")
+            t = {"shape": name, "m": m, "K": K, "N": N,
+                 "ms": device_ms(lambda: WF.w8a8(x, w8, ws), 16),
+                 "plain_ms": device_ms(lambda: WF.w8a8_plain(x, w8, ws), 2),
+                 "int_mm_ms": device_ms(lambda: torch._int_mm(x8, w8_cm), 16),
+                 "bf16_matmul_ms": device_ms(lambda: torch.matmul(x, w_deq), 16),
+                 "bound_ms": b_ms, "bound_by": b_by}
+            shapes.append(t)
+            print(f"  w8a8 [bfloat16] {name}: kernel {t['ms']:.4f} ms (device)  plain "
+                  f"{t['plain_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})  torch._int_mm "
+                  f"{t['int_mm_ms']:.4f} ms  bf16 matmul (dequantized) "
+                  f"{t['bf16_matmul_ms']:.4f} ms")
+            del x8, w8_cm, w_deq
+        torch.cuda.empty_cache()
+    head = shapes[0]
+    rows["w8a8"] = {"name": "w8a8", "route": "cuda", "source": SOURCES["w8a8"],
+                    "replaces": REPLACES["w8a8"], "launches": 0, "max_abs_err": 0.0,
+                    "rms_rel_err": 0.0, "ms": head["ms"], "plain_ms": head["plain_ms"],
+                    "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                    "library_ms": None, "int_mm_ms": head["int_mm_ms"],
+                    "bf16_matmul_ms": head["bf16_matmul_ms"], "by_shape": shapes}
+
+
 def check_decode():
     """Phase 4: fp32 greedy decode at large-v3 width, 2+2 layers, B=2, 24
     tokens: the fused kernels and the plain decode step give equal tokens."""
@@ -514,8 +701,6 @@ def main_path(rows):
     from asr_finetune_tpu_torch.cli import transcribe
     from asr_finetune_tpu_torch.evaluation import decode as decode_lib
     from asr_finetune_tpu_torch.models import whisper as W
-    from asr_finetune_tpu_torch.ops import decoder_fused as DF
-    from asr_finetune_tpu_torch.ops import encoder_attention as EA
 
     max_len = 64
     stats = {"encode": 0, "steps": 0, "decode_s": 0.0, "loop_s": 0.0,
@@ -553,8 +738,7 @@ def main_path(rows):
             _write_wav(p, sec, rng)
             wavs.append(p)
         W.encode, W.decode_step_fused, decode_lib.greedy_decode = encode, step, greedy
-        EA.reset_launches()
-        DF.reset_launches()
+        reset_all_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
@@ -568,7 +752,7 @@ def main_path(rows):
                 orig_encode, orig_step, orig_greedy)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {**EA.LAUNCHES, **DF.LAUNCHES}
+        launches = all_launches()
         peak = torch.cuda.max_memory_allocated()
         lines = open(f"{tmp}/out.jsonl").read().splitlines()
 
@@ -585,9 +769,8 @@ def main_path(rows):
         if tok[:, :4].tolist() != [[257, 258, 261, 262]] * B:   # byte-fallback prefix
             raise AssertionError(f"forced prefix not honoured: {tok[:, :4].tolist()}")
     n_dec = 32
-    expect = {"encoder_attention": n_dec * stats["encode"], "encoder_attention_bwd": 0}
-    for k in ("fused_qkv", "fused_attn_self", "fused_attn_cross", "fused_mlp"):
-        expect[k] = n_dec * stats["steps"]
+    expect = expect_launches(encoder_attention=n_dec * stats["encode"],
+                             **{k: n_dec * stats["steps"] for k in DECODER})
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
     record_launches(rows, "transcribe", launches)
@@ -677,6 +860,127 @@ def check_train_grads(device: str = "cuda", model: str = "large-v3"):
         raise AssertionError("train-step gradients through the kernels differ")
 
 
+def check_int8_decode():
+    """Phase 4c: fp32 greedy decode at large-v3 width, 2+2 layers, B=2, 24
+    tokens, over a merged int8 base (AdaLoRA rank-8 adapters with non-zero
+    deltas folded into q/v, the rest int8): the fused kernels with their
+    int8-weight options and the plain decode step give equal tokens."""
+    import torch
+    from asr_finetune_tpu_torch.evaluation import decode as D_
+    from asr_finetune_tpu_torch.models import whisper as W
+    from asr_finetune_tpu_torch.models.configs import get_config
+    from asr_finetune_tpu_torch.ops import quant as Q
+    from asr_finetune_tpu_torch.training import lora as LO
+
+    cfg = dataclasses.replace(get_config("large-v3"), encoder_layers=2, decoder_layers=2)
+    dev = torch.device("cuda")
+    adapters = _peft_adapters(cfg, dev)
+    merged = LO.merge_adapters(Q.quantize_tree_int8(W.init_params(cfg, seed=1, device=dev)),
+                               adapters)
+    g = torch.Generator(device=dev).manual_seed(2)
+    mel = torch.randn((2, 3000, cfg.num_mel_bins), generator=g, device=dev)
+    forced = [cfg.sot_token_id, cfg.first_language_token_id,
+              cfg.transcribe_token_id, cfg.no_timestamps_token_id]
+    kw = dict(max_length=24, compute_dtype=torch.float32)
+    reset_all_launches()
+    t_fused, l_fused = D_.greedy_decode(merged, mel, cfg, forced, fused=True, **kw)
+    n = all_launches()
+    t_plain, l_plain = D_.greedy_decode(merged, mel, cfg, forced, fused=False, **kw)
+    if not (torch.equal(t_fused, t_plain) and torch.equal(l_fused, l_plain)):
+        raise AssertionError(f"int8 fused decode tokens {t_fused.tolist()} != plain "
+                             f"{t_plain.tolist()}")
+    if not all(n[k + "_int8"] > 0 and n[k] == 0 for k in DECODER):
+        raise AssertionError(f"the int8 decode did not run the int8 kernels: {n}")
+    print(f"fp32 greedy decode, large-v3 width, 2+2 layers, merged int8 base: fused "
+          f"(int8 weights) == plain ({t_fused.shape[1]} tokens x {t_fused.shape[0]} rows)")
+
+
+def _peft_adapters(cfg, dev, seed: int = 8):
+    """AdaLoRA rank-8 adapters on every q/v with b drawn N(0, 0.02), so the
+    deltas and every gradient are live."""
+    import torch
+    from asr_finetune_tpu_torch.training import lora as LO
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ad = LO.init_adapters(g, cfg, LO.LoraConfig(rank=8, alpha=16.0, adalora=True),
+                          encoder=True, device=dev)
+    for _, stack in LO._adapter_stacks(ad):
+        stack["b"].normal_(generator=g).mul_(0.02)
+    return ad
+
+
+def check_peft_grads(device: str = "cuda", model: str = "large-v3"):
+    """Phase 4d: one fp32 PEFT step's adapter gradients at whisper-large-v3
+    width, 2+2 layers, batch 2, labels at the 192 bucket, over the int8 base,
+    within PEFT_GRAD_LIMITS: with W8A8 (8 dynamic outlier columns) through
+    every kernel against the W8A8 plain version alone swapped in; and over
+    the base dequantized (no int8 rounding of activations) through the
+    attention kernels, forward and backward, against plain attention."""
+    import torch
+    from asr_finetune_tpu_torch.models import whisper as W
+    from asr_finetune_tpu_torch.models.configs import get_config
+    from asr_finetune_tpu_torch.ops import attention as A
+    from asr_finetune_tpu_torch.ops import quant as Q
+    from asr_finetune_tpu_torch.ops import w8a8_fused as WF
+    from asr_finetune_tpu_torch.training import lora as LO
+    from asr_finetune_tpu_torch.training import optim
+    from asr_finetune_tpu_torch.training import train_step as TS
+
+    cfg = dataclasses.replace(get_config(model), encoder_layers=2, decoder_layers=2)
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(5)
+    bsz = 2
+    tokens = torch.randint(0, cfg.eos_token_id, (bsz, CROSS_TQ), generator=g, device=dev)
+    labels = torch.cat([tokens[:, 1:], torch.full((bsz, 1), cfg.eos_token_id,
+                                                  device=dev)], 1)
+    labels[0, 120:] = -100
+    batch = {"mel": torch.randn((bsz, 3000, cfg.num_mel_bins), generator=g, device=dev),
+             "decoder_input_ids": tokens, "labels": labels}
+    params = Q.quantize_tree_int8(W.init_params(cfg, seed=6, device=dev))
+    lcfg = LO.LoraConfig(rank=8, alpha=16.0, dropout=0.0, adalora=True)
+
+    def grads(w8a8: bool, **kw):
+        adapters = _peft_adapters(cfg, dev)
+        TS.make_train_state(params, optim.make_optimizer(1e-5, 10), adapters)
+        reset_all_launches()
+        gs, m = TS.compute_grads(params, batch, cfg, TS.TrainStepConfig(
+            mode="peft", compute_dtype=torch.float32, remat=False, lora=lcfg,
+            quant=Q.QuantConfig(matmul=w8a8, outlier_cols=8), **kw), adapters)
+        n = all_launches()
+        return [x.detach().clone() for x in gs], float(m["loss"]), n
+
+    def worst(a, b):
+        return max(float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+                   for x, y in zip(a, b))
+
+    g_k, loss_k, n_k = grads(True)
+    g_d, loss_d, n_d = grads(False)
+    orig_w8a8, orig_attn = Q.w8a8, A.encoder_attention
+    Q.w8a8 = WF.w8a8_plain
+    try:
+        g_w, loss_w, n_w = grads(True)
+        A.encoder_attention = lambda q, k, v: A.xla_attention(q, k, v)
+        g_p, loss_p, n_p = grads(False, attn_impl="xla")
+    finally:
+        Q.w8a8, A.encoder_attention = orig_w8a8, orig_attn
+    n_mm = 6 * cfg.encoder_layers + 10 * cfg.decoder_layers
+    attn = dict(encoder_attention=4, encoder_attention_bwd=4)
+    want = (expect_launches(w8a8=n_mm, **attn), expect_launches(**attn),
+            expect_launches(**attn), expect_launches())
+    if (n_k, n_d, n_w, n_p) != want:
+        raise AssertionError(f"PEFT gradient check launches {(n_k, n_d, n_w, n_p)} != {want}")
+    readings = {"w8a8 kernel vs plain": worst(g_k, g_w),
+                "attention kernels vs plain": worst(g_d, g_p)}
+    print(f"PEFT step adapter gradients, {model} width, 2+2 layers, int8 base, fp32: loss "
+          f"W8A8 kernel {loss_k:.7f} W8A8 plain {loss_w:.7f}, dequantized base attention "
+          f"kernels {loss_d:.7f} plain {loss_p:.7f}; max |diff| / max |grad| over the "
+          f"{len(g_k)} adapter leaves: "
+          + ", ".join(f"{k} {v:.3e} (limit {PEFT_GRAD_LIMITS[k]})" for k, v in readings.items()))
+    if not all(map(np.isfinite, (loss_k, loss_w, loss_d, loss_p))) or loss_w != loss_k \
+            or abs(loss_d - loss_p) > 1e-5 * abs(loss_p) \
+            or any(v > PEFT_GRAD_LIMITS[k] for k, v in readings.items()):
+        raise AssertionError("PEFT-step gradients through the kernels differ")
+
+
 GERMAN_WORDS = ("und", "der", "die", "wir", "haben", "damals", "Großmutter", "Krieg",
                 "Schule", "über", "Flüchtlinge", "Erinnerung", "Dorf", "Vater",
                 "Mutter", "wurde", "nach", "Hause", "gekommen", "Jahre", "später",
@@ -713,6 +1017,10 @@ def kernel_category(name: str) -> str:
         return "attention backward (enc_attn_bwd_*)"
     if "enc_attn_fwd" in low:
         return "attention forward (enc_attn_fwd_*)"
+    if "w8a8" in low or "quantize_rows" in low:
+        return "W8A8 (quantize_rows, w8a8_gemm, w8a8_epilogue)"
+    if "gemv_kernel" in low or "attn_partial" in low or "attn_combine" in low:
+        return "decoder kernels (gemv, attn_partial, attn_combine)"
     if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")):
         return "matrix products (cuBLAS)"
     if "multi_tensor" in low or "foreach" in low:
@@ -723,7 +1031,7 @@ def kernel_category(name: str) -> str:
 
 
 def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
-                    extra=()):
+                    extra=(), config: str = TRAIN_CONFIG):
     """Phase 6, the training main path: `asr_finetune_tpu_torch.cli.train`
     with the repo's largev3_debug.config (whisper-large-v3, full fine-tuning,
     batch 4, AdamW b2 0.98, bf16 compute over fp32 master weights, per-layer
@@ -734,28 +1042,42 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
     eval_loss_wer = 0.3 loss + 0.7 wer, the checkpoint, and every kernel's
     launch count; prints the training figures and where one step's device
     time goes (torch.profiler over step 4). `device`, `model` and `extra`
-    (more CLI flags) let the same function run a small model on the CPU."""
+    (more CLI flags) let the same function run a small model on the CPU.
+
+    Phase 7 is the same function with config=PEFT_CONFIG and extra
+    ("--int8_matmul",): AdaLoRA adapters over the int8 base, every frozen
+    product through the W8A8 kernel. It then asserts changed adapters and an
+    unchanged base, an adapter-only checkpoint, the W8A8 and int8-weight
+    decoder launch counts, and prints the calibrated outlier columns."""
     import os
     import shutil
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from asr_finetune_tpu_torch import run as run_lib
     from asr_finetune_tpu_torch.cli import train as train_cli
     from asr_finetune_tpu_torch.models import whisper as W
-    from asr_finetune_tpu_torch.ops import decoder_fused as DF
-    from asr_finetune_tpu_torch.ops import encoder_attention as EA
     from asr_finetune_tpu_torch.training import checkpoint as ckpt_lib
     from asr_finetune_tpu_torch.training import trainer as trainer_lib
 
     on_card = device == "cuda"
+    peft = config == PEFT_CONFIG
+    int8_matmul = "--int8_matmul" in extra
+    tag = next(line.split("=", 1)[1].strip() for line in open(config)
+               if line.startswith("output_tag"))
 
     def sync():
         if on_card:
             torch.cuda.synchronize()
 
-    st = {"steps": [], "evals": 0, "dec_steps": 0, "saves": [], "eval_s": 0.0}
+    st = {"steps": [], "evals": 0, "dec_steps": 0, "saves": [], "eval_s": 0.0,
+          "calib": None}
     orig = (trainer_lib.make_train_step, trainer_lib.make_eval_loss_step,
             W.decode_step_fused, ckpt_lib.CheckpointManager.save,
-            trainer_lib.Trainer.evaluate)
+            trainer_lib.Trainer.evaluate, run_lib.calibrate_outliers)
+
+    def calibrate_outliers(*a, **k):
+        st["calib"] = orig[5](*a, **k)
+        return st["calib"]
 
     def make_train_step(*a, **k):
         inner = orig[0](*a, **k)
@@ -765,7 +1087,7 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
                 st["state"] = state
                 st["before"] = {n: t.detach().clone() for n, t in _probe(state)}
             sync()
-            t0 = time.perf_counter()
+            t0, u0 = time.perf_counter(), host_usage()
             if len(st["steps"]) == TRAIN_STEPS - 1 and on_card:
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
@@ -775,7 +1097,9 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
             else:
                 m = inner(state, batch)
                 sync()
-            st["steps"].append({"s": time.perf_counter() - t0, "loss": float(m["loss"]),
+            st["steps"].append({"s": time.perf_counter() - t0,
+                                "usage": host_usage() - u0,
+                                "loss": float(m["loss"]),
                                 "grad_norm": float(m["grad_norm"]),
                                 "tokens": int(m["tokens"]),
                                 "shape": tuple(batch["labels"].shape)})
@@ -822,7 +1146,7 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
         data, out_dir = f"{tmp}/data", f"{tmp}/out"
         os.makedirs(data)
         write_audiofolder(data, TRAIN_UTTS)
-        argv = ["-c", TRAIN_CONFIG, "--model_type", model, "--device", device,
+        argv = ["-c", config, "--model_type", model, "--device", device,
                 "--no-debug", "--data_mode", "folder", "--dataset_name", data,
                 "--val_split", "0.2", "--max_steps", str(TRAIN_STEPS),
                 "--eval_steps", str(TRAIN_STEPS), "--save_steps", str(TRAIN_STEPS),
@@ -831,10 +1155,10 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
                 "--output_dir", out_dir, *extra]
         (trainer_lib.make_train_step, trainer_lib.make_eval_loss_step,
          W.decode_step_fused, ckpt_lib.CheckpointManager.save,
-         trainer_lib.Trainer.evaluate) = (make_train_step, make_eval_loss_step,
-                                          decode_step_fused, save, evaluate)
-        EA.reset_launches()
-        DF.reset_launches()
+         trainer_lib.Trainer.evaluate, run_lib.calibrate_outliers) = (
+            make_train_step, make_eval_loss_step, decode_step_fused, save, evaluate,
+            calibrate_outliers)
+        reset_all_launches()
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -843,33 +1167,45 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
         finally:
             (trainer_lib.make_train_step, trainer_lib.make_eval_loss_step,
              W.decode_step_fused, ckpt_lib.CheckpointManager.save,
-             trainer_lib.Trainer.evaluate) = orig
+             trainer_lib.Trainer.evaluate, run_lib.calibrate_outliers) = orig
         sync()
         wall = time.perf_counter() - t0
-        launches = {**EA.LAUNCHES, **DF.LAUNCHES}
+        launches = all_launches()
         peak = torch.cuda.max_memory_allocated() if on_card else 0
-        run_dir = f"{out_dir}/v3_large_debug"
+        run_dir = f"{out_dir}/{tag}"
         with open(f"{run_dir}/metrics.jsonl") as f:
             records = [json.loads(line) for line in f]
         ckpts = sorted(os.listdir(f"{run_dir}/checkpoints"))
-        changed = {n: float((t.detach() - st["before"][n]).abs().max())
+        saved_keys = sorted(torch.load(
+            f"{run_dir}/checkpoints/{ckpts[-1]}/state.pt", map_location="cpu",
+            weights_only=True)) if ckpts else []
+        changed = {n: float((t.detach().float() - st["before"][n].float()).abs().max())
                    for n, t in _probe(st["state"])}
         del st["state"], st["before"]
 
     steps = st["steps"]
-    print(f"train main path: cli.train -c {TRAIN_CONFIG}, {model}, {len(steps)} steps, "
+    label = "PEFT main path" if peft else "train main path"
+    print(f"{label}: cli.train -c {config} {' '.join(extra)}, {model}, {len(steps)} steps, "
           f"wall {wall:.3f} s incl. model init, data, eval and checkpoint; result "
           f"{json.dumps(result)}")
     for i, s in enumerate(steps):
-        print(f"  step {i + 1}: {1e3 * s['s']:.3f} ms  loss {s['loss']:.5f}  grad_norm "
-              f"{s['grad_norm']:.5f}  tokens {s['tokens']}  labels {s['shape']}")
+        print(f"  step {i + 1}: {1e3 * s['s']:.3f} ms ({host_usage_text(s['usage'])})  "
+              f"loss {s['loss']:.5f}  grad_norm {s['grad_norm']:.5f}  tokens "
+              f"{s['tokens']}  labels {s['shape']}")
     if len(steps) != TRAIN_STEPS or not all(
             np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps):
         raise AssertionError(f"expected {TRAIN_STEPS} steps with finite loss and grad norm")
     if any(s["shape"] != (B, CROSS_TQ) for s in steps):
         raise AssertionError(f"labels not at batch {B} x the {CROSS_TQ} bucket")
-    if not all(v > 0 for v in changed.values()):
-        raise AssertionError(f"parameters did not change: {changed}")
+    frozen = {n: v for n, v in changed.items() if n.startswith("base.")}
+    trained = {n: v for n, v in changed.items() if not n.startswith("base.")}
+    if not all(v > 0 for v in trained.values()) or any(v != 0 for v in frozen.values()):
+        raise AssertionError(f"trained leaves did not change or the frozen base did: "
+                             f"{changed}")
+    want_keys = (["adapters", "mu", "nu", "opt_count", "rank_mask", "sensitivity", "step"]
+                 if peft else ["mu", "nu", "opt_count", "params", "step"])
+    if saved_keys != want_keys:
+        raise AssertionError(f"checkpoint holds {saved_keys}, expected {want_keys}")
     evals = [r for r in records if "eval_loss_wer" in r]
     if len(evals) != 1 or evals[0]["step"] != TRAIN_STEPS:
         raise AssertionError(f"expected one eval record at step {TRAIN_STEPS}: {records}")
@@ -883,33 +1219,51 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
                              f"{st['saves']}")
     # per step: 32 encoder + 32 cross-attention forwards, again in the remat
     # recompute, and their 64 backwards; per eval batch: the loss pass's 64
-    # forwards and the decode's 32 encoder forwards; per decode step one
-    # launch of each decoder kernel in each of the 32 layers
+    # forwards and the decode's 32 encoder forwards; the outlier
+    # calibration's forward (PEFT with --int8_matmul) 64 more; per decode
+    # step one launch of each decoder kernel in each of the 32 layers
     n_enc, n_dec = 32, 32
     if model != "large-v3":
         from asr_finetune_tpu_torch.models.configs import get_config
         n_enc, n_dec = get_config(model).encoder_layers, get_config(model).decoder_layers
-    expect = {"encoder_attention": TRAIN_STEPS * 2 * (n_enc + n_dec)
-              + st["evals"] * (n_enc + n_dec + n_enc),
-              "encoder_attention_bwd": TRAIN_STEPS * (n_enc + n_dec)}
-    for k in ("fused_qkv", "fused_attn_self", "fused_attn_cross", "fused_mlp"):
-        expect[k] = n_dec * st["dec_steps"]
-    if st["evals"] != 1 or st["dec_steps"] == 0 or launches != expect:
+    # PEFT: the decoder kernels run with int8 weights (k, o, fc1, fc2 of the
+    # merged base); with --int8_matmul each frozen product is a W8A8 launch:
+    # 6 per encoder and 10 per decoder layer in a forward, twice a step
+    # (remat), once in the calibration forward and in each eval loss pass,
+    # and per eval decode the encoder's k/o/fc1/fc2 and the cross k
+    # projections (q/v are merged float)
+    mm = 6 * n_enc + 10 * n_dec
+    calibrated = int(st["calib"] is not None)
+    dec = {k + ("_int8" if peft else ""): n_dec * st["dec_steps"] for k in DECODER}
+    expect = expect_launches(
+        encoder_attention=(TRAIN_STEPS * 2 + calibrated) * (n_enc + n_dec)
+        + st["evals"] * (n_enc + n_dec + n_enc),
+        encoder_attention_bwd=TRAIN_STEPS * (n_enc + n_dec),
+        w8a8=(mm * (calibrated + 2 * TRAIN_STEPS + st["evals"])
+              + st["evals"] * (4 * n_enc + n_dec) if int8_matmul and on_card else 0),
+        **dec)
+    if st["evals"] != 1 or st["dec_steps"] == 0 or calibrated != int8_matmul \
+            or launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect} "
                              f"({st['evals']} eval batches, {st['dec_steps']} decode steps)")
-    record_launches(rows, "train", launches)
+    record_launches(rows, "peft" if peft else "train", launches)
     step_s = float(np.mean([s["s"] for s in steps[1:-1]]))
+    usage = np.mean([s["usage"] for s in steps[1:-1]], axis=0)
     tokens = float(np.mean([s["tokens"] for s in steps[1:-1]]))
     save_step, save_s, save_bytes = st["saves"][0]
-    print(f"train main path: {1e3 * step_s:.3f} ms/step end to end (steps 2-3; step 1 "
+    if st["calib"] is not None:
+        print(f"{label}: calibrated outlier columns per (d_in, d_out) class: "
+              + ", ".join(f"{k}: {len(v)} {list(v)}" for k, v in sorted(st["calib"].items())))
+    print(f"{label}: {1e3 * step_s:.3f} ms/step end to end (steps 2-3; step 1 "
           f"{1e3 * steps[0]['s']:.3f} ms); {B / step_s:.3f} utterances/s; "
-          f"{tokens / step_s:.1f} label tokens/s; peak memory {peak / 2**30:.2f} GiB")
-    print(f"train main path: eval {st['eval_s']:.3f} s ({st['evals']} batch, "
+          f"{tokens / step_s:.1f} label tokens/s; peak memory {peak / 2**30:.2f} GiB; "
+          f"per step {host_usage_text(usage)}")
+    print(f"{label}: eval {st['eval_s']:.3f} s ({st['evals']} batch, "
           f"{st['dec_steps']} decode steps); eval_loss {ev['eval_loss']:.5f} eval_wer "
           f"{ev['eval_wer']:.3f} eval_loss_wer {ev['eval_loss_wer']:.5f}")
-    print(f"train main path: checkpoint of step {save_step}: {save_bytes / 1e9:.3f} GB "
+    print(f"{label}: checkpoint of step {save_step}: {save_bytes / 1e9:.3f} GB "
           f"written in {save_s:.3f} s ({save_bytes / 1e9 / save_s:.3f} GB/s), then deleted")
-    print(f"train main path: launches {json.dumps(launches)}")
+    print(f"{label}: launches {json.dumps(launches)}")
     if on_card:
         by_kernel = kernel_times(st["prof"], 1)
         busy = sum(ms for ms, _, _ in by_kernel)
@@ -918,7 +1272,7 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
             c = cats.setdefault(kernel_category(key), [0.0, 0])
             c[0] += ms
             c[1] += int(n)
-        print(f"train step 4 by CUDA kernel (torch.profiler): device busy {busy:.3f} ms "
+        print(f"{label}, step 4 by CUDA kernel (torch.profiler): device busy {busy:.3f} ms "
               f"of {1e3 * step_s:.3f} ms/step -> device idle {100 * (1 - busy / (1e3 * step_s)):.1f}% "
               f"of an unprofiled step")
         for c, (ms, n) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
@@ -926,16 +1280,30 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
         print("  largest kernels:")
         for ms, n, key in by_kernel[:12]:
             print(f"  {ms:9.3f} ms  {int(n):6d} launches  {key[:90]}")
+        by_op = host_times(st["prof"])
+        print(f"{label}, step 4 on the host (torch.profiler, self time): "
+              f"{sum(ms for ms, _, _ in by_op):.3f} ms in {sum(n for _, n, _ in by_op)} "
+              f"events; largest:")
+        for ms, n, key in by_op[:12]:
+            print(f"  {ms:9.3f} ms  {n:6d} calls  {key[:90]}")
 
 
 def _probe(state):
     """A few leaves whose change shows the update reached the whole model:
-    the first encoder layer's q, the last decoder layer's fc2, the tied
-    embedding."""
+    full fine-tuning the first encoder layer's q, the last decoder layer's
+    fc2, the tied embedding; PEFT the encoder q adapter's a, the decoder
+    cross-attention v adapter's b and, named "base.*", two frozen leaves."""
     p = state["params"]
-    return [("encoder.attn.q.w", p["encoder"]["layers"]["attn"]["q"]["w"]),
-            ("decoder.mlp.fc2.w", p["decoder"]["layers"]["mlp"]["fc2"]["w"]),
-            ("decoder.embed", p["decoder"]["embed"])]
+    if "adapters" not in state:
+        return [("encoder.attn.q.w", p["encoder"]["layers"]["attn"]["q"]["w"]),
+                ("decoder.mlp.fc2.w", p["decoder"]["layers"]["mlp"]["fc2"]["w"]),
+                ("decoder.embed", p["decoder"]["embed"])]
+    ad = state["adapters"]
+    k = p["encoder"]["layers"]["attn"]["k"]
+    return [("adapters.encoder.q.a", ad["encoder"]["q"]["a"]),
+            ("adapters.decoder.cross_attn.v.b", ad["decoder"]["cross_attn"]["v"]["b"]),
+            ("base.encoder.attn.k", k["w_q8"] if "w_q8" in k else k["w"]),
+            ("base.decoder.embed", p["decoder"]["embed"])]
 
 
 def step_breakdown():
@@ -1008,12 +1376,18 @@ def main() -> int:
     from asr_finetune_tpu_torch.device import resolve_device
     resolve_device("cuda")   # pins fp32 products to fp32 (no TF32)
     build()
-    rows = check_kernels()
+    rows = {}
+    check_decoder_kernels(rows)
+    check_encoder_attention(rows)
     check_attention_bwd(rows)
+    check_w8a8(rows)
     check_decode()
+    check_int8_decode()
     check_train_grads()
+    check_peft_grads()
     main_path(rows)
     train_main_path(rows)
+    train_main_path(rows, config=PEFT_CONFIG, extra=("--int8_matmul",))
     step_breakdown()
     print(card_line())
     print(json.dumps({"kernels": list(rows.values())}))

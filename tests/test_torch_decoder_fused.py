@@ -105,16 +105,15 @@ def test_fused_mlp(stacked):
 
 
 def test_pending_options_raise():
-    """The int8 options and shared beam cross-KV are not ported: they raise
-    instead of being served by some other path."""
+    """int8 KV (k_scale/v_scale) and shared beam cross-KV are not ported:
+    they raise instead of being served by some other path (the int8-weight
+    options are ported: tests/test_torch_int8.py)."""
     x = torch.zeros(B, D)
     w = torch.zeros(D, D)
     b = torch.zeros(D)
-    with pytest.raises(NotImplementedError):
-        TDF.fused_qkv(x, b, b, w, b, w, w, b, wq_scale=b)
-    with pytest.raises(NotImplementedError):
-        TDF.fused_mlp(x, b, b, w, b, w, b, w2_scale=b)
     kv = torch.zeros(B, T, D)
+    with pytest.raises(NotImplementedError, match="k_scale"):
+        TDF.fused_attn(x, kv, kv, w, b, q=x, pos=0, k_scale=b)
     with pytest.raises(NotImplementedError):
         TDF.fused_attn(x, kv, kv, w, b, q=x, pos=0, k_scale=b, v_scale=b)
     with pytest.raises(NotImplementedError):

@@ -13,13 +13,18 @@ groups of 8; the attention backward at B=3 and 8, self and cross shapes,
 s_valid < Tk). Tolerance: fp32 1e-4 + 1e-4|ref| (the sum order differs from
 the plain version's); bf16 4e-3 + 2^-7|ref| (both round the same
 intermediates to bf16, so an output at a rounding boundary may land one
-bf16 step, at most 2^-7 of its value, apart), as chip_smoke.py."""
+bf16 step, at most 2^-7 of its value, apart), as chip_smoke.py. The decoder
+kernels run with int8 weights too (all-int8 and a merged-LoRA mix). The
+W8A8 kernel is held to bit equality with its plain version, pure and with
+the outlier keep-mask and addend, at ragged m, K and N."""
 import numpy as np
 import pytest
 import torch
 
 from asr_finetune_tpu_torch.ops import decoder_fused as DF
 from asr_finetune_tpu_torch.ops import encoder_attention as EA
+from asr_finetune_tpu_torch.ops import quant as Q
+from asr_finetune_tpu_torch.ops import w8a8_fused as WF
 
 pytestmark = pytest.mark.cuda
 
@@ -131,3 +136,101 @@ def test_wrappers_reject_bad_operands(dev):
         DF.fused_qkv(x, b, b, w.bfloat16(), b, w, w, b)
     with pytest.raises(ValueError):          # x not contiguous
         DF.fused_mlp(torch.zeros(D, B, device=dev).t(), b, b, w, b, w, b)
+
+
+def _int8(w):
+    q = Q.quantize_weight(w)
+    return q["w_q8"], q["w_scale"]
+
+
+@pytest.mark.parametrize("mix", ["int8", "mixed"])
+@pytest.mark.parametrize("B", [3, 8, 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decoder_kernels_int8_weights_match_plain(dev, dtype, B, mix):
+    """The int8-weight option of the GEMV in fused_qkv, fused_attn (self and
+    cross) and fused_mlp: every projection int8 ("int8"), or q/v and fc2
+    float beside int8 k/o/fc1 ("mixed", a merged-LoRA base), layer 2 of 3."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = _rn(g, dev, B, D, dtype=dtype)
+    lns, lnb = 1 + _rn(g, dev, L, D, scale=0.1), _rn(g, dev, L, D, scale=0.1)
+    w = {n: _int8(_rn(g, dev, L, D, D, scale=D ** -0.5)) for n in "qkvo"}
+    w["fc1"] = _int8(_rn(g, dev, L, D, FF, scale=D ** -0.5))
+    w["fc2"] = _int8(_rn(g, dev, L, FF, D, scale=FF ** -0.5))
+    floats = {"q", "v", "fc2"} if mix == "mixed" else set()
+    wt = {n: ((q8.float() * s).to(dtype), None) if n in floats else (q8, s)
+          for n, (q8, s) in w.items()}
+    bq, bv, bo = (_rn(g, dev, L, D, scale=0.1, dtype=dtype) for _ in range(3))
+    b1 = _rn(g, dev, L, FF, dtype=dtype)
+    li = 2
+    at = lambda n: (wt[n][0][li], None if wt[n][1] is None else wt[n][1][li])  # noqa: E731
+    out = DF.fused_qkv(x, lns, lnb, wt["q"][0], bq, wt["k"][0], wt["v"][0], bv,
+                       wq_scale=wt["q"][1], wk_scale=wt["k"][1], wv_scale=wt["v"][1],
+                       layer_idx=li)
+    ref = DF.fused_qkv_plain(x, lns[li], lnb[li], at("q")[0], bq[li], at("k")[0],
+                             at("v")[0], bv[li], wq_scale=at("q")[1],
+                             wk_scale=at("k")[1], wv_scale=at("v")[1])
+    for o, r in zip(out, ref):
+        _close(o, r, dtype)
+    q = _rn(g, dev, B, D, scale=0.125)
+    k, v = _rn(g, dev, L, B, T, D, dtype=dtype), _rn(g, dev, L, B, T, D, dtype=dtype)
+    out = DF.fused_attn(x, k, v, wt["o"][0], bo, q=q, pos=100, wo_scale=wt["o"][1],
+                        layer_idx=li)
+    _close(out, DF.fused_attn_plain(x, k[li], v[li], at("o")[0], bo[li], q=q,
+                                    n_valid=101, wo_scale=at("o")[1]), dtype)
+    out = DF.fused_attn(x, k, v, wt["o"][0], bo, s_valid=200, ln_scale=lns, ln_bias=lnb,
+                        wq=wt["q"][0], bq=bq, wq_scale=wt["q"][1], wo_scale=wt["o"][1],
+                        layer_idx=li)
+    _close(out, DF.fused_attn_plain(x, k[li], v[li], at("o")[0], bo[li], n_valid=200,
+                                    ln_scale=lns[li], ln_bias=lnb[li], wq=at("q")[0],
+                                    bq=bq[li], wq_scale=at("q")[1],
+                                    wo_scale=at("o")[1]), dtype)
+    out = DF.fused_mlp(x, lns, lnb, wt["fc1"][0], b1, wt["fc2"][0], bo,
+                       w1_scale=wt["fc1"][1], w2_scale=wt["fc2"][1], layer_idx=li)
+    _close(out, DF.fused_mlp_plain(x, lns[li], lnb[li], at("fc1")[0], b1[li],
+                                   at("fc2")[0], bo[li], w1_scale=at("fc1")[1],
+                                   w2_scale=at("fc2")[1]), dtype)
+
+
+@pytest.mark.parametrize("outliers", [False, True])
+@pytest.mark.parametrize("shape", ["B3", "B8", "B12", "one pass"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8a8_matches_plain_bitwise(dev, dtype, shape, outliers):
+    """The W8A8 kernel equals w8a8_plain bit for bit. At B = 3, 8 and 12:
+    m = 37·B rows (a ragged last 128-row tile), K = 1000 (a ragged last
+    64-deep slice) and N = 208 (a ragged last 128-column tile, whole 16-byte
+    weight chunks: the asynchronous copies, zero-filled past K and N), few
+    enough tiles that the K slices are split; "one pass": m = 2000, N = 2200
+    (not a multiple of 16: the weight gathered byte by byte), enough tiles
+    for no split. With outliers, the keep-mask and addend of the dynamic
+    top-4 form; one launch per call."""
+    m, K, N = (2000, 1000, 2200) if shape == "one pass" else (37 * int(shape[1:]), 1000, 208)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (WF.splits_for(m, K, N, sms) == 1) == (shape == "one pass")
+    g = torch.Generator(device=dev).manual_seed(m)
+    x = _rn(g, dev, m, K, dtype=dtype)
+    x[:, 7] *= 50.0
+    w8, ws = _int8(_rn(g, dev, K, N, scale=0.05))
+    keep = addend = None
+    if outliers:
+        keep, addend = Q._outlier_split(x, w8, ws, Q.QuantConfig(matmul=True,
+                                                                 outlier_cols=4))
+    WF.reset_launches()
+    out = WF.w8a8(x, w8, ws, keep, addend)
+    assert WF.LAUNCHES["w8a8"] == 1 and out.dtype == dtype and out.shape == (m, N)
+    ref = WF.w8a8_plain(x, w8, ws, keep, addend)
+    assert torch.equal(out, ref), float((out.float() - ref.float()).abs().max())
+
+
+def test_int8_matmul_grad_on_the_card(dev):
+    """The autograd Function on the card: the forward through the kernel,
+    the straight-through backward dy @ W_deqᵀ."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = _rn(g, dev, 64, 256).requires_grad_()
+    w8, ws = _int8(_rn(g, dev, 256, 128, scale=0.05))
+    dy = _rn(g, dev, 64, 128)
+    WF.reset_launches()
+    y = Q.int8_matmul(x, w8, ws, Q.QuantConfig(matmul=True))
+    (y * dy).sum().backward()
+    assert WF.LAUNCHES["w8a8"] == 1
+    assert torch.equal(y, WF.w8a8_plain(x.detach(), w8, ws))
+    _close(x.grad, dy @ (w8.float() * ws).t(), torch.float32)

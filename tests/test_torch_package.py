@@ -70,7 +70,7 @@ def test_build_plan():
     """Kernels build from csrc/ into the git-ignored build/torch_kernels/,
     keyed by a hash of the sources; nothing is compiled on import."""
     from asr_finetune_tpu_torch.ops import _build
-    assert _build.sources() == ["decoder_fused", "encoder_attention"]
+    assert _build.sources() == ["decoder_fused", "encoder_attention", "w8a8"]
     assert _build.BUILD_DIR == REPO / "build" / "torch_kernels"
     t = _build._target("decoder_fused")
     assert t.parent == _build.BUILD_DIR and t.name.startswith("decoder_fused-")
@@ -81,9 +81,11 @@ def test_build_plan():
 
 
 def test_pending_model_options_raise():
+    """The options of paths not ported yet raise before a run starts
+    (--peft and --load_in_8bit are ported and build: tests/test_torch_peft.py)."""
     from asr_finetune_tpu_torch import config, run
-    for flag in ("--peft", "--load_in_8bit"):
+    for flag in ("--offload_param", "--spec_augment", "--decode_kv_int8"):
         args = config.parse_args(["--model_type", "test-nano", "--device", "cpu",
-                                  flag])
-        with pytest.raises(NotImplementedError):
-            run.build_model(args)
+                                  "--peft", "--load_in_8bit", flag])
+        with pytest.raises(NotImplementedError, match=flag):
+            run._check_pending_training(args)

@@ -4,9 +4,10 @@ against the JAX package.
 `python -m asr_finetune_tpu_torch.cli.train --device cpu` on a tiny
 synthetic audiofolder (test-nano, byte-fallback labels, batch 2): steps,
 an eval with WER, checkpoints, step-exact resume; the options that are not
-ported raise; without --device cpu the entry point raises on a machine
-with no card; with --bf16 the trained weights stay fp32 masters while
-serving casts them. The collator, the length-grouped sampler and the WER
+ported raise (PEFT and the int8 base are ported:
+tests/test_torch_peft_cli.py); without --device cpu the entry point raises
+on a machine with no card; with --bf16 the trained weights stay fp32
+masters while serving casts them. The collator, the length-grouped sampler and the WER
 are held against the JAX package's on the same inputs."""
 import csv
 import json
@@ -140,8 +141,9 @@ def test_train_cli_without_device_cpu_raises_here(folder, tmp_path):
         train_cli.main(_argv(folder, tmp_path, device=()))
 
 
-@pytest.mark.parametrize("flag", [("--peft",), ("--load_in_8bit",), ("--spec_augment",),
-                                  ("--generation_num_beams", "2"), ("--tp", "2")])
+@pytest.mark.parametrize("flag", [("--offload_optimizer",), ("--decode_kv_int8",),
+                                  ("--spec_augment",), ("--generation_num_beams", "2"),
+                                  ("--tp", "2")])
 def test_options_not_ported_raise(folder, tmp_path, flag):
     with pytest.raises(NotImplementedError):
         train_cli.main(_argv(folder, tmp_path, *flag))
