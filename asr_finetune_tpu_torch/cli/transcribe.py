@@ -5,9 +5,11 @@
     [--output out.jsonl] [--device cuda|cpu]`
 
 Counterpart of asr_finetune_tpu/cli/transcribe.py: wav → log-mel on the
-device → encoder → greedy decode (the fused kernels on a CUDA device) →
-text. Audio longer than 30 s is decoded window by window and the window
-texts joined. Runs on the card unless --device cpu is given.
+device → encoder → greedy decode, or beam search with
+--generation_num_beams K [--length_penalty p] (the fused kernels on a CUDA
+device; --decode_kv_int8 / --decode_w_int8 stream int8 cross K/V / decoder
+weights) → text. Audio longer than 30 s is decoded window by window and the
+window texts joined. Runs on the card unless --device cpu is given.
 """
 from __future__ import annotations
 

@@ -12,8 +12,9 @@ of user flags; no per-key dict deletions before splatting.
 
 The PyTorch port keeps its own copy of the flags (the port imports nothing
 of asr_finetune_tpu) and adds --device. Flags of paths not ported yet
-(training, PEFT, int8, beam search) parse as before; the code that reads
-them raises NotImplementedError where it meets one that is set.
+(SpecAugment, offload, tensor parallelism, HPO, parquet data) parse as
+before; the code that reads them raises NotImplementedError where it meets
+one that is set.
 """
 from __future__ import annotations
 

@@ -1,12 +1,20 @@
 // Fused per-token decoder kernels, written by hand for Hopper (sm_90a).
 //
-// Replaces three Pallas kernels of asr_finetune_tpu/ops/decoder_fused.py:
+// Replaces four Pallas kernels of asr_finetune_tpu/ops/decoder_fused.py:
 //   fused_qkv  (:150, pl.pallas_call :195, kernel _qkv_kernel :127)
 //       LN(x) -> q = (h@wq + bq) * 64^-0.5 in fp32, k = h@wk, v = h@wv + bv
 //   fused_attn (:310, pl.pallas_call :447, kernel _attn_kernel :213)
 //       self mode: q given, keys at col > pos masked; cross mode: q =
 //       (LN(x)@wq + bq) * 64^-0.5 computed here, keys at col >= s_valid
-//       masked; softmax attention, then out = o@wo + bo + x
+//       masked; softmax attention, then out = o@wo + bo + x. Options: int8
+//       K/V with per-(row, head) scales (k_scale/v_scale, :237-243,
+//       :288-292) and kv_group G query rows sharing one KV row (the beam
+//       hypotheses of an utterance over its cross K/V, :334-357; any G, where
+//       the Pallas kernel takes G <= 8)
+//   fused_attn_beam (:548, pl.pallas_call :630, kernel _attn_beam_kernel
+//       :484): beam self-attention over an unpermuted (B*K, T, d) cache,
+//       position t of hypothesis (b, k) read from row b*K + anc[b, k, t];
+//       then out = o@wo + bo + x
 //   fused_mlp  (:681, pl.pallas_call :738, kernel _mlp_kernel :649)
 //       out = gelu(LN(x)@w1 + b1) @ w2 + b2 + x, exact-erf GELU
 // for any number of decode rows, reading layer l of the stacked (L, ...)
@@ -43,7 +51,13 @@
 //    256-key chunk) scores its chunk (8 lanes per key row, 16-byte loads),
 //    takes a chunk-local softmax and writes (m, l, p@v); only keys below
 //    the valid bound are read. attn_combine_kernel merges the chunks of a
-//    (row, head) into o, which the wo GEMV reads as its input.
+//    (row, head) into o, which the wo GEMV reads as its input. With
+//    kv_group G a block serves up to 8 query rows of one KV row, so a shared
+//    cross K/V chunk is read once per 8 rows, not G times (G x fewer bytes on
+//    the decode's largest read up to 8 beams); int8 K/V halves those bytes
+//    again. The beam
+//    kernel is the same block reading each key row through the ancestry
+//    map: T rows per query, never the K*T the Pallas kernel masks over.
 //  * The TPU's head-expansion matrix M is a lane trick: here each block
 //    reduces its own head directly.
 //
@@ -68,10 +82,17 @@ constexpr int NB = CL * VEC;             // columns per block
 constexpr int KL = THREADS / CL;         // k-lanes
 constexpr int MAX_ROWS = 8;              // decode rows per GEMV launch
 constexpr int CHUNK = 256;               // keys per attention block
+constexpr int MAX_GROUP = 8;             // query rows of one KV row per attention block
 constexpr int ATT_THREADS = 128;
 constexpr int ATT_WARPS = ATT_THREADS / 32;
 constexpr int KEY_LANES = 8;             // lanes per key row (8 x 8 dims)
 constexpr int KEY_STEP = ATT_THREADS / KEY_LANES;  // keys per pass of a block
+
+// launches of each kernel since the last reset, counted on the host where
+// the launch is made (gemv, attn_partial, attn_combine): chip_smoke.py holds
+// a decode step's counts to what its rows and layers imply
+enum Kernel { K_GEMV = 0, K_PARTIAL = 1, K_COMBINE = 2, N_KERNELS = 3 };
+long long g_launches[N_KERNELS] = {};
 
 enum Prologue { PRO_LN = 0, PRO_INPUT = 1 };
 enum Epilogue { EPI_Q = 0, EPI_PLAIN = 1, EPI_BIAS = 2, EPI_GELU = 3, EPI_RESID = 4 };
@@ -246,109 +267,227 @@ __global__ void __launch_bounds__(THREADS) gemv_kernel(const GemvParams p) {
   }
 }
 
-// One block per (256-key chunk, head, row): chunk-local softmax partials.
-// part[b, h, chunk] = (acc[64] = sum_t p_t v_t, m, l = sum_t p_t), p_t =
-// exp(s_t - m) over the chunk's valid keys t < n_valid. Lane (kg, dl) of a
-// warp reads dims dl*8..dl*8+7 of key row base + kg: a key row is 8 lanes
-// x 16 bytes, a warp reads 4 rows per pass.
-template <typename T>
-__global__ void __launch_bounds__(ATT_THREADS)
-attn_partial_kernel(const float* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, float* __restrict__ part, int d,
-                    long long kv_bstride, int n_valid, int n_split) {
-  __shared__ float p_s[CHUNK];
-  __shared__ float acc_s[ATT_WARPS][HD];
-  __shared__ float red[ATT_WARPS];
-  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+// What attn_partial_kernel reads. The query rows come in groups of G >= 1:
+// group z holds rows z*G .. z*G+G-1, which share KV row z (kv_group, the beam
+// hypotheses of one utterance over its cross K/V; G = 1 is one query row per
+// KV row). A block serves gs = min(G, MAX_GROUP) rows of a group (its
+// register arrays hold that many queries), so a group takes n_sub =
+// ceil(G / gs) blocks, the last one maybe fewer rows. With `anc` (beam
+// self-attention, G = 1) the key at position t of query row r lives in cache
+// row (r - r % beam) + anc[r, t] instead.
+struct AttnArgs {
+  const float* q;        // (N, d) fp32, pre-scaled by 64^-0.5
+  const void* k;         // KV rows of kv_bstride elements: T, or int8 with scales
+  const void* v;
+  const float* k_scale;  // int8 KV: (N / G, d) fp32 per-(row, head) scales, else null
+  const int* anc;        // beam: (N, T_len) int32 ancestry, else null
+  float* part;           // (N, d/64, n_split, 66)
+  long long kv_bstride;  // elements from one KV row to the next (T_len * d)
+  int d, T_len, n_valid, n_split, G, gs, n_sub, beam;
+};
+
+// Sum (or max) of each of the first G entries of v over the block, in place;
+// buf holds MAXG floats per warp. The trailing sync lets a second call reuse
+// buf. For G = 1 this is block_reduce.
+template <bool MAX, int MAXG>
+__device__ __forceinline__ void group_reduce(float (&v)[MAXG], int G, float (*buf)[MAXG]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int g = 0; g < MAXG; ++g)
+    if (g < G) v[g] = MAX ? warp_max(v[g]) : warp_sum(v[g]);
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g)
+      if (g < G) buf[warp][g] = v[g];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int g = 0; g < MAXG; ++g) {
+    if (g < G) {
+      float r = MAX ? NEG : 0.f;
+      for (int i = 0; i < ATT_WARPS; ++i) r = MAX ? fmaxf(r, buf[i][g]) : r + buf[i][g];
+      v[g] = r;
+    }
+  }
+  __syncthreads();
+}
+
+// One block per (256-key chunk, head, gs query rows of a group): chunk-local
+// softmax partials. part[r, h, chunk] = (acc[64] = sum_t p_t v_t, m, l =
+// sum_t p_t), p_t = exp(s_t - m) over the chunk's valid keys t < n_valid.
+// Lane (kg, dl) of a warp reads dims dl*8..dl*8+7 of key row base + kg: a key
+// row is 8 lanes x 16 bytes (8 bytes in int8), a warp reads 4 rows per pass.
+// Each K and V element of the chunk is loaded once per block, into
+// registers, and every query of the block takes its product from there: the
+// up to 8 queries sharing a KV row cost one read of it, not 8. KV is T, or int8
+// (exact in any float type): then K's per-(row, head) scale is folded into q
+// once per row (the Pallas kernel's q * ksc, :237-243) and V's multiplies the
+// combined accumulator (attn_combine_kernel), so the chunk pays only the
+// int8 -> float conversion. With anc the block gathers each key row from the
+// cache row the ancestry names: a pointer offset per key, T rows per query,
+// where the Pallas kernel scored all K*T rows of the group and masked all
+// but the live one (Mosaic cannot gather).
+template <typename T, typename KV, int MAXG>
+__global__ void __launch_bounds__(ATT_THREADS) attn_partial_kernel(const AttnArgs a) {
+  __shared__ float p_s[MAXG][CHUNK];
+  __shared__ float acc_s[ATT_WARPS][MAXG][HD];
+  __shared__ float red[ATT_WARPS][MAXG];
+  const int s = blockIdx.x, h = blockIdx.y, H = gridDim.y;
+  const int grp = blockIdx.z / a.n_sub, sub = blockIdx.z % a.n_sub;  // KV row, part
+  const int G = min(a.gs, a.G - sub * a.gs), d = a.d;                // this block's rows
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int kg = lane / KEY_LANES, dl = lane % KEY_LANES;
-  float* out = part + ((long long)(b * H + h) * n_split + s) * (HD + 2);
+  const int r0 = grp * a.G + sub * a.gs;  // the block's first query row
   const int t0 = s * CHUNK;
-  const int t1 = min(t0 + CHUNK, n_valid);
+  const int t1 = min(t0 + CHUNK, a.n_valid);
+  auto out_row = [&](int g) {
+    return a.part + ((long long)((r0 + g) * H + h) * a.n_split + s) * (HD + 2);
+  };
   if (t0 >= t1) {  // a chunk wholly past the valid keys contributes nothing
-    if (tid < HD) out[tid] = 0.f;
-    if (tid == 0) {
-      out[HD] = NEG;
-      out[HD + 1] = 0.f;
+    for (int g = 0; g < G; ++g) {
+      float* out = out_row(g);
+      if (tid < HD) out[tid] = 0.f;
+      if (tid == 0) {
+        out[HD] = NEG;
+        out[HD + 1] = 0.f;
+      }
     }
     return;
   }
-  float qv[8];  // q arrives fp32, pre-scaled by 64^-0.5; cast to the K dtype
+  const int col = h * HD + dl * 8;
+  // q arrives fp32, pre-scaled by 64^-0.5; times K's scale for int8 KV; cast
+  // to the dtype the product runs in (the K dtype, or T for int8 KV)
+  float qv[MAXG][8];
 #pragma unroll
-  for (int c = 0; c < 8; ++c) qv[c] = round_t<T>(q[(long long)b * d + h * HD + dl * 8 + c]);
+  for (int g = 0; g < MAXG; ++g) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float qq = 0.f;
+      if (g < G) {
+        qq = a.q[(long long)(r0 + g) * d + col + c];
+        if (a.k_scale != nullptr) qq *= a.k_scale[(long long)grp * d + col + c];
+      }
+      qv[g][c] = round_t<T>(qq);
+    }
+  }
+  const KV* kb = static_cast<const KV*>(a.k) + col;
+  const KV* vb = static_cast<const KV*>(a.v) + col;
+  // the KV row holding key t: the group's own, or the one the ancestry names
+  auto kv_off = [&](int t) -> long long {
+    const long long row =
+        a.anc == nullptr ? grp : (r0 - r0 % a.beam) + a.anc[(long long)r0 * a.T_len + t];
+    return row * a.kv_bstride + (long long)t * d;
+  };
 
-  const T* kb = k + b * kv_bstride + h * HD + dl * 8;
-  const T* vb = v + b * kv_bstride + h * HD + dl * 8;
   // the loop bound is warp-uniform so every lane reaches the shuffles
-  float m_loc = NEG;
-#pragma unroll 4
+  float m[MAXG];
+#pragma unroll
+  for (int g = 0; g < MAXG; ++g) m[g] = NEG;
+#pragma unroll 2
   for (int base = t0 + warp * (KEY_STEP / ATT_WARPS); base < t1; base += KEY_STEP) {
     const int t = base + kg;
-    float dot = 0.f;
+    float dot[MAXG];
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g) dot[g] = 0.f;
     if (t < t1) {
       float w[8];
-      load8(kb + (long long)t * d, w);
+      load8(kb + kv_off(t), w);
 #pragma unroll
-      for (int c = 0; c < 8; ++c) dot = fmaf(w[c], qv[c], dot);
+      for (int g = 0; g < MAXG; ++g)
+        if (g < G) {
+#pragma unroll
+          for (int c = 0; c < 8; ++c) dot[g] = fmaf(w[c], qv[g][c], dot[g]);
+        }
     }
-    dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-    dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-    dot += __shfl_xor_sync(0xffffffffu, dot, 4);
-    if (t < t1) {
-      if (dl == 0) p_s[t - t0] = dot;
-      m_loc = fmaxf(m_loc, dot);
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g) {
+      if (g < G) {
+        dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], 1);
+        dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], 2);
+        dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], 4);
+        if (t < t1) {
+          if (dl == 0) p_s[g][t - t0] = dot[g];
+          m[g] = fmaxf(m[g], dot[g]);
+        }
+      }
     }
   }
-  const float m = block_reduce<true>(m_loc, red);   // also orders the p_s writes
-  float l_loc = 0.f;
+  group_reduce<true, MAXG>(m, G, red);  // also orders the p_s writes
+  float l[MAXG];
+#pragma unroll
+  for (int g = 0; g < MAXG; ++g) l[g] = 0.f;
   for (int t = t0 + tid; t < t1; t += ATT_THREADS) {
-    const float e = expf(p_s[t - t0] - m);
-    l_loc += e;                       // the sum takes p in fp32 ...
-    p_s[t - t0] = round_t<T>(e);      // ... p@v takes p in the V dtype
-  }
-  const float l = block_reduce<false>(l_loc, red);
-
-  float acc[8];
 #pragma unroll
-  for (int c = 0; c < 8; ++c) acc[c] = 0.f;
-#pragma unroll 4
+    for (int g = 0; g < MAXG; ++g) {
+      if (g < G) {
+        const float e = expf(p_s[g][t - t0] - m[g]);
+        l[g] += e;                        // the sum takes p in fp32 ...
+        p_s[g][t - t0] = round_t<T>(e);   // ... p@v takes p in the V (compute) dtype
+      }
+    }
+  }
+  group_reduce<false, MAXG>(l, G, red);
+
+  float acc[MAXG][8];
+#pragma unroll
+  for (int g = 0; g < MAXG; ++g)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[g][c] = 0.f;
+#pragma unroll 2
   for (int base = t0 + warp * (KEY_STEP / ATT_WARPS); base < t1; base += KEY_STEP) {
     const int t = base + kg;
     if (t < t1) {
       float w[8];
-      load8(vb + (long long)t * d, w);
-      const float pt = p_s[t - t0];
+      load8(vb + kv_off(t), w);
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[c] = fmaf(pt, w[c], acc[c]);
+      for (int g = 0; g < MAXG; ++g) {
+        if (g < G) {
+          const float pt = p_s[g][t - t0];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[g][c] = fmaf(pt, w[c], acc[g][c]);
+        }
+      }
     }
   }
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {  // sum the warp's 4 key groups
-    acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], 8);
-    acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], 16);
-  }
-  if (kg == 0) {
+  for (int g = 0; g < MAXG; ++g) {
+    if (g < G) {
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc_s[warp][dl * 8 + c] = acc[c];
+      for (int c = 0; c < 8; ++c) {  // sum the warp's 4 key groups
+        acc[g][c] += __shfl_xor_sync(0xffffffffu, acc[g][c], 8);
+        acc[g][c] += __shfl_xor_sync(0xffffffffu, acc[g][c], 16);
+      }
+      if (kg == 0) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc_s[warp][g][dl * 8 + c] = acc[g][c];
+      }
+    }
   }
   __syncthreads();
-  if (tid < HD) {
-    float a = 0.f;
+  for (int i = tid; i < G * HD; i += ATT_THREADS) {
+    const int g = i / HD, j = i - g * HD;
+    float sum = 0.f;
 #pragma unroll
-    for (int w = 0; w < ATT_WARPS; ++w) a += acc_s[w][tid];
-    out[tid] = a;
+    for (int w = 0; w < ATT_WARPS; ++w) sum += acc_s[w][g][j];
+    out_row(g)[j] = sum;
   }
-  if (tid == 0) {
-    out[HD] = m;
-    out[HD + 1] = l;
+#pragma unroll
+  for (int g = 0; g < MAXG; ++g) {
+    if (g < G && tid == g) {
+      out_row(g)[HD] = m[g];
+      out_row(g)[HD + 1] = l[g];
+    }
   }
 }
 
-// o[b, h*64 + j] = sum_s acc_s[j] e^(m_s - M) / sum_s l_s e^(m_s - M), cast to
-// T (the Pallas kernel's o.astype(x.dtype) before @wo). One block per (head, row).
+// o[r, h*64 + j] = sum_s acc_s[j] e^(m_s - M) [x v_scale] / sum_s l_s e^(m_s
+// - M), cast to T (the Pallas kernel's acc * vsc, then o.astype(x.dtype)
+// before @wo). One block per (head, query row); v_scale, for int8 V, is
+// (N / G, d) like k_scale.
 template <typename T>
 __global__ void __launch_bounds__(HD)
-attn_combine_kernel(const float* __restrict__ part, T* __restrict__ o, int d, int n_split) {
+attn_combine_kernel(const float* __restrict__ part, const float* __restrict__ v_scale,
+                    T* __restrict__ o, int d, int n_split, int G) {
   const int h = blockIdx.x, b = blockIdx.y, j = threadIdx.x;
   const float* base = part + (long long)(b * gridDim.x + h) * n_split * (HD + 2);
   float M = NEG;
@@ -359,6 +498,7 @@ attn_combine_kernel(const float* __restrict__ part, T* __restrict__ o, int d, in
     L += base[s * (HD + 2) + HD + 1] * w;
     A += base[s * (HD + 2) + j] * w;
   }
+  if (v_scale != nullptr) A *= v_scale[(long long)(b / G) * d + h * HD + j];
   o[(long long)b * d + h * HD + j] = from_f<T>(A / L);
 }
 
@@ -380,6 +520,7 @@ cudaError_t gemv_launch(const GemvParams& p, int n_proj, cudaStream_t stream) {
     if (dev < MAX_DEVICES) smem_max[dev] = smem;
   }
   gemv_kernel<T, MAXB><<<dim3(p.N / NB, n_proj), THREADS, smem, stream>>>(p);
+  ++g_launches[K_GEMV];
   return cudaGetLastError();
 }
 
@@ -433,34 +574,74 @@ cudaError_t qkv(const void* x, const float* ln_s, const float* ln_b, const void*
   return gemv<T>(p, 3, st);
 }
 
+template <typename T, typename KV>
+cudaError_t attn_partial(const AttnArgs& a, int n_groups, cudaStream_t st) {
+  const dim3 grid(a.n_split, a.d / HD, n_groups * a.n_sub);
+  if (a.gs == 1) {
+    attn_partial_kernel<T, KV, 1><<<grid, ATT_THREADS, 0, st>>>(a);
+  } else if (a.gs == 2) {
+    attn_partial_kernel<T, KV, 2><<<grid, ATT_THREADS, 0, st>>>(a);
+  } else if (a.gs <= 4) {
+    attn_partial_kernel<T, KV, 4><<<grid, ATT_THREADS, 0, st>>>(a);
+  } else {
+    attn_partial_kernel<T, KV, MAX_GROUP><<<grid, ATT_THREADS, 0, st>>>(a);
+  }
+  ++g_launches[K_PARTIAL];
+  return cudaGetLastError();
+}
+
+// Attention of N query rows (q given, or computed from x in cross mode) over
+// the KV rows `a` describes, then out = o@wo + bo + x.
 template <typename T>
-cudaError_t attn(const void* x, const float* q_in, const float* ln_s, const float* ln_b,
-                 const void* wq, const void* bq, const void* k, const void* v,
-                 const void* wo, const void* bo, const float* sq, const float* so,
-                 float* q_buf, float* part, void* o_buf, void* out, int B, int T_len, int d,
-                 int n_valid, cudaStream_t st) {
-  const float* q = q_in;
-  if (q == nullptr) {  // cross mode: q = (LN(x)@wq + bq) * 64^-0.5
-    GemvParams pq = base_params(B, d, d, PRO_LN, x, ln_s, ln_b);
+cudaError_t attn(const void* x, const float* ln_s, const float* ln_b, const void* wq,
+                 const void* bq, const float* sq, AttnArgs a, const float* v_scale,
+                 const void* wo, const void* bo, const float* so, float* q_buf, void* o_buf,
+                 void* out, int N, cudaStream_t st) {
+  const int d = a.d;
+  if (N < 1 || a.G < 1 || N % a.G != 0 ||
+      (a.anc != nullptr && (a.G != 1 || a.beam < 1 || N % a.beam != 0)))
+    return cudaErrorInvalidValue;
+  if (a.q == nullptr) {  // cross mode: q = (LN(x)@wq + bq) * 64^-0.5
+    GemvParams pq = base_params(N, d, d, PRO_LN, x, ln_s, ln_b);
     pq.proj[0] = proj(wq, bq, q_buf, EPI_Q, sq);
     const cudaError_t e = gemv<T>(pq, 1, st);
     if (e != cudaSuccess) return e;
-    q = q_buf;
+    a.q = q_buf;
   }
-  const int n_split = (T_len + CHUNK - 1) / CHUNK;
-  attn_partial_kernel<T><<<dim3(n_split, d / HD, B), ATT_THREADS, 0, st>>>(
-      q, static_cast<const T*>(k), static_cast<const T*>(v), part, d, (long long)T_len * d,
-      n_valid, n_split);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = a.k_scale != nullptr ? attn_partial<T, int8_t>(a, N / a.G, st)
+                                       : attn_partial<T, T>(a, N / a.G, st);
   if (e != cudaSuccess) return e;
-  attn_combine_kernel<T><<<dim3(d / HD, B), HD, 0, st>>>(part, static_cast<T*>(o_buf), d,
-                                                         n_split);
+  attn_combine_kernel<T><<<dim3(d / HD, N), HD, 0, st>>>(a.part, v_scale, static_cast<T*>(o_buf),
+                                                         d, a.n_split, a.G);
+  ++g_launches[K_COMBINE];
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  GemvParams po = base_params(B, d, d, PRO_INPUT, o_buf, nullptr, nullptr);
+  GemvParams po = base_params(N, d, d, PRO_INPUT, o_buf, nullptr, nullptr);
   po.resid = x;
   po.proj[0] = proj(wo, bo, out, EPI_RESID, so);
   return gemv<T>(po, 1, st);
+}
+
+AttnArgs attn_args(const float* q, const void* k, const void* v, const float* k_scale,
+                   const int* anc, float* part, int T_len, int d, int n_valid, int G,
+                   int beam) {
+  AttnArgs a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.k_scale = k_scale;
+  a.anc = anc;
+  a.part = part;
+  a.kv_bstride = (long long)T_len * d;
+  a.d = d;
+  a.T_len = T_len;
+  a.n_valid = n_valid;
+  a.n_split = (T_len + CHUNK - 1) / CHUNK;
+  a.G = G;
+  a.gs = min(G, MAX_GROUP);
+  a.n_sub = (G + a.gs - 1) / a.gs;
+  a.beam = beam;
+  return a;
 }
 
 template <typename T>
@@ -485,7 +666,9 @@ cudaError_t mlp(const void* x, const float* ln_s, const float* ln_b, const void*
 // pointer (sq, sk, sv, so, s1, s2: (N,) fp32) is non-null is int8. Pointers
 // are already offset to the layer; every (B, n) array is contiguous.
 // Scratch: q_buf (B, d) fp32, part (B, d/64, ceil(T/256), 66) fp32, o_buf
-// (B, d) and g_buf (B, ff) in dtype.
+// (B, d) and g_buf (B, ff) in dtype. fused_attn: N query rows over N / G
+// KV rows of T_len positions; k/v int8 when k_scale/v_scale ((N / G, d)
+// fp32) are non-null.
 
 extern "C" int fused_qkv_fwd(int dtype, const void* x, const float* ln_s, const float* ln_b,
                              const void* wq, const void* bq, const void* wk, const void* wv,
@@ -502,15 +685,34 @@ extern "C" int fused_qkv_fwd(int dtype, const void* x, const float* ln_s, const 
 
 extern "C" int fused_attn_fwd(int dtype, const void* x, const float* q, const float* ln_s,
                               const float* ln_b, const void* wq, const void* bq, const void* k,
-                              const void* v, const void* wo, const void* bo, const float* sq,
-                              const float* so, float* q_buf, float* part, void* o_buf,
-                              void* out, int B, int T_len, int d, int n_valid, void* stream) {
+                              const void* v, const float* k_scale, const float* v_scale,
+                              const void* wo, const void* bo, const float* sq, const float* so,
+                              float* q_buf, float* part, void* o_buf, void* out, int N,
+                              int T_len, int d, int n_valid, int G, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const AttnArgs a = attn_args(q, k, v, k_scale, nullptr, part, T_len, d, n_valid, G, 1);
   return static_cast<int>(
-      dtype == 0 ? attn<float>(x, q, ln_s, ln_b, wq, bq, k, v, wo, bo, sq, so, q_buf, part,
-                               o_buf, out, B, T_len, d, n_valid, st)
-                 : attn<__nv_bfloat16>(x, q, ln_s, ln_b, wq, bq, k, v, wo, bo, sq, so, q_buf,
-                                       part, o_buf, out, B, T_len, d, n_valid, st));
+      dtype == 0 ? attn<float>(x, ln_s, ln_b, wq, bq, sq, a, v_scale, wo, bo, so, q_buf, o_buf,
+                               out, N, st)
+                 : attn<__nv_bfloat16>(x, ln_s, ln_b, wq, bq, sq, a, v_scale, wo, bo, so, q_buf,
+                                       o_buf, out, N, st));
+}
+
+// Beam self-attention over the unpermuted cache: anc (N, T_len) int32, the
+// (B, beam, T_len) ancestry map; query row r reads position t from cache row
+// (r - r % beam) + anc[r, t].
+extern "C" int fused_attn_beam_fwd(int dtype, const void* x, const float* q, const void* k,
+                                   const void* v, const int* anc, const void* wo,
+                                   const void* bo, const float* so, float* part, void* o_buf,
+                                   void* out, int N, int T_len, int d, int n_valid, int beam,
+                                   void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const AttnArgs a = attn_args(q, k, v, nullptr, anc, part, T_len, d, n_valid, 1, beam);
+  return static_cast<int>(
+      dtype == 0 ? attn<float>(x, nullptr, nullptr, nullptr, nullptr, nullptr, a, nullptr, wo,
+                               bo, so, nullptr, o_buf, out, N, st)
+                 : attn<__nv_bfloat16>(x, nullptr, nullptr, nullptr, nullptr, nullptr, a,
+                                       nullptr, wo, bo, so, nullptr, o_buf, out, N, st));
 }
 
 extern "C" int fused_mlp_fwd(int dtype, const void* x, const float* ln_s, const float* ln_b,
@@ -522,4 +724,14 @@ extern "C" int fused_mlp_fwd(int dtype, const void* x, const float* ln_s, const 
       dtype == 0 ? mlp<float>(x, ln_s, ln_b, w1, b1, w2, b2, s1, s2, g_buf, out, B, d, ff, st)
                  : mlp<__nv_bfloat16>(x, ln_s, ln_b, w1, b1, w2, b2, s1, s2, g_buf, out, B, d,
                                       ff, st));
+}
+
+// out[3] = launches of gemv_kernel, attn_partial_kernel, attn_combine_kernel
+// since the last reset
+extern "C" void kernel_launches(long long* out) {
+  for (int i = 0; i < N_KERNELS; ++i) out[i] = g_launches[i];
+}
+
+extern "C" void reset_kernel_launches() {
+  for (int i = 0; i < N_KERNELS; ++i) g_launches[i] = 0;
 }

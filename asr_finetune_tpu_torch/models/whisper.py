@@ -439,6 +439,42 @@ def precompute_cross_kv(params: Params, enc_out: torch.Tensor,
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
+INV_127 = float(np.float32(1.0) / np.float32(127.0))   # XLA's constant for x / 127
+
+
+def quantize_cross_kv(cross_kv: Params) -> Params:
+    """int8 cross K/V for decoding (--decode_kv_int8): every step re-reads
+    the whole (L, B, S, H, hd) cross K/V, the decode's largest read; int8
+    with per-(batch, head) scales halves it. {k_q8, v_q8} (L, B, S, H, hd)
+    int8 and {k_scale, v_scale} (L, B, 1, H, 1) fp32. The scale is the
+    absmax times f32(1/127): the form XLA compiles the JAX function's
+    `/ 127.0` to in the jitted decode."""
+    out = {}
+    for name in ("k", "v"):
+        x = cross_kv[name].float()
+        absmax = x.abs().amax(dim=(2, 4), keepdim=True)
+        scale = absmax.clamp_min(1e-8) * INV_127
+        out[name + "_q8"] = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+        out[name + "_scale"] = scale
+    return out
+
+
+def _maybe_dequant_kv(k: torch.Tensor, scale: Optional[torch.Tensor],
+                      dtype: torch.dtype) -> torch.Tensor:
+    if scale is None:
+        return k.to(dtype)
+    return k.to(dtype) * scale.to(dtype)
+
+
+def _cross_kv_layer(cross_kv: Params, l: int, dtype: torch.dtype
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Layer l's cross K/V in dtype, dequantized when int8."""
+    if "k_q8" in cross_kv:
+        return tuple(_maybe_dequant_kv(cross_kv[n + "_q8"][l], cross_kv[n + "_scale"][l],
+                                       dtype) for n in "kv")
+    return tuple(_maybe_dequant_kv(cross_kv[n][l], None, dtype) for n in "kv")
+
+
 def tied_logits_weight(embed: torch.Tensor,
                        compute_dtype: torch.dtype) -> torch.Tensor:
     """The tied output projection (V, d) as fp32 values of the embedding
@@ -466,13 +502,17 @@ def decode_step(params: Params, token: torch.Tensor, pos: int,
                 compute_dtype: torch.dtype = torch.bfloat16,
                 logits_w: Optional[torch.Tensor] = None,
                 adapters: Optional[Params] = None,
-                quant: Optional[Q.QuantConfig] = None
+                quant: Optional[Q.QuantConfig] = None,
+                cross_group: int = 1
                 ) -> Tuple[torch.Tensor, Params]:
     """One autoregressive step, plain PyTorch (the reference the fused step
     is held against). token (B,), pos the current position; returns
     (logits (B, vocab) fp32, cache), the cache (L, B, T, H, hd) written in
     place at pos. logits_w: tied_logits_weight(...), made once per decode;
-    adapters: unmerged decoder adapters."""
+    adapters: unmerged decoder adapters. cross_kv may be int8
+    (quantize_cross_kv), dequantized per layer. cross_group K > 1 (beam
+    search): cross_kv has B / K rows, shared by each K consecutive token
+    rows, whose queries fold into the query axis of one attention."""
     dec = params["decoder"]
     x = _embed(dec, token, pos, compute_dtype)[:, None, :]        # (B, 1, d)
     H = cfg.decoder_heads
@@ -494,9 +534,9 @@ def decode_step(params: Params, token: torch.Tensor, pos: int,
 
         h = layer_norm(x, lp["ln2"])
         q2 = _split_heads(dense(h, ca["q"], cl.get("q"), quant=quant), H)
-        a2 = xla_attention(q2, cross_kv["k"][l].to(x.dtype),
-                           cross_kv["v"][l].to(x.dtype))
-        x = x + dense(_merge_heads(a2), ca["o"], quant=quant)
+        xk, xv = _cross_kv_layer(cross_kv, l, x.dtype)
+        a2 = xla_attention(q2.reshape((-1, cross_group) + q2.shape[2:]), xk, xv)
+        x = x + dense(_merge_heads(a2.reshape(q2.shape)), ca["o"], quant=quant)
 
         h = layer_norm(x, lp["ln3"])
         x = x + mlp_block(h, lp["mlp"], quant)
@@ -508,19 +548,28 @@ def decode_step_fused(params: Params, token: torch.Tensor, pos: int,
                       cache: Params, cross_kv: Params, cfg: WhisperConfig,
                       s_valid: int,
                       compute_dtype: torch.dtype = torch.bfloat16,
-                      logits_w: Optional[torch.Tensor] = None
+                      logits_w: Optional[torch.Tensor] = None,
+                      ancestry: Optional[torch.Tensor] = None,
+                      cross_group: int = 1
                       ) -> Tuple[torch.Tensor, Params]:
     """One autoregressive step through the fused layer kernels
-    (ops/decoder_fused.py): per layer fused_qkv, self-attention fused_attn,
-    cross-attention fused_attn and fused_mlp, each reading layer l of the
-    stacked weights / cache / cross K/V in place.
+    (ops/decoder_fused.py): per layer fused_qkv, self-attention fused_attn
+    (fused_attn_beam with an ancestry map), cross-attention fused_attn and
+    fused_mlp, each reading layer l of the stacked weights / cache / cross
+    K/V in place.
 
     Requirements (arranged by evaluation/decode.py `_prepare_fused`): the
     adapters merged, the decoder's float weights cast to the compute dtype
     (an int8 projection {"w_q8", "w_scale"} passes its scale to the kernel,
     which applies it after the product), the cache from
     init_cache(dense=True), cross K/V dense (L, B, S_pad, d) with s_valid
-    the real source length."""
+    the real source length; int8 cross K/V as {k_q8, v_q8} (L, B, S_pad, d)
+    with per-(batch, head) scales {k_scale_d, v_scale_d} (L, B, d).
+
+    ancestry (beam search): (B, K, T) int32, the beam row whose cache slot
+    t holds hypothesis (b, k)'s key at position t; the cache is never
+    reordered. cross_group K: cross_kv holds B / K rows, each shared by K
+    consecutive token rows (the cross K/V is never replicated per beam)."""
     if cfg.d_model // cfg.decoder_heads != DF.HEAD_DIM:
         raise ValueError(
             f"decode_step_fused requires {DF.HEAD_DIM}-dim heads; got "
@@ -541,7 +590,12 @@ def decode_step_fused(params: Params, token: torch.Tensor, pos: int,
     (w1, s1), (w2, s2) = wpart(mlp["fc1"]), wpart(mlp["fc2"])
     x = _embed(dec, token, pos, compute_dtype)
     ck, cv = cache["k"], cache["v"]
-    xk, xv = cross_kv["k"], cross_kv["v"]
+    if "k_q8" in cross_kv:
+        xk, xv = cross_kv["k_q8"], cross_kv["v_q8"]
+        xk_s, xv_s = cross_kv["k_scale_d"], cross_kv["v_scale_d"]
+    else:
+        xk, xv = cross_kv["k"], cross_kv["v"]
+        xk_s = xv_s = None
     for l in range(cfg.decoder_layers):
         q, k_new, v_new = DF.fused_qkv(
             x, lay["ln1"]["scale"], lay["ln1"]["bias"],
@@ -551,13 +605,18 @@ def decode_step_fused(params: Params, token: torch.Tensor, pos: int,
         # step's dynamic_update_slice on the loop carry
         ck[l, :, pos] = k_new
         cv[l, :, pos] = v_new
-        x = DF.fused_attn(x, ck, cv, wo, sa["o"]["b"], q=q, pos=pos,
-                          wo_scale=so, layer_idx=l)
+        if ancestry is not None:
+            x = DF.fused_attn_beam(x, ck, cv, wo, sa["o"]["b"], q=q, pos=pos,
+                                   ancestry=ancestry, wo_scale=so, layer_idx=l)
+        else:
+            x = DF.fused_attn(x, ck, cv, wo, sa["o"]["b"], q=q, pos=pos,
+                              wo_scale=so, layer_idx=l)
         x = DF.fused_attn(x, xk, xv, co, ca["o"]["b"],
                           s_valid=s_valid, ln_scale=lay["ln2"]["scale"],
                           ln_bias=lay["ln2"]["bias"], wq=cq,
-                          bq=ca["q"]["b"], wq_scale=csq, wo_scale=cso,
-                          layer_idx=l)
+                          bq=ca["q"]["b"], k_scale=xk_s, v_scale=xv_s,
+                          wq_scale=csq, wo_scale=cso, layer_idx=l,
+                          kv_group=cross_group)
         x = DF.fused_mlp(x, lay["ln3"]["scale"], lay["ln3"]["bias"],
                          w1, mlp["fc1"]["b"], w2, mlp["fc2"]["b"],
                          w1_scale=s1, w2_scale=s2, layer_idx=l)

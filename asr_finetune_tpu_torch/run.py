@@ -15,9 +15,11 @@ every leaf cast to bf16.
 reader + collator + length-grouped sampler + prefetch, the validation split
 into eval shards, AdamW (in PEFT over the trained adapter leaves), the train
 step, the int8 outlier calibration, checkpoints (adapters only in PEFT) and
-the Trainer. Not ported, and raising NotImplementedError: --spec_augment,
---offload_optimizer / --offload_param, --tp > 1, --host_logmel, beams,
---decode_kv_int8 and parquet data.
+the Trainer; its eval decode takes --generation_num_beams,
+--length_penalty, --decode_kv_int8 and --decode_w_int8 as transcription
+does. Not ported, and raising NotImplementedError: --spec_augment,
+--offload_optimizer / --offload_param, --tp > 1, --host_logmel and parquet
+data.
 """
 from __future__ import annotations
 
@@ -142,13 +144,11 @@ def _check_pending_training(args) -> None:
         ("--offload_optimizer", args.offload_optimizer),
         ("--offload_param", args.offload_param),
         ("--tp > 1", args.tp > 1),
-        ("--host_logmel", args.host_logmel),
-        ("--decode_kv_int8", args.decode_kv_int8),
-        ("--generation_num_beams > 1", args.generation_num_beams > 1)) if on]
+        ("--host_logmel", args.host_logmel)) if on]
     if pending:
         raise NotImplementedError(
             f"{', '.join(pending)}: not ported yet (the port trains on one "
-            "card, log-mel on the device, greedy WER eval)")
+            "card with log-mel on the device)")
 
 
 def _resolve_path(args, name: str) -> str:

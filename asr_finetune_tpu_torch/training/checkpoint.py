@@ -8,7 +8,10 @@ Counterpart of asr_finetune_tpu/training/checkpoint.py (`CheckpointManager`
 - retention: with a metric, the `max_to_keep` best by it (min or max) plus
   every checkpoint saved without metrics (orbax's BestN with
   keep_checkpoints_without_metrics), else the `max_to_keep` newest;
-- `latest_step`, `all_steps`, `restore(state_like, step)`.
+- `latest_step`, `all_steps`, `best_step`, `restore(state_like, step)`;
+  `restore_trees(trees, step)` loads only the model trees (params,
+  adapters, rank mask) into live tensors, as the offline evaluator needs,
+  without an optimizer state to restore into.
 
 Storage is `torch.save`, not Orbax (not on the card's machine): one
 directory per step, `state.pt` with the step, the optimizer count, every
@@ -72,6 +75,13 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def best_step(self) -> Optional[int]:
+        """The best checkpoint by the metric (orbax's best_step); the latest
+        when the manager has no metric or no checkpoint was scored."""
+        scored = [(s, st) for st in self.all_steps()
+                  if self.metric and (s := self._score(st)) is not None]
+        return min(scored)[1] if scored else self.latest_step()
+
     def metrics(self, step: int) -> Optional[Dict[str, float]]:
         path = os.path.join(_step_dir(self.directory, step), METRICS_FILE)
         if not os.path.exists(path):
@@ -128,17 +138,20 @@ class CheckpointManager:
 
     # ------------------------------------------------------------ restore
 
-    def restore(self, state_like: Dict[str, Any],
-                step: Optional[int] = None) -> Dict[str, Any]:
-        """Load `step` (default: the latest) into state_like's tensors in
-        place; returns state_like."""
+    def _load(self, step: Optional[int], device) -> tuple:
+        """(step, saved payload) of checkpoint `step`, default the latest."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         path = os.path.join(_step_dir(self.directory, step), STATE_FILE)
+        return step, torch.load(path, map_location=device, weights_only=True)
+
+    def restore(self, state_like: Dict[str, Any],
+                step: Optional[int] = None) -> Dict[str, Any]:
+        """Load `step` (default: the latest) into state_like's tensors in
+        place; returns state_like."""
         opt = state_like["opt_state"]
-        dev = opt["mu"][0].device
-        saved = torch.load(path, map_location=dev, weights_only=True)
+        _, saved = self._load(step, opt["mu"][0].device)
         with torch.no_grad():
             for t in self._trees(state_like):
                 for k, p in leaves(state_like[t]):
@@ -149,6 +162,20 @@ class CheckpointManager:
         opt["count"] = saved["opt_count"]
         state_like["step"] = saved["step"]
         return state_like
+
+    def restore_trees(self, trees: Dict[str, Any], step: Optional[int] = None) -> int:
+        """Load the named trees of checkpoint `step` (default: the latest)
+        into `trees`' tensors in place (each cast to its tensor's dtype);
+        returns the step. Raises KeyError for a tree the checkpoint lacks."""
+        step, saved = self._load(step, "cpu")
+        with torch.no_grad():
+            for t, tree in trees.items():
+                if t not in saved:
+                    raise KeyError(f"checkpoint of step {step} holds no {t!r} "
+                                   f"(it holds {sorted(saved)})")
+                for k, p in leaves(tree):
+                    p.copy_(saved[t][k])
+        return step
 
 
 def save_trial_manifest(directory: str, payload: Dict[str, Any]) -> None:

@@ -8,8 +8,9 @@ Counterpart of asr_finetune_tpu/training/trainer.py (`Trainer.train` /
   last grad_norm, utterances/s, tokens/s, the memory line);
 - every eval_steps (from eval_delay on) one random validation shard is
   evaluated: loss over its batches and, unless disabled, WER of the greedy
-  decode (evaluation/decode.make_decode_fn: the fused decoder kernels on a
-  card) → eval_loss_wer = (1 - w) eval_loss + w eval_wer; in PEFT the loss
+  or beam-search decode (evaluation/decode.make_decode_fn, with the
+  generation_num_beams, length_penalty, decode_kv_int8 and decode_w_int8
+  options: the fused decoder kernels on a card) → eval_loss_wer = (1 - w) eval_loss + w eval_wer; in PEFT the loss
   runs over the unmerged adapters and the decode gets the rank-masked
   adapters, which it merges into the (int8 or bf16) base;
 - a checkpoint every save_steps (a multiple of eval_steps, so it is scored

@@ -15,10 +15,16 @@
    with the forward's logsumexp, and SDPA's backward as its yardstick; the
    W8A8 kernel bit for bit at the PEFT main path's six product shapes, pure
    and with the outlier keep-mask and addend, timed beside torch._int_mm (the
-   int8 dot alone) and the bf16 product with the dequantized weight;
+   int8 dot alone) and the bf16 product with the dequantized weight; the
+   beam path's attention at 4 utterances x 4 beams: the ancestry-masked
+   beam self-attention, the cross-attention over K/V shared per utterance
+   (kv_group 4) and over int8 K/V (G = 1 and 4); both again at 2 x 10
+   beams, wider than the Pallas kernels' 8;
 4. runs an fp32 greedy decode at large-v3 width and 2+2 layers through the
    fused kernels and through the plain decode step: the tokens must be equal,
-   over a float base and over a merged int8 base; one fp32 train step at that
+   over a float base and over a merged int8 base; a beam-4 decode the same
+   way (fused == plain, also over int8 cross K/V, and the cache-reorder
+   path == the ancestry path); one fp32 train step at that
    size: its gradients through the attention kernels must equal those
    through plain attention, and with remat on those with it off; and one
    fp32 PEFT step over an int8 base: adapter gradients through the W8A8
@@ -28,7 +34,11 @@
    longer than 30 s) with `asr_finetune_tpu_torch.cli.transcribe` at
    large-v3 (32+32 layers, random weights from a seed, bf16), asserts every
    kernel's launch count against the count the path implies, prints
-   utterances/s, ms/token and peak memory;
+   utterances/s, ms/step and peak memory; then the same with beam-4
+   (`--generation_num_beams 4`: 16 hypothesis rows over cross K/V held at
+   the 4 utterances' rows), with `--decode_kv_int8`, and with the cache
+   reordered each step (ASR_TPU_BEAM_REORDER=1); the offline evaluator with
+   beam-4 over four seeded wavs, stopped after one batch and resumed;
 6. the training main path: `asr_finetune_tpu_torch.cli.train` with the
    repo's largev3_debug.config, whisper-large-v3 full fine-tuning (32+32
    layers, bf16 compute, fp32 masters, remat), 4 steps of batch 4 on 20
@@ -41,7 +51,8 @@
    decode through the int8 options of the decoder kernels, an adapter-only
    checkpoint), the same 20 wavs and cut; the same assertions and figures,
    the calibrated outlier columns;
-8. one decode step's device time by CUDA kernel; then the card line again,
+8. one decode step's device time by CUDA kernel, greedy and on each beam
+   path, with the launches per step asserted; then the card line again,
    one JSON line `{"kernels": [...]}`, and last `{"ok": true, "device": {...}}`.
 
 Any failed check raises: the script then exits non-zero and prints no
@@ -51,6 +62,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -113,13 +125,26 @@ BF16_LIMITS = {                          # kernel: (atol, rms_rel)
     "fused_attn_self_int8": (5.3e-5, 6e-4),
     "fused_attn_cross_int8": (1.3e-3, 2.8e-3),
     "fused_mlp_int8": (7.1e-5, 3.5e-4),
+    # the beam slice's attention options (4 utterances x 4 beams), the same
+    # rule over their first readings on an H100
+    "fused_attn_beam": (1.5e-4, 1.6e-4),
+    "fused_attn_beam_int8": (1.3e-4, 1.6e-4),
+    "fused_attn_cross_group": (1.3e-3, 2.7e-3),
+    "fused_attn_cross_group_int8": (1.4e-3, 2.8e-3),
+    "fused_attn_cross_kv8": (9.3e-4, 2.8e-3),
+    "fused_attn_cross_kv8_int8": (1.3e-3, 2.6e-3),
+    "fused_attn_cross_group_kv8": (1.4e-3, 2.8e-3),
+    "fused_attn_cross_group_kv8_int8": (1.4e-3, 2.7e-3),
 }
+ATTN_CROSS = ("fused_attn_cross", "fused_attn_cross_group", "fused_attn_cross_kv8",
+              "fused_attn_cross_group_kv8")
 REPLACES = {
     "encoder_attention": "asr_finetune_tpu/ops/encoder_attention.py:286",
     "encoder_attention_bwd": "asr_finetune_tpu/ops/encoder_attention.py:311",
     "fused_qkv": "asr_finetune_tpu/ops/decoder_fused.py:150",
     "fused_attn_self": "asr_finetune_tpu/ops/decoder_fused.py:310",
-    "fused_attn_cross": "asr_finetune_tpu/ops/decoder_fused.py:310",
+    **{k: "asr_finetune_tpu/ops/decoder_fused.py:310" for k in ATTN_CROSS},
+    "fused_attn_beam": "asr_finetune_tpu/ops/decoder_fused.py:548",
     "fused_mlp": "asr_finetune_tpu/ops/decoder_fused.py:681",
     "w8a8": "asr_finetune_tpu/ops/w8a8_fused.py:93",
 }
@@ -127,12 +152,17 @@ REPLACES.update({k + "_int8": v for k, v in list(REPLACES.items()) if k.startswi
 SOURCES = {
     "encoder_attention": "asr_finetune_tpu_torch/csrc/encoder_attention.cu",
     "encoder_attention_bwd": "asr_finetune_tpu_torch/csrc/encoder_attention.cu",
-    **{k + v: "asr_finetune_tpu_torch/csrc/decoder_fused.cu"
-       for k in ("fused_qkv", "fused_attn_self", "fused_attn_cross", "fused_mlp")
-       for v in ("", "_int8")},
+    **{k: "asr_finetune_tpu_torch/csrc/decoder_fused.cu"
+       for k in REPLACES if k.startswith("fused_")},
     "w8a8": "asr_finetune_tpu_torch/csrc/w8a8.cu",
 }
 DECODER = ("fused_qkv", "fused_attn_self", "fused_attn_cross", "fused_mlp")
+BEAMS = 4                                        # the beam path's num_beams
+WIDE_BEAMS = 10                                  # beyond the Pallas kernels' 8
+# the decoder kernels each decode step of a path runs once a layer
+BEAM_DECODER = ("fused_qkv", "fused_attn_beam", "fused_attn_cross_group", "fused_mlp")
+BEAM_KV8_DECODER = ("fused_qkv", "fused_attn_beam", "fused_attn_cross_group_kv8", "fused_mlp")
+REORDER_DECODER = ("fused_qkv", "fused_attn_self", "fused_attn_cross_group", "fused_mlp")
 # the decoder kernels' weights in phase 3a: the projections that are int8
 # ({w_q8, w_scale}); "mixed" is a merged-LoRA int8 base (q, v float)
 WEIGHT_KINDS = {"float": (), "mixed": ("k", "o", "fc1", "fc2"),
@@ -344,6 +374,69 @@ def decoder_calls(DF, x, q, w, b, ln, kv, pos, stacked):
     }
 
 
+def beam_calls(DF, x, q, x4, w, b, ln, beam_kv, anc, cross, cross8):
+    """The beam slice's attention calls, decoder_calls' form: beam
+    self-attention over the unpermuted (L, 16, T, d) cache through the
+    ancestry map `anc` (4, 4, T) at pos SELF_POS; the cross-attention of
+    x's 16 rows over the 4 KV rows of `cross` (kv_group 4), of x4's 4 rows
+    over int8 K/V (`cross8`: k_q8, v_q8, k_scale_d, v_scale_d) and of the 16
+    rows over int8 K/V. Bytes read: each live cache row at each position
+    once (the distinct rows the ancestry names), the K/V below s_valid."""
+    li, nv = L - 1, SELF_POS + 1
+    w1 = {k: (t[li], None if s is None else s[li]) for k, (t, s) in w.items()}
+    b1 = {k: t[li] for k, t in b.items()}
+    ln1 = tuple(t[li] for t in ln)
+    kb, vb = beam_kv
+    beams = anc.shape[1]
+    live = sum(len(set(anc[u, :, t].tolist())) for u in range(anc.shape[0]) for t in range(nv))
+    n = x.shape[0]
+    calls = {"fused_attn_beam": (
+        lambda layer: DF.fused_attn_beam(x, kb, vb, w["o"][0], b["o"], q=q, pos=SELF_POS,
+                                         ancestry=anc, wo_scale=w["o"][1], layer_idx=layer),
+        lambda: DF.fused_attn_beam_plain(x, kb[li], vb[li], w1["o"][0], b1["o"], q, SELF_POS,
+                                         anc, w1["o"][1]),
+        (x, q, anc[:, :, :nv], *w1["o"], b1["o"]), 2 * 2 * n * nv * D + 2 * n * D * D,
+        2 * live * D * kb.element_size())}
+
+    def cross_call(xr, kv, scales, group):
+        k_, v_ = kv
+        ks, vs = scales
+
+        def fn(layer):
+            return DF.fused_attn(xr, k_, v_, w["o"][0], b["o"], s_valid=T_ENC,
+                                 ln_scale=ln[0], ln_bias=ln[1], wq=w["q"][0], bq=b["q"],
+                                 k_scale=ks, v_scale=vs, wq_scale=w["q"][1],
+                                 wo_scale=w["o"][1], layer_idx=layer, kv_group=group)
+
+        def plain():
+            return DF.fused_attn_plain(
+                xr, k_[li], v_[li], w1["o"][0], b1["o"], n_valid=T_ENC, ln_scale=ln1[0],
+                ln_bias=ln1[1], wq=w1["q"][0], bq=b1["q"], wq_scale=w1["q"][1],
+                wo_scale=w1["o"][1], k_scale=None if ks is None else ks[li],
+                v_scale=None if vs is None else vs[li], kv_group=group)
+        m = xr.shape[0]
+        reads = (xr, *ln1, *w1["q"], b1["q"], k_[li][:, :T_ENC], v_[li][:, :T_ENC],
+                 None if ks is None else ks[li], None if vs is None else vs[li],
+                 *w1["o"], b1["o"])
+        return fn, plain, reads, 2 * 2 * m * D * D + 2 * 2 * m * T_ENC * D, 0
+
+    calls["fused_attn_cross_group"] = cross_call(x, cross, (None, None), beams)
+    calls["fused_attn_cross_kv8"] = cross_call(x4, cross8[:2], cross8[2:], 1)
+    calls["fused_attn_cross_group_kv8"] = cross_call(x, cross8[:2], cross8[2:], beams)
+    return calls
+
+
+def int8_cross(cross, dt):
+    """The main path's int8 cross K/V from float (L, B, S_PAD, D) k/v:
+    W.quantize_cross_kv, laid out by decode._prepare_fused: (k_q8, v_q8,
+    k_scale_d, v_scale_d)."""
+    from asr_finetune_tpu_torch.evaluation import decode as D_
+    from asr_finetune_tpu_torch.models import whisper as W
+    heads = {n: t.view(L, B, S_PAD, H, 64) for n, t in zip("kv", cross)}
+    q8, _, _ = D_._prepare_fused(cross[0][0], W.quantize_cross_kv(heads), SELF_T, dt)
+    return q8["k_q8"], q8["v_q8"], q8["k_scale_d"], q8["v_scale_d"]
+
+
 def check_decoder_kernels(rows):
     """Phase 3a: the four decoder kernels against their plain versions at
     whisper-large-v3 shapes, bf16 and fp32, over each kind of weights in
@@ -355,7 +448,13 @@ def check_decoder_kernels(rows):
     4) with one layer's weights unstacked. In bf16 the main path's shapes
     (B=4) are timed with the calls cycling through the 32 layers, against
     a bound that counts each operand read and each output written once:
-    float weights give the "fused_*" rows, mixed the "fused_*_int8" rows."""
+    float weights give the "fused_*" rows, mixed the "fused_*_int8" rows.
+    The beam path's calls (beam_calls) at 4 utterances x 4 beams: the beam
+    self-attention through a random ancestry map, the cross-attention with
+    kv_group 4, with int8 K/V at 4 rows (G = 1) and at 16 (G = 4), each
+    checked in both dtypes over every weight kind and timed as above. The
+    beam self-attention and the grouped cross-attention (float and int8
+    K/V) at 2 x WIDE_BEAMS rows, float weights, checked in both dtypes."""
     import torch
     from asr_finetune_tpu_torch.ops import decoder_fused as DF
     from asr_finetune_tpu_torch.ops import quant as Q
@@ -380,6 +479,12 @@ def check_decoder_kernels(rows):
               12: {"self": (rn(12, SELF_T, D), rn(12, SELF_T, D)),
                    "cross": (rn(12, S_PAD, D), rn(12, S_PAD, D))}}
         x12, q12 = rn(12, D), rn(12, D, scale=0.125, dtype=f32)
+        # the beam path: 4 utterances x BEAMS hypotheses
+        xb, qb = rn(B * BEAMS, D), rn(B * BEAMS, D, scale=0.125, dtype=f32)
+        beam_kv = (rn(L, B * BEAMS, SELF_T, D), rn(L, B * BEAMS, SELF_T, D))
+        anc = torch.randint(0, BEAMS, (B, BEAMS, SELF_T), generator=g, device=dev,
+                            dtype=torch.int32)
+        cross8 = int8_cross(cross, dt)
         for kind, int8 in WEIGHT_KINDS.items():
             w = {}
             for k, t in w32.items():
@@ -403,6 +508,16 @@ def check_decoder_kernels(rows):
                         time_row(rows, name + sfx, err, lambda: fn(next(it) % L), plain,
                                  nbytes(*reads) + nbytes(*(out if isinstance(out, tuple)
                                                            else (out,))), flops, dn)
+            print(f"beam-path attention, {kind} weights [{dn}] at {B} x {BEAMS} rows (beam "
+                  f"cache {SELF_T} pos {SELF_POS}, cross kv_group {BEAMS} and int8 K/V):")
+            calls = beam_calls(DF, xb, qb, x, w, b, ln, beam_kv, anc, cross, cross8)
+            for name, (fn, plain, reads, flops, extra_bytes) in calls.items():
+                out = fn(L - 1)
+                err = compare(name + sfx, out, plain(), dn)
+                if dt is torch.bfloat16 and kind != "all-int8":
+                    it = iter(range(10 ** 9))
+                    time_row(rows, name + sfx, err, lambda: fn(next(it) % L), plain,
+                             nbytes(*reads, out) + extra_bytes, flops, dn)
             del w
         if dt is torch.bfloat16:
             # the fixed cost of a GEMV launch: fused_mlp at ff=16 is two
@@ -414,7 +529,29 @@ def check_decoder_kernels(rows):
                                                 layer_idx=next(it) % L), 64)
             print(f"  fused_mlp at ff=16 (two near-empty GEMV launches) [{dn}]: "
                   f"{ms:.4f} ms")
-        del w32, kv, cross
+        # beams wider than the Pallas kernels' 8: 2 utterances x WIDE_BEAMS
+        # (a block serves 8 query rows of a KV row, then 2), float weights,
+        # layer L-1 unstacked
+        nw, li = 2 * WIDE_BEAMS, L - 1
+        print(f"wide beams [{dn}]: 2 x {WIDE_BEAMS} rows, beam cache {SELF_T} pos "
+              f"{SELF_POS}, cross kv_group {WIDE_BEAMS}, float and int8 K/V:")
+        xw, qw = rn(nw, D), rn(nw, D, scale=0.125, dtype=f32)
+        kw, vw = rn(nw, SELF_T, D), rn(nw, SELF_T, D)
+        ancw = torch.randint(0, WIDE_BEAMS, (2, WIDE_BEAMS, SELF_T), generator=g,
+                             device=dev, dtype=torch.int32)
+        wo1, bo1 = w32["o"][li].to(dt), b["o"][li]
+        compare("fused_attn_beam",
+                DF.fused_attn_beam(xw, kw, vw, wo1, bo1, q=qw, pos=SELF_POS, ancestry=ancw),
+                DF.fused_attn_beam_plain(xw, kw, vw, wo1, bo1, qw, SELF_POS, ancw), dn)
+        cq = dict(ln_scale=ln[0][li], ln_bias=ln[1][li], wq=w32["q"][li].to(dt), bq=b["q"][li])
+        for name, (k_, v_, ks, vs) in (
+                ("fused_attn_cross_group", (cross[0][li, :2], cross[1][li, :2], None, None)),
+                ("fused_attn_cross_group_kv8", tuple(t[li, :2] for t in cross8))):
+            compare(name, DF.fused_attn(xw, k_, v_, wo1, bo1, s_valid=T_ENC, k_scale=ks,
+                                        v_scale=vs, kv_group=WIDE_BEAMS, **cq),
+                    DF.fused_attn_plain(xw, k_, v_, wo1, bo1, n_valid=T_ENC, k_scale=ks,
+                                        v_scale=vs, kv_group=WIDE_BEAMS, **cq), dn)
+        del w32, kv, cross, beam_kv, cross8, kw, vw
         torch.cuda.empty_cache()
 
 
@@ -683,6 +820,62 @@ def check_decode():
           f"({t_fused.shape[1]} tokens x {t_fused.shape[0]} rows)")
 
 
+def check_beam_decode(device: str = "cuda", model: str = "large-v3"):
+    """Phase 4e: fp32 beam-4 decode at large-v3 width, 2+2 layers, B=2, 24
+    tokens: the fused kernels (ancestry-masked beam self-attention, the
+    cross K/V shared per utterance) and the plain decode step (cache
+    reordered each step) give equal tokens and lengths, over float and over
+    int8 cross K/V; the fused kernels with the cache reordered
+    (ASR_TPU_BEAM_REORDER=1) equal the ancestry path; and the same fused ==
+    plain at WIDE_BEAMS, beyond the Pallas kernels' 8. `device` and `model`
+    let it run a small model on the CPU (both sides plain there)."""
+    import torch
+    from asr_finetune_tpu_torch.evaluation import decode as D_
+    from asr_finetune_tpu_torch.models import whisper as W
+    from asr_finetune_tpu_torch.models.configs import get_config
+
+    cfg = dataclasses.replace(get_config(model), encoder_layers=2, decoder_layers=2)
+    dev = torch.device(device)
+    params = W.init_params(cfg, seed=1, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    mel = torch.randn((2, 2 * cfg.max_source_positions, cfg.num_mel_bins), generator=g,
+                      device=dev)
+    forced = [cfg.sot_token_id, cfg.first_language_token_id,
+              cfg.transcribe_token_id, cfg.no_timestamps_token_id]
+    kw = dict(max_length=24, num_beams=BEAMS, compute_dtype=torch.float32)
+    out = {}
+    for kv8 in (False, True):
+        reset_all_launches()
+        out[kv8] = D_.beam_decode(params, mel, cfg, forced, fused=True, kv_int8=kv8, **kw)
+        n = all_launches()
+        plain = D_.beam_decode(params, mel, cfg, forced, fused=False, kv_int8=kv8, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(out[kv8], plain)):
+            raise AssertionError(f"beam decode (kv_int8={kv8}): fused {out[kv8]} != plain "
+                                 f"{plain}")
+        path = BEAM_KV8_DECODER if kv8 else BEAM_DECODER
+        if device == "cuda" and not all(n[k] > 0 for k in path):
+            raise AssertionError(f"the fused beam decode did not run {path}: {n}")
+    os.environ["ASR_TPU_BEAM_REORDER"] = "1"
+    try:
+        reordered = D_.beam_decode(params, mel, cfg, forced, fused=True, **kw)
+    finally:
+        del os.environ["ASR_TPU_BEAM_REORDER"]
+    if not all(torch.equal(a, b) for a, b in zip(out[False], reordered)):
+        raise AssertionError(f"beam decode: reorder {reordered} != ancestry {out[False]}")
+    kw["num_beams"] = WIDE_BEAMS
+    reset_all_launches()
+    wide = D_.beam_decode(params, mel, cfg, forced, **kw)   # fused by default on the card
+    n = all_launches()
+    plain = D_.beam_decode(params, mel, cfg, forced, fused=False, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(wide, plain)):
+        raise AssertionError(f"beam-{WIDE_BEAMS} decode: fused {wide} != plain {plain}")
+    if device == "cuda" and not all(n[k] > 0 for k in BEAM_DECODER):
+        raise AssertionError(f"the beam-{WIDE_BEAMS} decode did not run {BEAM_DECODER}: {n}")
+    print(f"fp32 beam-{BEAMS} decode, {model} width, 2+2 layers: fused == plain, float and "
+          f"int8 cross K/V; reorder == ancestry (lengths {out[False][1].tolist()}, "
+          f"int8 K/V {out[True][1].tolist()}); beam-{WIDE_BEAMS} fused == plain")
+
+
 def _write_wav(path, seconds, rng, sr=16000):
     t = np.arange(int(seconds * sr)) / sr
     sig = sum(np.sin(2 * np.pi * f * t) * a
@@ -695,18 +888,27 @@ def _write_wav(path, seconds, rng, sr=16000):
         w.writeframes((np.clip(sig, -1, 1) * 32767).astype("<i2").tobytes())
 
 
-def main_path(rows):
-    """Phase 5: transcribe four wavs with whisper-large-v3 through the CLI."""
+def main_path(rows, beams: int = 1, kv_int8: bool = False, reorder: bool = False):
+    """Phase 5: transcribe four wavs with whisper-large-v3 through the CLI,
+    greedy or with --generation_num_beams `beams` (--decode_kv_int8 with
+    kv_int8; the whole cache reordered each step, ASR_TPU_BEAM_REORDER=1,
+    with reorder). Asserts the transcripts, the forced prefix, every
+    kernel's launch count against the count the path implies and, for
+    beams, the cross K/V held at the utterances' B rows while the decode
+    runs B x beams hypothesis rows."""
     import torch
     from asr_finetune_tpu_torch.cli import transcribe
     from asr_finetune_tpu_torch.evaluation import decode as decode_lib
     from asr_finetune_tpu_torch.models import whisper as W
 
     max_len = 64
+    path = "transcribe" + (f"_beam{beams}" if beams > 1 else "") + ("_kv8" if kv_int8 else "") \
+        + ("_reorder" if reorder else "")
     stats = {"encode": 0, "steps": 0, "decode_s": 0.0, "loop_s": 0.0,
-             "tokens": []}
-    orig_encode, orig_step, orig_greedy = (W.encode, W.decode_step_fused,
-                                           decode_lib.greedy_decode)
+             "tokens": [], "cross_rows": set(), "token_rows": set()}
+    decode_name = "greedy_decode" if beams == 1 else "beam_decode"
+    orig_encode, orig_step, orig_decode = (W.encode, W.decode_step_fused,
+                                           getattr(decode_lib, decode_name))
 
     def encode(*a, **k):
         stats["encode"] += 1
@@ -717,12 +919,15 @@ def main_path(rows):
             torch.cuda.synchronize()
             stats["loop_t0"] = time.perf_counter()
         stats["steps"] += 1
+        cross = a[4]
+        stats["cross_rows"].add(int(cross["k_q8" if "k_q8" in cross else "k"].shape[1]))
+        stats["token_rows"].add(int(a[1].shape[0]))
         return orig_step(*a, **k)
 
-    def greedy(*a, **k):
+    def decode(*a, **k):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = orig_greedy(*a, **k)
+        out = orig_decode(*a, **k)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         stats["decode_s"] += t1 - t0
@@ -730,6 +935,8 @@ def main_path(rows):
         stats["tokens"].append(out[0].cpu())
         return out
 
+    extra = (["--generation_num_beams", str(beams)] if beams > 1 else []) \
+        + (["--decode_kv_int8"] if kv_int8 else [])
     with tempfile.TemporaryDirectory() as tmp:
         rng = np.random.default_rng(0)
         wavs = []
@@ -737,7 +944,10 @@ def main_path(rows):
             p = f"{tmp}/utt{i}.wav"
             _write_wav(p, sec, rng)
             wavs.append(p)
-        W.encode, W.decode_step_fused, decode_lib.greedy_decode = encode, step, greedy
+        W.encode, W.decode_step_fused = encode, step
+        setattr(decode_lib, decode_name, decode)
+        if reorder:
+            os.environ["ASR_TPU_BEAM_REORDER"] = "1"
         reset_all_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -746,10 +956,11 @@ def main_path(rows):
                 "--inputs", *wavs, "--output", f"{tmp}/out.jsonl",
                 "--model_type", "large-v3", "--bf16",
                 "--per_device_eval_batch_size", str(B),
-                "--generation_max_length", str(max_len), "--device", "cuda"])
+                "--generation_max_length", str(max_len), "--device", "cuda", *extra])
         finally:
-            W.encode, W.decode_step_fused, decode_lib.greedy_decode = (
-                orig_encode, orig_step, orig_greedy)
+            W.encode, W.decode_step_fused = orig_encode, orig_step
+            setattr(decode_lib, decode_name, orig_decode)
+            os.environ.pop("ASR_TPU_BEAM_REORDER", None)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = all_launches()
@@ -768,22 +979,92 @@ def main_path(rows):
             raise AssertionError(f"bad token matrix {tuple(tok.shape)}")
         if tok[:, :4].tolist() != [[257, 258, 261, 262]] * B:   # byte-fallback prefix
             raise AssertionError(f"forced prefix not honoured: {tok[:, :4].tolist()}")
+    if stats["cross_rows"] != {B} or stats["token_rows"] != {B * beams}:
+        raise AssertionError(f"decode rows {stats['token_rows']} over cross K/V rows "
+                             f"{stats['cross_rows']}: expected {B * beams} over {B}")
     n_dec = 32
+    kernels = (DECODER if beams == 1 else REORDER_DECODER if reorder
+               else BEAM_KV8_DECODER if kv_int8 else BEAM_DECODER)
     expect = expect_launches(encoder_attention=n_dec * stats["encode"],
-                             **{k: n_dec * stats["steps"] for k in DECODER})
+                             **{k: n_dec * stats["steps"] for k in kernels})
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
-    record_launches(rows, "transcribe", launches)
-    print(f"main path: whisper-large-v3 (32+32 layers, bf16, random init), "
-          f"4 wavs / 5 windows / {stats['encode']} batches of {B}, "
-          f"{stats['steps']} decode steps")
-    print(f"main path: wall {wall:.3f} s incl. model init; encode+decode "
-          f"{stats['decode_s']:.3f} s; {4 / stats['decode_s']:.3f} utterances/s "
-          f"(encode+decode); {1e3 * stats['loop_s'] / stats['steps']:.3f} ms/token "
-          f"(token loop, batch {B}); peak memory {peak / 2**30:.2f} GiB")
-    print(f"main path: launches {json.dumps(launches)}")
+    record_launches(rows, path, launches)
+    label = f"main path {path}"
+    n_utt = 4
+    print(f"{label}: whisper-large-v3 (32+32 layers, bf16, random init), "
+          f"4 wavs / 5 windows / {stats['encode']} batches of {B}"
+          + (f" x {beams} beams ({B * beams} hypothesis rows over cross K/V of {B})"
+             if beams > 1 else "") + f", {stats['steps']} decode steps")
+    print(f"{label}: wall {wall:.3f} s incl. model init; encode+decode "
+          f"{stats['decode_s']:.3f} s; {n_utt / stats['decode_s']:.3f} utterances/s "
+          f"(encode+decode); {1e3 * stats['loop_s'] / stats['steps']:.3f} ms/step "
+          f"(token loop, {B * beams} rows); peak memory {peak / 2**30:.2f} GiB")
+    print(f"{label}: launches {json.dumps({k: v for k, v in launches.items() if v})}")
     for r in results:
         print(f"  {r['file'].rsplit('/', 1)[-1]}: {len(r['text'])} chars")
+
+
+def evaluator_path(rows):
+    """Phase 5b: the offline evaluator (evaluation/evaluate.OfflineEvaluator,
+    what cli.evaluate drives over an HDF5 test set) with beam-4 decoding of
+    whisper-large-v3 (32+32 layers, bf16, random init) over four seeded wavs
+    with German-looking references, in two batches of 2, checkpointing
+    progress every batch: a first run stops after batch 1, a second resumes
+    at batch 2. Asserts the progress files, eval_final.json (4 transcripts,
+    a finite WER) and that the resumed run decoded only the second batch."""
+    import torch
+    from asr_finetune_tpu_torch import config as config_lib
+    from asr_finetune_tpu_torch import run as run_lib
+    from asr_finetune_tpu_torch.data.audiofolder import read_wav
+    from asr_finetune_tpu_torch.data.collator import Collator, CollatorConfig
+    from asr_finetune_tpu_torch.evaluation.evaluate import EvalConfig, OfflineEvaluator
+
+    built = run_lib.build_model(config_lib.parse_args(
+        ["--model_type", "large-v3", "--bf16", "--device", "cuda"]))
+    col = Collator(built.tokenizer, CollatorConfig(n_mels=built.cfg.num_mel_bins))
+    with tempfile.TemporaryDirectory() as tmp:
+        write_audiofolder(tmp, 4, seed=1)
+        import csv
+        with open(f"{tmp}/metadata.csv", encoding="utf-8") as f:
+            meta = list(csv.DictReader(f))
+        utts = [(i, read_wav(f"{tmp}/{m['file_name']}"), m["transcription"])
+                for i, m in enumerate(meta)]
+        batches = [col(utts[:2]), col(utts[2:])]
+        cfg = EvalConfig(language="german", max_length=48, num_beams=BEAMS, batch_size=2,
+                         checkpoint_every=1, output_dir=f"{tmp}/eval",
+                         compute_dtype=torch.bfloat16)
+        reset_all_launches()
+        t0 = time.perf_counter()
+        OfflineEvaluator(built.cfg, built.params, built.tokenizer, cfg).run(batches[:1])
+        first = all_launches()
+        reset_all_launches()
+        final = OfflineEvaluator(built.cfg, built.params, built.tokenizer, cfg).run(batches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        second = all_launches()
+        files = sorted(os.listdir(f"{tmp}/eval"))
+        with open(f"{tmp}/eval/eval_final.json", encoding="utf-8") as f:
+            on_disk = json.load(f)
+    del built
+    torch.cuda.empty_cache()
+    want_files = ["eval_checkpoint.json", "eval_final.json", "eval_step_1.json",
+                  "eval_step_2.json"]
+    if files != want_files or on_disk["results"] != final["results"]:
+        raise AssertionError(f"evaluator files {files} (expected {want_files})")
+    if final["n_utterances"] != 4 or not np.isfinite(final["wer"]) or not all(
+            {"original", "predicted", "wer"} <= set(r) for r in final["results"]):
+        raise AssertionError(f"evaluator result {final}")
+    # each run encoded one batch (32 encoder layers) and ran the beam path
+    for n in (first, second):
+        if n["encoder_attention"] != 32 or len({n[k] for k in BEAM_DECODER}) != 1 \
+                or n["fused_qkv"] == 0:
+            raise AssertionError(f"evaluator launches {n}")
+    launches = {k: first[k] + second[k] for k in first}
+    record_launches(rows, f"evaluate_beam{BEAMS}", launches)
+    print(f"offline evaluator, beam-{BEAMS}, large-v3 32+32 bf16: 4 utterances in 2 batches "
+          f"(run stopped after batch 1, resumed at batch 2), corpus WER {final['wer']:.2f}%, "
+          f"{wall:.3f} s for both runs; launches {json.dumps({k: v for k, v in launches.items() if v})}")
 
 
 def record_launches(rows, path: str, launches) -> None:
@@ -1307,13 +1588,20 @@ def _probe(state):
 
 
 def step_breakdown():
-    """One whisper-large-v3 decode step (B=4, bf16, cache 128 at pos 63):
-    device time (a CUDA graph of the step, replayed) against the eager step,
-    which the host's launches bound."""
+    """One whisper-large-v3 decode step at batch 4 (bf16, cache 128 at pos
+    63), greedy and on each beam path (4 x 4 hypothesis rows over cross K/V
+    of 4: through the ancestry map, with int8 cross K/V, and with the cache
+    reordered on the beam axis instead, that reorder included): device time
+    (a CUDA graph of the step, replayed) against the eager step, which the
+    host's launches bound; device time by CUDA kernel, and the launch counts
+    per step the path implies."""
     import torch
     from asr_finetune_tpu_torch.evaluation import decode as decode_lib
     from asr_finetune_tpu_torch.models import whisper as W
     from asr_finetune_tpu_torch.models.configs import get_config
+    from asr_finetune_tpu_torch.ops import decoder_fused as DF
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     cfg = get_config("large-v3")
     dev, bf16 = torch.device("cuda"), torch.bfloat16
@@ -1322,39 +1610,78 @@ def step_breakdown():
     g = torch.Generator(device=dev).manual_seed(3)
     ckv = {k: torch.randn((L, B, S_PAD, D), generator=g, device=dev).to(bf16)
            for k in ("k", "v")}
-    cache = W.init_cache(cfg, B, SELF_T, bf16, dense=True, device=dev)
+    k8, v8, ks, vs = int8_cross((ckv["k"], ckv["v"]), bf16)
+    ckv8 = {"k_q8": k8, "v_q8": v8, "k_scale_d": ks, "v_scale_d": vs}
     logits_w = W.tied_logits_weight(params["decoder"]["embed"], bf16)
-    tok = torch.zeros((B,), dtype=torch.long, device=dev)
+    rows_b = B * BEAMS
+    anc = torch.randint(0, BEAMS, (B, BEAMS, SELF_T), generator=g, device=dev,
+                        dtype=torch.int32)
+    perm = (torch.arange(B, device=dev)[:, None] * BEAMS
+            + torch.randint(0, BEAMS, (B, BEAMS), generator=g, device=dev)).reshape(-1)
+    variants = {   # name: (rows, cross K/V, ancestry, reorder)
+        "greedy": (B, ckv, None, False),
+        f"beam{BEAMS}": (rows_b, ckv, anc, False),
+        f"beam{BEAMS} int8 cross K/V": (rows_b, ckv8, anc, False),
+        f"beam{BEAMS} cache reorder": (rows_b, ckv, None, True),
+    }
+    for name, (n, cross, ancestry, reorder) in variants.items():
+        cache = W.init_cache(cfg, n, SELF_T, bf16, dense=True, device=dev)
+        tok = torch.zeros((n,), dtype=torch.long, device=dev)
+        group = n // B
+        scratch = {k: torch.empty_like(v) for k, v in cache.items()} if reorder else None
 
-    def step():
-        W.decode_step_fused(params, tok, SELF_POS, cache, ckv, cfg, T_ENC, bf16,
-                            logits_w)
+        def step():
+            W.decode_step_fused(params, tok, SELF_POS, cache, cross, cfg, T_ENC, bf16,
+                                logits_w, ancestry=ancestry, cross_group=group)
+            if reorder:   # what beam_decode's reorder path adds: the whole cache gathered
+                for k, v in cache.items():
+                    torch.index_select(v, 1, perm, out=scratch[k])
 
-    dev_ms = device_ms(step, calls=4)
-    host_ms = eager_ms(step, iters=8)
-    print(f"decode step, large-v3 B={B} bf16: device {dev_ms:.3f} ms (graph "
-          f"replay), eager {host_ms:.3f} ms -> device busy "
-          f"{100 * dev_ms / host_ms:.1f}% of the eager step")
-
-    # device time by CUDA kernel over 4 eager steps (torch.profiler, CUPTI);
-    # only the kernels themselves: CPU ops such as aten::copy_ also carry
-    # their kernels' device time and would count it twice
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        dev_ms = device_ms(step, calls=4)
+        host_ms = eager_ms(step, iters=8)
+        print(f"decode step {name}, large-v3 {n} rows bf16: device {dev_ms:.3f} ms (graph "
+              f"replay), eager {host_ms:.3f} ms -> device busy "
+              f"{100 * dev_ms / host_ms:.1f}% of the eager step")
+        # device time by CUDA kernel over 4 eager steps after one warm-up
+        # step (torch.profiler, CUPTI); only the kernels themselves: CPU ops
+        # such as aten::copy_ also carry their kernels' device time and
+        # would count it twice
+        traces = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=torch.profiler.schedule(wait=0, warmup=1, active=4),
+                     on_trace_ready=lambda p: traces.append(p.key_averages())) as prof:
+            for _ in range(5):
+                step()
+                torch.cuda.synchronize()
+                prof.step()
+        by_kernel = sorted(((e.self_device_time_total, e.count, e.key)
+                            for e in traces[0]
+                            if e.device_type == DeviceType.CUDA
+                            and e.self_device_time_total > 0
+                            and not e.key.startswith("ProfilerStep")),
+                           reverse=True)
+        total = sum(t for t, _, _ in by_kernel)
+        print(f"decode step {name} by CUDA kernel (profiler, per step; device total "
+              f"{total / 4e3:.3f} ms):")
+        for t, c, key in by_kernel[:8]:
+            print(f"  {t / 4e3:8.3f} ms  {c // 4:5d} launches  {key[:90]}")
+        # CUDA launches per step, as the library counts them where it
+        # launches (the profiler drops kernel records at this rate): per
+        # layer the qkv, cross q, two wo and fc1/fc2 GEMVs, one launch per
+        # group of at most 8 rows, and a partial and a combine per attention
+        DF.reset_kernel_launches()
         for _ in range(4):
             step()
         torch.cuda.synchronize()
-    by_kernel = sorted(((e.self_device_time_total, e.count, e.key)
-                        for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA
-                        and e.self_device_time_total > 0),
-                       reverse=True)
-    total = sum(t for t, _, _ in by_kernel)
-    print(f"decode step by CUDA kernel (profiler, per step; device total "
-          f"{total / 4e3:.3f} ms):")
-    for t, n, key in by_kernel[:10]:
-        print(f"  {t / 4e3:8.3f} ms  {n // 4:5d} launches  {key[:90]}")
+        per_step = {k: v / 4 for k, v in DF.kernel_launches().items()}
+        want = {"gemv_kernel": 6 * -(-n // 8) * L, "attn_partial_kernel": 2 * L,
+                "attn_combine_kernel": 2 * L}
+        print(f"decode step {name}: CUDA kernel launches per step {per_step}")
+        if per_step != want:
+            raise AssertionError(f"decode step {name}: kernel launches {per_step} != {want}")
+        del cache, scratch
+    del params, ckv, ckv8
+    torch.cuda.empty_cache()
 
 
 def build():
@@ -1383,9 +1710,14 @@ def main() -> int:
     check_w8a8(rows)
     check_decode()
     check_int8_decode()
+    check_beam_decode()
     check_train_grads()
     check_peft_grads()
     main_path(rows)
+    main_path(rows, beams=BEAMS)
+    main_path(rows, beams=BEAMS, kv_int8=True)
+    main_path(rows, beams=BEAMS, reorder=True)
+    evaluator_path(rows)
     train_main_path(rows)
     train_main_path(rows, config=PEFT_CONFIG, extra=("--int8_matmul",))
     step_breakdown()

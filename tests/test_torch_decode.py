@@ -89,14 +89,18 @@ def test_greedy_tokens_equal_jax(setup, jax_streams, variant, fused):
 
 
 def test_pending_decode_options_raise(setup):
-    """Beams and int8 cross-KV raise; int8 decoder weights (w_int8) are
-    served (tests/test_torch_int8.py holds them against JAX)."""
-    _, tcfg, *_ = setup
-    with pytest.raises(NotImplementedError, match="fused_attn_beam"):
-        TD.make_decode_fn(tcfg, FORCED, num_beams=4)
-    with pytest.raises(NotImplementedError, match="kv_int8"):
-        TD.make_decode_fn(tcfg, FORCED, kv_int8=True)
-    assert callable(TD.make_decode_fn(tcfg, FORCED, w_int8=True))
+    """Beams, int8 cross-KV and int8 decoder weights are served
+    (tests/test_torch_beam.py, tests/test_torch_int8.py hold them against
+    JAX), a fused beam decode wider than the Pallas kernels' 8 included;
+    nothing of these options raises any more."""
+    _, tcfg, _, tparams, mel = setup
+    for kw in (dict(num_beams=4), dict(kv_int8=True), dict(w_int8=True),
+               dict(num_beams=2, kv_int8=True, w_int8=True)):
+        assert callable(TD.make_decode_fn(tcfg, FORCED, **kw))
+    tokens, lengths = TD.make_decode_fn(tcfg, FORCED, 6, num_beams=9,
+                                        compute_dtype=torch.float32, fused=True)(
+        tparams, torch.from_numpy(mel[:1]))
+    assert tokens.shape == (1, 6) and lengths.shape == (1,)
 
 
 def test_fused_needs_64_dim_heads(setup):

@@ -105,16 +105,22 @@ def test_fused_mlp(stacked):
 
 
 def test_pending_options_raise():
-    """int8 KV (k_scale/v_scale) and shared beam cross-KV are not ported:
-    they raise instead of being served by some other path (the int8-weight
-    options are ported: tests/test_torch_int8.py)."""
+    """fused_attn's int8 KV (k_scale/v_scale) and shared beam cross-KV
+    (kv_group) are ported (tests/test_torch_beam.py); what raises is a
+    malformed request: one scale without the other, a group below 1 or not
+    dividing the rows, k/v rows that do not match x's rows / kv_group. A
+    group wider than the Pallas kernels' 8 is served."""
     x = torch.zeros(B, D)
     w = torch.zeros(D, D)
     b = torch.zeros(D)
     kv = torch.zeros(B, T, D)
-    with pytest.raises(NotImplementedError, match="k_scale"):
-        TDF.fused_attn(x, kv, kv, w, b, q=x, pos=0, k_scale=b)
-    with pytest.raises(NotImplementedError):
-        TDF.fused_attn(x, kv, kv, w, b, q=x, pos=0, k_scale=b, v_scale=b)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        TDF.fused_attn(x, kv, kv, w, b, q=x, pos=0, k_scale=torch.ones(B, D))
+    x9 = torch.zeros(9, D)
+    assert TDF.fused_attn(x9, kv[:1], kv[:1], w, b, q=x9, pos=0, kv_group=9).shape == (9, D)
+    with pytest.raises(ValueError, match="kv_group"):
+        TDF.fused_attn(x, kv, kv, w, b, q=x, pos=0, kv_group=0)
+    with pytest.raises(ValueError, match="kv_group"):
         TDF.fused_attn(x, kv, kv, w, b, q=x, pos=0, kv_group=2)
+    with pytest.raises(ValueError, match="batch dim"):
+        TDF.fused_attn(x, kv, kv, w, b, q=x, pos=0, kv_group=3)

@@ -16,7 +16,10 @@ intermediates to bf16, so an output at a rounding boundary may land one
 bf16 step, at most 2^-7 of its value, apart), as chip_smoke.py. The decoder
 kernels run with int8 weights too (all-int8 and a merged-LoRA mix). The
 W8A8 kernel is held to bit equality with its plain version, pure and with
-the outlier keep-mask and addend, at ragged m, K and N."""
+the outlier keep-mask and addend, at ragged m, K and N. The beam
+self-attention kernel runs at 2, 3, 8 and 10 beams over a random ancestry
+map, the cross-attention's kv_group at 1, 3, 4, 8 and 10 with float and
+int8 K/V."""
 import numpy as np
 import pytest
 import torch
@@ -83,6 +86,73 @@ def test_decoder_kernels_match_plain(dev, dtype, B):
     out = DF.fused_mlp(x, lns, lnb, w1, b1, w2, b2, layer_idx=li)
     _close(out, DF.fused_mlp_plain(x, lns[li], lnb[li], w1[li], b1[li], w2[li],
                                    b2[li]), dtype)
+
+
+@pytest.mark.parametrize("wo_int8", [False, True])
+@pytest.mark.parametrize("K", [2, 3, 8, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attn_beam_matches_plain(dev, dtype, K, wo_int8):
+    """Beam self-attention over an unpermuted (L, 2K, T, d) cache through a
+    random ancestry map (stacked, layer 2), float or int8 wo; one launch
+    counted per call under its name."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    N = 2 * K
+    x, q = _rn(g, dev, N, D, dtype=dtype), _rn(g, dev, N, D, scale=0.125)
+    k, v = _rn(g, dev, L, N, T, D, dtype=dtype), _rn(g, dev, L, N, T, D, dtype=dtype)
+    anc = torch.randint(0, K, (2, K, T), generator=g, device=dev, dtype=torch.int32)
+    bo = _rn(g, dev, L, D, scale=0.1, dtype=dtype)
+    w = _rn(g, dev, L, D, D, scale=D ** -0.5)
+    if wo_int8:
+        qw = Q.quantize_weight(w)
+        wo, so = qw[Q.QUANT_KEY], qw[Q.SCALE_KEY]
+    else:
+        wo, so = w.to(dtype), None
+    li = 2
+    DF.reset_launches()
+    for pos in (0, 100, 200, T - 1):
+        out = DF.fused_attn_beam(x, k, v, wo, bo, q=q, pos=pos, ancestry=anc,
+                                 wo_scale=so, layer_idx=li)
+        _close(out, DF.fused_attn_beam_plain(x, k[li], v[li], wo[li], bo[li], q, pos, anc,
+                                             None if so is None else so[li]), dtype)
+    assert DF.LAUNCHES["fused_attn_beam" + ("_int8" if wo_int8 else "")] == 4
+
+
+@pytest.mark.parametrize("G", [1, 3, 4, 8, 10])
+@pytest.mark.parametrize("kv8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attn_group_and_int8_kv_match_plain(dev, dtype, kv8, G):
+    """Cross-attention of 2·G rows over 2 KV rows (kv_group G; the kernel's
+    1-, 2-, 4- and 8-query blocks, and G = 10 as blocks of 8 and 2), float or int8 K/V with per-(row, head)
+    scales, S 384, s_valid 300, stacked (layer 1)."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    Bk, li = 2, 1
+    x = _rn(g, dev, Bk * G, D, dtype=dtype)
+    lns, lnb = 1 + _rn(g, dev, L, D, scale=0.1), _rn(g, dev, L, D, scale=0.1)
+    wq, wo = (_rn(g, dev, L, D, D, scale=D ** -0.5, dtype=dtype) for _ in range(2))
+    bq, bo = (_rn(g, dev, L, D, scale=0.1, dtype=dtype) for _ in range(2))
+    if kv8:
+        kx, vx = (torch.randint(-127, 128, (L, Bk, S, D), generator=g, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.exp(_rn(g, dev, L, Bk, D // 64)).repeat_interleave(64, -1) / 127
+                  for _ in range(2))
+    else:
+        kx, vx = (_rn(g, dev, L, Bk, S, D, dtype=dtype) for _ in range(2))
+        ks = vs = None
+    DF.reset_launches()
+    DF.reset_kernel_launches()
+    out = DF.fused_attn(x, kx, vx, wo, bo, s_valid=300, ln_scale=lns, ln_bias=lnb,
+                        wq=wq, bq=bq, k_scale=ks, v_scale=vs, layer_idx=li, kv_group=G)
+    # the q and wo GEMVs once per group of 8 rows, one partial, one combine
+    groups = -(-Bk * G // 8)
+    assert DF.kernel_launches() == {"gemv_kernel": 2 * groups, "attn_partial_kernel": 1,
+                                    "attn_combine_kernel": 1}
+    ref = DF.fused_attn_plain(x, kx[li], vx[li], wo[li], bo[li], n_valid=300,
+                              ln_scale=lns[li], ln_bias=lnb[li], wq=wq[li], bq=bq[li],
+                              k_scale=None if ks is None else ks[li],
+                              v_scale=None if vs is None else vs[li], kv_group=G)
+    _close(out, ref, dtype)
+    name = DF.ATTN_CROSS[(G > 1) + 2 * kv8]
+    assert DF.LAUNCHES[name] == 1 and sum(DF.LAUNCHES.values()) == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

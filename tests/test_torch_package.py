@@ -82,9 +82,10 @@ def test_build_plan():
 
 def test_pending_model_options_raise():
     """The options of paths not ported yet raise before a run starts
-    (--peft and --load_in_8bit are ported and build: tests/test_torch_peft.py)."""
+    (--peft and --load_in_8bit are ported and build: tests/test_torch_peft.py;
+    beams and --decode_kv_int8 are served: tests/test_torch_evaluate.py)."""
     from asr_finetune_tpu_torch import config, run
-    for flag in ("--offload_param", "--spec_augment", "--decode_kv_int8"):
+    for flag in ("--offload_param", "--spec_augment", "--host_logmel"):
         args = config.parse_args(["--model_type", "test-nano", "--device", "cpu",
                                   "--peft", "--load_in_8bit", flag])
         with pytest.raises(NotImplementedError, match=flag):

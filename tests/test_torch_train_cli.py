@@ -5,7 +5,8 @@ against the JAX package.
 synthetic audiofolder (test-nano, byte-fallback labels, batch 2): steps,
 an eval with WER, checkpoints, step-exact resume; the options that are not
 ported raise (PEFT and the int8 base are ported:
-tests/test_torch_peft_cli.py); without --device cpu the entry point raises
+tests/test_torch_peft_cli.py; beam-search eval and int8 cross-KV:
+tests/test_torch_evaluate.py); without --device cpu the entry point raises
 on a machine with no card; with --bf16 the trained weights stay fp32
 masters while serving casts them. The collator, the length-grouped sampler and the WER
 are held against the JAX package's on the same inputs."""
@@ -141,8 +142,8 @@ def test_train_cli_without_device_cpu_raises_here(folder, tmp_path):
         train_cli.main(_argv(folder, tmp_path, device=()))
 
 
-@pytest.mark.parametrize("flag", [("--offload_optimizer",), ("--decode_kv_int8",),
-                                  ("--spec_augment",), ("--generation_num_beams", "2"),
+@pytest.mark.parametrize("flag", [("--offload_optimizer",), ("--offload_param",),
+                                  ("--spec_augment",), ("--host_logmel",),
                                   ("--tp", "2")])
 def test_options_not_ported_raise(folder, tmp_path, flag):
     with pytest.raises(NotImplementedError):
