@@ -30,12 +30,18 @@ the adapter input is `LoraDropout`. A frozen base may be int8
 ({"w_q8", "w_scale"}, ops/quant.py): `dense` dequantizes it into the
 compute dtype, or, when the `quant` config asks for it (--int8_matmul),
 computes the product as W8A8 through the kernel (ops/quant.int8_matmul).
+
+The fused-qkv encoder path (opt-in, ASR_TPU_FUSED_QKV; `_fused_qkv_ok`)
+runs each encoder layer's q/k/v as one wide (d, 3d) product whose (B, T,
+3d) output feeds the attention kernel directly (`_mha_fused_qkv`,
+ops/encoder_attention.dense_attention_qkv), as the JAX `encode` does.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import math
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -45,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .configs import WhisperConfig
 from ..ops import decoder_fused as DF
+from ..ops import encoder_attention as EA
 from ..ops import quant as Q
 from ..ops.attention import attention as _attention_dispatch
 from ..ops.attention import xla_attention
@@ -223,19 +230,25 @@ def _lora_delta(x: torch.Tensor, lora: Params, dropout: Optional[LoraDropout],
     return y * lora["scaling"].to(x.dtype)
 
 
+def _base_matmul(x: torch.Tensor, p: Params,
+                 quant: Optional[Q.QuantConfig] = None) -> torch.Tensor:
+    """x @ W of one projection, the weight cast to x's dtype at use; an int8
+    weight dequantized into x's dtype, or with quant.matmul multiplied as
+    W8A8 (ops/quant.int8_matmul). The JAX `_base_matmul_multi` (:204) over
+    one (possibly fused) projection."""
+    if Q.QUANT_KEY in p:
+        if quant is not None and quant.matmul:
+            return Q.int8_matmul(x, p[Q.QUANT_KEY], p[Q.SCALE_KEY], quant)
+        return torch.matmul(x, Q.dequantize_weight(p, x.dtype))
+    return torch.matmul(x, p["w"].to(x.dtype))
+
+
 def dense(x: torch.Tensor, p: Params, lora: Optional[Params] = None,
           dropout: Optional[LoraDropout] = None, site: str = "",
           quant: Optional[Q.QuantConfig] = None) -> torch.Tensor:
     """x @ W (+ adapter delta) (+ b), the weight and bias cast to x's dtype at
-    use. An int8 weight is dequantized into x's dtype, or with quant.matmul
-    multiplied as W8A8 (ops/quant.int8_matmul)."""
-    if Q.QUANT_KEY in p:
-        if quant is not None and quant.matmul:
-            y = Q.int8_matmul(x, p[Q.QUANT_KEY], p[Q.SCALE_KEY], quant)
-        else:
-            y = torch.matmul(x, Q.dequantize_weight(p, x.dtype))
-    else:
-        y = torch.matmul(x, p["w"].to(x.dtype))
+    use (`_base_matmul`)."""
+    y = _base_matmul(x, p, quant)
     if lora is not None:
         y = y + _lora_delta(x, lora, dropout, site)
     if "b" in p:
@@ -293,10 +306,111 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.transpose(1, 2) + b.to(acc)
 
 
+def _fuse_qkv_weights(attn: Params) -> Params:
+    """The stacked q/k/v projections as one wide (L, d, 3d) projection (the
+    JAX function of the same name, :376): {"w"}, or {"w_q8", "w_scale"}
+    with the scales concatenated on the output axis; k has no bias in
+    Whisper, so its slot in the fused bias is zeros. Gradients reach the
+    separate q/k/v leaves through the concatenation. A mix of int8 and float
+    projections cannot be one product and raises (`encode` never passes one:
+    see `_qkv_mixed`)."""
+    ps = [attn[n] for n in "qkv"]
+    fused: Params = {}
+    if all(Q.QUANT_KEY in p for p in ps):
+        fused[Q.QUANT_KEY] = torch.cat([p[Q.QUANT_KEY] for p in ps], dim=-1)
+        fused[Q.SCALE_KEY] = torch.cat([p[Q.SCALE_KEY] for p in ps], dim=-1)
+    elif _qkv_mixed(attn):
+        raise ValueError("mixed int8/float q/k/v projections cannot be qkv-fused")
+    else:
+        fused["w"] = torch.cat([p["w"] for p in ps], dim=-1)
+    if any("b" in p for p in ps):
+        ref = next(p["b"] for p in ps if "b" in p)
+        fused["b"] = torch.cat([p["b"] if "b" in p else torch.zeros_like(ref)
+                                for p in ps], dim=-1)
+    return fused
+
+
+def _qkv_mixed(attn: Params) -> bool:
+    """Some but not all of q/k/v int8: the merged PEFT base of an eval
+    decode, where merging the adapters made q and v float."""
+    return len({Q.QUANT_KEY in attn[n] for n in "qkv"}) > 1
+
+
+def _lora_delta_qkv(x: torch.Tensor, lora: Params, d: int,
+                    dropout: Optional[LoraDropout], site: str) -> torch.Tensor:
+    """The q and v adapters' deltas in the fused (B, T, 3d) layout as one
+    block product, the JAX fused form (:406): [drop(x)@a_q·e_q |
+    drop(x)@a_v·e_v] @ B', where B' holds b_q·scaling in columns [0, d) and
+    b_v·scaling in [2d, 3d), zeros elsewhere. The scaling is folded into B'
+    before the product, so this rounds as the JAX fused path does (the
+    unfused `_lora_delta` scales after it). Dropout draws each adapter's
+    mask at the unfused path's site (site + "/q", site + "/v")."""
+    xs, bs = [], []
+    for name, off in (("q", 0), ("v", 2)):
+        la = lora.get(name)
+        if la is None:
+            continue
+        b = (la["b"] * la["scaling"]).to(x.dtype)
+        xa = x if dropout is None else dropout(x, f"{site}/{name}")
+        xs.append(torch.matmul(xa, la["a"].to(x.dtype)) * la["e"].to(x.dtype))
+        r = b.shape[0]
+        bs.append(torch.cat([b.new_zeros((r, off * d)), b,
+                             b.new_zeros((r, (2 - off) * d))], dim=1))
+    if len(xs) == 1:
+        return torch.matmul(xs[0], bs[0])
+    return torch.matmul(torch.cat(xs, dim=-1), torch.cat(bs, dim=0))
+
+
+def _mha_fused_qkv(x: torch.Tensor, p: Params, fw: Params, heads: int,
+                   lora: Optional[Params] = None,
+                   dropout: Optional[LoraDropout] = None, site: str = "",
+                   quant: Optional[Q.QuantConfig] = None) -> torch.Tensor:
+    """Encoder self-attention with q/k/v as one wide product (the JAX
+    function of the same name, :434): x @ W_qkv (float, dequantized int8 or
+    W8A8), the q/v adapter deltas in the same layout, the fused bias, then
+    the attention kernel straight on the (B, T, 3d) buffer
+    (ops/encoder_attention.dense_attention_qkv) and the output projection."""
+    d = x.shape[-1]
+    y = _base_matmul(x, fw, quant)
+    if lora and ("q" in lora or "v" in lora):
+        y = y + _lora_delta_qkv(x, lora, d, dropout, site)
+    if "b" in fw:
+        y = y + fw["b"].to(x.dtype)
+    out = EA.dense_attention_qkv(y, d // heads)
+    return dense(out, p["o"], quant=quant)
+
+
+def _fused_qkv_ok(cfg: WhisperConfig, T: int, impl: str,
+                  device: torch.device) -> bool:
+    """The gate of the fused-qkv encoder path (the JAX function of the same
+    name, :465), opt-in through ASR_TPU_FUSED_QKV, read at every call:
+    unset or 0 off; 1 on where impl is "auto", yielding to an explicit
+    impl "xla"; force on whatever impl says; auto on where the dispatch
+    runs the encoder-attention kernel, impl "auto" on a CUDA device. Never
+    at a shape the kernels cannot take (EA.fused_qkv_supported)."""
+    mode = os.environ.get("ASR_TPU_FUSED_QKV", "0").lower()
+    if mode in ("0", "false", "no", "off"):
+        return False
+    hd = cfg.d_model // cfg.encoder_heads
+    if cfg.encoder_heads * hd != cfg.d_model \
+            or not EA.fused_qkv_supported(cfg.encoder_heads, hd, T):
+        return False
+    if impl != "auto":
+        return mode == "force"
+    if mode in ("1", "true", "yes", "on", "force"):
+        return True
+    return torch.device(device).type == "cuda"
+
+
 def _enc_attn_half(x, lp, la, heads: int, impl: str, dropout, site: str, quant):
     h = layer_norm(x, lp["ln1"])
-    return x + mha(h, h, lp["attn"], heads, impl=impl, lora=la,      # blk_mid
-                   dropout=dropout, site=site, quant=quant)
+    if "attn_qkv" in lp:
+        a = _mha_fused_qkv(h, lp["attn"], lp["attn_qkv"], heads, la, dropout,
+                           site, quant)
+    else:
+        a = mha(h, h, lp["attn"], heads, impl=impl, lora=la, dropout=dropout,
+                site=site, quant=quant)
+    return x + a                                                    # blk_mid
 
 
 def _mlp_half(x, ln, mlp, quant):
@@ -314,11 +428,20 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
            remat: bool = False, attn_impl: str = "auto",
            adapters: Optional[Params] = None,
            dropout: Optional[LoraDropout] = None,
-           quant: Optional[Q.QuantConfig] = None) -> torch.Tensor:
+           quant: Optional[Q.QuantConfig] = None,
+           fused_qkv: bool = True) -> torch.Tensor:
     """mel (B, frames, n_mels) → encoder states (B, frames//2, d_model).
     remat: recompute each half-block in the backward (see the module
     docstring); attn_impl: "auto" (the attention kernel) or "xla";
-    adapters["encoder"]: q/v adapters of the self-attention."""
+    adapters["encoder"]: q/v adapters of the self-attention.
+
+    Where `_fused_qkv_ok` engages (ASR_TPU_FUSED_QKV) and fused_qkv allows
+    it, every layer's q/k/v run as one wide product into the fused-qkv
+    attention kernel: the wide weights are built once per call, outside the
+    layer loop, and the per-layer tree keeps only o. A q/k/v mix of int8
+    and float (a merged PEFT base) takes the three projections for the call,
+    where the JAX function raises. fused_qkv=False keeps the three
+    projections whatever the environment says (the outlier calibration)."""
     enc = params["encoder"]
     x = _gelu(_conv1d(mel, enc["conv1"]["w"], enc["conv1"]["b"], 1))
     x = _gelu(_conv1d(x, enc["conv2"]["w"], enc["conv2"]["b"], 2))
@@ -326,7 +449,12 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
     x = x + params["encoder_pos"][: x.shape[1]].to(compute_dtype)[None]
     L = cfg.encoder_layers
     las = _layer_adapters(adapters, "encoder", L)
-    for l, lp in enumerate(_unbind_layers(enc["layers"], L)):
+    layers = enc["layers"]
+    if fused_qkv and not _qkv_mixed(layers["attn"]) \
+            and _fused_qkv_ok(cfg, x.shape[1], attn_impl, x.device):
+        layers = dict(layers, attn_qkv=_fuse_qkv_weights(layers["attn"]),
+                      attn={"o": layers["attn"]["o"]})
+    for l, lp in enumerate(_unbind_layers(layers, L)):
         x = _maybe_remat(_enc_attn_half, remat, x, lp, las[l], cfg.encoder_heads,
                          attn_impl, dropout, f"enc/{l}", quant)
         x = _maybe_remat(_mlp_half, remat, x, lp["ln2"], lp["mlp"], quant)
@@ -396,12 +524,13 @@ def forward(params: Params, mel: torch.Tensor, tokens: torch.Tensor,
             return_hidden: bool = False,
             adapters: Optional[Params] = None,
             dropout: Optional[LoraDropout] = None,
-            quant: Optional[Q.QuantConfig] = None) -> torch.Tensor:
+            quant: Optional[Q.QuantConfig] = None,
+            fused_qkv: bool = True) -> torch.Tensor:
     """Full teacher-forced forward: (mel, decoder_input_ids) → logits.
     attn_impl selects the encoder attention, decoder_attn_impl the
-    decoder's (defaults to attn_impl)."""
+    decoder's (defaults to attn_impl); fused_qkv as in `encode`."""
     enc_out = encode(params, mel, cfg, compute_dtype, remat, attn_impl,
-                     adapters, dropout, quant)
+                     adapters, dropout, quant, fused_qkv)
     dec_impl = attn_impl if decoder_attn_impl is None else decoder_attn_impl
     return decode_train(params, tokens, enc_out, cfg, compute_dtype, remat,
                         dec_impl, return_hidden, adapters, dropout, quant)

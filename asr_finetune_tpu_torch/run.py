@@ -247,12 +247,21 @@ def calibrate_outliers(args, built: BuiltModel, step_cfg: TrainStepConfig,
     d_out) class, as step_cfg.quant's static sets. The forward runs the
     train step's kernels: the JAX package calibrates with plain attention
     only because its Pallas TPU kernels cannot run on the CPU devices it
-    calibrates on."""
+    calibrates on.
+
+    The calibration forward never takes the fused-qkv encoder path
+    (fused_qkv=False), whatever ASR_TPU_FUSED_QKV says: the JAX trial's
+    attn_impl "xla" makes its gate yield, so JAX calibrates the three
+    (d, d) q/k/v products and never the wide (d, 3d) one. The sets then
+    hold the JAX classes and nothing more, and under ASR_TPU_FUSED_QKV the
+    wide product finds no calibrated class and takes W8A8's dynamic top-k
+    form, as in the JAX trial."""
     from .data.pipeline import to_device
     batch = eval_batches_fn(0)[0]
     rows = {k: np.asarray(batch[k])[:4] for k in ("audio", "decoder_input_ids", "labels")
             if k in batch}
-    estep = make_eval_loss_step(built.cfg, dataclasses.replace(step_cfg, remat=False))
+    estep = make_eval_loss_step(built.cfg, dataclasses.replace(
+        step_cfg, remat=False, fused_qkv=False))
     cstate = {"params": state["params"], "adapters": state.get("adapters")}
     idx_map = quant_lib.calibrate_int8_outliers(
         lambda: estep(cstate, to_device(rows, built.device)), step_cfg.quant,

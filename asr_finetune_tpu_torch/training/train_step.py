@@ -66,6 +66,8 @@ class TrainStepConfig:
     lora: Optional[lora_lib.LoraConfig] = None
     seed: int = 0                       # base of the lora dropout stream
     quant: Optional[QuantConfig] = None  # how int8 base weights are multiplied
+    fused_qkv: bool = True              # the encoder may take the fused-qkv path
+                                        # where ASR_TPU_FUSED_QKV engages it
 
 
 def make_train_state(params: Params, opt: AdamW, adapters: Optional[Params] = None,
@@ -119,7 +121,7 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
                     decoder_attn_impl=cfg.decoder_attn_impl,
                     return_hidden=cfg.fused_ce,
                     adapters=adapters if peft else None, dropout=dropout,
-                    quant=cfg.quant)
+                    quant=cfg.quant, fused_qkv=cfg.fused_qkv)
     if cfg.fused_ce:
         loss, n = fused_cross_entropy(out, params["decoder"]["embed"],
                                       batch["labels"], cfg.label_smoothing,

@@ -19,7 +19,12 @@
    beam path's attention at 4 utterances x 4 beams: the ancestry-masked
    beam self-attention, the cross-attention over K/V shared per utterance
    (kv_group 4) and over int8 K/V (G = 1 and 4); both again at 2 x 10
-   beams, wider than the Pallas kernels' 8;
+   beams, wider than the Pallas kernels' 8; the encoder-attention kernels on
+   the (BH, T, hd) layout (80 x 1536 rows, keys valid below 1500) and on one
+   fused (4, 1500, 3840) qkv buffer, forward and backward, with SDPA as the
+   yardstick; W8A8 also at the fused q|k|v product 1280 -> 3840; the log-mel
+   kernel (fp32) at B 4, 80 and 128 mels, the production conv form
+   (ops/logmel.log_mel_spectrogram) as its yardstick;
 4. runs an fp32 greedy decode at large-v3 width and 2+2 layers through the
    fused kernels and through the plain decode step: the tokens must be equal,
    over a float base and over a merged int8 base; a beam-4 decode the same
@@ -29,7 +34,11 @@
    through plain attention, and with remat on those with it off; and one
    fp32 PEFT step over an int8 base: adapter gradients through the W8A8
    kernel against its plain version, and over the dequantized base through
-   the attention kernels against plain attention;
+   the attention kernels against plain attention; the fused-qkv encoder path
+   (ASR_TPU_FUSED_QKV=1) against the three projections, and the (BH, T, hd)
+   layout (ASR_TPU_DENSE_PACKED=0) against the packed one, at the same size:
+   the encoder output, a full fine-tuning step's gradients and a PEFT step's
+   adapter gradients over the dequantized int8 base with lora dropout;
 5. the serving main path: transcribes four seeded synthetic 16 kHz wavs (one
    longer than 30 s) with `asr_finetune_tpu_torch.cli.transcribe` at
    large-v3 (32+32 layers, random weights from a seed, bf16), asserts every
@@ -37,8 +46,10 @@
    utterances/s, ms/step and peak memory; then the same with beam-4
    (`--generation_num_beams 4`: 16 hypothesis rows over cross K/V held at
    the 4 utterances' rows), with `--decode_kv_int8`, and with the cache
-   reordered each step (ASR_TPU_BEAM_REORDER=1); the offline evaluator with
-   beam-4 over four seeded wavs, stopped after one batch and resumed;
+   reordered each step (ASR_TPU_BEAM_REORDER=1); greedy again under
+   ASR_TPU_FUSED_QKV=1 (the encoder through the fused-qkv kernel); the
+   offline evaluator with beam-4 over four seeded wavs, stopped after one
+   batch and resumed;
 6. the training main path: `asr_finetune_tpu_torch.cli.train` with the
    repo's largev3_debug.config, whisper-large-v3 full fine-tuning (32+32
    layers, bf16 compute, fp32 masters, remat), 4 steps of batch 4 on 20
@@ -50,7 +61,11 @@
    frozen product through the W8A8 kernel, the outlier calibration, eval
    decode through the int8 options of the decoder kernels, an adapter-only
    checkpoint), the same 20 wavs and cut; the same assertions and figures,
-   the calibrated outlier columns;
+   the calibrated outlier columns; then the same under ASR_TPU_FUSED_QKV=1
+   (7b): every encoder layer's q/k/v as one W8A8 product of 1280 -> 3840 in
+   its dynamic top-k outlier form (the calibration stays unfused, as the JAX
+   trial's, and records no such class) into the fused-qkv attention kernel,
+   forward and backward;
 8. one decode step's device time by CUDA kernel, greedy and on each beam
    path, with the launches per step asserted; then the card line again,
    one JSON line `{"kernels": [...]}`, and last `{"ok": true, "device": {...}}`.
@@ -85,7 +100,9 @@ TRAIN_STEPS, TRAIN_UTTS, TRAIN_GEN_LEN = 4, 20, 32
 # decoder rows B x the 192 label bucket
 W8A8_SHAPES = (("encoder q/k/v/o", B * T_ENC, D, D), ("encoder fc1", B * T_ENC, D, FF),
                ("encoder fc2", B * T_ENC, FF, D), ("decoder q/k/v/o", B * CROSS_TQ, D, D),
-               ("decoder fc1", B * CROSS_TQ, D, FF), ("decoder fc2", B * CROSS_TQ, FF, D))
+               ("decoder fc1", B * CROSS_TQ, D, FF), ("decoder fc2", B * CROSS_TQ, FF, D),
+               ("encoder q|k|v fused", B * T_ENC, D, 3 * D))
+T_PAD = 1536                                     # T_ENC padded to 128 ((BH, T, hd) layout)
 # fp32 gradients of one train step at large-v3 width, 2+2 layers: the
 # largest over the leaves of max |diff| / max |grad|, kernels against plain
 # attention and remat on against off. Each limit is ~4x (kernels) and ~10x
@@ -135,7 +152,21 @@ BF16_LIMITS = {                          # kernel: (atol, rms_rel)
     "fused_attn_cross_kv8_int8": (1.3e-3, 2.6e-3),
     "fused_attn_cross_group_kv8": (1.4e-3, 2.8e-3),
     "fused_attn_cross_group_kv8_int8": (1.4e-3, 2.7e-3),
+    # the encoder-attention kernels on the (BH, T, hd) and fused-qkv
+    # layouts at the encoder's shape, the same rule
+    "encoder_attention_bh": (1.7e-3, 9.2e-3),
+    "encoder_attention_bh_bwd": (2.4e-3, 6.9e-4),
+    "encoder_attention_qkv": (1.7e-3, 9.2e-3),
+    "encoder_attention_qkv_bwd": (1.8e-3, 6.6e-4),
 }
+# fp32 at large-v3 width, 2+2 layers: the largest over the outputs or leaves
+# of max |diff| / max |ref|, the fused-qkv path against the three
+# projections and the (BH, T, hd) layout against the packed one: 4x the
+# largest first reading on an H100 (full FT 5.2e-7, PEFT 3.4e-7; the encoder
+# output read 0), and no less than 1e-6, the remat check's size (cuBLAS may
+# order an fp32 product's sums otherwise)
+LAYOUT_LIMITS = {"encoder output": 1e-6, "full-FT gradients": 2.1e-6,
+                 "PEFT adapter gradients": 1.4e-6}
 ATTN_CROSS = ("fused_attn_cross", "fused_attn_cross_group", "fused_attn_cross_kv8",
               "fused_attn_cross_group_kv8")
 REPLACES = {
@@ -147,11 +178,17 @@ REPLACES = {
     "fused_attn_beam": "asr_finetune_tpu/ops/decoder_fused.py:548",
     "fused_mlp": "asr_finetune_tpu/ops/decoder_fused.py:681",
     "w8a8": "asr_finetune_tpu/ops/w8a8_fused.py:93",
+    "encoder_attention_bh": "asr_finetune_tpu/ops/encoder_attention.py:133",
+    "encoder_attention_bh_bwd": "asr_finetune_tpu/ops/encoder_attention.py:156",
+    "encoder_attention_qkv": "asr_finetune_tpu/ops/encoder_attention.py:457",
+    "encoder_attention_qkv_bwd": "asr_finetune_tpu/ops/encoder_attention.py:484",
+    "log_mel": "asr_finetune_tpu/ops/logmel_pallas.py:123",
 }
 REPLACES.update({k + "_int8": v for k, v in list(REPLACES.items()) if k.startswith("fused_")})
 SOURCES = {
-    "encoder_attention": "asr_finetune_tpu_torch/csrc/encoder_attention.cu",
-    "encoder_attention_bwd": "asr_finetune_tpu_torch/csrc/encoder_attention.cu",
+    **{k: "asr_finetune_tpu_torch/csrc/encoder_attention.cu"
+       for k in REPLACES if k.startswith("encoder_attention")},
+    "log_mel": "asr_finetune_tpu_torch/csrc/logmel.cu",
     **{k: "asr_finetune_tpu_torch/csrc/decoder_fused.cu"
        for k in REPLACES if k.startswith("fused_")},
     "w8a8": "asr_finetune_tpu_torch/csrc/w8a8.cu",
@@ -169,19 +206,21 @@ WEIGHT_KINDS = {"float": (), "mixed": ("k", "o", "fc1", "fc2"),
                 "all-int8": ("q", "k", "v", "o", "fc1", "fc2")}
 
 
-def all_launches() -> dict:
-    """Every kernel wrapper's launch count."""
+def _kernel_modules() -> tuple:
     from asr_finetune_tpu_torch.ops import decoder_fused as DF
     from asr_finetune_tpu_torch.ops import encoder_attention as EA
+    from asr_finetune_tpu_torch.ops import logmel_fused as LF
     from asr_finetune_tpu_torch.ops import w8a8_fused as WF
-    return {**EA.LAUNCHES, **DF.LAUNCHES, **WF.LAUNCHES}
+    return EA, DF, WF, LF
+
+
+def all_launches() -> dict:
+    """Every kernel wrapper's launch count."""
+    return {k: v for mod in _kernel_modules() for k, v in mod.LAUNCHES.items()}
 
 
 def reset_all_launches() -> None:
-    from asr_finetune_tpu_torch.ops import decoder_fused as DF
-    from asr_finetune_tpu_torch.ops import encoder_attention as EA
-    from asr_finetune_tpu_torch.ops import w8a8_fused as WF
-    for mod in (EA, DF, WF):
+    for mod in _kernel_modules():
         mod.reset_launches()
 
 
@@ -735,7 +774,11 @@ def check_w8a8(rows):
     times, per shape, the kernel, the plain version, torch._int_mm on the
     same int8 operands (the int8 dot alone, a yardstick), and the bf16
     product with the dequantized weight (the product --no-int8_matmul
-    runs); the row's headline shape is the encoder's q/k/v/o."""
+    runs); also the kernel with the outlier keep-mask and addend, and the
+    whole dynamic top-8 product (`Q.int8_matmul` with no calibrated class:
+    column amax, ranking, the side product, the kernel), the form the fused
+    path's wide q|k|v product takes; the row's headline shape is the
+    encoder's q/k/v/o."""
     import torch
     from asr_finetune_tpu_torch.ops import quant as Q
     from asr_finetune_tpu_torch.ops import w8a8_fused as WF
@@ -772,16 +815,23 @@ def check_w8a8(rows):
             w8_cm = w8.t().contiguous().t()      # cuBLASLt's int8 layout
             w_deq = Q.dequantize_weight(q, dt)
             b_ms, b_by = bound(m * K * 2 + K * N + N * 4 + m * N * 2, 2 * m * K * N, "int8")
+            dyn = Q.QuantConfig(matmul=True, outlier_cols=8)
             t = {"shape": name, "m": m, "K": K, "N": N,
                  "ms": device_ms(lambda: WF.w8a8(x, w8, ws), 16),
+                 "outliers_ms": device_ms(lambda: WF.w8a8(x, w8, ws, keep, addend), 16),
+                 # the ranking writes the keep-mask from a host scalar, which a
+                 # CUDA graph cannot capture: the profiler's sum over its kernels
+                 "dynamic_product_ms": profiled_ms(lambda: Q.int8_matmul(x, w8, ws, dyn)),
                  "plain_ms": device_ms(lambda: WF.w8a8_plain(x, w8, ws), 2),
                  "int_mm_ms": device_ms(lambda: torch._int_mm(x8, w8_cm), 16),
                  "bf16_matmul_ms": device_ms(lambda: torch.matmul(x, w_deq), 16),
                  "bound_ms": b_ms, "bound_by": b_by}
             shapes.append(t)
-            print(f"  w8a8 [bfloat16] {name}: kernel {t['ms']:.4f} ms (device)  plain "
-                  f"{t['plain_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})  torch._int_mm "
-                  f"{t['int_mm_ms']:.4f} ms  bf16 matmul (dequantized) "
+            print(f"  w8a8 [bfloat16] {name}: kernel {t['ms']:.4f} ms (device; with the "
+                  f"outlier keep/addend {t['outliers_ms']:.4f} ms; the whole dynamic top-8 "
+                  f"product, ranking and side product included, {t['dynamic_product_ms']:.4f} "
+                  f"ms)  plain {t['plain_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
+                  f"torch._int_mm {t['int_mm_ms']:.4f} ms  bf16 matmul (dequantized) "
                   f"{t['bf16_matmul_ms']:.4f} ms")
             del x8, w8_cm, w_deq
         torch.cuda.empty_cache()
@@ -792,6 +842,160 @@ def check_w8a8(rows):
                     "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                     "library_ms": None, "int_mm_ms": head["int_mm_ms"],
                     "bf16_matmul_ms": head["bf16_matmul_ms"], "by_shape": shapes}
+
+
+def _bwd_row(rows, name, err, fn, plain_fn, library_fn, moved, flops, dn):
+    """Times a backward kernel (fn, device time by CUDA-graph replay), its
+    plain version and, as a yardstick, a PyTorch backward (library_fn, by
+    torch.profiler: autograd cannot be captured) and records `name`'s row."""
+    b_ms, b_by = bound(moved, flops, dn)
+    rows[name] = {"name": name, "route": "cuda", "source": SOURCES[name],
+                  "replaces": REPLACES[name], "launches": 0, "max_abs_err": err[0],
+                  "rms_rel_err": err[1], "ms": device_ms(fn, 8),
+                  "plain_ms": device_ms(plain_fn, 2), "bound_ms": b_ms, "bound_by": b_by,
+                  "library_ms": profiled_ms(library_fn)}
+    r = rows[name]
+    print(f"  {name} [{dn}] kernel {r['ms']:.4f} ms (device)  plain {r['plain_ms']:.4f} ms  "
+          f"bound {b_ms:.4f} ms ({b_by})  SDPA backward {r['library_ms']:.4f} ms")
+
+
+def check_attention_layouts(rows):
+    """Phase 3e: the encoder-attention kernels on the two layouts of this
+    slice, against their plain versions in bf16 and fp32 at whisper-large-v3
+    shapes: (BH, T_p, hd) = (80, 1536, 64) with keys valid below 1500 and
+    rows 1500.. zero, as ASR_TPU_DENSE_PACKED=0 pads them (dense_attention);
+    and one fused (4, 1500, 3840) qkv buffer (dense_attention_qkv), whose
+    backward writes one (4, 1500, 3840) gradient. Forward through the
+    wrapper, backward through the autograd Function. bf16 timed beside
+    F.scaled_dot_product_attention (the port never calls it) over the same
+    valid keys."""
+    import torch
+    import torch.nn.functional as F
+    from asr_finetune_tpu_torch.ops import encoder_attention as EA
+
+    dev, BH = torch.device("cuda"), B * H
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).split(".")[-1]
+        g = torch.Generator(device=dev).manual_seed(9)
+        # (BH, T_p, hd): padded rows zero, their output rows sliced off by the caller
+        q, k, v, do = (torch.randn((BH, T_PAD, 64), generator=g, device=dev).to(dt)
+                       for _ in range(4))
+        for t in (q, k, v, do):
+            t[:, T_ENC:] = 0
+        print(f"encoder_attention_bh [{dn}] ({BH}, {T_PAD}, 64) s_valid {T_ENC}:")
+        out = EA.dense_attention(q, k, v, T_ENC)
+        err = compare("encoder_attention_bh", out, EA.dense_attention_plain(q, k, v, T_ENC), dn)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        grads = torch.autograd.grad(EA.dense_attention(qg, kg, vg, T_ENC), (qg, kg, vg), do)
+        err_b = compare("encoder_attention_bh_bwd", grads,
+                        EA.dense_attention_bwd_plain(q, k, v, do, T_ENC), dn)
+        if any(int(gr[:, T_ENC:].count_nonzero()) for gr in grads[1:]):
+            raise AssertionError("encoder_attention_bh_bwd: padded keys got a gradient")
+        del out, qg, kg, vg, grads
+        if dt is torch.bfloat16:
+            heads = [q[:, None], k[:, None, :T_ENC], v[:, None, :T_ENC]]
+            time_row(rows, "encoder_attention_bh", err,
+                     lambda: EA.dense_attention(q, k, v, T_ENC),
+                     lambda: EA.dense_attention_plain(q, k, v, T_ENC),
+                     BH * (2 * T_PAD + 2 * T_ENC) * 64 * dt.itemsize,
+                     4 * BH * T_PAD * T_ENC * 64, dn,
+                     library_fn=lambda: F.scaled_dot_product_attention(*heads), calls=8)
+            _, lse = EA._dense_attention_packed_cuda(q, k, v, 64, T_ENC, with_lse=True,
+                                                     name=EA.BH)
+            hg = [t.detach().requires_grad_() for t in heads]
+            oh = F.scaled_dot_product_attention(*hg)
+            _bwd_row(rows, "encoder_attention_bh_bwd", err_b,
+                     lambda: EA._dense_attention_packed_bwd_cuda(q, k, v, do, lse, 64, T_ENC,
+                                                                 name=EA.BH),
+                     lambda: EA.dense_attention_bwd_plain(q, k, v, do, T_ENC),
+                     lambda: torch.autograd.grad(oh, hg, do[:, None], retain_graph=True),
+                     BH * (3 * T_PAD + 4 * T_ENC) * 64 * dt.itemsize + BH * T_PAD * 4,
+                     5 * 2 * BH * T_PAD * T_ENC * 64, dn)
+            del lse, hg, oh
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
+        qkv = torch.randn((B, T_ENC, 3 * D), generator=g, device=dev).to(dt)
+        do = torch.randn((B, T_ENC, D), generator=g, device=dev).to(dt)
+        print(f"encoder_attention_qkv [{dn}] qkv ({B}, {T_ENC}, {3 * D}):")
+        out = EA.dense_attention_qkv(qkv, 64)
+        err = compare("encoder_attention_qkv", out, EA.dense_attention_qkv_plain(qkv, 64), dn)
+        xg = qkv.detach().requires_grad_()
+        (grad,) = torch.autograd.grad(EA.dense_attention_qkv(xg, 64), (xg,), do)
+        if grad.shape != qkv.shape or not grad.is_contiguous():
+            raise AssertionError(f"qkv gradient {tuple(grad.shape)}, not one (B, T, 3D) buffer")
+        err_b = compare("encoder_attention_qkv_bwd", grad,
+                        EA.dense_attention_qkv_bwd_plain(qkv, do, 64), dn)
+        del out, xg, grad
+        if dt is torch.bfloat16:
+            heads = [t.view(B, T_ENC, H, 64).transpose(1, 2) for t in EA._qkv_views(qkv, 64)]
+            time_row(rows, "encoder_attention_qkv", err,
+                     lambda: EA.dense_attention_qkv(qkv, 64),
+                     lambda: EA.dense_attention_qkv_plain(qkv, 64),
+                     4 * B * T_ENC * D * dt.itemsize, 4 * B * H * T_ENC * T_ENC * 64, dn,
+                     library_fn=lambda: F.scaled_dot_product_attention(*heads), calls=8)
+            views = EA._qkv_views(qkv, 64)
+            _, lse = EA._dense_attention_packed_cuda(*views, 64, T_ENC, with_lse=True,
+                                                     name=EA.QKV)
+            dqkv = torch.empty_like(qkv)
+            hg = [t.detach().requires_grad_() for t in heads]
+            oh = F.scaled_dot_product_attention(*hg)
+            doh = do.view(B, T_ENC, H, 64).transpose(1, 2)
+            _bwd_row(rows, "encoder_attention_qkv_bwd", err_b,
+                     lambda: EA._dense_attention_packed_bwd_cuda(
+                         *views, do, lse, 64, T_ENC, name=EA.QKV,
+                         out=EA._qkv_views(dqkv, 64)),
+                     lambda: EA.dense_attention_qkv_bwd_plain(qkv, do, 64),
+                     lambda: torch.autograd.grad(oh, hg, doh, retain_graph=True),
+                     B * H * 7 * T_ENC * 64 * dt.itemsize + B * H * T_ENC * 4,
+                     5 * 2 * B * H * T_ENC * T_ENC * 64, dn)
+            del lse, dqkv, hg, oh
+        del qkv, do
+        torch.cuda.empty_cache()
+
+
+def check_log_mel(rows):
+    """Phase 3f: the log-mel kernel (fp32 on the CUDA cores, no TF32) against
+    its plain version at B 4 over 30 s of seeded noise (one utterance part
+    silence), 80 and 128 mel bins, normalized output within the fp32 limits;
+    timed at 128 (large-v3's) beside the production conv form
+    ops/logmel.log_mel_spectrogram as the yardstick (not one PyTorch call:
+    the frames' product and the mel product)."""
+    import torch
+    from asr_finetune_tpu_torch.ops import logmel as LM
+    from asr_finetune_tpu_torch.ops import logmel_fused as LF
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10)
+    audio = torch.randn((B, LM.CHUNK_SAMPLES), generator=g, device=dev) * 0.1
+    audio[B - 1, 100_000:300_000] = 0.0
+    for n_mels in (80, 128):
+        print(f"log_mel [float32] B {B}, {n_mels} mel bins:")
+        out = LF.log_mel_fused(audio, n_mels)
+        if out.shape != (B, LM.NUM_FRAMES, n_mels):
+            raise AssertionError(f"log_mel output {tuple(out.shape)}")
+        err = compare("log_mel", out, LF.log_mel_fused_plain(audio, n_mels), "float32")
+        if n_mels == 128:
+            # the plain version and the conv form upload their DFT and mel
+            # tables at every call, which a CUDA graph cannot capture: their
+            # device time is the profiler's sum over their kernels and copies
+            b_ms, b_by = bound(nbytes(audio, out),
+                               B * LM.NUM_FRAMES * (400 * 402 * 2 + 201 * n_mels * 2),
+                               "float32")
+            r = rows["log_mel"] = {
+                "name": "log_mel", "route": "cuda", "source": SOURCES["log_mel"],
+                "replaces": REPLACES["log_mel"], "launches": 0, "max_abs_err": err[0],
+                "rms_rel_err": err[1],
+                "ms": device_ms(lambda: LF.log_mel_fused(audio, n_mels), 16),
+                "raw_ms": device_ms(lambda: LF._log10_mel_cuda(audio, n_mels), 16),
+                "plain_ms": profiled_ms(lambda: LF.log_mel_fused_plain(audio, n_mels)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": profiled_ms(lambda: LM.log_mel_spectrogram(audio, n_mels))}
+            print(f"  log_mel [float32] {n_mels} mels: function {r['ms']:.4f} ms (device; the "
+                  f"kernel alone {r['raw_ms']:.4f} ms)  plain {r['plain_ms']:.4f} ms  bound "
+                  f"{b_ms:.4f} ms ({b_by})  conv form {r['library_ms']:.4f} ms")
+    del audio
+    torch.cuda.empty_cache()
 
 
 def check_decode():
@@ -888,11 +1092,13 @@ def _write_wav(path, seconds, rng, sr=16000):
         w.writeframes((np.clip(sig, -1, 1) * 32767).astype("<i2").tobytes())
 
 
-def main_path(rows, beams: int = 1, kv_int8: bool = False, reorder: bool = False):
+def main_path(rows, beams: int = 1, kv_int8: bool = False, reorder: bool = False,
+              fused_qkv: bool = False):
     """Phase 5: transcribe four wavs with whisper-large-v3 through the CLI,
     greedy or with --generation_num_beams `beams` (--decode_kv_int8 with
     kv_int8; the whole cache reordered each step, ASR_TPU_BEAM_REORDER=1,
-    with reorder). Asserts the transcripts, the forced prefix, every
+    with reorder; the encoder on the fused-qkv path, ASR_TPU_FUSED_QKV=1,
+    with fused_qkv). Asserts the transcripts, the forced prefix, every
     kernel's launch count against the count the path implies and, for
     beams, the cross K/V held at the utterances' B rows while the decode
     runs B x beams hypothesis rows."""
@@ -903,7 +1109,10 @@ def main_path(rows, beams: int = 1, kv_int8: bool = False, reorder: bool = False
 
     max_len = 64
     path = "transcribe" + (f"_beam{beams}" if beams > 1 else "") + ("_kv8" if kv_int8 else "") \
-        + ("_reorder" if reorder else "")
+        + ("_reorder" if reorder else "") + ("_fused_qkv" if fused_qkv else "")
+    env = {"ASR_TPU_BEAM_REORDER": "1"} if reorder else {}
+    if fused_qkv:
+        env["ASR_TPU_FUSED_QKV"] = "1"
     stats = {"encode": 0, "steps": 0, "decode_s": 0.0, "loop_s": 0.0,
              "tokens": [], "cross_rows": set(), "token_rows": set()}
     decode_name = "greedy_decode" if beams == 1 else "beam_decode"
@@ -946,8 +1155,7 @@ def main_path(rows, beams: int = 1, kv_int8: bool = False, reorder: bool = False
             wavs.append(p)
         W.encode, W.decode_step_fused = encode, step
         setattr(decode_lib, decode_name, decode)
-        if reorder:
-            os.environ["ASR_TPU_BEAM_REORDER"] = "1"
+        os.environ.update(env)
         reset_all_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -960,7 +1168,8 @@ def main_path(rows, beams: int = 1, kv_int8: bool = False, reorder: bool = False
         finally:
             W.encode, W.decode_step_fused = orig_encode, orig_step
             setattr(decode_lib, decode_name, orig_decode)
-            os.environ.pop("ASR_TPU_BEAM_REORDER", None)
+            for k in env:
+                os.environ.pop(k, None)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = all_launches()
@@ -985,7 +1194,8 @@ def main_path(rows, beams: int = 1, kv_int8: bool = False, reorder: bool = False
     n_dec = 32
     kernels = (DECODER if beams == 1 else REORDER_DECODER if reorder
                else BEAM_KV8_DECODER if kv_int8 else BEAM_DECODER)
-    expect = expect_launches(encoder_attention=n_dec * stats["encode"],
+    enc_kernel = "encoder_attention_qkv" if fused_qkv else "encoder_attention"
+    expect = expect_launches(**{enc_kernel: n_dec * stats["encode"]},
                              **{k: n_dec * stats["steps"] for k in kernels})
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
@@ -1110,7 +1320,8 @@ def check_train_grads(device: str = "cuda", model: str = "large-v3"):
         EA.reset_launches()
         gs, m = TS.compute_grads(params, batch, cfg, TS.TrainStepConfig(
             compute_dtype=torch.float32, **kw))
-        return [x.detach().clone() for x in gs], float(m["loss"]), dict(EA.LAUNCHES)
+        return ([x.detach().clone() for x in gs], float(m["loss"]),
+                {k: v for k, v in EA.LAUNCHES.items() if v})
 
     def worst(a, b):
         return max(float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
@@ -1127,7 +1338,7 @@ def check_train_grads(device: str = "cuda", model: str = "large-v3"):
     # 2 encoder self-attentions + 2 cross-attentions; remat runs the forward again
     want = ({"encoder_attention": 4, "encoder_attention_bwd": 4},
             {"encoder_attention": 8, "encoder_attention_bwd": 4},
-            {"encoder_attention": 0, "encoder_attention_bwd": 0})
+            {})
     if (n_k, n_r, n_p) != want:
         raise AssertionError(f"gradient check launches {(n_k, n_r, n_p)} != {want}")
     readings = {"kernels vs plain": worst(g_k, g_p), "remat vs not": worst(g_r, g_k)}
@@ -1262,6 +1473,94 @@ def check_peft_grads(device: str = "cuda", model: str = "large-v3"):
         raise AssertionError("PEFT-step gradients through the kernels differ")
 
 
+def check_layout_paths(device: str = "cuda", model: str = "large-v3"):
+    """Phase 4f: at whisper-large-v3 width, 2+2 layers, fp32, batch 2, labels
+    at the 192 bucket: the fused-qkv encoder path (ASR_TPU_FUSED_QKV=1:
+    one wide q|k|v product into the fused-qkv attention kernel) against the
+    three projections, and the (BH, T, hd) layout (ASR_TPU_DENSE_PACKED=0)
+    against the packed one, on (a) the encoder output, (b) a full
+    fine-tuning step's gradients on every leaf (remat on) and (c) a PEFT
+    step's adapter gradients over the int8 base dequantized (AdaLoRA rank 8,
+    lora dropout 0.1: the fused path must draw the unfused masks), each the
+    largest max |diff| / max |ref| over the outputs or leaves, within
+    LAYOUT_LIMITS; asserts the kernels each variant runs. `device` and
+    `model` let it run a small model on the CPU."""
+    import torch
+    from asr_finetune_tpu_torch.models import whisper as W
+    from asr_finetune_tpu_torch.models.configs import get_config
+    from asr_finetune_tpu_torch.ops import quant as Q
+    from asr_finetune_tpu_torch.training import lora as LO
+    from asr_finetune_tpu_torch.training import optim
+    from asr_finetune_tpu_torch.training import train_step as TS
+
+    cfg = dataclasses.replace(get_config(model), encoder_layers=2, decoder_layers=2)
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(11)
+    bsz = 2
+    tokens = torch.randint(0, cfg.eos_token_id, (bsz, CROSS_TQ), generator=g, device=dev)
+    labels = torch.cat([tokens[:, 1:], torch.full((bsz, 1), cfg.eos_token_id,
+                                                  device=dev)], 1)
+    labels[0, 120:] = -100
+    mel = torch.randn((bsz, 2 * cfg.max_source_positions, cfg.num_mel_bins), generator=g,
+                      device=dev)
+    batch = {"mel": mel, "decoder_input_ids": tokens, "labels": labels}
+    base_q = Q.quantize_tree_int8(W.init_params(cfg, seed=6, device=dev))
+    lcfg = LO.LoraConfig(rank=8, alpha=16.0, dropout=0.1, adalora=True)
+
+    def run(env):
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            reset_all_launches()
+            params = W.init_params(cfg, seed=6, device=dev)
+            with torch.no_grad():
+                enc = W.encode(params, mel, cfg, torch.float32)
+            TS.make_train_state(params, optim.make_optimizer(1e-5, 10))
+            full, _ = TS.compute_grads(params, batch, cfg, TS.TrainStepConfig(
+                compute_dtype=torch.float32, remat=True))
+            adapters = _peft_adapters(cfg, dev)
+            TS.make_train_state(base_q, optim.make_optimizer(1e-5, 10), adapters)
+            peft, _ = TS.compute_grads(base_q, batch, cfg, TS.TrainStepConfig(
+                mode="peft", compute_dtype=torch.float32, remat=False, lora=lcfg,
+                quant=Q.QuantConfig(matmul=False)), adapters, step=3)
+            return ({"encoder output": [enc], "full-FT gradients": [x.detach().clone() for x in full],
+                     "PEFT adapter gradients": [x.detach().clone() for x in peft]},
+                    all_launches())
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    def worst(a, b):
+        return max(float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+                   for x, y in zip(a, b))
+
+    ref, n_ref = run({"ASR_TPU_FUSED_QKV": "0", "ASR_TPU_DENSE_PACKED": "1"})
+    n_enc, n_dec = cfg.encoder_layers, cfg.decoder_layers
+    # the encode, then per step the forward twice (remat) in full FT, once in
+    # PEFT, and one backward each
+    want = {"fused-qkv": dict(encoder_attention_qkv=n_enc * 4,
+                              encoder_attention_qkv_bwd=n_enc * 2,
+                              encoder_attention=n_dec * 3, encoder_attention_bwd=n_dec * 2),
+            "(BH, T, hd)": dict(encoder_attention_bh=n_enc * 4 + n_dec * 3,
+                                encoder_attention_bh_bwd=(n_enc + n_dec) * 2)}
+    if device == "cuda" and {k: v for k, v in n_ref.items() if v} != dict(
+            encoder_attention=(n_enc + n_dec) * 3 + n_enc, encoder_attention_bwd=(n_enc + n_dec) * 2):
+        raise AssertionError(f"packed reference launches {n_ref}")
+    for name, env in (("fused-qkv", {"ASR_TPU_FUSED_QKV": "1", "ASR_TPU_DENSE_PACKED": "1"}),
+                      ("(BH, T, hd)", {"ASR_TPU_FUSED_QKV": "0", "ASR_TPU_DENSE_PACKED": "0"})):
+        got, n = run(env)
+        if device == "cuda" and {k: v for k, v in n.items() if v} != want[name]:
+            raise AssertionError(f"{name}: launches {n} != {want[name]}")
+        readings = {k: worst(got[k], ref[k]) for k in ref}
+        print(f"{name} vs packed three-projection path, {model} width, 2+2 layers, fp32: "
+              + ", ".join(f"{k} {v:.3e} (limit {LAYOUT_LIMITS[k]})" for k, v in readings.items()))
+        if not all(np.isfinite(v) and v <= LAYOUT_LIMITS[k] for k, v in readings.items()):
+            raise AssertionError(f"{name}: differs from the packed three-projection path")
+
+
 GERMAN_WORDS = ("und", "der", "die", "wir", "haben", "damals", "Großmutter", "Krieg",
                 "Schule", "über", "Flüchtlinge", "Erinnerung", "Dorf", "Vater",
                 "Mutter", "wurde", "nach", "Hause", "gekommen", "Jahre", "später",
@@ -1312,7 +1611,7 @@ def kernel_category(name: str) -> str:
 
 
 def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
-                    extra=(), config: str = TRAIN_CONFIG):
+                    extra=(), config: str = TRAIN_CONFIG, fused_qkv: bool = False):
     """Phase 6, the training main path: `asr_finetune_tpu_torch.cli.train`
     with the repo's largev3_debug.config (whisper-large-v3, full fine-tuning,
     batch 4, AdamW b2 0.98, bf16 compute over fp32 master weights, per-layer
@@ -1329,7 +1628,15 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
     ("--int8_matmul",): AdaLoRA adapters over the int8 base, every frozen
     product through the W8A8 kernel. It then asserts changed adapters and an
     unchanged base, an adapter-only checkpoint, the W8A8 and int8-weight
-    decoder launch counts, and prints the calibrated outlier columns."""
+    decoder launch counts, and prints the calibrated outlier columns.
+
+    Phase 7b is phase 7 with fused_qkv, under ASR_TPU_FUSED_QKV=1: the steps
+    and the eval loss run every encoder layer's q/k/v as one W8A8 product of
+    d -> 3d into the fused-qkv attention kernel (backward too); the outlier
+    calibration stays on the three projections, as the JAX trial's does, so
+    it records no (d, 3d) class and the wide product takes the dynamic top-k
+    outlier form, which is asserted product by product; the eval decode's
+    merged base is mixed int8/float and keeps the three projections."""
     import os
     import shutil
     import torch
@@ -1337,6 +1644,7 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
     from asr_finetune_tpu_torch import run as run_lib
     from asr_finetune_tpu_torch.cli import train as train_cli
     from asr_finetune_tpu_torch.models import whisper as W
+    from asr_finetune_tpu_torch.ops import quant as Q
     from asr_finetune_tpu_torch.training import checkpoint as ckpt_lib
     from asr_finetune_tpu_torch.training import trainer as trainer_lib
 
@@ -1351,10 +1659,18 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
             torch.cuda.synchronize()
 
     st = {"steps": [], "evals": 0, "dec_steps": 0, "saves": [], "eval_s": 0.0,
-          "calib": None}
+          "calib": None, "outliers": {}}
     orig = (trainer_lib.make_train_step, trainer_lib.make_eval_loss_step,
             W.decode_step_fused, ckpt_lib.CheckpointManager.save,
-            trainer_lib.Trainer.evaluate, run_lib.calibrate_outliers)
+            trainer_lib.Trainer.evaluate, run_lib.calibrate_outliers, Q._outlier_split)
+
+    def outlier_split(x, w_q8, w_scale, cfg):
+        """Counts the W8A8 products by (d_in, d_out) class and outlier form."""
+        klass = (x.shape[-1], w_q8.shape[-1])
+        static = cfg.static_idx is not None and klass in cfg.static_idx
+        key = (klass, "calibrated" if static else "dynamic top-k")
+        st["outliers"][key] = st["outliers"].get(key, 0) + 1
+        return orig[6](x, w_q8, w_scale, cfg)
 
     def calibrate_outliers(*a, **k):
         st["calib"] = orig[5](*a, **k)
@@ -1436,9 +1752,11 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
                 "--output_dir", out_dir, *extra]
         (trainer_lib.make_train_step, trainer_lib.make_eval_loss_step,
          W.decode_step_fused, ckpt_lib.CheckpointManager.save,
-         trainer_lib.Trainer.evaluate, run_lib.calibrate_outliers) = (
+         trainer_lib.Trainer.evaluate, run_lib.calibrate_outliers, Q._outlier_split) = (
             make_train_step, make_eval_loss_step, decode_step_fused, save, evaluate,
-            calibrate_outliers)
+            calibrate_outliers, outlier_split)
+        if fused_qkv:
+            os.environ["ASR_TPU_FUSED_QKV"] = "1"
         reset_all_launches()
         if on_card:
             torch.cuda.reset_peak_memory_stats()
@@ -1448,7 +1766,9 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
         finally:
             (trainer_lib.make_train_step, trainer_lib.make_eval_loss_step,
              W.decode_step_fused, ckpt_lib.CheckpointManager.save,
-             trainer_lib.Trainer.evaluate, run_lib.calibrate_outliers) = orig
+             trainer_lib.Trainer.evaluate, run_lib.calibrate_outliers,
+             Q._outlier_split) = orig
+            os.environ.pop("ASR_TPU_FUSED_QKV", None)
         sync()
         wall = time.perf_counter() - t0
         launches = all_launches()
@@ -1465,7 +1785,8 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
         del st["state"], st["before"]
 
     steps = st["steps"]
-    label = "PEFT main path" if peft else "train main path"
+    label = ("PEFT main path" if peft else "train main path") + (
+        " (fused qkv)" if fused_qkv else "")
     print(f"{label}: cli.train -c {config} {' '.join(extra)}, {model}, {len(steps)} steps, "
           f"wall {wall:.3f} s incl. model init, data, eval and checkpoint; result "
           f"{json.dumps(result)}")
@@ -1503,9 +1824,9 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
     # forwards and the decode's 32 encoder forwards; the outlier
     # calibration's forward (PEFT with --int8_matmul) 64 more; per decode
     # step one launch of each decoder kernel in each of the 32 layers
+    from asr_finetune_tpu_torch.models.configs import get_config
     n_enc, n_dec = 32, 32
     if model != "large-v3":
-        from asr_finetune_tpu_torch.models.configs import get_config
         n_enc, n_dec = get_config(model).encoder_layers, get_config(model).decoder_layers
     # PEFT: the decoder kernels run with int8 weights (k, o, fc1, fc2 of the
     # merged base); with --int8_matmul each frozen product is a W8A8 launch:
@@ -1513,21 +1834,45 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
     # (remat), once in the calibration forward and in each eval loss pass,
     # and per eval decode the encoder's k/o/fc1/fc2 and the cross k
     # projections (q/v are merged float)
+    #
+    # Fused qkv (7b): a step's and an eval loss pass's encoder runs q|k|v as
+    # one product and the fused-qkv attention kernels (4 W8A8 per encoder
+    # layer); the calibration and the eval decode (a merged, mixed base) keep
+    # the three projections and the packed kernel.
     mm = 6 * n_enc + 10 * n_dec
+    mm_step = (4 if fused_qkv else 6) * n_enc + 10 * n_dec
     calibrated = int(st["calib"] is not None)
     dec = {k + ("_int8" if peft else ""): n_dec * st["dec_steps"] for k in DECODER}
+    step_fwd = TRAIN_STEPS * 2 + st["evals"]        # training forwards, remat included
+    enc_fwd = dict(encoder_attention_qkv=step_fwd * n_enc,
+                   encoder_attention_qkv_bwd=TRAIN_STEPS * n_enc) if fused_qkv else {}
     expect = expect_launches(
-        encoder_attention=(TRAIN_STEPS * 2 + calibrated) * (n_enc + n_dec)
-        + st["evals"] * (n_enc + n_dec + n_enc),
-        encoder_attention_bwd=TRAIN_STEPS * (n_enc + n_dec),
-        w8a8=(mm * (calibrated + 2 * TRAIN_STEPS + st["evals"])
-              + st["evals"] * (4 * n_enc + n_dec) if int8_matmul and on_card else 0),
-        **dec)
+        encoder_attention=(step_fwd * (0 if fused_qkv else n_enc) + step_fwd * n_dec
+                           + calibrated * (n_enc + n_dec) + st["evals"] * n_enc),
+        encoder_attention_bwd=TRAIN_STEPS * ((0 if fused_qkv else n_enc) + n_dec),
+        w8a8=(mm_step * step_fwd + mm * calibrated + st["evals"] * (4 * n_enc + n_dec)
+              if int8_matmul and on_card else 0),
+        **enc_fwd, **dec)
     if st["evals"] != 1 or st["dec_steps"] == 0 or calibrated != int8_matmul \
             or launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect} "
                              f"({st['evals']} eval batches, {st['dec_steps']} decode steps)")
-    record_launches(rows, "peft" if peft else "train", launches)
+    if int8_matmul:
+        # with --int8_matmul (k 8), each W8A8 product's outlier form by class:
+        # the calibration's (dynamic, it records), then the calibrated classes;
+        # the fused path's wide (d, 3d) class is never calibrated
+        d = (get_config(model) if model != "large-v3" else None)
+        d_model = d.d_model if d is not None else D
+        wide = ((d_model, 3 * d_model), "dynamic top-k")
+        print(f"{label}: W8A8 products by (d_in, d_out) class and outlier form: "
+              + ", ".join(f"{k[0]} {k[1]}: {n}" for k, n in sorted(st["outliers"].items())))
+        if st["calib"] is not None and (d_model, 3 * d_model) in st["calib"]:
+            raise AssertionError(f"the calibration recorded the wide class: {st['calib']}")
+        if st["outliers"].get(wide, 0) != (step_fwd * n_enc if fused_qkv else 0):
+            raise AssertionError(f"wide products in the dynamic form: "
+                                 f"{st['outliers'].get(wide, 0)} != {step_fwd * n_enc}")
+    record_launches(rows, ("peft" if peft else "train") + ("_fused_qkv" if fused_qkv else ""),
+                    launches)
     step_s = float(np.mean([s["s"] for s in steps[1:-1]]))
     usage = np.mean([s["usage"] for s in steps[1:-1]], axis=0)
     tokens = float(np.mean([s["tokens"] for s in steps[1:-1]]))
@@ -1708,18 +2053,23 @@ def main() -> int:
     check_encoder_attention(rows)
     check_attention_bwd(rows)
     check_w8a8(rows)
+    check_attention_layouts(rows)
+    check_log_mel(rows)
     check_decode()
     check_int8_decode()
     check_beam_decode()
     check_train_grads()
     check_peft_grads()
+    check_layout_paths()
     main_path(rows)
     main_path(rows, beams=BEAMS)
     main_path(rows, beams=BEAMS, kv_int8=True)
     main_path(rows, beams=BEAMS, reorder=True)
+    main_path(rows, fused_qkv=True)
     evaluator_path(rows)
     train_main_path(rows)
     train_main_path(rows, config=PEFT_CONFIG, extra=("--int8_matmul",))
+    train_main_path(rows, config=PEFT_CONFIG, extra=("--int8_matmul",), fused_qkv=True)
     step_breakdown()
     print(card_line())
     print(json.dumps({"kernels": list(rows.values())}))

@@ -19,7 +19,8 @@ W8A8 kernel is held to bit equality with its plain version, pure and with
 the outlier keep-mask and addend, at ragged m, K and N. The beam
 self-attention kernel runs at 2, 3, 8 and 10 beams over a random ancestry
 map, the cross-attention's kv_group at 1, 3, 4, 8 and 10 with float and
-int8 K/V."""
+int8 K/V. The encoder-attention kernels also run on the (BH, T, hd) and
+fused-qkv layouts, and the log-mel kernel (fp32) at 80 and 128 mel bins."""
 import numpy as np
 import pytest
 import torch
@@ -185,7 +186,8 @@ def test_encoder_attention_bwd_matches_plain(dev, dtype, B, Tq, Tk, s_valid):
     EA.reset_launches()
     out = EA.dense_attention_packed(q, k, v, 64, s_valid)
     grads = torch.autograd.grad(out, (q, k, v), do)
-    assert EA.LAUNCHES == {"encoder_attention": 1, "encoder_attention_bwd": 1}
+    assert {k: v for k, v in EA.LAUNCHES.items() if v} == {"encoder_attention": 1,
+                                                           "encoder_attention_bwd": 1}
     ref = EA.dense_attention_packed_bwd_plain(q.detach(), k.detach(), v.detach(), do,
                                               64, s_valid)
     for gr, r in zip(grads, ref):
@@ -193,6 +195,79 @@ def test_encoder_attention_bwd_matches_plain(dev, dtype, B, Tq, Tk, s_valid):
         _close(gr, r, dtype)
     for gr in grads[1:]:                     # masked keys get no gradient
         assert int(gr[:, s_valid:].count_nonzero()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,T_p,s_valid", [(12, 256, 150), (80, 128, 128)])
+def test_dense_attention_bh_matches_plain(dev, dtype, BH, T_p, s_valid):
+    """The (BH, T, hd) layout (B' = BH, one head, time stride 64): the
+    forward and, through DenseAttention, the backward against the plain
+    versions; zero-padded query rows give finite outputs, zero rows of dout
+    and keys past s_valid add nothing to dk/dv; one launch of each under
+    the layout's own counters."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (_rn(g, dev, BH, T_p, 64, dtype=dtype) for _ in range(3))
+    for t in (q, k, v):
+        t[:, s_valid:] = 0                    # the rows encoder_attention pads
+    do = _rn(g, dev, BH, T_p, 64, dtype=dtype)
+    do[:, s_valid:] = 0
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    EA.reset_launches()
+    out = EA.dense_attention(q, k, v, s_valid)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert {k_: n for k_, n in EA.LAUNCHES.items() if n} == {
+        "encoder_attention_bh": 1, "encoder_attention_bh_bwd": 1}
+    out = out.detach()
+    assert bool(out.isfinite().all())
+    _close(out, EA.dense_attention_plain(q.detach(), k.detach(), v.detach(), s_valid), dtype)
+    ref = EA.dense_attention_bwd_plain(q.detach(), k.detach(), v.detach(), do, s_valid)
+    for gr, r in zip(grads, ref):
+        _close(gr, r, dtype)
+    for gr in grads[1:]:
+        assert int(gr[:, s_valid:].count_nonzero()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H", [(2, 150, 4), (3, 300, 3)])
+def test_dense_attention_qkv_matches_plain(dev, dtype, B, T, H):
+    """The fused-qkv layout: the kernels on the three column views of one
+    (B, T, 3D) buffer (time stride 3D), the backward writing dq‖dk‖dv into
+    one (B, T, 3D) gradient, against the plain versions; one launch of each
+    under the layout's counters."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    qkv = _rn(g, dev, B, T, 3 * H * 64, dtype=dtype).requires_grad_()
+    do = _rn(g, dev, B, T, H * 64, dtype=dtype)
+    EA.reset_launches()
+    out = EA.dense_attention_qkv(qkv, 64)
+    (grad,) = torch.autograd.grad(out, (qkv,), do)
+    assert {k_: n for k_, n in EA.LAUNCHES.items() if n} == {
+        "encoder_attention_qkv": 1, "encoder_attention_qkv_bwd": 1}
+    assert grad.shape == qkv.shape and grad.is_contiguous()
+    _close(out.detach(), EA.dense_attention_qkv_plain(qkv.detach(), 64), dtype)
+    _close(grad, EA.dense_attention_qkv_bwd_plain(qkv.detach(), do, 64), dtype)
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_log_mel_matches_plain(dev, n_mels):
+    """The log-mel kernel (fp32, no TF32) against its plain version over 3
+    utterances, one of them part silence: before the floor within 1e-4 +
+    1e-4|ref| where the mel power is above the floor's reach, normalized
+    within 1e-4."""
+    from asr_finetune_tpu_torch.ops import logmel_fused as LF
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(8)
+    audio = torch.randn((3, 480000), generator=g, device=dev) * 0.1
+    audio[2, 100_000:300_000] = 0.0
+    LF.reset_launches()
+    raw = LF._log10_mel_cuda(audio, n_mels)
+    assert LF.LAUNCHES["log_mel"] == 1
+    ref = LF.log10_mel_plain(audio, n_mels)
+    live = ref > ref.amax(dim=(1, 2), keepdim=True) - 8.0
+    np.testing.assert_allclose(raw[live].cpu().numpy(), ref[live].cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(LF.log_mel_fused(audio, n_mels).cpu().numpy(),
+                               LF.log_mel_fused_plain(audio, n_mels).cpu().numpy(),
+                               rtol=0, atol=1e-4)
 
 
 def test_wrappers_reject_bad_operands(dev):

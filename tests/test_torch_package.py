@@ -70,7 +70,7 @@ def test_build_plan():
     """Kernels build from csrc/ into the git-ignored build/torch_kernels/,
     keyed by a hash of the sources; nothing is compiled on import."""
     from asr_finetune_tpu_torch.ops import _build
-    assert _build.sources() == ["decoder_fused", "encoder_attention", "w8a8"]
+    assert _build.sources() == ["decoder_fused", "encoder_attention", "logmel", "w8a8"]
     assert _build.BUILD_DIR == REPO / "build" / "torch_kernels"
     t = _build._target("decoder_fused")
     assert t.parent == _build.BUILD_DIR and t.name.startswith("decoder_fused-")
