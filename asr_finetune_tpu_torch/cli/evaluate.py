@@ -80,7 +80,8 @@ def main(argv=None):
         params, adapters = restore(args, ens, built)
 
     test_name = ens.test_dataset_name or args.dataset_name
-    reader = Hdf5AudioReader(run_lib._resolve_path(args, test_name))
+    reader = Hdf5AudioReader(run_lib._resolve_path(args, test_name),
+                             copy_to_local=args.copy_to_local)
     collator = Collator(built.tokenizer, CollatorConfig(
         n_mels=built.cfg.num_mel_bins, language=args.target_language,
         task=args.task))

@@ -3,11 +3,16 @@
 An `audio` dataset of variable-length float32 waveforms plus a
 `transcription` dataset of strings, read per index, bad rows dropped with a
 warning. `h5py` is imported only when a file is opened: the machine with
-the card may not have it, and only .h5 inputs need it.
+the card may not have it, and only .h5 inputs need it. With copy_to_local
+(--copy_to_local) the file is first staged into the temp dir, as the JAX
+reader's `_copy_to_local` does for slow network filesystems.
 """
 from __future__ import annotations
 
 import logging
+import os
+import shutil
+import tempfile
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -19,9 +24,19 @@ class Hdf5AudioReader:
     """Handle over an HDF5 file of (audio, transcription) rows, opened at
     first read."""
 
-    def __init__(self, path: str):
-        self.path = path
+    def __init__(self, path: str, copy_to_local: bool = False):
+        self.path = self._copy_to_local(path) if copy_to_local else path
         self._file = None
+
+    @staticmethod
+    def _copy_to_local(path: str) -> str:
+        """The file staged into the temp dir (under its own name), unless a
+        copy of the same size is there already; returns the staged path."""
+        local = os.path.join(tempfile.gettempdir(), os.path.basename(path))
+        if not os.path.exists(local) or os.path.getsize(local) != os.path.getsize(path):
+            logger.info("staging %s -> %s", path, local)
+            shutil.copyfile(path, local)
+        return local
 
     @property
     def file(self):

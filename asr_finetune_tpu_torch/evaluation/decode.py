@@ -43,11 +43,36 @@ def _fused_head_dim_ok(cfg: WhisperConfig) -> bool:
     return cfg.d_model // cfg.decoder_heads == decoder_fused.HEAD_DIM
 
 
+def _fused_env() -> Optional[bool]:
+    """ASR_TPU_FUSED_DECODE, the JAX decode's routing override, read at every
+    call: 1/true/yes/on → True, 0/false/no/off/"" → False, unset → None;
+    any other value raises (the JAX spellings and rule)."""
+    env = os.environ.get("ASR_TPU_FUSED_DECODE")
+    if env is None:
+        return None
+    low = env.lower()
+    if low in ("1", "true", "yes", "on"):
+        return True
+    if low in ("0", "false", "no", "off", ""):
+        return False
+    raise ValueError(
+        f"ASR_TPU_FUSED_DECODE={env!r}: use 1/true/yes/on or 0/false/no/off")
+
+
 def _fused_default(cfg: WhisperConfig, device: torch.device) -> bool:
-    """Fused kernels on a CUDA device with 64-dim heads. The JAX rule also
-    asks for a single device, because a Pallas call cannot be partitioned
-    over a mesh; a decode here runs on mel's one device however many cards
-    the host has, so the device count does not enter."""
+    """ASR_TPU_FUSED_DECODE when set (=1 with heads other than 64-dim
+    raises, where JAX warns and takes its plain path: the port never gives
+    way quietly); else fused kernels on a CUDA device with 64-dim heads. The
+    JAX rule also asks for a single device, because a Pallas call cannot be
+    partitioned over a mesh; a decode here runs on mel's one device however
+    many cards the host has, so the device count does not enter."""
+    env = _fused_env()
+    if env is not None:
+        if env and not _fused_head_dim_ok(cfg):
+            raise ValueError(
+                f"ASR_TPU_FUSED_DECODE=1 but the fused decode requires 64-dim heads, "
+                f"got {cfg.d_model // cfg.decoder_heads}")
+        return env
     return device.type == "cuda" and _fused_head_dim_ok(cfg)
 
 
@@ -183,8 +208,9 @@ def _quantize_decoder_weights(params: Params) -> Params:
 
 def _resolve_fused(fused: Optional[bool], cfg: WhisperConfig,
                    device: torch.device) -> bool:
-    """The routing rule: fused by default on a CUDA device with 64-dim
-    heads, at any beam width (the JAX package routes more than 8 beams to
+    """The routing rule: an explicit `fused` wins; else ASR_TPU_FUSED_DECODE
+    when set; else fused by default on a CUDA device with 64-dim heads, at
+    any beam width (the JAX package routes more than 8 beams to
     its plain step; the CUDA kernels have no such bound); fused=True with a
     model it cannot serve raises."""
     if fused is None:
@@ -221,6 +247,9 @@ def _prepare_decode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
             enc_out, cross_kv, max_length, compute_dtype)
     if w_int8:
         params = _quantize_decoder_weights(params)
+        if quant is not None and quant.matmul and not fused:
+            # the plain step multiplies them as W8A8: the kernel's K-major copies
+            params = {**params, "decoder": Q.add_k_major_copies(params["decoder"])}
     cache = W.init_cache(cfg, rows, cache_len, dtype=compute_dtype,
                          dense=fused, device=mel.device)
     logits_w = W.tied_logits_weight(params["decoder"]["embed"], compute_dtype)

@@ -54,7 +54,7 @@ from ..ops import decoder_fused as DF
 from ..ops import encoder_attention as EA
 from ..ops import quant as Q
 from ..ops.attention import attention as _attention_dispatch
-from ..ops.attention import xla_attention
+from ..ops.attention import xla_attention, xla_forced
 
 Params = Dict[str, Any]
 
@@ -238,7 +238,8 @@ def _base_matmul(x: torch.Tensor, p: Params,
     one (possibly fused) projection."""
     if Q.QUANT_KEY in p:
         if quant is not None and quant.matmul:
-            return Q.int8_matmul(x, p[Q.QUANT_KEY], p[Q.SCALE_KEY], quant)
+            return Q.int8_matmul(x, p[Q.QUANT_KEY], p[Q.SCALE_KEY], quant,
+                                 p.get(Q.KMAJOR_KEY))
         return torch.matmul(x, Q.dequantize_weight(p, x.dtype))
     return torch.matmul(x, p["w"].to(x.dtype))
 
@@ -309,8 +310,9 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def _fuse_qkv_weights(attn: Params) -> Params:
     """The stacked q/k/v projections as one wide (L, d, 3d) projection (the
     JAX function of the same name, :376): {"w"}, or {"w_q8", "w_scale"}
-    with the scales concatenated on the output axis; k has no bias in
-    Whisper, so its slot in the fused bias is zeros. Gradients reach the
+    with the scales concatenated on the output axis (and the K-major
+    copies "w_q8_nk" along theirs, where the base carries them); k has no
+    bias in Whisper, so its slot in the fused bias is zeros. Gradients reach the
     separate q/k/v leaves through the concatenation. A mix of int8 and float
     projections cannot be one product and raises (`encode` never passes one:
     see `_qkv_mixed`)."""
@@ -319,6 +321,8 @@ def _fuse_qkv_weights(attn: Params) -> Params:
     if all(Q.QUANT_KEY in p for p in ps):
         fused[Q.QUANT_KEY] = torch.cat([p[Q.QUANT_KEY] for p in ps], dim=-1)
         fused[Q.SCALE_KEY] = torch.cat([p[Q.SCALE_KEY] for p in ps], dim=-1)
+        if all(Q.KMAJOR_KEY in p for p in ps):   # the W8A8 kernel's (3d, d) copy
+            fused[Q.KMAJOR_KEY] = torch.cat([p[Q.KMAJOR_KEY] for p in ps], dim=-2)
     elif _qkv_mixed(attn):
         raise ValueError("mixed int8/float q/k/v projections cannot be qkv-fused")
     else:
@@ -386,8 +390,9 @@ def _fused_qkv_ok(cfg: WhisperConfig, T: int, impl: str,
     name, :465), opt-in through ASR_TPU_FUSED_QKV, read at every call:
     unset or 0 off; 1 on where impl is "auto", yielding to an explicit
     impl "xla"; force on whatever impl says; auto on where the dispatch
-    runs the encoder-attention kernel, impl "auto" on a CUDA device. Never
-    at a shape the kernels cannot take (EA.fused_qkv_supported)."""
+    runs the encoder-attention kernel, impl "auto" on a CUDA device without
+    ASR_TPU_ATTN_IMPL=xla. Never at a shape the kernels cannot take
+    (EA.fused_qkv_supported)."""
     mode = os.environ.get("ASR_TPU_FUSED_QKV", "0").lower()
     if mode in ("0", "false", "no", "off"):
         return False
@@ -399,7 +404,7 @@ def _fused_qkv_ok(cfg: WhisperConfig, T: int, impl: str,
         return mode == "force"
     if mode in ("1", "true", "yes", "on", "force"):
         return True
-    return torch.device(device).type == "cuda"
+    return torch.device(device).type == "cuda" and not xla_forced()
 
 
 def _enc_attn_half(x, lp, la, heads: int, impl: str, dropout, site: str, quant):

@@ -7,8 +7,12 @@ PyTorch headers, so nvcc takes seconds, not minutes):
          -Xcompiler -fPIC -o build/torch_kernels/<name>-<hash>.so csrc/<name>.cu
 
 The output lands in `build/torch_kernels/` at the root of the checkout
-(git-ignored), keyed by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads the library already built.
+(git-ignored), keyed by a hash of the source, every shared header
+(`csrc/*.cuh`) and the flags, so an edited source rebuilds and an
+unchanged one loads the library already built. The wgmma/TMA kernels
+encode their tensor maps on the host at each call with
+cuTensorMapEncodeTiled, a driver function they fetch through
+cudaGetDriverEntryPoint (csrc/hopper.cuh): no -lcuda, no other flag.
 Pointers and the stream pass as `ctypes.c_void_p`; every C entry returns
 `cudaGetLastError()` after its launches, which `check` turns into an error.
 

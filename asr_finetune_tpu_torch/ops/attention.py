@@ -2,8 +2,10 @@
 
 Non-causal unmasked attention goes to the encoder-attention kernel
 (ops/encoder_attention.py; its plain version on the CPU) unless the caller
-asks for impl="xla"; masked or causal calls take plain softmax attention
-with `xla_attention`'s semantics. `impl` is the JAX package's knob
+asks for impl="xla" or the environment sets ASR_TPU_ATTN_IMPL=xla (the JAX
+package's escape hatch, re-read at every call); masked or causal calls
+take plain softmax attention with `xla_attention`'s semantics. `impl` is
+the JAX package's knob
 (`TrainStepConfig.attn_impl` / `decoder_attn_impl`): "auto" (the kernel
 where it applies) or "xla" (plain attention). The TPU-only pieces of the
 JAX module are not ported: the upstream Pallas `flash` call and its
@@ -12,6 +14,7 @@ gated the dense kernel.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -46,15 +49,22 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 IMPLS = ("auto", "xla")
 
 
+def xla_forced() -> bool:
+    """ASR_TPU_ATTN_IMPL=xla (any case): every attention call takes plain
+    softmax attention, as the JAX `_flash_available` rule; read at every
+    call, never cached."""
+    return os.environ.get("ASR_TPU_ATTN_IMPL", "").lower() == "xla"
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: Optional[torch.Tensor] = None,
               causal: bool = False, impl: str = "auto") -> torch.Tensor:
     """(B, T, H, hd) attention: with impl "auto" the encoder-attention
     kernel for non-causal unmasked calls (the encoder's self-attention, the
     teacher-forced cross-attention), plain softmax otherwise; impl "xla"
-    always plain softmax."""
+    or ASR_TPU_ATTN_IMPL=xla always plain softmax."""
     if impl not in IMPLS:
         raise ValueError(f"attention impl {impl!r}: have {IMPLS}")
-    if impl == "auto" and mask is None and not causal:
+    if impl == "auto" and mask is None and not causal and not xla_forced():
         return encoder_attention(q, k, v)
     return xla_attention(q, k, v, mask, causal)

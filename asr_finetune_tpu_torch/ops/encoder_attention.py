@@ -33,8 +33,11 @@ backward against 61 / 108 MB per large-v3 layer at B=4), bytes for the
 teacher-forced cross-attention at short label buckets. The TPU kernels keep
 a whole 1500-row fp32 tile in VMEM; the CUDA forward is an online-softmax
 loop over 64-key tiles that also saves each row's logsumexp, and the
-backward recomputes p tile by tile from it in two deterministic kernels
-(dq with di, then dk/dv). See the source for the design. The TPU's head
+backward recomputes p tile by tile from it: in bf16 a di pass, a key-major
+dk/dv pass on wgmma and TMA that adds dq into an fp32 accumulator with TMA
+reduce-adds (so dq's last fp32 bits vary from run to run), and a pass that
+rounds dq; in fp32 two deterministic kernels (dq with di, then dk/dv).
+See the source for the design. The TPU's head
 grouping (`_group_packed`), its 48 MB VMEM bound and its tile tables are
 not ported: the kernels take any T and any head count.
 
@@ -190,7 +193,10 @@ def _dense_attention_packed_bwd_cuda(q, k, v, do, lse, hd: int, s_valid: int,
                                      name: str = PACKED, out=None):
     """The backward kernels: (dq, dk, dv) from the forward's operands, its
     logsumexp and the output gradient, written into `out` (three tensors,
-    possibly strided views of one buffer) or into new contiguous ones."""
+    possibly strided views of one buffer) or into new contiguous ones. In
+    bf16 the kernels read q/k/v/do by TMA: every batch and time stride a
+    multiple of 8 elements and every base 16-byte aligned (`_strides`
+    raises otherwise)."""
     B, Tq, Tk, H = _check(q, k, v, hd, s_valid, do)
     if lse.dtype != torch.float32 or lse.shape != (B, H, Tq) \
             or not lse.is_contiguous() or lse.device != q.device:
@@ -204,10 +210,15 @@ def _dense_attention_packed_bwd_cuda(q, k, v, do, lse, hd: int, s_valid: int,
             or any(t.dtype != q.dtype or t.device != q.device for t in out):
         raise ValueError("dq/dk/dv must match q/k/v in shape, dtype and device")
     di = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    # bf16: the (B, H, Tq, 64) fp32 dq accumulator the kernels zero, add
+    # into and round into dq
+    dq_acc = (torch.empty((B, H, Tq, hd), dtype=torch.float32, device=q.device)
+              if q.dtype == torch.bfloat16 else None)
     lib = _lib()
     err = lib.encoder_attention_bwd(
         _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), di.data_ptr(),
+        None if dq_acc is None else dq_acc.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, s_valid,
         *_strides(q), *_strides(k), *_strides(v), *_strides(do),
         *_strides(dq), *_strides(dk), *_strides(dv), _build.stream_ptr(q))
@@ -446,8 +457,7 @@ def _lib() -> ctypes.CDLL:
         lib.encoder_attention_fwd.argtypes = [I, P, P, P, P, P, I, I, I, I, I,
                                               L, L, L, L, L, L, L, L, P]
         lib.encoder_attention_fwd.restype = I
-        lib.encoder_attention_bwd.argtypes = [I, P, P, P, P, P, P, P, P, P,
-                                              I, I, I, I, I] + [L] * 14 + [P]
+        lib.encoder_attention_bwd.argtypes = [I] + [P] * 10 + [I] * 5 + [L] * 14 + [P]
         lib.encoder_attention_bwd.restype = I
         _LIB = lib
     return _LIB

@@ -17,6 +17,12 @@ Counterpart of asr_finetune_tpu/ops/quant.py:
   dx = dy @ W_deq^T with no gradient to the weight;
 - `calibrate_int8_outliers` (:183-218).
 
+The port adds one leaf the JAX tree does not have: `add_k_major_copies`
+puts beside every stacked w_q8 (L, d_in, d_out) its K-major copy
+"w_q8_nk" (L, d_out, d_in), made once when the base is built. The W8A8
+kernel reads it (8-bit wgmma takes only K-major operands); the decoder
+kernels' int8 options and the straight-through backward read w_q8.
+
 The JAX module's process-wide flags (`set_int8_compute`,
 `set_int8_outlier_cols`, `set_int8_outlier_static_idx` and the recording
 buffer) are the fields of a `QuantConfig` the model carries: every
@@ -38,6 +44,7 @@ Params = Dict[str, Any]
 
 QUANT_KEY = "w_q8"
 SCALE_KEY = "w_scale"
+KMAJOR_KEY = "w_q8_nk"           # the (..., d_out, d_in) copy the W8A8 kernel reads
 LINEAR_KEYS = ("q", "k", "v", "o", "fc1", "fc2")
 
 Klass = Tuple[int, int]          # (d_in, d_out) of a product
@@ -92,6 +99,20 @@ def quantize_tree_int8(params: Params, min_ndim: int = 3) -> Params:
     return walk(params)
 
 
+def add_k_major_copies(params: Params) -> Params:
+    """Every int8 weight {"w_q8" (..., d_in, d_out), "w_scale"} of the tree
+    given its K-major copy "w_q8_nk" (..., d_out, d_in), contiguous, made
+    once here and never per call (a new tree sharing every other leaf)."""
+    def walk(node):
+        out = {}
+        for k, v in node.items():
+            out[k] = walk(v) if isinstance(v, dict) else v
+        if QUANT_KEY in node and KMAJOR_KEY not in node:
+            out[KMAJOR_KEY] = node[QUANT_KEY].transpose(-1, -2).contiguous()
+        return out
+    return walk(params)
+
+
 def _outlier_split(x: torch.Tensor, w_q8: torch.Tensor, w_scale: torch.Tensor,
                    cfg: QuantConfig):
     """(keep (K,) fp32 or None, addend (m, N) fp32 or None) of the outlier
@@ -124,30 +145,31 @@ class Int8Matmul(torch.autograd.Function):
     (ops/quant.py `_int8_matmul_vjp`)."""
 
     @staticmethod
-    def forward(ctx, x, w_q8, w_scale, cfg: QuantConfig):
+    def forward(ctx, x, w_q8, w_scale, cfg: QuantConfig, w_nk=None):
         keep, addend = _outlier_split(x, w_q8, w_scale, cfg)
         ctx.save_for_backward(w_q8, w_scale)
-        return w8a8(x.contiguous(), w_q8, w_scale, keep, addend)
+        return w8a8(x.contiguous(), w_q8, w_scale, keep, addend, w_nk)
 
     @staticmethod
     def backward(ctx, dy):
         w_q8, w_scale = ctx.saved_tensors
         w = w_q8.to(dy.dtype) * w_scale.reshape(1, -1).to(dy.dtype)
-        return torch.matmul(dy, w.t()), None, None, None
+        return torch.matmul(dy, w.t()), None, None, None, None
 
 
 def int8_matmul(x: torch.Tensor, w_q8: torch.Tensor, w_scale: torch.Tensor,
-                cfg: QuantConfig) -> torch.Tensor:
+                cfg: QuantConfig, w_nk: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (..., d_in) @ (w_q8 (d_in, d_out) int8 · w_scale) as W8A8, in x's
-    dtype. While calibrate_int8_outliers records, also keeps this product's
-    column amax."""
+    dtype; on the card the kernel reads the weight's K-major copy w_nk
+    (d_out, d_in). While calibrate_int8_outliers records, also keeps this
+    product's column amax."""
     d_in, d_out = w_q8.shape
     x2 = x.reshape(-1, d_in)
     if cfg.record is not None:
         a = x2.detach().abs().amax(dim=0).float().cpu().numpy()
         cur = cfg.record.get((d_in, d_out))
         cfg.record[(d_in, d_out)] = a if cur is None else np.maximum(cur, a)
-    y = Int8Matmul.apply(x2, w_q8, w_scale, cfg)
+    y = Int8Matmul.apply(x2, w_q8, w_scale, cfg, w_nk)
     return y.reshape(*x.shape[:-1], d_out)
 
 

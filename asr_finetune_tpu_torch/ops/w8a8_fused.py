@@ -16,11 +16,16 @@ which moves xs by one ulp on some rows (and then whole int8 steps), so the
 port computes the compiled form. x / xs stays an IEEE division.
 
 Bound on the card: int8 operations at the encoder's m, bytes at the
-decoder's; csrc/w8a8.cu says how the kernel is laid out. It equals the plain
-version bit for bit: IEEE division, round half to even, the epilogue's
-steps rounded one by one. The plain version takes the integer product as a
-float64 product of the int8 values, exact while every partial sum stays
-below 2^53 (127^2 K is far below it).
+decoder's; csrc/w8a8.cu says how the kernel is laid out (a quantize pass,
+then one wgmma s8 GEMM over TMA-loaded K-major operands with its epilogue,
+on a 64 x 128 or a 128 x 256 tile, `wide_for`).
+On the card the weight is read from `w_nk` (N, K), the K-major copy of
+w_q8 that ops/quant.add_k_major_copies makes once beside every int8 weight:
+the wrapper raises when it is missing or does not match w_q8, and never
+transposes. It equals the plain version bit for bit: IEEE division, round
+half to even, the epilogue's steps rounded one by one. The plain version
+takes the integer product as a float64 product of the int8 values, exact
+while every partial sum stays below 2^53 (127^2 K is far below it).
 
 The TPU block table `pick_mt` and the ASR_TPU_FUSED_W8A8 opt-in are not
 ported: on the card every W8A8 product goes through the kernel.
@@ -39,8 +44,8 @@ from . import _build
 # wrapper launches on the card (chip_smoke.py reads them)
 LAUNCHES = {"w8a8": 0}
 INV_127 = float(np.float32(1.0) / np.float32(127.0))   # XLA's constant for x / 127
-TILE, SLICE = 128, 64        # the kernel's output tile (rows and columns) and K slice
-SLICES_PER_SPLIT = 4         # the least K slices a split-K range takes
+WIDE_M, WIDE_N = 128, 256   # the kernel's wide output tile (else 64 x 128)
+MAX_K = 8192                # the quantize pass holds a row in registers
 
 
 def reset_launches() -> None:
@@ -67,13 +72,14 @@ def w8a8_plain(x: torch.Tensor, w_q8: torch.Tensor, w_scale: torch.Tensor,
 
 def w8a8(x: torch.Tensor, w_q8: torch.Tensor, w_scale: torch.Tensor,
          keep: Optional[torch.Tensor] = None,
-         addend: Optional[torch.Tensor] = None) -> torch.Tensor:
+         addend: Optional[torch.Tensor] = None,
+         w_nk: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The W8A8 product of x (m, K) with w_q8 (K, N) int8 and its per-column
-    scales. CUDA tensors launch the kernel (or raise); CPU tensors take
-    w8a8_plain."""
+    scales. CUDA tensors launch the kernel, which reads the weight from its
+    K-major copy w_nk (N, K) (or raise); CPU tensors take w8a8_plain."""
     if x.device.type == "cpu":
         return w8a8_plain(x, w_q8, w_scale, keep, addend)
-    return _w8a8_cuda(x, w_q8, w_scale, keep, addend)
+    return _w8a8_cuda(x, w_q8, w_scale, keep, addend, w_nk)
 
 
 def _operand(t: Optional[torch.Tensor], dtype, shape, device, what: str):
@@ -87,15 +93,12 @@ def _operand(t: Optional[torch.Tensor], dtype, shape, device, what: str):
     return t.data_ptr()
 
 
-def splits_for(m: int, K: int, N: int, sms: int) -> int:
-    """How many ranges the kernel cuts the 64-deep K slices into: 1 when the
-    (m, N) tiles of 128 x 128 fill the card's SMs twice over (2 blocks fit
-    an SM), else enough ranges to, each at least SLICES_PER_SPLIT deep."""
-    tiles = -(-m // TILE) * -(-N // TILE)
-    slices = -(-K // SLICE)
-    if tiles >= 2 * sms:
-        return 1
-    return max(1, min(-(-2 * sms // tiles), slices // SLICES_PER_SPLIT))
+def wide_for(m: int, N: int, sms: int) -> bool:
+    """The kernel's tile: the wide 128 x 256 where its tiles fill at least
+    half the card's SMs (one block an SM: the encoder's m, the decoder's
+    fc1), else the narrow 64 x 128 (two blocks an SM: the decoder's
+    q/k/v/o and fc2 at m 768)."""
+    return -(-m // WIDE_M) * -(-N // WIDE_N) >= sms / 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -103,29 +106,36 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _w8a8_cuda(x, w_q8, w_scale, keep, addend):
+def _w8a8_cuda(x, w_q8, w_scale, keep, addend, w_nk):
     if x.dim() != 2 or w_q8.dim() != 2:
         raise ValueError("w8a8: x (m, K) and w_q8 (K, N) must be 2-D")
     m, K = x.shape
     N = w_q8.shape[1]
     dev = x.device
+    if w_nk is None:
+        raise ValueError("w8a8: the kernel reads the K-major (N, K) copy of the "
+                         "weight, and none was given (ops/quant.add_k_major_copies "
+                         "makes it when the int8 base is built)")
+    if K % 16 or N % 8 or w_nk.data_ptr() % 16 or x.data_ptr() % 16:
+        raise ValueError(f"w8a8: TMA needs K % 16 == 0, N % 8 == 0 and 16-byte aligned "
+                         f"x and weight copy; got K {K}, N {N}")
+    if K > MAX_K:
+        raise ValueError(f"w8a8: the quantize pass holds a row in registers, K <= {MAX_K}; "
+                         f"got K {K}")
     x_p = _operand(x, x.dtype, (m, K), dev, "x")
-    w_p = _operand(w_q8, torch.int8, (K, N), dev, "w_q8")
+    _operand(w_q8, torch.int8, (K, N), dev, "w_q8")
+    w_p = _operand(w_nk, torch.int8, (N, K), dev, "w_nk (the K-major copy of w_q8)")
     s_p = _operand(w_scale.reshape(-1), torch.float32, (N,), dev, "w_scale")
     k_p = _operand(keep, torch.float32, (K,), dev, "keep")
     a_p = _operand(addend, torch.float32, (m, N), dev, "addend")
-    mp, kp = -(-m // TILE) * TILE, -(-K // SLICE) * SLICE
-    splits = splits_for(m, K, N, _sm_count(dev.index if dev.index is not None
-                                           else torch.cuda.current_device()))
-    xs = torch.empty((mp,), dtype=torch.float32, device=dev)
-    x8 = torch.empty((mp, kp), dtype=torch.int8, device=dev)
-    partial = (torch.empty((splits, m, N), dtype=torch.int32, device=dev)
-               if splits > 1 else None)
+    wide = wide_for(m, N, _sm_count(dev.index if dev.index is not None
+                                    else torch.cuda.current_device()))
+    xs = torch.empty((m,), dtype=torch.float32, device=dev)
+    x8 = torch.empty((m, K), dtype=torch.int8, device=dev)
     y = torch.empty((m, N), dtype=x.dtype, device=dev)
     lib = _lib()
     err = lib.w8a8_fwd(_build.dtype_code(x), x_p, w_p, s_p, k_p, a_p, xs.data_ptr(),
-                       x8.data_ptr(), None if partial is None else partial.data_ptr(),
-                       y.data_ptr(), m, K, N, splits, _build.stream_ptr(x))
+                       x8.data_ptr(), y.data_ptr(), m, K, N, int(wide), _build.stream_ptr(x))
     _build.check(lib, err, "w8a8")
     LAUNCHES["w8a8"] += 1
     return y
@@ -139,7 +149,7 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("w8a8")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.w8a8_fwd.argtypes = [I] + [P] * 9 + [I, I, I, I, P]
+        lib.w8a8_fwd.argtypes = [I] + [P] * 8 + [I] * 4 + [P]
         lib.w8a8_fwd.restype = I
         _LIB = lib
     return _LIB

@@ -114,6 +114,10 @@ def build_model(args, train: bool = False,
                                           device=device)
         if args.load_in_8bit:
             params = quant_lib.quantize_tree_int8(params)
+            if args.int8_matmul:
+                # the W8A8 kernel reads each frozen weight K-major: one
+                # (L, d_out, d_in) copy beside every w_q8, made here once
+                params = quant_lib.add_k_major_copies(params)
         else:
             _cast_tree_(params, torch.bfloat16)
     elif args.bf16 and not train:
@@ -174,7 +178,7 @@ def build_data(args, tokenizer, model_cfg: WhisperConfig, device: torch.device):
             from .data.audiofolder import AudioFolderReader
             return AudioFolderReader(path.split(","))
         from .data.hdf5 import Hdf5AudioReader
-        return Hdf5AudioReader(path)
+        return Hdf5AudioReader(path, copy_to_local=args.copy_to_local)
 
     train_reader = make_reader(mode["train"], args.dataset_name)
     n_total = len(train_reader)

@@ -216,7 +216,7 @@ def merge_adapters(params: Params, adapters: Optional[Params]) -> Params:
             w = wp["w_q8"].float() * wp["w_scale"].float()
         else:
             w = wp["w"]
-        out = {k: v for k, v in wp.items() if k not in ("w_q8", "w_scale")}
+        out = {k: v for k, v in wp.items() if k not in ("w_q8", "w_scale", "w_q8_nk")}
         out["w"] = w + delta(ad).to(w.dtype)
         return out
 

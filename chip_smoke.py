@@ -55,7 +55,9 @@
    layers, bf16 compute, fp32 masters, remat), 4 steps of batch 4 on 20
    seeded wavs, eval with WER and a checkpoint; asserts the results and the
    launch counts, prints ms/step, utterances/s, tokens/s, peak memory, the
-   checkpoint's write time, and one step's device time by CUDA kernel;
+   checkpoint's write time, one step's device time by CUDA kernel, and
+   that step's attention-backward and W8A8 device ms beside the step time
+   and idle share;
 7. the PEFT main path: `cli.train` with the repo's largev3_peft_debug.config
    and --int8_matmul (AdaLoRA rank 8 on every q/v, int8 frozen base, every
    frozen product through the W8A8 kernel, the outlier calibration, eval
@@ -731,6 +733,11 @@ def check_attention_bwd(rows):
                 err = compare("encoder_attention_bwd", grads,
                               EA.dense_attention_packed_bwd_plain(q, k, v, do, 64,
                                                                   s_valid), dn)
+                again = EA._dense_attention_packed_bwd_cuda(q, k, v, do, lse, 64, s_valid)
+                print(f"  two calls: dq bit-equal {torch.equal(again[0], grads[0])} (bf16: "
+                      f"fp32 reduce-adds in run-to-run order), dk and dv bit-equal "
+                      f"{torch.equal(again[1], grads[1]) and torch.equal(again[2], grads[2])}")
+                del again
                 worst = tuple(max(a, b) for a, b in zip(worst, err))
                 del grads
             if dt is torch.bfloat16:
@@ -778,17 +785,21 @@ def check_w8a8(rows):
     whole dynamic top-8 product (`Q.int8_matmul` with no calibrated class:
     column amax, ranking, the side product, the kernel), the form the fused
     path's wide q|k|v product takes; the row's headline shape is the
-    encoder's q/k/v/o."""
+    encoder's q/k/v/o. The kernel reads the weight's K-major copy, made once
+    per shape outside the timing as the int8 base makes it. Each shape's
+    pure product is timed before and after its profiled reading and again
+    with the shapes in reverse order, torch._int_mm in both orders."""
     import torch
     from asr_finetune_tpu_torch.ops import quant as Q
     from asr_finetune_tpu_torch.ops import w8a8_fused as WF
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
-    shapes = []
+    shapes, timed = [], []
     for name, m, K, N in W8A8_SHAPES:
         q = Q.quantize_weight(torch.randn((K, N), generator=g, device=dev) * K ** -0.5)
         w8, ws = q["w_q8"], q["w_scale"]
+        w_nk = w8.t().contiguous()      # the K-major copy the int8 base carries
         for dt in (torch.bfloat16, torch.float32):
             dn = str(dt).split(".")[-1]
             x = torch.randn((m, K), generator=g, device=dev)
@@ -799,7 +810,7 @@ def check_w8a8(rows):
                 if form == "outliers":
                     keep, addend = Q._outlier_split(
                         x, w8, ws, Q.QuantConfig(matmul=True, outlier_cols=8))
-                out = WF.w8a8(x, w8, ws, keep, addend)
+                out = WF.w8a8(x, w8, ws, keep, addend, w_nk)
                 ref = WF.w8a8_plain(x, w8, ws, keep, addend)
                 if not torch.equal(out, ref):
                     raise AssertionError(
@@ -816,25 +827,43 @@ def check_w8a8(rows):
             w_deq = Q.dequantize_weight(q, dt)
             b_ms, b_by = bound(m * K * 2 + K * N + N * 4 + m * N * 2, 2 * m * K * N, "int8")
             dyn = Q.QuantConfig(matmul=True, outlier_cols=8)
+            def pure(x=x, w8=w8, ws=ws, w_nk=w_nk):   # bound now: timed again below
+                return WF.w8a8(x, w8, ws, None, None, w_nk)
+            # the kernel timed before and after this shape's profiler session
+            # (a torch.profiler run preceded an outlying reading), and again
+            # below in the reverse order of the shapes
             t = {"shape": name, "m": m, "K": K, "N": N,
-                 "ms": device_ms(lambda: WF.w8a8(x, w8, ws), 16),
-                 "outliers_ms": device_ms(lambda: WF.w8a8(x, w8, ws, keep, addend), 16),
+                 "ms": device_ms(pure, 16),
+                 "outliers_ms": device_ms(lambda: WF.w8a8(x, w8, ws, keep, addend, w_nk), 16),
                  # the ranking writes the keep-mask from a host scalar, which a
                  # CUDA graph cannot capture: the profiler's sum over its kernels
-                 "dynamic_product_ms": profiled_ms(lambda: Q.int8_matmul(x, w8, ws, dyn)),
+                 "dynamic_product_ms": profiled_ms(lambda: Q.int8_matmul(x, w8, ws, dyn, w_nk)),
+                 "ms_after_profile": device_ms(pure, 16),
                  "plain_ms": device_ms(lambda: WF.w8a8_plain(x, w8, ws), 2),
                  "int_mm_ms": device_ms(lambda: torch._int_mm(x8, w8_cm), 16),
                  "bf16_matmul_ms": device_ms(lambda: torch.matmul(x, w_deq), 16),
                  "bound_ms": b_ms, "bound_by": b_by}
             shapes.append(t)
-            print(f"  w8a8 [bfloat16] {name}: kernel {t['ms']:.4f} ms (device; with the "
-                  f"outlier keep/addend {t['outliers_ms']:.4f} ms; the whole dynamic top-8 "
-                  f"product, ranking and side product included, {t['dynamic_product_ms']:.4f} "
-                  f"ms)  plain {t['plain_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
+            timed.append((t, pure, lambda x8=x8, w8_cm=w8_cm: torch._int_mm(x8, w8_cm)))
+            print(f"  w8a8 [bfloat16] {name}: kernel {t['ms']:.4f} ms (device; "
+                  f"{t['ms_after_profile']:.4f} after the profiled reading; with the outlier "
+                  f"keep/addend {t['outliers_ms']:.4f} ms; the whole dynamic top-8 product, "
+                  f"ranking and side product included, {t['dynamic_product_ms']:.4f} ms)  "
+                  f"plain {t['plain_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
                   f"torch._int_mm {t['int_mm_ms']:.4f} ms  bf16 matmul (dequantized) "
                   f"{t['bf16_matmul_ms']:.4f} ms")
-            del x8, w8_cm, w_deq
+            del w_deq
         torch.cuda.empty_cache()
+    for t, pure, int_mm in reversed(timed):
+        t["int_mm_ms_reverse"] = device_ms(int_mm, 16)
+        t["ms_reverse"] = device_ms(pure, 16)
+    print("w8a8 [bfloat16] kernel ms by shape, in order / after its profiled reading / in "
+          "reverse order (torch._int_mm in order / reverse): "
+          + "; ".join(f"{t['shape']} {t['ms']:.4f} / {t['ms_after_profile']:.4f} / "
+                      f"{t['ms_reverse']:.4f} ({t['int_mm_ms']:.4f} / {t['int_mm_ms_reverse']:.4f})"
+                      for t in shapes))
+    del timed
+    torch.cuda.empty_cache()
     head = shapes[0]
     rows["w8a8"] = {"name": "w8a8", "route": "cuda", "source": SOURCES["w8a8"],
                     "replaces": REPLACES["w8a8"], "launches": 0, "max_abs_err": 0.0,
@@ -1427,7 +1456,7 @@ def check_peft_grads(device: str = "cuda", model: str = "large-v3"):
     labels[0, 120:] = -100
     batch = {"mel": torch.randn((bsz, 3000, cfg.num_mel_bins), generator=g, device=dev),
              "decoder_input_ids": tokens, "labels": labels}
-    params = Q.quantize_tree_int8(W.init_params(cfg, seed=6, device=dev))
+    params = Q.add_k_major_copies(Q.quantize_tree_int8(W.init_params(cfg, seed=6, device=dev)))
     lcfg = LO.LoraConfig(rank=8, alpha=16.0, dropout=0.0, adalora=True)
 
     def grads(w8a8: bool, **kw):
@@ -1447,7 +1476,8 @@ def check_peft_grads(device: str = "cuda", model: str = "large-v3"):
     g_k, loss_k, n_k = grads(True)
     g_d, loss_d, n_d = grads(False)
     orig_w8a8, orig_attn = Q.w8a8, A.encoder_attention
-    Q.w8a8 = WF.w8a8_plain
+    Q.w8a8 = lambda x, w, sc, keep=None, addend=None, w_nk=None: WF.w8a8_plain(
+        x, w, sc, keep, addend)
     try:
         g_w, loss_w, n_w = grads(True)
         A.encoder_attention = lambda q, k, v: A.xla_attention(q, k, v)
@@ -1591,14 +1621,21 @@ def write_audiofolder(folder, n: int, seed: int = 0) -> None:
         w.writerows(rows)
 
 
+# device ms of step 4 by training path: attention backward, W8A8, all
+# kernels, and the step's end-to-end ms (printed as one JSON line)
+STEP_DEVICE: dict = {}
+ATTN_BWD = "attention backward (enc_attn_bwd_di/dkdv_wgmma, dq_store)"
+W8A8 = "W8A8 (quantize_rows, w8a8_wgmma)"
+
+
 def kernel_category(name: str) -> str:
     low = name.lower()
     if "enc_attn_bwd" in low:
-        return "attention backward (enc_attn_bwd_*)"
+        return ATTN_BWD
     if "enc_attn_fwd" in low:
         return "attention forward (enc_attn_fwd_*)"
     if "w8a8" in low or "quantize_rows" in low:
-        return "W8A8 (quantize_rows, w8a8_gemm, w8a8_epilogue)"
+        return W8A8
     if "gemv_kernel" in low or "attn_partial" in low or "attn_combine" in low:
         return "decoder kernels (gemv, attn_partial, attn_combine)"
     if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")):
@@ -1903,6 +1940,12 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
               f"of an unprofiled step")
         for c, (ms, n) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
             print(f"  {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {n:6d} launches  {c}")
+        ab, w8 = cats.get(ATTN_BWD, [0.0, 0]), cats.get(W8A8, [0.0, 0])
+        print(f"{label}, step 4: attention backward {ab[0]:.3f} ms ({ab[1]} launches), "
+              f"W8A8 {w8[0]:.3f} ms ({w8[1]} launches) of {busy:.3f} ms device time; "
+              f"{1e3 * step_s:.3f} ms/step, device idle {100 * (1 - busy / (1e3 * step_s)):.1f}%")
+        STEP_DEVICE[label] = {"attention_bwd_ms": ab[0], "w8a8_ms": w8[0], "busy_ms": busy,
+                              "step_ms": 1e3 * step_s}
         print("  largest kernels:")
         for ms, n, key in by_kernel[:12]:
             print(f"  {ms:9.3f} ms  {int(n):6d} launches  {key[:90]}")
@@ -2071,6 +2114,7 @@ def main() -> int:
     train_main_path(rows, config=PEFT_CONFIG, extra=("--int8_matmul",))
     train_main_path(rows, config=PEFT_CONFIG, extra=("--int8_matmul",), fused_qkv=True)
     step_breakdown()
+    print(json.dumps({"step_device_ms": STEP_DEVICE}))
     print(card_line())
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -109,17 +109,16 @@ def test_w8a8_matches_jax(jax_int8_flags, form, dtype, K, N):
 
 
 def test_w8a8_split_rule_at_the_main_path_shapes():
-    """The CUDA wrapper's split-K rule on an H100 (132 SMs): the encoder's
-    products (m = 6000: 470 or more 128 x 128 tiles) run in one pass; the
-    decoder's (m = 768: 60 or 240 tiles) cut the 64-deep K slices into
-    enough ranges for two blocks an SM, each at least 4 slices deep; a K of
-    too few slices is not cut."""
-    for K, N in ((1280, 1280), (1280, 5120), (5120, 1280)):
-        assert TF.splits_for(6000, K, N, 132) == 1
-    assert TF.splits_for(768, 1280, 1280, 132) == 5
-    assert TF.splits_for(768, 1280, 5120, 132) == 2
-    assert TF.splits_for(768, 5120, 1280, 132) == 5
-    assert TF.splits_for(768, 192, 1280, 132) == 1
+    """The CUDA wrapper's tile rule on an H100 (132 SMs), one pass over K
+    at every shape: the wide 128 x 256 tile where its tiles fill half the
+    SMs (the encoder's products at m = 6000, the decoder's fc1 at m = 768,
+    120 tiles), the narrow 64 x 128 elsewhere (the decoder's q/k/v/o and
+    fc2, 30 wide tiles)."""
+    for N in (1280, 5120, 3840):
+        assert TF.wide_for(6000, N, 132)
+    assert TF.wide_for(768, 5120, 132)
+    assert not TF.wide_for(768, 1280, 132)
+    assert not TF.wide_for(111, 208, 132)
 
 
 def test_outlier_split_matches_jax_selection():

@@ -16,7 +16,8 @@ intermediates to bf16, so an output at a rounding boundary may land one
 bf16 step, at most 2^-7 of its value, apart), as chip_smoke.py. The decoder
 kernels run with int8 weights too (all-int8 and a merged-LoRA mix). The
 W8A8 kernel is held to bit equality with its plain version, pure and with
-the outlier keep-mask and addend, at ragged m, K and N. The beam
+the outlier keep-mask and addend, at ragged m, K and N, on both tiles; it
+reads its weight from the K-major copy and raises without one. The beam
 self-attention kernel runs at 2, 3, 8 and 10 beams over a random ancestry
 map, the cross-attention's kv_group at 1, 3, 4, 8 and 10 with float and
 int8 K/V. The encoder-attention kernels also run on the (BH, T, hd) and
@@ -168,7 +169,7 @@ def test_encoder_attention_matches_plain(dev, dtype, Tq, Tk, s_valid):
 
 @pytest.mark.parametrize("B", [3, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Tq,Tk,s_valid", [(150, 150, 150), (40, 300, 213)])
+@pytest.mark.parametrize("Tq,Tk,s_valid", [(150, 150, 150), (40, 300, 213), (300, 150, 100)])
 def test_encoder_attention_bwd_matches_plain(dev, dtype, B, Tq, Tk, s_valid):
     """The autograd Function on the card: the forward kernel's lse against
     the plain logsumexp, its backward kernel's (dq, dk, dv) against the plain
@@ -198,7 +199,8 @@ def test_encoder_attention_bwd_matches_plain(dev, dtype, B, Tq, Tk, s_valid):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("BH,T_p,s_valid", [(12, 256, 150), (80, 128, 128)])
+@pytest.mark.parametrize("BH,T_p,s_valid", [(12, 256, 150), (80, 128, 128), (32, 300, 213),
+                                             (24, 40, 40)])
 def test_dense_attention_bh_matches_plain(dev, dtype, BH, T_p, s_valid):
     """The (BH, T, hd) layout (B' = BH, one head, time stride 64): the
     forward and, through DenseAttention, the backward against the plain
@@ -228,7 +230,7 @@ def test_dense_attention_bh_matches_plain(dev, dtype, BH, T_p, s_valid):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,T,H", [(2, 150, 4), (3, 300, 3)])
+@pytest.mark.parametrize("B,T,H", [(2, 150, 4), (3, 300, 3), (8, 40, 2)])
 def test_dense_attention_qkv_matches_plain(dev, dtype, B, T, H):
     """The fused-qkv layout: the kernels on the three column views of one
     (B, T, 3D) buffer (time stride 3D), the backward writing dq‖dk‖dv into
@@ -268,6 +270,24 @@ def test_log_mel_matches_plain(dev, n_mels):
     np.testing.assert_allclose(LF.log_mel_fused(audio, n_mels).cpu().numpy(),
                                LF.log_mel_fused_plain(audio, n_mels).cpu().numpy(),
                                rtol=0, atol=1e-4)
+
+
+def test_encoder_attention_bwd_rejects_misaligned_strides(dev):
+    """The backward reads q/k/v/do by TMA: a time stride that is no
+    multiple of 8 elements (16 bytes in bf16) or a base off 16 bytes
+    raises before anything launches."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    wide = _rn(g, dev, 2, 150, 4 * 64 + 4, dtype=torch.bfloat16)
+    q = wide[..., :256]                                   # time stride 260
+    k, v, do = (_rn(g, dev, 2, 150, 256, dtype=torch.bfloat16) for _ in range(3))
+    lse = torch.zeros((2, 4, 150), device=dev)
+    EA.reset_launches()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        EA._dense_attention_packed_bwd_cuda(q, k, v, do, lse, 64, 150)
+    off = _rn(g, dev, 2 * 150 * 256 + 4, dtype=torch.bfloat16)[4:].view(2, 150, 256)
+    with pytest.raises(ValueError, match="16-byte"):
+        EA._dense_attention_packed_bwd_cuda(off, k, v, do, lse, 64, 150)
+    assert not any(EA.LAUNCHES.values())
 
 
 def test_wrappers_reject_bad_operands(dev):
@@ -336,21 +356,33 @@ def test_decoder_kernels_int8_weights_match_plain(dev, dtype, B, mix):
                                    w2_scale=at("fc2")[1]), dtype)
 
 
+# m, K, N of each W8A8 case, and whether it runs the wide tile
+W8A8_CASES = {
+    "B3": (111, 4112, 208, False),
+    "B8": (296, 4112, 208, False),
+    "B12": (444, 4112, 208, False),
+    "one pass": (2000, 1008, 2200, True),
+    "K 5120": (300, 5120, 3840, False),
+    "wide ragged": (1000, 1280, 2056, True),
+}
+
+
 @pytest.mark.parametrize("outliers", [False, True])
-@pytest.mark.parametrize("shape", ["B3", "B8", "B12", "one pass"])
+@pytest.mark.parametrize("shape", list(W8A8_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_w8a8_matches_plain_bitwise(dev, dtype, shape, outliers):
     """The W8A8 kernel equals w8a8_plain bit for bit. At B = 3, 8 and 12:
-    m = 37·B rows (a ragged last 128-row tile), K = 1000 (a ragged last
-    64-deep slice) and N = 208 (a ragged last 128-column tile, whole 16-byte
-    weight chunks: the asynchronous copies, zero-filled past K and N), few
-    enough tiles that the K slices are split; "one pass": m = 2000, N = 2200
-    (not a multiple of 16: the weight gathered byte by byte), enough tiles
-    for no split. With outliers, the keep-mask and addend of the dynamic
-    top-4 form; one launch per call."""
-    m, K, N = (2000, 1000, 2200) if shape == "one pass" else (37 * int(shape[1:]), 1000, 208)
+    m = 37·B rows (no multiple of 64: a ragged last tile, zero-filled by
+    TMA on the way in and clipped on the way out), K = 4112 (a ragged last
+    128-deep slice) and N = 208 (a ragged last 128-column tile) on the
+    narrow 64 x 128 tile; "K 5120": the decoder fc2's depth at m 300 and N
+    3840; "one pass" (m 2000, N 2200) and "wide ragged" (m 1000, N 2056)
+    on the wide 128 x 256 tile with ragged edges. With outliers, the
+    keep-mask and addend of the dynamic top-4 form; one launch per call.
+    The weight is read from its K-major copy."""
+    m, K, N, wide = W8A8_CASES[shape]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert (WF.splits_for(m, K, N, sms) == 1) == (shape == "one pass")
+    assert WF.wide_for(m, N, sms) == wide
     g = torch.Generator(device=dev).manual_seed(m)
     x = _rn(g, dev, m, K, dtype=dtype)
     x[:, 7] *= 50.0
@@ -360,10 +392,37 @@ def test_w8a8_matches_plain_bitwise(dev, dtype, shape, outliers):
         keep, addend = Q._outlier_split(x, w8, ws, Q.QuantConfig(matmul=True,
                                                                  outlier_cols=4))
     WF.reset_launches()
-    out = WF.w8a8(x, w8, ws, keep, addend)
+    out = WF.w8a8(x, w8, ws, keep, addend, w8.t().contiguous())
     assert WF.LAUNCHES["w8a8"] == 1 and out.dtype == dtype and out.shape == (m, N)
     ref = WF.w8a8_plain(x, w8, ws, keep, addend)
     assert torch.equal(out, ref), float((out.float() - ref.float()).abs().max())
+
+
+def test_w8a8_rejects_a_missing_or_mismatched_copy(dev):
+    """On the card the wrapper raises, and launches nothing, without the
+    K-major copy, with one of another shape, dtype or device, at a K that
+    is no multiple of 16 or an N no multiple of 8 (TMA's row pitches), and
+    at a K beyond the quantize pass's 8192; it never transposes."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = _rn(g, dev, 64, 256)
+    w8, ws = _int8(_rn(g, dev, 256, 128, scale=0.05))
+    WF.reset_launches()
+    for bad in (None, w8, w8.t().contiguous().cpu(), w8.t().contiguous().float(),
+                w8.t().contiguous()[:, :128]):
+        with pytest.raises(ValueError):
+            WF.w8a8(x, w8, ws, w_nk=bad)
+    x2 = _rn(g, dev, 64, 264)
+    w2, s2 = _int8(_rn(g, dev, 264, 128, scale=0.05))
+    with pytest.raises(ValueError, match="K % 16"):
+        WF.w8a8(x2, w2, s2, w_nk=w2.t().contiguous())
+    w3, s3 = _int8(_rn(g, dev, 256, 124, scale=0.05))
+    with pytest.raises(ValueError, match="N % 8"):
+        WF.w8a8(x, w3, s3, w_nk=w3.t().contiguous())
+    x4 = _rn(g, dev, 8, 8208)
+    w4, s4 = _int8(_rn(g, dev, 8208, 8, scale=0.05))
+    with pytest.raises(ValueError, match="8192"):
+        WF.w8a8(x4, w4, s4, w_nk=w4.t().contiguous())
+    assert WF.LAUNCHES["w8a8"] == 0
 
 
 def test_int8_matmul_grad_on_the_card(dev):
@@ -374,7 +433,7 @@ def test_int8_matmul_grad_on_the_card(dev):
     w8, ws = _int8(_rn(g, dev, 256, 128, scale=0.05))
     dy = _rn(g, dev, 64, 128)
     WF.reset_launches()
-    y = Q.int8_matmul(x, w8, ws, Q.QuantConfig(matmul=True))
+    y = Q.int8_matmul(x, w8, ws, Q.QuantConfig(matmul=True), w8.t().contiguous())
     (y * dy).sum().backward()
     assert WF.LAUNCHES["w8a8"] == 1
     assert torch.equal(y, WF.w8a8_plain(x.detach(), w8, ws))

@@ -72,7 +72,8 @@ def _ckpt(out, step):
 def test_peft_cli_trains_adapters_and_saves_them_only(folder, tmp_path, int8_matmul):
     """`cli.train --peft --load_in_8bit --adalora [--int8_matmul]`: finite
     steps, an eval, and an adapter-only checkpoint (adapters, their moments,
-    sensitivity and rank masks; no base)."""
+    sensitivity and rank masks; no base, so neither the int8 weights nor
+    the K-major copies --int8_matmul builds beside them)."""
     extra = ("--int8_matmul",) if int8_matmul else ()
     result = train_cli.main(_argv(folder, tmp_path, *extra))
     assert result["final_step"] == 2
@@ -89,6 +90,8 @@ def test_peft_cli_trains_adapters_and_saves_them_only(folder, tmp_path, int8_mat
     assert set(saved["mu"]) == {k for k in saved["adapters"] if not k.endswith("scaling")}
     assert any(k.startswith("encoder/") for k in saved["adapters"])
     assert all(t.dtype == torch.float32 for t in saved["adapters"].values())
+    names = [k for part in saved.values() if isinstance(part, dict) for k in part]
+    assert not any("w_q8" in k for k in names)
 
 
 def test_peft_cli_resume_is_step_exact(folder, tmp_path):
