@@ -24,21 +24,33 @@
 //
 // Bound on the card: operations. At whisper-large-v3 (B=4, H=20, T=1500) one
 // layer's forward is 46 GFLOP against 61 MB of q/k/v/out, ~750 flop per byte,
-// well above the H100's ~295 in bf16; the backward's five products are
-// 115 GFLOP against 108 MB (0.1165 ms at 989 TF/s). The teacher-forced
-// cross-attention (Tq = a label bucket <= 448, Tk = 1500) is bytes-bound.
+// well above the H100's ~295 in bf16 (0.0466 ms at 989 TF/s); the
+// backward's five products are 115 GFLOP against 108 MB (0.1165 ms). The
+// teacher-forced cross-attention (Tq = a label bucket <= 448, Tk = 1500) is
+// bytes-bound (Tq 192: 34.6 MB, 0.0103 ms at 3.35 TB/s).
 //
 // Forward design: the TPU kernels hold a whole 1500x1500 fp32 row tile in
 // VMEM (~9 MB); an SM has 227 KB of shared memory. So the forward is an
-// online-softmax (flash-style) loop: one block per (64-query tile, head,
-// batch) reads its rows by strides straight from the packed layout, loops
-// over 64-key tiles staged in shared memory, keeps the running row max m and
-// sum l, and divides once at the end. The ragged edge (T = 1500 is no tile
-// multiple) and s_valid are masked in the kernel. bf16 runs mma.sync
-// m16n8k16 with fp32 accumulation, one warp per 16 rows, the score
-// accumulators reused in registers as the next product's A operand (p
-// rounded to bf16 there, the TPU kernel's cast); fp32 inputs run CUDA-core
-// kernels with fp32 products.
+// online-softmax (flash-style) loop over 64-key tiles that keeps the running
+// row max m and sum l and divides once at the end; the ragged edge (T = 1500
+// is no tile multiple) and s_valid are masked in the kernel. fp32 inputs run
+// a CUDA-core kernel with fp32 products. bf16 (`enc_attn_fwd_wgmma`) runs on
+// wgmma and TMA (hopper.cuh):
+//   - loads are asynchronous: TMA brings Q once and streams K/V tiles
+//     through a 3-stage mbarrier ring, so tiles load while the tensor cores
+//     work;
+//   - V is read in its natural [key][dim] layout, MN-major through the
+//     wgmma descriptor's transpose bit: no transposed copy in shared memory;
+//   - S = Q.K^T and O += P.V are warpgroup products (wgmma m64n64k16, P from
+//     registers, p rounded to bf16 there, the TPU kernel's cast): only wgmma
+//     reaches the card's bf16 rate;
+//   - a block takes 128 queries in two warpgroups, so K and V are read once
+//     per 128 queries; with no producer warp (thread 0 issues the loads) a
+//     thread stays under 128 registers and two blocks share an SM. Where
+//     128-query blocks would fill fewer than two an SM (the cross shape:
+//     160 blocks for 132 SMs), a block takes 64 queries in one warpgroup.
+// The output is stored by TMA from a swizzled tile; no atomics, so two calls
+// give the same bits.
 //
 // Backward, bf16: three launches on wgmma and TMA (hopper.cuh), seven tile
 // products where the first design ran nine on mma.sync with synchronous
@@ -429,219 +441,7 @@ enc_attn_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
-// ---------------------------------------------------------------------------
-
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 rows = one 64-row tile
-constexpr int LDB = HD + 8;       // bf16 row stride: fragment loads hit 32 banks
-
-using Tile = __nv_bfloat16[64][LDB];
-constexpr int STAGE_CHUNKS = 64 * HD / 8 / MMA_THREADS;  // 16-byte chunks a thread stages
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats → one register of two bf16, the lower column in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 g + t. A (16 x 16, row):
-// a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..), a3 = (g+8, 2t+8..).
-// B (16 x 8, col): b0 = (2t..2t+1, g), b1 = (2t+8.., g). C (16 x 8): c0,c1 =
-// (g, 2t..2t+1), c2,c3 = (g+8, 2t..2t+1).
-
-// rows [row0, row0 + 64) x 64 dims of `src` into dst[row][dim] by 16-byte
-// chunks; rows at or past n_avail read as zero. A thread starts all its
-// loads (STAGE_CHUNKS of them) before its first store, so they are in
-// flight together.
-__device__ __forceinline__ void stage(Tile& dst, const __nv_bfloat16* src, long long ts,
-                                      int row0, int n_avail) {
-  uint4 u[STAGE_CHUNKS];
-#pragma unroll
-  for (int i = 0; i < STAGE_CHUNKS; ++i) {
-    const int c = threadIdx.x + i * MMA_THREADS, r = c >> 3, d0 = (c & 7) * 8;
-    u[i] = row0 + r < n_avail
-               ? *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * ts + d0)
-               : make_uint4(0u, 0u, 0u, 0u);
-  }
-#pragma unroll
-  for (int i = 0; i < STAGE_CHUNKS; ++i) {
-    const int c = threadIdx.x + i * MMA_THREADS;
-    *reinterpret_cast<uint4*>(&dst[c >> 3][(c & 7) * 8]) = u[i];
-  }
-}
-
-// the same rows transposed, dst[dim][row]; a warp takes 32 rows of one 8-dim
-// chunk, so the 2-byte stores of a warp land in distinct banks
-__device__ __forceinline__ void stage_t(Tile& dst, const __nv_bfloat16* src, long long ts,
-                                        int row0, int n_avail) {
-  uint4 u[STAGE_CHUNKS];
-#pragma unroll
-  for (int i = 0; i < STAGE_CHUNKS; ++i) {
-    const int c = threadIdx.x + i * MMA_THREADS, r = c & 63, d0 = (c >> 6) * 8;
-    u[i] = row0 + r < n_avail
-               ? *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * ts + d0)
-               : make_uint4(0u, 0u, 0u, 0u);
-  }
-#pragma unroll
-  for (int i = 0; i < STAGE_CHUNKS; ++i) {
-    const int c = threadIdx.x + i * MMA_THREADS, r = c & 63, d0 = (c >> 6) * 8;
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u[i]);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[d0 + j][r] = e[j];
-  }
-}
-
-// rows r0, r0 + 8 of a staged [row][k] tile as A fragments, 4 steps of 16
-__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const Tile& s, int r0, int t) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    a[ks][0] = ld32(&s[r0][ks * 16 + 2 * t]);
-    a[ks][1] = ld32(&s[r0 + 8][ks * 16 + 2 * t]);
-    a[ks][2] = ld32(&s[r0][ks * 16 + 8 + 2 * t]);
-    a[ks][3] = ld32(&s[r0 + 8][ks * 16 + 8 + 2 * t]);
-  }
-}
-
-// c (16 x 64, 8 tiles of 8 columns) += A (16 x 64) . B^T, B staged [n][k]
-__device__ __forceinline__ void mma_abt(float (&c)[8][4], const uint32_t (&a)[4][4],
-                                        const Tile& bt, int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      mma_bf16(c[nt], a[ks], ld32(&bt[nt * 8 + g][ks * 16 + 2 * t]),
-               ld32(&bt[nt * 8 + g][ks * 16 + 8 + 2 * t]));
-}
-
-__device__ __forceinline__ void zero(float (&c)[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
-}
-
-// a 16 x 64 accumulator (8 C tiles) as the A operand of the next product,
-// rounded to bf16: C tiles 2ks, 2ks+1 form k-step ks
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4][4], const float (&c)[8][4]) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    a[nt >> 1][(nt & 1) * 2] = pack_bf16(c[nt][0], c[nt][1]);
-    a[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(c[nt][2], c[nt][3]);
-  }
-}
-
-__global__ void __launch_bounds__(MMA_THREADS)
-enc_attn_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 float* __restrict__ lse, Strides sq, Strides sk, Strides sv, Strides so,
-                 int Tq, int n_kv, float scale) {
-  __shared__ __align__(16) Tile Qs;
-  __shared__ __align__(16) Tile Ks;
-  __shared__ __align__(16) Tile Vt;  // V transposed: [dim][key]
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  q += b * sq.b + h * HD;
-  k += b * sk.b + h * HD;
-  v += b * sv.b + h * HD;
-  o += b * so.b + h * HD;
-
-  stage(Qs, q, sq.t, q0, Tq);
-  __syncthreads();
-  const int r0 = warp * 16 + g;  // this lane's rows: r0 and r0 + 8
-  uint32_t qa[4][4];             // Q as A fragments, 4 steps of 16 dims
-  load_a(qa, Qs, r0, t);
-
-  float oacc[8][4];  // O: 8 tiles of 8 dims
-  zero(oacc);
-  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < n_kv; k0 += BK) {
-    __syncthreads();  // the previous tile's fragments are read
-    stage(Ks, k, sk.t, k0, n_kv);
-    stage_t(Vt, v, sv.t, k0, n_kv);
-    __syncthreads();
-
-    float s[8][4];  // S = Q K^T: 8 tiles of 8 keys
-    zero(s);
-    mma_abt(s, qa, Ks, g, t);
-
-    // online softmax; a row's 64 scores live on the 4 lanes of a quad
-    float mt[2] = {NEG, NEG};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool valid = k0 + nt * 8 + 2 * t + (j & 1) < n_kv;
-        s[nt][j] = valid ? s[nt][j] * scale : NEG;
-        mt[j >> 1] = fmaxf(mt[j >> 1], s[nt][j]);
-      }
-    float corr[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
-      const float m_new = fmaxf(m[i], mt[i]);
-      corr[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool valid = k0 + nt * 8 + 2 * t + (j & 1) < n_kv;
-        s[nt][j] = valid ? expf(s[nt][j] - m[j >> 1]) : 0.f;
-        rs[j >> 1] += s[nt][j];  // the row sum takes p in fp32 ...
-      }
-    uint32_t pa[4][4];  // ... the p@v product takes it in bf16
-    c_to_a(pa, s);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
-      l[i] = l[i] * corr[i] + rs[i];
-    }
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      oacc[dt][0] *= corr[0];
-      oacc[dt][1] *= corr[0];
-      oacc[dt][2] *= corr[1];
-      oacc[dt][3] *= corr[1];
-    }
-    mma_abt(oacc, pa, Vt, g, t);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = q0 + r0 + 8 * i;
-    if (r < Tq) {
-      const float inv = 1.f / l[i];
-#pragma unroll
-      for (int dt = 0; dt < 8; ++dt)
-        *reinterpret_cast<uint32_t*>(o + (long long)r * so.t + dt * 8 + 2 * t) =
-            pack_bf16(oacc[dt][2 * i] * inv, oacc[dt][2 * i + 1] * inv);
-      if (lse != nullptr && t == 0)
-        lse[((long long)b * gridDim.y + h) * Tq + r] = m[i] + logf(l[i]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 backward on wgmma and TMA
+// bf16 on wgmma and TMA
 // ---------------------------------------------------------------------------
 
 constexpr int WG = 128;                       // one warpgroup
@@ -649,8 +449,11 @@ constexpr int DI_WGS = 2;                     // di pass: consumer warpgroups (6
 constexpr int DI_THREADS = DI_WGS * WG + 32;  // + a producer warp (under 100 registers: no setmaxnreg)
 constexpr int KV_THREADS = 3 * WG;            // key-major pass: two consumer warpgroups + a producer one
 constexpr int TILE = 64 * HD * 2;             // one 64-row bf16 tile: 8 KB, 64 rows of 128 bytes
-constexpr int STAGES = 3;                     // the producer's ring
+constexpr int STAGES = 3;                     // the depth of each kernel's ring of tiles
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+// forward: Q of 64 WGS queries (then their O), a ring of K and V tiles, the barriers
+constexpr int fwd_smem(int wgs) { return wgs * TILE + STAGES * 2 * TILE + 8 * (1 + 2 * STAGES) + 1024; }
 // di pass: Q and dO of 128 queries, a ring of K and V tiles, the barriers
 constexpr int DI_SMEM = 2 * DI_WGS * TILE + STAGES * 2 * TILE + 8 * (1 + 2 * STAGES) + 1024;
 // key-major pass: K and V of 128 keys, a ring of Q and dO tiles with their
@@ -658,6 +461,12 @@ constexpr int DI_SMEM = 2 * DI_WGS * TILE + STAGES * 2 * TILE + 8 * (1 + 2 * STA
 // halves per warpgroup (64 queries x 32 dims), the barriers
 constexpr int KV_SMEM = 4 * TILE + STAGES * 2 * TILE + 2 * 2 * TILE + 4 * TILE +
                         STAGES * 2 * 64 * 4 + 8 * (1 + 2 * STAGES) + 1024;
+
+// two floats → one register of two bf16, the lower column in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 // The (64 x 64) rows [t0, t0 + 64) of head h of batch b, by TMA into one
 // swizzled tile; rows past T read as zero.
@@ -680,6 +489,194 @@ __device__ __forceinline__ void product_abt(float (&d)[32], const uint8_t* a, co
     wgmma_ss_bf16_n64<0, 0>(d, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk), kk > 0);
 }
 
+// O (64 x 64, fp32) += P (64 x 64 keys, bf16 A fragments) . V (64 keys x 64
+// dims in its natural [key][dim] tile, read MN-major): four k-steps of 16
+// keys, 2048 bytes of the tile each
+__device__ __forceinline__ void product_pv(float (&o)[32], const uint32_t (&pa)[4][4],
+                                           const uint8_t* v) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_bf16_n64<1>(o, pa[kk], sw128_desc(v + 2048 * kk), 1);
+}
+
+// Online softmax over one 64-key tile of S (the accumulator layout: the
+// thread's rows e >> 1 = 0, 1, cols 8 j + 2 qd + (e & 1)). Keys at col >=
+// n_kv are masked (MASK: the tile reaches past n_kv). m is the running row
+// max in log2 units of the scaled score (s . scale . log2 e), l the
+// thread's share of the row sum (its quad's four shares add up at the end).
+// l and O are rescaled by 2^(m_old - m); p = 2^(s . sl - m) goes into l
+// unrounded and, rounded to bf16, into the A fragments of the P.V product
+// (the accumulator's n8 blocks 2k, 2k+1 are k-step k).
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&o)[32], float (&m)[2],
+                                             float (&l)[2], uint32_t (&pa)[4][4], int k0,
+                                             int n_kv, int qd, float sl) {
+  float mt[2] = {NEG, NEG}, corr[2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (MASK && k0 + 8 * j + 2 * qd + (e & 1) >= n_kv) sc[4 * j + e] = NEG;
+      mt[e >> 1] = fmaxf(mt[e >> 1], sc[4 * j + e]);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+    const float m_new = fmaxf(m[r], mt[r] * sl);
+    corr[r] = exp2_fast(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = exp2_fast(fmaf(sc[4 * j + e], sl, -m[e >> 1]));
+      l[e >> 1] += p[e];
+      o[4 * j + e] *= corr[e >> 1];
+    }
+    pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+    pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+  }
+}
+
+// The ring's loads, issued by thread 0 (no producer warp: at 2 blocks an
+// SM, a ninth warp a block would cap a thread at 96 registers). At tile i
+// (i >= 1) the slot of tile i - 1 is refilled with tile i - 1 + STAGES once
+// every warp has released it; tile 0 loads the first STAGES tiles.
+__device__ __forceinline__ void fwd_load(int i, int n_kt, uint8_t* Kr, uint8_t* Vr,
+                                         uint64_t* full, uint64_t* empty,
+                                         const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                         int h, int b) {
+  if (threadIdx.x != 0) return;
+  const int first = i == 0 ? 0 : i - 1 + STAGES, end = i == 0 ? STAGES : i + STAGES;
+  for (int j = first; j < end && j < n_kt; ++j) {
+    const int s = j % STAGES;
+    if (j >= STAGES) mbar_wait(&empty[s], (j / STAGES - 1) & 1);
+    mbar_arrive_expect_tx(&full[s], 2 * TILE);
+    load_rows(Kr + s * TILE, kmap, &full[s], h, j * BK, b);
+    load_rows(Vr + s * TILE, vmap, &full[s], h, j * BK, b);
+  }
+}
+
+// Forward, query-major: one block per 64 WGS queries of one (b, h), WGS
+// warpgroups of 64 rows each. Thread 0 loads the block's Q tiles once and
+// streams 64-key tiles of K and V through a STAGES-deep mbarrier ring
+// (fwd_load). Per key tile a warpgroup runs
+//   S = Q . K^T              (wgmma, both operands K-major)
+//   the online softmax       (registers; O rescaled, p rounded to bf16 as A fragments)
+//   O += P . V               (wgmma, A from registers, V read MN-major: no transposed copy)
+// and the next tile's S is issued behind P . V; a warp releases the slot
+// once P . V has read V. Under 128 registers a thread, two blocks (four
+// warpgroups) share an SM and overlap one's products with another's
+// exponentials. The epilogue divides O by l, rounds it to bf16 into the
+// warpgroup's Q tile (swizzled; its last reader, the last S, is complete)
+// and TMA-stores it into out's strided layout (rows >= Tq clipped), and
+// writes the lse of rows < Tq when asked for, converted to natural-log
+// units once. No atomics: two calls give the same bits.
+template <int WGS>
+__global__ void __launch_bounds__(WGS * WG, 2)
+enc_attn_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap omap, float* __restrict__ lse, int Tq,
+                   int n_kv, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align1024(smem_raw);        // WGS tiles: queries q0 .. q0 + 64 WGS - 1, then O
+  uint8_t* Kr = Qs + WGS * TILE;            // STAGES key tiles
+  uint8_t* Vr = Kr + STAGES * TILE;         // STAGES value tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vr + STAGES * TILE);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int q0 = blockIdx.x * 64 * WGS, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = warp >> 2, w = warp & 3, t = threadIdx.x & (WG - 1);
+  const int g = lane >> 2, qd = lane & 3;
+  const int n_kt = (n_kv + BK - 1) / BK, last = n_kt - 1;   // the last tile may reach past n_kv
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WGS * WG / 32);
+    }
+    mbar_fence_init();
+    mbar_arrive_expect_tx(q_full, WGS * TILE);
+    for (int i = 0; i < WGS; ++i) load_rows(Qs + i * TILE, &qmap, q_full, h, q0 + 64 * i, b);
+  }
+  __syncthreads();
+  fwd_load(0, n_kt, Kr, Vr, full, empty, &kmap, &vmap, h, b);
+
+  const float sl = scale * LOG2E;
+  uint8_t* Qc = Qs + c * TILE;
+  float o[32], sc[32], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  uint32_t pa[4][4];
+
+  mbar_wait(q_full, 0);
+  mbar_wait(&full[0], 0);
+  wgmma_fence();
+  product_abt(sc, Qc, Kr);
+  wgmma_commit();
+  for (int i = 0; i < n_kt; ++i) {
+    const int s = i % STAGES;
+    if (i > 0) fwd_load(i, n_kt, Kr, Vr, full, empty, &kmap, &vmap, h, b);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(o);
+    if (i == last) softmax_tile<true>(sc, o, m, l, pa, i * BK, n_kv, qd, sl);
+    else softmax_tile<false>(sc, o, m, l, pa, i * BK, n_kv, qd, sl);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
+    wgmma_fence();
+    product_pv(o, pa, Vr + s * TILE);
+    wgmma_commit();
+    if (i + 1 < n_kt) {   // the next tile's S runs behind P . V
+      const int s1 = (i + 1) % STAGES;
+      mbar_wait(&full[s1], ((i + 1) / STAGES) & 1);
+      product_abt(sc, Qc, Kr + s1 * TILE);
+      wgmma_commit();
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs(o);
+    warp_arrive(&empty[s]);
+  }
+
+  // the quad's shares of l; O / l as bf16 into the warpgroup's Q tile,
+  // stored by TMA
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(Qc + sw128(16 * w + g + 8 * r, (8 * j + 2 * qd) * 2)) =
+          pack_bf16(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+  fence_proxy_async();
+  named_barrier(1 + c, WG);
+  if (t == 0) {
+    tma_store_4d(&omap, Qc, 0, h, q0 + 64 * c, b);
+    bulk_commit();
+  }
+  if (lse != nullptr && qd == 0) {
+    const long long rows = ((long long)b * gridDim.y + h) * Tq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + 64 * c + 16 * w + g + 8 * r;
+      if (row < Tq) lse[rows + row] = (m[r] + log2f(l[r])) * LN2;   // natural log, once
+    }
+  }
+  if (t == 0) bulk_wait_read<0>();   // the tile stays until TMA has read it
+}
 
 // S and dP of one tile pair (64 x 64 each), issued and committed as one
 // wgmma group
@@ -1045,11 +1042,38 @@ cudaError_t head_map(CUtensorMap* map, const void* base, int B, int H, int T, St
   return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box);
 }
 
+
+// The SMs of the current device, once per device.
+int sm_count() {
+  static int count[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 64 && count[dev] > 0) return count[dev];
+  int n = 0;
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  if (dev < 64) count[dev] = n;
+  return n;
+}
+
+template <int WGS>
+cudaError_t launch_fwd_wgmma(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                             const CUtensorMap& om, float* lse, int B, int H, int Tq, int n_kv,
+                             float scale, cudaStream_t st) {
+  static bool done[64] = {};
+  const cudaError_t e = allow_dynamic_smem(enc_attn_fwd_wgmma<WGS>, fwd_smem(WGS), done);
+  if (e != cudaSuccess) return e;
+  enc_attn_fwd_wgmma<WGS><<<dim3((Tq + 64 * WGS - 1) / (64 * WGS), H, B), WGS * WG,
+                            fwd_smem(WGS), st>>>(qm, km, vm, om, lse, Tq, n_kv, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the innermost
 // (head-dim) stride is 1, time and batch strides multiples of 8. lse, when
-// not null, receives the (B, H, Tq) fp32 logsumexp of the rows.
+// not null, receives the (B, H, Tq) fp32 logsumexp of the rows. bf16 reads
+// q/k/v and writes o by TMA: cudaErrorInvalidValue when the driver refuses
+// a base or stride (every stride in bytes and every base 16-byte aligned).
 extern "C" int encoder_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                      void* o, void* lse, int B, int H, int Tq, int Tk,
                                      int s_valid, long long q_bs, long long q_ts,
@@ -1059,24 +1083,32 @@ extern "C" int encoder_attention_fwd(int dtype, const void* q, const void* k, co
   const int n_kv = s_valid < Tk ? s_valid : Tk;
   const Strides sq{q_bs, q_ts}, sk{k_bs, k_ts}, sv{v_bs, v_ts}, so{o_bs, o_ts};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
   float* l = static_cast<float*>(lse);
   const float scale = 0.125f;  // 64^-0.5
   if (dtype == 0) {
     static bool done[64] = {};
     const cudaError_t e = allow_dynamic_smem(enc_attn_fwd_f32, SMEM_BYTES, done);
     if (e != cudaSuccess) return static_cast<int>(e);
-    enc_attn_fwd_f32<<<grid, THREADS, SMEM_BYTES, st>>>(
+    enc_attn_fwd_f32<<<dim3((Tq + BQ - 1) / BQ, H, B), THREADS, SMEM_BYTES, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), l, sq, sk, sv, so, Tq, n_kv,
         scale);
-  } else {
-    enc_attn_fwd_mma<<<grid, MMA_THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), l, sq, sk, sv,
-        so, Tq, n_kv, scale);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  CUtensorMap qm, km, vm, om;
+  cudaError_t e;
+  if ((e = head_map(&qm, q, B, H, Tq, sq)) != cudaSuccess ||
+      (e = head_map(&km, k, B, H, Tk, sk)) != cudaSuccess ||
+      (e = head_map(&vm, v, B, H, Tk, sv)) != cudaSuccess ||
+      (e = head_map(&om, o, B, H, Tq, so)) != cudaSuccess)
+    return static_cast<int>(e);
+  // two warpgroups a block (K and V read once per 128 queries) while that
+  // gives at least two blocks an SM; else one (the cross shape, Tq 192)
+  const long long blocks2 = (long long)((Tq + 127) / 128) * H * B;
+  e = blocks2 >= 2LL * sm_count()
+          ? launch_fwd_wgmma<2>(qm, km, vm, om, l, B, H, Tq, n_kv, scale, st)
+          : launch_fwd_wgmma<1>(qm, km, vm, om, l, B, H, Tq, n_kv, scale, st);
+  return static_cast<int>(e);
 }
 
 // The backward of encoder_attention_fwd: dq, dk, dv from q, k, v, dout and

@@ -1,5 +1,5 @@
 // The Hopper (sm_90a) toolbox of the port's wgmma/TMA kernels
-// (encoder_attention.cu's bf16 backward, w8a8.cu's GEMM):
+// (encoder_attention.cu's bf16 forward and backward, w8a8.cu's GEMM):
 //
 //  * host: TMA tensor maps with 128-byte swizzle, encoded per call from the
 //    wrapper's pointers and strides by cuTensorMapEncodeTiled, which is
@@ -174,6 +174,15 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 

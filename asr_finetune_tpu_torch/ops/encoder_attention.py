@@ -32,8 +32,9 @@ Bound on the card: operations for the encoder (46 GFLOP forward, 115 GFLOP
 backward against 61 / 108 MB per large-v3 layer at B=4), bytes for the
 teacher-forced cross-attention at short label buckets. The TPU kernels keep
 a whole 1500-row fp32 tile in VMEM; the CUDA forward is an online-softmax
-loop over 64-key tiles that also saves each row's logsumexp, and the
-backward recomputes p tile by tile from it: in bf16 a di pass, a key-major
+loop over 64-key tiles (in bf16 on wgmma and TMA, 128 or 64 queries a
+block, the output stored by TMA) that also saves each row's logsumexp, and
+the backward recomputes p tile by tile from it: in bf16 a di pass, a key-major
 dk/dv pass on wgmma and TMA that adds dq into an fp32 accumulator with TMA
 reduce-adds (so dq's last fp32 bits vary from run to run), and a pass that
 rounds dq; in fp32 two deterministic kernels (dq with di, then dk/dv).
@@ -172,8 +173,11 @@ def _dense_attention_packed_cuda(q, k, v, hd: int, s_valid: int,
                                  with_lse: bool = False, name: str = PACKED):
     """The forward kernel: out, and with with_lse the (B, H, Tq) fp32
     logsumexp of the rows (else None). q/k/v may be strided views (the
-    fused-qkv layout's column blocks); out is a new contiguous tensor.
-    `name`: the layout whose counter the launch adds to."""
+    fused-qkv layout's column blocks); out is a new contiguous tensor. In
+    bf16 the kernel reads q/k/v and writes out by TMA: every batch and time
+    stride a multiple of 8 elements and every base 16-byte aligned
+    (`_strides` raises otherwise). `name`: the layout whose counter the
+    launch adds to."""
     B, Tq, Tk, H = _check(q, k, v, hd, s_valid)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)

@@ -10,8 +10,8 @@
    within the limits stated at F32_LIMITS, and times kernel, plain version and, for
    the encoder attention, F.scaled_dot_product_attention as a yardstick (the
    port never calls it): the decoder kernels over float, mixed int8/float
-   and all-int8 weights; the encoder-attention forward; its backward at the
-   encoder's self-attention and the teacher-forced cross-attention shapes,
+   and all-int8 weights; the encoder-attention forward and its backward at
+   the encoder's self-attention and the teacher-forced cross-attention shapes,
    with the forward's logsumexp, and SDPA's backward as its yardstick; the
    W8A8 kernel bit for bit at the PEFT main path's six product shapes, pure
    and with the outlier keep-mask and addend, timed beside torch._int_mm (the
@@ -598,8 +598,12 @@ def check_decoder_kernels(rows):
 
 def check_encoder_attention(rows):
     """Phase 3b: the encoder-attention forward against its plain version at
-    T=1500 (and s_valid 1000), bf16 and fp32; bf16 timed beside
-    F.scaled_dot_product_attention as a yardstick (the port never calls it)."""
+    the encoder's self-attention (T 1500, and s_valid 1000) and the
+    teacher-forced cross-attention (Tq 192, the main path's label bucket, Tk
+    1500), bf16 and fp32; whether two calls give the same bits; bf16 timed at
+    both shapes beside F.scaled_dot_product_attention as a yardstick (the
+    port never calls it). The cross shape is held to the kernel's one limit
+    (`encoder_attention`): the same kernel at another grid."""
     import torch
     import torch.nn.functional as F
     from asr_finetune_tpu_torch.ops import encoder_attention as EA
@@ -610,23 +614,41 @@ def check_encoder_attention(rows):
         g = torch.Generator(device=dev).manual_seed(1)
         qe, ke, ve = ((torch.randn((B, T_ENC, D), generator=g, device=dev)).to(dt)
                       for _ in range(3))
-        out = EA.dense_attention_packed(qe, ke, ve, 64, T_ENC)
-        ref = EA.dense_attention_packed_plain(qe, ke, ve, 64, T_ENC)
-        print(f"encoder_attention [{dn}] T {T_ENC}:")
-        err = compare("encoder_attention", out, ref, dn)
+        qc = torch.randn((B, CROSS_TQ, D), generator=g, device=dev).to(dt)
+        worst = (0.0, 0.0)
         # s_valid < T masks the tail as the JAX kernel does
-        out = EA.dense_attention_packed(qe, ke, ve, 64, 1000)
-        ref = EA.dense_attention_packed_plain(qe, ke, ve, 64, 1000)
-        print(f"encoder_attention [{dn}] T {T_ENC} s_valid 1000:")
-        compare("encoder_attention", out, ref, dn)
+        for shape, q, s_valid in (("self", qe, T_ENC), ("self", qe, 1000),
+                                  ("cross", qc, T_ENC)):
+            out = EA.dense_attention_packed(q, ke, ve, 64, s_valid)
+            ref = EA.dense_attention_packed_plain(q, ke, ve, 64, s_valid)
+            print(f"encoder_attention [{dn}] {shape} Tq {q.shape[1]} Tk {T_ENC} "
+                  f"s_valid {s_valid}:")
+            err = compare("encoder_attention", out, ref, dn)
+            worst = tuple(max(a, b) for a, b in zip(worst, err))
+            print(f"  two calls bit-equal: "
+                  f"{torch.equal(out, EA.dense_attention_packed(q, ke, ve, 64, s_valid))}")
         if dt is torch.bfloat16:
-            heads = [a.view(B, T_ENC, H, 64).transpose(1, 2) for a in (qe, ke, ve)]
-            time_row(rows, "encoder_attention", err,
+            def heads(a):
+                return a.view(B, -1, H, 64).transpose(1, 2)
+            time_row(rows, "encoder_attention", worst,
                      lambda: EA.dense_attention_packed(qe, ke, ve, 64, T_ENC),
                      lambda: EA.dense_attention_packed_plain(qe, ke, ve, 64, T_ENC),
                      4 * B * T_ENC * D * dt.itemsize, 4 * B * H * T_ENC * T_ENC * 64, dn,
-                     library_fn=lambda: F.scaled_dot_product_attention(*heads), calls=8)
-        del qe, ke, ve, out, ref
+                     library_fn=lambda: F.scaled_dot_product_attention(
+                         heads(qe), heads(ke), heads(ve)), calls=8)
+            b_ms, b_by = bound(2 * B * (CROSS_TQ + T_ENC) * D * dt.itemsize,
+                               4 * B * H * CROSS_TQ * T_ENC * 64, dn)
+            cross = {"ms": device_ms(lambda: EA.dense_attention_packed(qc, ke, ve, 64, T_ENC), 16),
+                     "plain_ms": device_ms(
+                         lambda: EA.dense_attention_packed_plain(qc, ke, ve, 64, T_ENC), 2),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                         heads(qc), heads(ke), heads(ve)), 16)}
+            rows["encoder_attention"].update({f"cross_{k}": v for k, v in cross.items()})
+            print(f"  encoder_attention [{dn}] cross Tq {CROSS_TQ} Tk {T_ENC}: kernel "
+                  f"{cross['ms']:.4f} ms (device)  plain {cross['plain_ms']:.4f} ms  bound "
+                  f"{b_ms:.4f} ms ({b_by})  library {cross['library_ms']:.4f} ms")
+        del qe, ke, ve, qc, out, ref
         torch.cuda.empty_cache()
 
 
@@ -1621,10 +1643,11 @@ def write_audiofolder(folder, n: int, seed: int = 0) -> None:
         w.writerows(rows)
 
 
-# device ms of step 4 by training path: attention backward, W8A8, all
+# device ms of step 4 by training path: attention forward and backward, W8A8, all
 # kernels, and the step's end-to-end ms (printed as one JSON line)
 STEP_DEVICE: dict = {}
 ATTN_BWD = "attention backward (enc_attn_bwd_di/dkdv_wgmma, dq_store)"
+ATTN_FWD = "attention forward (enc_attn_fwd_*)"
 W8A8 = "W8A8 (quantize_rows, w8a8_wgmma)"
 
 
@@ -1633,7 +1656,7 @@ def kernel_category(name: str) -> str:
     if "enc_attn_bwd" in low:
         return ATTN_BWD
     if "enc_attn_fwd" in low:
-        return "attention forward (enc_attn_fwd_*)"
+        return ATTN_FWD
     if "w8a8" in low or "quantize_rows" in low:
         return W8A8
     if "gemv_kernel" in low or "attn_partial" in low or "attn_combine" in low:
@@ -1940,12 +1963,14 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
               f"of an unprofiled step")
         for c, (ms, n) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
             print(f"  {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {n:6d} launches  {c}")
-        ab, w8 = cats.get(ATTN_BWD, [0.0, 0]), cats.get(W8A8, [0.0, 0])
-        print(f"{label}, step 4: attention backward {ab[0]:.3f} ms ({ab[1]} launches), "
+        af, ab = cats.get(ATTN_FWD, [0.0, 0]), cats.get(ATTN_BWD, [0.0, 0])
+        w8 = cats.get(W8A8, [0.0, 0])
+        print(f"{label}, step 4: attention forward {af[0]:.3f} ms ({af[1]} launches), "
+              f"attention backward {ab[0]:.3f} ms ({ab[1]} launches), "
               f"W8A8 {w8[0]:.3f} ms ({w8[1]} launches) of {busy:.3f} ms device time; "
               f"{1e3 * step_s:.3f} ms/step, device idle {100 * (1 - busy / (1e3 * step_s)):.1f}%")
-        STEP_DEVICE[label] = {"attention_bwd_ms": ab[0], "w8a8_ms": w8[0], "busy_ms": busy,
-                              "step_ms": 1e3 * step_s}
+        STEP_DEVICE[label] = {"attention_fwd_ms": af[0], "attention_bwd_ms": ab[0],
+                              "w8a8_ms": w8[0], "busy_ms": busy, "step_ms": 1e3 * step_s}
         print("  largest kernels:")
         for ms, n, key in by_kernel[:12]:
             print(f"  {ms:9.3f} ms  {int(n):6d} launches  {key[:90]}")

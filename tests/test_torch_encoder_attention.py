@@ -61,3 +61,29 @@ def test_dispatch_unmasked_runs_the_kernel_wrapper():
     q, k, v = map(torch.from_numpy, _qkv(7, Tq=70, Tk=90))
     np.testing.assert_array_equal(TA.attention(q, k, v).numpy(),
                                   TEA.encoder_attention(q, k, v).numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ["self", "cross", "bh"])
+def test_attention_lse_plain_matches_float64(shape, dtype):
+    """attention_lse_plain, the yardstick the forward kernel's lse is held to
+    on the card, against a float64 numpy logsumexp of the scaled scores with
+    the keys at col >= s_valid left out: self (150, 150), cross (40, 300)
+    with s_valid 213, and the (BH, T_p, hd) layout (one head) with its
+    padded rows zero, s_valid 150 of 256; fp32 and bf16 inputs (the
+    reference takes the same rounded values)."""
+    B, H, Tq, Tk, s_valid = {"self": (2, 4, 150, 150, 150), "cross": (2, 4, 40, 300, 213),
+                             "bh": (8, 1, 256, 256, 150)}[shape]
+    rng = np.random.default_rng(Tq * Tk + s_valid)
+    q, k = rng.standard_normal((B, Tq, H * 64)), rng.standard_normal((B, Tk, H * 64))
+    if shape == "bh":
+        q[:, s_valid:] = 0
+        k[:, s_valid:] = 0
+    qt, kt = (torch.from_numpy(a.astype(np.float32)).to(dtype) for a in (q, k))
+    q64, k64 = (t.double().numpy().reshape(B, -1, H, 64) for t in (qt, kt))
+    s = np.einsum("bqhd,bkhd->bhqk", q64, k64)[..., :s_valid] * 64 ** -0.5
+    mx = s.max(-1, keepdims=True)
+    ref = (mx + np.log(np.exp(s - mx).sum(-1, keepdims=True)))[..., 0]
+    out = TEA.attention_lse_plain(qt, kt, 64, s_valid)
+    assert out.dtype == torch.float32 and out.shape == (B, H, Tq)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)

@@ -9,19 +9,20 @@ files). On a machine with the card:
 (--noconftest: tests/conftest.py imports jax, which that machine may lack.)
 
 Small shapes (d=256, 4 heads of 64, B=3, 8 and 12: the GEMVs take rows in
-groups of 8; the attention backward at B=3 and 8, self and cross shapes,
-s_valid < Tk). Tolerance: fp32 1e-4 + 1e-4|ref| (the sum order differs from
-the plain version's); bf16 4e-3 + 2^-7|ref| (both round the same
-intermediates to bf16, so an output at a rounding boundary may land one
-bf16 step, at most 2^-7 of its value, apart), as chip_smoke.py. The decoder
-kernels run with int8 weights too (all-int8 and a merged-LoRA mix). The
-W8A8 kernel is held to bit equality with its plain version, pure and with
-the outlier keep-mask and addend, at ragged m, K and N, on both tiles; it
-reads its weight from the K-major copy and raises without one. The beam
-self-attention kernel runs at 2, 3, 8 and 10 beams over a random ancestry
-map, the cross-attention's kv_group at 1, 3, 4, 8 and 10 with float and
-int8 K/V. The encoder-attention kernels also run on the (BH, T, hd) and
-fused-qkv layouts, and the log-mel kernel (fp32) at 80 and 128 mel bins."""
+groups of 8; the attention forward and backward at B=3 and 8, self and cross
+shapes, s_valid < Tk; the forward also at 20 heads). Tolerance: fp32 1e-4 +
+1e-4|ref| (the sum order differs from the plain version's); bf16 4e-3 +
+2^-7|ref| (both round the same intermediates to bf16, so an output at a
+rounding boundary may land one bf16 step, at most 2^-7 of its value, apart),
+as chip_smoke.py. The decoder kernels run with int8 weights too (all-int8
+and a merged-LoRA mix). The W8A8 kernel is held to bit equality with its
+plain version, pure and with the outlier keep-mask and addend, at ragged m,
+K and N, on both tiles; it reads its weight from the K-major copy and raises
+without one. The beam self-attention kernel runs at 2, 3, 8 and 10 beams
+over a random ancestry map, the cross-attention's kv_group at 1, 3, 4, 8 and
+10 with float and int8 K/V. The encoder-attention kernels also run on the
+(BH, T, hd) and fused-qkv layouts, and the log-mel kernel (fp32) at 80 and
+128 mel bins."""
 import numpy as np
 import pytest
 import torch
@@ -157,14 +158,37 @@ def test_fused_attn_group_and_int8_kv_match_plain(dev, dtype, kv8, G):
     assert DF.LAUNCHES[name] == 1 and sum(DF.LAUNCHES.values()) == 1
 
 
+# the forward's (Tq, Tk, s_valid): self and cross as before, then every Tq
+# of {40, 150, 192, 300, 448} against every Tk of {150, 300, 1500} with
+# s_valid < Tk (ragged tiles on both axes)
+FWD_CASES = [(150, 150, 150), (40, 300, 213)] + [
+    (tq, tk, tk * 5 // 7) for tq in (40, 150, 192, 300, 448) for tk in (150, 300, 1500)]
+
+
+@pytest.mark.parametrize("H", [4, 20])
+@pytest.mark.parametrize("B", [3, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Tq,Tk,s_valid", [(150, 150, 150), (40, 300, 213)])
-def test_encoder_attention_matches_plain(dev, dtype, Tq, Tk, s_valid):
+@pytest.mark.parametrize("Tq,Tk,s_valid", FWD_CASES)
+def test_encoder_attention_matches_plain(dev, dtype, Tq, Tk, s_valid, B, H):
+    """The forward kernel against its plain version; its lse against the
+    plain logsumexp (rtol = atol = 1e-5); two calls give the same bits (no
+    atomics); one launch a call. At 20 heads and B 8 the bf16 kernel runs
+    blocks of 128 queries (two warpgroups) from Tq 150 on, elsewhere blocks
+    of 64 (one): it takes two while that still fills two blocks an SM."""
     g = torch.Generator(device=dev).manual_seed(1)
-    q = _rn(g, dev, 2, Tq, 4 * 64, dtype=dtype)
-    k, v = (_rn(g, dev, 2, Tk, 4 * 64, dtype=dtype) for _ in range(2))
+    q = _rn(g, dev, B, Tq, H * 64, dtype=dtype)
+    k, v = (_rn(g, dev, B, Tk, H * 64, dtype=dtype) for _ in range(2))
+    EA.reset_launches()
     out = EA.dense_attention_packed(q, k, v, 64, s_valid)
+    assert EA.LAUNCHES["encoder_attention"] == 1
     _close(out, EA.dense_attention_packed_plain(q, k, v, 64, s_valid), dtype)
+    again, lse = EA._dense_attention_packed_cuda(q, k, v, 64, s_valid, with_lse=True)
+    assert torch.equal(again, out)
+    np.testing.assert_allclose(lse.cpu().numpy(),
+                               EA.attention_lse_plain(q, k, 64, s_valid).cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    _, lse2 = EA._dense_attention_packed_cuda(q, k, v, 64, s_valid, with_lse=True)
+    assert torch.equal(lse2, lse)
 
 
 @pytest.mark.parametrize("B", [3, 8])
@@ -270,6 +294,27 @@ def test_log_mel_matches_plain(dev, n_mels):
     np.testing.assert_allclose(LF.log_mel_fused(audio, n_mels).cpu().numpy(),
                                LF.log_mel_fused_plain(audio, n_mels).cpu().numpy(),
                                rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("fault", ["time stride", "base"])
+@pytest.mark.parametrize("operand", ["q", "k", "v"])
+def test_encoder_attention_fwd_rejects_misaligned_strides(dev, operand, fault):
+    """The bf16 forward reads q/k/v (and writes out) by TMA: an operand whose
+    time stride is no multiple of 8 elements (16 bytes) or whose base is off
+    16 bytes raises before anything launches."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    ops = {n: _rn(g, dev, 2, 150, 256, dtype=torch.bfloat16) for n in "qkv"}
+    if fault == "time stride":
+        ops[operand] = _rn(g, dev, 2, 150, 4 * 64 + 4, dtype=torch.bfloat16)[..., :256]
+        match = "multiples of 8"
+    else:
+        ops[operand] = _rn(g, dev, 2 * 150 * 256 + 4,
+                           dtype=torch.bfloat16)[4:].view(2, 150, 256)
+        match = "16-byte"
+    EA.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        EA.dense_attention_packed(ops["q"], ops["k"], ops["v"], 64, 150)
+    assert not any(EA.LAUNCHES.values())
 
 
 def test_encoder_attention_bwd_rejects_misaligned_strides(dev):
