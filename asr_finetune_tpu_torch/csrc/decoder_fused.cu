@@ -31,21 +31,51 @@
 // is uniform per block.
 //
 // Bound on the card: bytes. Each call streams its layer's weights (and, for
-// attention, its K/V rows) once per group of up to 8 rows: at B=4 every
-// weight element feeds 8 flops against 2 bytes (bf16), ~4 flop per byte
-// against the ~295 the H100 needs before its tensor cores limit. So the
-// design spends nothing on tensor cores and everything on streaming:
+// attention, its K/V rows): at B=4 every weight element feeds 8 flops
+// against 2 bytes (bf16), ~4 flop per byte against the ~295 the H100 needs
+// before its tensor cores limit. Everything is built to stream:
 //
-//  * gemv_kernel: out[b, n] = sum_k h[b, k] W[k, n] for all rows of a
-//    group at once, so each weight byte is read once per group. A block
-//    owns 16 output columns and splits K over 128 lanes (16-byte loads, 8
-//    columns per thread), reduced by warp shuffles and one shared-memory
-//    pass. Its prologue stages h in shared memory once (LN(x): x staged,
-//    one warp per row for the statistics; or an input row as it is) and
-//    its epilogue applies the bias, scale, GELU or residual of the
-//    projection. One launch serves up to three projections (blockIdx.y),
-//    so fused_qkv is one launch. Accumulators for 4 rows when B <= 4, else
-//    8; more rows run as groups of 8, one launch each.
+//  * gemv_kernel (fused_qkv, fused_attn's q and wo, and fp32 fused_mlp):
+//    out[b, n] = sum_k h[b, k] W[k, n] for all rows of a group at once, so
+//    each weight byte is read once per group. A block owns 16 output columns
+//    and splits K over 128 lanes (16-byte loads, 8 columns per thread),
+//    reduced by warp shuffles and one shared-memory pass, on the CUDA cores.
+//    Its prologue stages h in shared memory once (LN(x): x staged, one warp
+//    per row for the statistics; or an input row as it is) and its epilogue
+//    applies the bias, scale, GELU or residual of the projection. One launch
+//    serves up to three projections (blockIdx.y), so fused_qkv is one
+//    launch. Accumulators for 4 rows when B <= 4, else 8; more rows run as
+//    groups of 8, one launch each.
+//  * mlp_fc1_kernel, mlp_fc2_kernel (bf16 fused_mlp): the two products on
+//    the tensor cores, one launch each a pass of up to 32 rows. The GEMVs
+//    held fused_mlp at 5.7x its bound with fixed costs, not flops: two
+//    launches restaging their inputs, fc2 on 80 blocks, the weights read
+//    again for each group of 8 rows. Here the weight tile is wgmma's A
+//    operand, 64 output columns x k, read MN-major (the bf16 transpose bit)
+//    straight from its 128-byte-swizzled TMA box; the decode rows are N,
+//    padded to 8, 16 or 32, so 4 rows waste no 64-row M tile and up to 32
+//    rows cost one read of the weights (more rows take further passes). A
+//    producer warp streams the block's weight tile through an mbarrier ring
+//    from the first cycle (the weights depend on no earlier kernel; the
+//    tensor maps of the stacked (L, K, N) weights are encoded once per
+//    weight and cached, the layer a TMA coordinate). The activations load
+//    through cp.async, not behind the weights in the TMA unit's queue: fc1
+//    x's whole rows, normalised in place (fp32 statistics, a warp a row,
+//    LN(x) rounded to bf16), fc2 g's k range. An int8 stage lands
+//    unswizzled and is widened exactly to a swizzled bf16 tile on the ALU
+//    before its products (wgmma cannot transpose int8); its scale multiplies
+//    the fp32 sum. The grid is (N / 64) x splits of K, splits = SMs / tiles,
+//    one wave (large-v3: fc1 80 x 1, fc2 20 x 6); a tile's split sums go
+//    through a partial buffer and its last block, found by a release /
+//    acquire ticket that resets itself, adds them in split order: the same
+//    bits every call, CUDA-graph safe. Both are programmatic dependent
+//    launches: fc1 lets fc2 start at once, so fc2's blocks that find an SM
+//    stream W2 while fc1 runs, and each waits (griddepcontrol.wait) only
+//    before its activations. What bounds it on the card: not the weight
+//    stream (at 4 rows one call moves 26 MB, 7.8 us at 3.35 TB/s) but the
+//    round trips to the L2 that the memory system, loaded by that stream,
+//    makes slow: the activations, the split-K ticket and sums, g between
+//    the two kernels.
 //  * attn_partial_kernel: split-T flash-decoding. The TPU kernel's grid of B
 //    programs uses few of the 132 SMs; here one block per (row, head,
 //    256-key chunk) scores its chunk (8 lanes per key row, 16-byte loads),
@@ -67,7 +97,10 @@
 // p@v; o cast to x's dtype before @wo; products accumulate in fp32; bias and
 // residual are added in fp32, then cast. GELU uses erff (the Pallas kernel
 // needed an erf polynomial because Mosaic has none).
+#include <mutex>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace asr;
 
@@ -89,9 +122,9 @@ constexpr int KEY_LANES = 8;             // lanes per key row (8 x 8 dims)
 constexpr int KEY_STEP = ATT_THREADS / KEY_LANES;  // keys per pass of a block
 
 // launches of each kernel since the last reset, counted on the host where
-// the launch is made (gemv, attn_partial, attn_combine): chip_smoke.py holds
-// a decode step's counts to what its rows and layers imply
-enum Kernel { K_GEMV = 0, K_PARTIAL = 1, K_COMBINE = 2, N_KERNELS = 3 };
+// the launch is made (gemv, attn_partial, attn_combine, mlp_fc1, mlp_fc2):
+// chip_smoke.py holds a decode step's counts to what its rows and layers imply
+enum Kernel { K_GEMV = 0, K_PARTIAL = 1, K_COMBINE = 2, K_MLP1 = 3, K_MLP2 = 4, N_KERNELS = 5 };
 long long g_launches[N_KERNELS] = {};
 
 enum Prologue { PRO_LN = 0, PRO_INPUT = 1 };
@@ -659,6 +692,562 @@ cudaError_t mlp(const void* x, const float* ln_s, const float* ln_b, const void*
   return gemv<T>(p2, 1, st);
 }
 
+// ---------------------------------------------------------------------------
+// fused_mlp in bf16: two products on the tensor cores, the weights streamed
+// once a pass by TMA (the header's design notes)
+// ---------------------------------------------------------------------------
+
+constexpr int MLP_TILE = 64;                 // output columns a block: wgmma's M
+constexpr int MLP_KS = 128;                  // weight rows (k) a ring stage
+constexpr int MLP_MAX_ROWS = 32;             // decode rows a pass: wgmma's N, padded to 8/16/32
+constexpr int MLP_CONSUMERS = 128;           // one warpgroup runs the products
+constexpr int MLP_THREADS = MLP_CONSUMERS + 32;   // and one warp issues the loads
+constexpr int MLP_MAX_D = 1280;              // fc1 stages x's rows whole: d <= 1280
+constexpr int LN_CH = MLP_MAX_D / 256;       // 8-element chunks of a row a lane holds
+constexpr int MLP_FIRST = 2;                 // fc1's stages issued before x's loads
+constexpr int MLP_COUNTERS = 1024;           // split-K tickets of one kernel (tiles <= 1024)
+
+// The weight ring: bf16 stages land 128-byte swizzled, wgmma's MN-major A
+// as they are; int8 stages land unswizzled, 64 bytes a row, and are widened
+// (exactly) into one of WIDE swizzled bf16 tiles before the products (wgmma
+// cannot transpose int8). bf16 rings are deep enough to hold a block's whole
+// weight tile at large-v3 and up to 16 rows (fc1: 10 stages, 160 KB, fewer
+// beside 32 rows' activations; fc2: 7 stages), so that it all streams while
+// the block waits for and stages its activations.
+template <typename WT, int NP, bool FC1>
+struct MlpCfg {
+  static constexpr int BYTES = MLP_KS * 128;
+  static constexpr int FIT1 = (192 * 1024 - NP * MLP_MAX_D * 2) / BYTES;   // beside fc1's act
+  static constexpr int STAGES = FC1 ? (FIT1 < 10 ? FIT1 : 10) : 7;
+  static constexpr int WIDE = 0;
+};
+template <int NP, bool FC1>
+struct MlpCfg<int8_t, NP, FC1> {
+  static constexpr int BYTES = MLP_KS * 64, STAGES = 5, WIDE = 3;
+};
+// Shared memory: the ring, the widened tiles, the swizzled activations
+// (fc1: LN(x) of the whole rows; fc2: g over the block's k range), the
+// barriers and a flag.
+template <typename WT, int NP, bool FC1>
+constexpr int mlp_smem(int act_bytes) {
+  using C = MlpCfg<WT, NP, FC1>;
+  return 1024 + C::STAGES * C::BYTES + C::WIDE * MLP_KS * 128 + act_bytes + 16 * C::STAGES + 16;
+}
+
+// One product of a pass: out (B, N) = epilogue(act (B, K) @ W[layer] (K, N)).
+// fc1: act = LN(x) rounded to bf16, computed here from x; epilogue GELU(v s1
+// + b1) into g. fc2: act = g; epilogue (v s2 + b2) + x into out. Block
+// (tile, split) owns output columns tile*64 .. +63 and the ring steps
+// [split*steps/splits, (split+1)*steps/splits) of K.
+struct MlpArgs {
+  const __nv_bfloat16* x;       // (B, d): the rows of this pass
+  const float* ln_s;            // fc1: (d,) fp32
+  const float* ln_b;
+  const __nv_bfloat16* act;     // fc2: g (B, ff)
+  const __nv_bfloat16* bias;    // (N,)
+  const float* w_scale;         // (N,) fp32 of an int8 W, else null
+  __nv_bfloat16* out;           // (B, N)
+  float* part;                  // splits > 1: (tiles, splits, NP/2, 128) fp32 partial sums
+  int* counters;                // splits > 1: (tiles,) tickets, 0 between calls
+  int B, K, N, layer, splits, steps;
+};
+
+// Timing probe, built only with -DMLP_TRACE (tools/bench_fused_mlp.py
+// --trace): thread 0 of each block records the globaltimer at entry and exit
+// (slots 0, 1) and clock64 at entry, after griddepcontrol.wait, after the
+// prologue, after the products and at exit (slots 2, 3, 4, 5, 6).
+#ifdef MLP_TRACE
+__device__ unsigned long long g_mlp_trace[2][1024][8];
+#define MLP_STAMP(i)                                                                   \
+  if (threadIdx.x == 0) {                                                              \
+    unsigned long long* tr = g_mlp_trace[FC1 ? 0 : 1][blockIdx.y * gridDim.x + blockIdx.x]; \
+    tr[2 + (i)] = clock64();                                                           \
+    if ((i) == 0 || (i) == 4) {                                                        \
+      unsigned long long gt;                                                           \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(gt));                           \
+      tr[(i) == 0 ? 0 : 1] = gt;                                                       \
+    }                                                                                  \
+  }
+#else
+#define MLP_STAMP(i)
+#endif
+
+__device__ __forceinline__ void mlp_mma(float (&d)[4], uint64_t a, uint64_t b, int acc) {
+  wgmma_ss_bf16_n8<1, 0>(d, a, b, acc);
+}
+__device__ __forceinline__ void mlp_mma(float (&d)[8], uint64_t a, uint64_t b, int acc) {
+  wgmma_ss_bf16_n16<1, 0>(d, a, b, acc);
+}
+__device__ __forceinline__ void mlp_mma(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  wgmma_ss_bf16_n32<1, 0>(d, a, b, acc);
+}
+
+__device__ __forceinline__ double warp_sum_f64(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// bytes 0..3 of an int8 word -> two bf16 pairs, exactly (|w| <= 127), on the
+// ALU (the int -> float and float -> bf16 conversions run at a quarter
+// rate): byte v + 128 as the mantissa of 2^23 gives 2^23 + 128 + v, less
+// 2^23 + 128 is v, and a float holding a small integer is its bf16 in the
+// upper half
+__device__ __forceinline__ uint2 widen4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | i)) - 8388736.f;
+  return make_uint2(__byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632u),
+                    __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632u));
+}
+
+// An int8 stage (KS rows of 64 bytes, as TMA landed it) into a 128-byte
+// swizzled bf16 tile of KS rows x 64 values: 16 bytes in, 32 out a step.
+__device__ __forceinline__ void widen_stage(const uint8_t* src, uint8_t* dst) {
+#pragma unroll
+  for (int u = 0; u < MLP_KS * 4 / MLP_CONSUMERS; ++u) {
+    const int c = threadIdx.x + u * MLP_CONSUMERS, r = c >> 2, q = c & 3;
+    const uint4 v = *reinterpret_cast<const uint4*>(src + c * 16);
+    const uint2 a = widen4(v.x), b = widen4(v.y), cc = widen4(v.z), d = widen4(v.w);
+    *reinterpret_cast<uint4*>(dst + sw128(r, q * 32)) = make_uint4(a.x, a.y, b.x, b.y);
+    *reinterpret_cast<uint4*>(dst + sw128(r, q * 32 + 16)) = make_uint4(cc.x, cc.y, d.x, d.y);
+  }
+}
+
+// the address of 16-byte chunk kc (8 bf16 from k = 8 kc) of row b in the
+// activation tiles: 64 k a tile of NP rows x 128 bytes, swizzled
+template <int NP>
+__device__ __forceinline__ uint8_t* act_chunk(uint8_t* act, int b, int kc) {
+  return act + (kc >> 3) * (NP * 128) + sw128(b, (kc & 7) * 16);
+}
+
+template <typename WT, int NP, bool FC1>
+__device__ __forceinline__ void mlp_body(const CUtensorMap* wmap, const MlpArgs& a) {
+  using C = MlpCfg<WT, NP, FC1>;
+  constexpr int ACC = NP / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  uint8_t* wide = ring + C::STAGES * C::BYTES;
+  uint8_t* act = wide + C::WIDE * MLP_KS * 128;
+  const int tile = blockIdx.x, split = blockIdx.y, S = a.splits;
+  const int s0 = split * a.steps / S, nst = (split + 1) * a.steps / S - s0;
+  const int k0 = s0 * MLP_KS, k1 = min((s0 + nst) * MLP_KS, a.K);
+  const int kt = FC1 ? 0 : k0;   // k of the activation tiles' first column
+  // 16-byte chunks of a tile row: fc1 all of K, fc2 the block's range
+  const int R8 = (FC1 ? a.steps : nst) * MLP_KS / 8;
+  uint64_t* full = reinterpret_cast<uint64_t*>(act + R8 / 8 * (NP * 128));
+  uint64_t* empty = full + C::STAGES;
+  volatile int* last = reinterpret_cast<volatile int*>(empty + C::STAGES);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = threadIdx.x;
+  const int n0 = tile * MLP_TILE;
+  MLP_STAMP(0);
+
+  if (t == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], MLP_CONSUMERS / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // epilogue items of this thread: accumulator r holds output column
+  // n0 + 16 w + g + 8 h, row 8 j + 2 q + e (r = 4 j + 2 h + e)
+  auto item_row = [&](int r) { return 8 * (r >> 2) + 2 * (t & 3) + (r & 1); };
+  auto item_col = [&](int r) { return n0 + 16 * warp + ((t & 31) >> 2) + 8 * ((r >> 1) & 1); };
+  auto mine = [&](int r) { return item_row(r) < a.B; };
+
+  float acc[ACC], e_scale[ACC], e_bias[ACC], e_x[ACC];
+  auto epilogue = [&]() {
+#pragma unroll
+    for (int r = 0; r < ACC; ++r) {
+      if (mine(r)) {
+        float v = acc[r];
+        if (a.w_scale != nullptr) v = __fmul_rn(v, e_scale[r]);   // the int8 scale, after the sum
+        v = __fadd_rn(v, e_bias[r]);
+        if constexpr (FC1) {
+          v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+        } else {
+          v = __fadd_rn(v, e_x[r]);
+        }
+        a.out[(long long)item_row(r) * a.N + item_col(r)] = __float2bfloat16(v);
+      }
+    }
+  };
+  if (warp == MLP_CONSUMERS / 32) {
+    // the producer: the weights depend on no kernel before this one, so
+    // they stream from the start (fc1: the first stages only, then x's
+    // loads, which would otherwise queue behind the weights)
+    const int first = FC1 ? min(MLP_FIRST, nst) : 0;
+    if (lane == 0) {
+      for (int i = 0; i < first; ++i) {
+        mbar_arrive_expect_tx(&full[i], C::BYTES);
+        tma_load_3d(ring + i * C::BYTES, wmap, &full[i], n0, (s0 + i) * MLP_KS, a.layer);
+      }
+    }
+    __syncwarp();
+    if constexpr (FC1) named_barrier(2, MLP_THREADS);
+    if (lane == 0) {
+      for (int i = first; i < nst; ++i) {
+        const int s = i % C::STAGES;
+        if (i >= C::STAGES) mbar_wait(&empty[s], (i / C::STAGES - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], C::BYTES);
+        tma_load_3d(ring + s * C::BYTES, wmap, &full[s], n0, (s0 + i) * MLP_KS, a.layer);
+      }
+    }
+    __syncwarp();
+    MLP_STAMP(4);
+    return;
+  }
+  {
+    if constexpr (FC1) griddep_launch();   // fc2 may start: its weight loads overlap this kernel
+    griddep_wait();              // x and g are written by the kernels before
+    MLP_STAMP(1);
+    // the activations, through cp.async (the load/store unit, not the busy
+    // TMA unit): fc1 x's whole rows into the tiles, to be normalised in
+    // place; fc2 g's k range. Rows >= B and k >= K are zeros.
+    for (int c = t; c < NP * R8; c += MLP_CONSUMERS) {
+      const int b = c / R8, kc = c - b * R8, k = kt + kc * 8;
+      uint8_t* dst = act_chunk<NP>(act, b, kc);
+      if (b < a.B && k < (FC1 ? a.K : k1)) {
+        cp_async16(dst, (FC1 ? a.x : a.act) + (long long)b * a.K + k);
+      } else {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    if constexpr (FC1) named_barrier_arrive(2, MLP_THREADS);   // the producer may go on
+    // the epilogue's operands meanwhile
+#pragma unroll
+    for (int r = 0; r < ACC; ++r) {
+      e_scale[r] = e_bias[r] = e_x[r] = 0.f;
+      if (mine(r)) {
+        const int col = item_col(r);
+        e_scale[r] = a.w_scale != nullptr ? a.w_scale[col] : 1.f;
+        e_bias[r] = to_f(a.bias[col]);
+        if constexpr (!FC1) e_x[r] = to_f(a.x[(long long)item_row(r) * a.N + col]);
+      }
+    }
+    if constexpr (FC1) {   // each lane's LN scale and bias, the same for every row
+      float ls[LN_CH][8], lb[LN_CH][8];
+#pragma unroll
+      for (int i = 0; i < LN_CH; ++i) {
+        const int k = (lane + 32 * i) * 8;
+        if (k < a.K) {
+          load8(a.ln_s + k, ls[i]);
+          load8(a.ln_b + k, lb[i]);
+        }
+      }
+      cp_async_wait_all();
+      named_barrier(1, MLP_CONSUMERS);
+      // LN in place, a warp a row, in the plain version's operations: the
+      // mean and the variance about it as fp32 sums times fp32(1 / d) (the
+      // sums taken in fp64 and rounded once, the likeliest bits of any fp32
+      // sum), then ((x - mean) * rstd) * scale + bias, each step rounded
+      // alone (no FMA). A last bit apart here flips LN(x)'s bf16 rounding
+      // now and then, and one flip moves all of fc1's outputs on its row.
+      const float inv_k = 1.f / a.K;
+      for (int b = warp; b < a.B; b += MLP_CONSUMERS / 32) {
+        float v[LN_CH][8];
+        double sum = 0.0;
+#pragma unroll
+        for (int i = 0; i < LN_CH; ++i) {
+          if ((lane + 32 * i) * 8 < a.K) {
+            load8(reinterpret_cast<const __nv_bfloat16*>(act_chunk<NP>(act, b, lane + 32 * i)),
+                  v[i]);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) sum += v[i][e];
+          }
+        }
+        const float mean = __fmul_rn(static_cast<float>(warp_sum_f64(sum)), inv_k);
+        double ss = 0.0;
+#pragma unroll
+        for (int i = 0; i < LN_CH; ++i) {
+          if ((lane + 32 * i) * 8 < a.K) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              const float dv = __fsub_rn(v[i][e], mean);
+              ss += __fmul_rn(dv, dv);
+            }
+          }
+        }
+        const float var = __fmul_rn(static_cast<float>(warp_sum_f64(ss)), inv_k);
+        const float rstd = rsqrtf(__fadd_rn(var, 1e-5f));
+#pragma unroll
+        for (int i = 0; i < LN_CH; ++i) {
+          if ((lane + 32 * i) * 8 < a.K) {
+            float h[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              h[e] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[i][e], mean), rstd), ls[i][e]),
+                               lb[i][e]);
+            *reinterpret_cast<uint4*>(act_chunk<NP>(act, b, lane + 32 * i)) =
+                make_uint4(bf16x2(h[0], h[1]), bf16x2(h[2], h[3]), bf16x2(h[4], h[5]),
+                           bf16x2(h[6], h[7]));
+          }
+        }
+      }
+    } else {
+      cp_async_wait_all();
+    }
+    fence_proxy_async();
+    named_barrier(1, MLP_CONSUMERS);
+    MLP_STAMP(2);
+
+    // the products. The tensor cores add a wgmma's products to its
+    // accumulator with truncation, not an fp32 add's rounding: summed there
+    // over all of K, fc1's error flipped g's bf16 rounding more often than
+    // the plain version's fp32 product does, by enough to cross the
+    // contract's tolerance. So each pair of a stage's k16 steps sums into a
+    // fresh accumulator (32 products), which the CUDA cores add to acc in
+    // fp32, in k order.
+    constexpr int PAIRS = MLP_KS / 32;
+    float pair[PAIRS][ACC];
+#pragma unroll
+    for (int r = 0; r < ACC; ++r) acc[r] = 0.f;
+    for (int i = 0; i < nst; ++i) {
+      const int s = i % C::STAGES;
+      mbar_wait(&full[s], (i / C::STAGES) & 1);
+      const uint8_t* A = ring + s * C::BYTES;
+      if constexpr (C::WIDE > 0) {
+        // the tile widened at step i - WIDE is free: every warp passed its
+        // wgmma_wait<0> of step i - 2 before the barrier of step i - 1
+        uint8_t* wt = wide + (i % C::WIDE) * (MLP_KS * 128);
+        widen_stage(A, wt);
+        fence_proxy_async();
+        named_barrier(1, MLP_CONSUMERS);
+        if (lane == 0) mbar_arrive(&empty[s]);
+        A = wt;
+      }
+#pragma unroll
+      for (int pp = 0; pp < PAIRS; ++pp) fence_regs(pair[pp]);
+      wgmma_fence();
+      const int kb = k0 - kt + i * MLP_KS;   // the stage's first k within the tiles
+#pragma unroll
+      for (int kk = 0; kk < MLP_KS / 16; ++kk) {
+        const int kl = kb + kk * 16;
+        mlp_mma(pair[kk >> 1], sw128_desc(A + kk * 2048),
+                sw128_desc(act + (kl >> 6) * (NP * 128) + (kl & 63) * 2), kk & 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int pp = 0; pp < PAIRS; ++pp) fence_regs(pair[pp]);
+      if (C::WIDE == 0 && lane == 0) mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int pp = 0; pp < PAIRS; ++pp)
+#pragma unroll
+        for (int r = 0; r < ACC; ++r) acc[r] += pair[pp][r];
+    }
+    MLP_STAMP(3);
+
+    if (S > 1) {
+      // split K: every block writes its partial sums; the last of a tile's
+      // blocks to take a ticket adds them in split order (the same bits
+      // whichever block that is) and resets the ticket for the next call.
+      // The ticket's release / acquire orders the sums (no fences).
+      float* own = a.part + (long long)(tile * S + split) * ACC * MLP_CONSUMERS + t;
+#pragma unroll
+      for (int r = 0; r < ACC; ++r) own[r * MLP_CONSUMERS] = acc[r];
+      named_barrier(1, MLP_CONSUMERS);
+      if (t == 0) *last = ticket(&a.counters[tile]) == S - 1;
+      named_barrier(1, MLP_CONSUMERS);
+      if (!*last) {
+        MLP_STAMP(4);
+        return;
+      }
+      const float* all = a.part + (long long)tile * S * ACC * MLP_CONSUMERS + t;
+#pragma unroll
+      for (int r = 0; r < ACC; ++r) acc[r] = 0.f;
+      for (int s4 = 0; s4 < S; s4 += 4) {   // 4 splits' loads in flight at once
+        float p[4][ACC];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int r = 0; r < ACC; ++r)
+            p[u][r] = s4 + u < S ? __ldcg(all + ((s4 + u) * ACC + r) * MLP_CONSUMERS) : 0.f;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int r = 0; r < ACC; ++r)
+            if (s4 + u < S) acc[r] += p[u][r];
+      }
+      if (t == 0) a.counters[tile] = 0;
+    }
+    epilogue();
+  }
+  MLP_STAMP(4);
+}
+
+template <typename WT, int NP>
+__global__ void __launch_bounds__(MLP_THREADS, 1)
+mlp_fc1_kernel(const __grid_constant__ CUtensorMap wmap, const MlpArgs a) {
+  mlp_body<WT, NP, true>(&wmap, a);
+}
+
+template <typename WT, int NP>
+__global__ void __launch_bounds__(MLP_THREADS, 1)
+mlp_fc2_kernel(const __grid_constant__ CUtensorMap wmap, const MlpArgs a) {
+  mlp_body<WT, NP, false>(&wmap, a);
+}
+
+// The tensor map of a stacked (L, K, N) weight, layer as its outer
+// coordinate: boxes of KS rows x 64 columns, bf16 128-byte swizzled, int8
+// as they are. Encoded once per weight and kept (keyed by base pointer,
+// dtype and shape; the strides follow from the shape, the weight being
+// contiguous), so a decode step encodes nothing.
+cudaError_t weight_map(const void* base, bool w8, int L, int K, int N, CUtensorMap* map) {
+  struct Entry {
+    CUtensorMap map;
+    const void* base;
+    int w8, L, K, N;
+  };
+  constexpr int SLOTS = 256;
+  static Entry cache[SLOTS];
+  static int used = 0, next = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    const Entry& c = cache[i];
+    if (c.base == base && c.w8 == (int)w8 && c.L == L && c.K == K && c.N == N) {
+      *map = c.map;
+      return cudaSuccess;
+    }
+  }
+  const uint64_t es = w8 ? 1 : 2;
+  const uint64_t dims[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)L};
+  const uint64_t strides[2] = {(uint64_t)N * es, (uint64_t)K * N * es};
+  const uint32_t box[3] = {MLP_TILE, MLP_KS, 1};
+  Entry& c = cache[next];
+  const cudaError_t e = encode_tensor_map(
+      &c.map, w8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base,
+      dims, strides, box, w8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != cudaSuccess) {
+    c.base = nullptr;
+    return e;
+  }
+  c.base = base;
+  c.w8 = w8;
+  c.L = L;
+  c.K = K;
+  c.N = N;
+  *map = c.map;
+  next = (next + 1) % SLOTS;
+  used = used < SLOTS ? used + 1 : SLOTS;
+  return cudaSuccess;
+}
+
+int sm_count() {
+  static int count[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return 132;
+  if (count[dev] == 0) cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+  return count[dev] > 0 ? count[dev] : 132;
+}
+
+template <typename WT, int NP, bool FC1>
+cudaError_t mlp_launch(MlpArgs a, const void* w, int L, float* work, long long work_floats,
+                       cudaStream_t st) {
+  const int tiles = a.N / MLP_TILE;
+  a.steps = (a.K + MLP_KS - 1) / MLP_KS;
+  // split K so that tiles x splits blocks fill the SMs in one wave (fc1 at
+  // large-v3: 80 x 1; fc2: 20 x 6)
+  a.splits = max(1, min(a.steps, sm_count() / tiles));
+  a.part = work;
+  const int span = (a.steps + a.splits - 1) / a.splits;   // the most steps a block takes
+  const int act_bytes = (FC1 ? a.steps : span) * (MLP_KS / 64) * NP * 128;
+  if ((FC1 && a.K > MLP_MAX_D) || act_bytes > NP * MLP_MAX_D * 2 || tiles > MLP_COUNTERS ||
+      (a.splits > 1 && (long long)tiles * a.splits * (NP / 2) * MLP_CONSUMERS > work_floats))
+    return cudaErrorInvalidValue;
+  CUtensorMap map;
+  cudaError_t e = weight_map(w, sizeof(WT) == 1, L, a.K, a.N, &map);
+  if (e != cudaSuccess) return e;
+  auto kernel = FC1 ? mlp_fc1_kernel<WT, NP> : mlp_fc2_kernel<WT, NP>;
+  static bool done[64] = {};
+  constexpr int SMEM_MAX = mlp_smem<WT, NP, FC1>(NP * MLP_MAX_D * 2);
+  if ((e = allow_dynamic_smem(kernel, SMEM_MAX, done)) != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, a.splits, 1);
+  cfg.blockDim = dim3(MLP_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = mlp_smem<WT, NP, FC1>(act_bytes);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, map, a);
+  ++g_launches[FC1 ? K_MLP1 : K_MLP2];
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <int NP, bool FC1>
+cudaError_t mlp_launch_w(const MlpArgs& a, const void* w, int L, float* work,
+                         long long work_floats, cudaStream_t st) {
+  return a.w_scale != nullptr
+             ? mlp_launch<int8_t, NP, FC1>(a, w, L, work, work_floats, st)
+             : mlp_launch<__nv_bfloat16, NP, FC1>(a, w, L, work, work_floats, st);
+}
+
+template <int NP>
+cudaError_t mlp_pass(const MlpArgs& a1, const MlpArgs& a2, const void* w1, int L1,
+                     const void* w2, int L2, float* work, long long work_floats,
+                     cudaStream_t st) {
+  const cudaError_t e = mlp_launch_w<NP, true>(a1, w1, L1, work, work_floats, st);
+  if (e != cudaSuccess) return e;
+  return mlp_launch_w<NP, false>(a2, w2, L2, work, work_floats, st);
+}
+
+// bf16 fused_mlp: passes of up to MLP_MAX_ROWS rows, two launches each (fc1,
+// fc2); rows beyond 32 take further passes, each streaming the weights again.
+cudaError_t mlp_tc(const __nv_bfloat16* x, const float* ln_s, const float* ln_b, const void* w1,
+                   const __nv_bfloat16* b1, const void* w2, const __nv_bfloat16* b2,
+                   const float* s1, const float* s2, __nv_bfloat16* g, __nv_bfloat16* out,
+                   float* work, long long work_floats, int* counters, int B, int d, int ff,
+                   int l1, int L1, int l2, int L2, cudaStream_t st) {
+  if (B < 1 || d % MLP_TILE != 0 || ff % MLP_TILE != 0 || d > MLP_MAX_D || l1 < 0 ||
+      l1 >= L1 || l2 < 0 || l2 >= L2)
+    return cudaErrorInvalidValue;
+  for (int r0 = 0; r0 < B; r0 += MLP_MAX_ROWS) {
+    const int n = min(MLP_MAX_ROWS, B - r0);
+    MlpArgs a1{};
+    a1.x = x + (long long)r0 * d;
+    a1.ln_s = ln_s;
+    a1.ln_b = ln_b;
+    a1.bias = b1;
+    a1.w_scale = s1;
+    a1.out = g + (long long)r0 * ff;
+    a1.B = n;
+    a1.K = d;
+    a1.N = ff;
+    a1.layer = l1;
+    a1.counters = counters;
+    MlpArgs a2{};
+    a2.x = a1.x;
+    a2.act = a1.out;
+    a2.bias = b2;
+    a2.w_scale = s2;
+    a2.out = out + (long long)r0 * d;
+    a2.B = n;
+    a2.K = ff;
+    a2.N = d;
+    a2.layer = l2;
+    a2.counters = counters + MLP_COUNTERS;
+    const cudaError_t e =
+        n <= 8 ? mlp_pass<8>(a1, a2, w1, L1, w2, L2, work, work_floats, st)
+        : n <= 16 ? mlp_pass<16>(a1, a2, w1, L1, w2, L2, work, work_floats, st)
+                  : mlp_pass<32>(a1, a2, w1, L1, w2, L2, work, work_floats, st);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // C entries. dtype: 0 = float32, 1 = bfloat16 (activations, float weights,
@@ -715,22 +1304,43 @@ extern "C" int fused_attn_beam_fwd(int dtype, const void* x, const float* q, con
                                        nullptr, wo, bo, so, nullptr, o_buf, out, N, st));
 }
 
+// fused_mlp: w1 (L1, d, ff) and w2 (L2, ff, d) are the stacked weights' bases
+// (L = 1 for one layer's), read at layers l1 and l2; every other pointer is
+// already offset to its layer. bf16 runs the tensor-core kernels, which take
+// d and ff as multiples of 64 and d <= 1280 and use work (work_floats fp32:
+// split-K partial sums) and counters (2 x 1024 int32, zero before the first
+// call; each call leaves them zero); fp32 runs the GEMVs.
 extern "C" int fused_mlp_fwd(int dtype, const void* x, const float* ln_s, const float* ln_b,
                              const void* w1, const void* b1, const void* w2, const void* b2,
-                             const float* s1, const float* s2, void* g_buf, void* out, int B,
-                             int d, int ff, void* stream) {
+                             const float* s1, const float* s2, void* g_buf, void* out,
+                             float* work, long long work_floats, int* counters, int B, int d,
+                             int ff, int l1, int L1, int l2, int L2, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      dtype == 0 ? mlp<float>(x, ln_s, ln_b, w1, b1, w2, b2, s1, s2, g_buf, out, B, d, ff, st)
-                 : mlp<__nv_bfloat16>(x, ln_s, ln_b, w1, b1, w2, b2, s1, s2, g_buf, out, B, d,
-                                      ff, st));
+  if (dtype == 0) {
+    const long long per = (long long)d * ff;
+    const char* w1l = static_cast<const char*>(w1) + l1 * per * (s1 != nullptr ? 1 : 4);
+    const char* w2l = static_cast<const char*>(w2) + l2 * per * (s2 != nullptr ? 1 : 4);
+    return static_cast<int>(
+        mlp<float>(x, ln_s, ln_b, w1l, b1, w2l, b2, s1, s2, g_buf, out, B, d, ff, st));
+  }
+  using bf = __nv_bfloat16;
+  return static_cast<int>(mlp_tc(static_cast<const bf*>(x), ln_s, ln_b, w1,
+                                 static_cast<const bf*>(b1), w2, static_cast<const bf*>(b2), s1,
+                                 s2, static_cast<bf*>(g_buf), static_cast<bf*>(out), work,
+                                 work_floats, counters, B, d, ff, l1, L1, l2, L2, st));
 }
 
-// out[3] = launches of gemv_kernel, attn_partial_kernel, attn_combine_kernel
-// since the last reset
+// out[5] = launches of gemv_kernel, attn_partial_kernel, attn_combine_kernel,
+// mlp_fc1_kernel, mlp_fc2_kernel since the last reset
 extern "C" void kernel_launches(long long* out) {
   for (int i = 0; i < N_KERNELS; ++i) out[i] = g_launches[i];
 }
+
+#ifdef MLP_TRACE
+extern "C" int mlp_trace(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_mlp_trace, sizeof(g_mlp_trace)));
+}
+#endif
 
 extern "C" void reset_kernel_launches() {
   for (int i = 0; i < N_KERNELS; ++i) g_launches[i] = 0;

@@ -1,12 +1,14 @@
 // The Hopper (sm_90a) toolbox of the port's wgmma/TMA kernels
-// (encoder_attention.cu's bf16 forward and backward, w8a8.cu's GEMM):
+// (encoder_attention.cu's bf16 forward and backward, w8a8.cu's GEMM,
+// decoder_fused.cu's bf16 MLP):
 //
-//  * host: TMA tensor maps with 128-byte swizzle, encoded per call from the
+//  * host: TMA tensor maps with 128-byte swizzle (or none), encoded from the
 //    wrapper's pointers and strides by cuTensorMapEncodeTiled, which is
 //    fetched through cudaGetDriverEntryPoint (no -lcuda at link time);
 //  * mbarriers: init, arrive, arrive with expected transaction bytes,
-//    parity wait; setmaxnreg for warp-specialised kernels;
-//  * TMA loads (2-D and 4-D boxes) that complete on an mbarrier, and the
+//    parity wait; setmaxnreg for warp-specialised kernels; programmatic
+//    dependent launch (griddepcontrol); a release / acquire ticket;
+//  * cp.async; TMA loads (2-, 3- and 4-D boxes) that complete on an mbarrier, and the
 //    TMA store and reduce-add of a box into global memory (bulk groups);
 //  * wgmma: shared-memory descriptors of 128-byte-swizzled tiles, fence,
 //    commit_group, wait_group, and the instruction shapes the kernels use.
@@ -57,12 +59,15 @@ inline EncodeTiled tensor_map_encoder() {
 
 // A tensor map of `rank` dimensions (innermost first) over `base`, with the
 // byte strides of dimensions 1 .. rank-1 and a box of `box` elements, loaded
-// with the 128-byte swizzle; elements past a dimension's end read as zero.
-// cudaErrorInvalidValue when the driver refuses the layout (a base or stride
-// that is no multiple of 16 bytes, a box row other than 128 bytes).
+// with the 128-byte swizzle (or `swizzle`: CU_TENSOR_MAP_SWIZZLE_NONE lands
+// the box's rows as they are, a row of any multiple of 16 bytes); elements
+// past a dimension's end read as zero. cudaErrorInvalidValue when the encoder
+// refuses the layout (a base or stride that is no multiple of 16 bytes, a
+// swizzled box row other than 128 bytes).
 inline cudaError_t encode_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                                      const void* base, const uint64_t* dims,
-                                     const uint64_t* strides, const uint32_t* box) {
+                                     const uint64_t* strides, const uint32_t* box,
+                                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   cuuint32_t ones[5] = {1, 1, 1, 1, 1};
@@ -70,7 +75,7 @@ inline cudaError_t encode_tensor_map(CUtensorMap* map, CUtensorMapDataType type,
                             reinterpret_cast<const cuuint64_t*>(dims),
                             reinterpret_cast<const cuuint64_t*>(strides),
                             reinterpret_cast<const cuuint32_t*>(box), ones,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -144,6 +149,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// cp.async: 16 bytes from global src to shared dst through the load/store
+// unit (not the TMA unit), tracked by the issuing thread's async groups
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+// every cp.async of this thread complete
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
 // TMA: the box at coordinates (c0 innermost, ...) into dst, completing
 // its bytes on bar
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -152,6 +168,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -222,6 +247,21 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// arrive at barrier `id` without waiting (the others bar.sync on it)
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A ticket: atomically add 1 to *counter at GPU scope and return the old
+// value, with release (this block's writes before a barrier over it are
+// seen by whoever acquires a later ticket) and acquire semantics.
+__device__ __forceinline__ int ticket(int* counter) {
+  int old;
+  asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;\n" : "=r"(old) : "l"(counter)
+               : "memory");
+  return old;
+}
+
 // Warp specialisation: the producer warpgroup gives registers back, the
 // consumer warpgroups take them (every warp of a warpgroup executes it; the
 // kernel's code after it is allocated within the new count)
@@ -234,6 +274,16 @@ __device__ __forceinline__ void regs_claim() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;   // 2 consumer warpgroups + 1
+
+// programmatic dependent launch: the next kernel in the stream may start
+// (this kernel's writes it reads still wait for griddep_wait there)
+__device__ __forceinline__ void griddep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+// wait until the preceding kernel has finished and its writes are visible
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
 
 // 2^x on the special-function unit, subnormal results flushed to zero
 __device__ __forceinline__ float exp2_fast(float x) {
@@ -291,6 +341,31 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 // two bf16 each in the mma.m16n8k16 A layout of the warp's 16 rows, so the
 // accumulator's n8 blocks 2k, 2k+1 rounded to bf16 are k-step k's A.
 // TA / TB: 0 reads the operand K-major, 1 MN-major (transposed).
+
+// D (64 x 8, fp32) (+)= A (64 x 16) . B (16 x 8), both bf16 in shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_bf16_n8(float (&d)[4], uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// D (64 x 16, fp32) (+)= A (64 x 16) . B (16 x 16), both bf16 in shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_bf16_n16(float (&d)[8], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
 
 // D (64 x 32, fp32) (+)= A (64 x 16) . B (16 x 32), both bf16 in shared memory
 template <int TA, int TB>

@@ -92,16 +92,6 @@ __device__ __forceinline__ int quantize(float v, float s) {
   return (int)fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f);
 }
 
-// programmatic dependent launch: the next kernel in the stream may start
-// (this kernel's writes it reads still wait for griddep_wait there)
-__device__ __forceinline__ void griddep_launch() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-// wait until the preceding kernel has finished and its writes are visible
-__device__ __forceinline__ void griddep_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
 // x (m, K) → xs (m,) and x8 (m, K), K % 8 == 0, K <= 8 CH QTHREADS. One
 // block per row; a thread holds CH chunks of 8 in registers, all loaded
 // before any is used.

@@ -13,9 +13,11 @@ a decode step runs four wrappers, each replacing one Pallas kernel:
                 over an unpermuted cache through an ancestry map
   fused_mlp   ← `fused_mlp` (:681; pl.pallas_call :738, `_mlp_kernel` :649)
 
-Bound on the card: bytes. A call streams one layer's weights (and K/V rows)
-once per group of up to 8 rows, a few flops per byte; the kernels are
-split-K GEMVs and a split-T attention built to stream. The CUDA source says how.
+Bound on the card: bytes. A call streams one layer's weights (and K/V rows),
+a few flops per byte; the kernels are split-K GEMVs (once per group of up
+to 8 rows), a split-T attention, and for bf16 fused_mlp two tensor-core
+products fed by TMA (once per pass of up to 32 rows), all built to stream.
+The CUDA source says how.
 
 Wrappers take unstacked per-layer weights (tests) or the full stacked
 (L, ...) tensors plus `layer_idx` (the decode loop); the kernels read layer
@@ -56,6 +58,10 @@ from . import _build
 HEAD_DIM = 64     # every released Whisper variant uses 64-dim heads
 CHUNK = 256       # keys per attention block (csrc CHUNK)
 _NB = 16          # output columns per GEMV block (csrc NB)
+_MLP_TILE = 64    # output columns per bf16 MLP block (csrc MLP_TILE): d, ff % 64
+_MLP_MAX_D = 1280   # x's rows staged whole (csrc MLP_MAX_D): every Whisper width
+_MLP_COUNTERS = 1024                 # split-K tickets per MLP kernel (csrc MLP_COUNTERS)
+_MLP_WORK_FLOATS = 1 << 20           # split-K partial sums: 512 blocks x 32 rows x 64
 
 # wrapper launches on the card, by kernel name (chip_smoke.py reads them); a
 # launch with any int8 weight counts under the name + "_int8". Cross
@@ -66,7 +72,8 @@ ATTN_CROSS = ("fused_attn_cross", "fused_attn_cross_group", "fused_attn_cross_kv
 LAUNCHES = {f"{k}{v}": 0 for k in ("fused_qkv", "fused_attn_self", "fused_attn_beam",
                                   *ATTN_CROSS, "fused_mlp") for v in ("", "_int8")}
 # the CUDA kernels the wrappers launch, as kernel_launches() counts them
-KERNELS = ("gemv_kernel", "attn_partial_kernel", "attn_combine_kernel")
+KERNELS = ("gemv_kernel", "attn_partial_kernel", "attn_combine_kernel",
+           "mlp_fc1_kernel", "mlp_fc2_kernel")
 
 
 def reset_launches() -> None:
@@ -459,25 +466,56 @@ def fused_mlp(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
                            w1_scale, w2_scale)
 
 
+def _stacked(w: torch.Tensor, layer_idx) -> Tuple[int, int]:
+    """(layer, L) of a weight the kernel reads at `layer` of its (L, K, N)
+    base: a stacked weight at layer_idx, or one layer's as (0, 1)."""
+    return (layer_idx, w.shape[0]) if w.dim() == 3 else (0, 1)
+
+
+_MLP_WORK = {}
+
+
+def _mlp_workspace(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 MLP kernels' split-K partial sums and ticket counters on
+    `device`, made once: the counters start at 0 and every call leaves them
+    so (the last block of a tile resets its ticket), and a call touches
+    either only after the kernels before it have finished."""
+    ws = _MLP_WORK.get(device)
+    if ws is None:
+        ws = (torch.empty(_MLP_WORK_FLOATS, dtype=torch.float32, device=device),
+              torch.zeros(2 * _MLP_COUNTERS, dtype=torch.int32, device=device))
+        _MLP_WORK[device] = ws
+    return ws
+
+
 def _fused_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, layer_idx, w1_scale,
                     w2_scale):
     B, d = _check_x(x, "fused_mlp")
     T, f32 = x.dtype, torch.float32
     ptr = functools.partial(_ptr, layer_idx=layer_idx, device=x.device)
     ff = w1.shape[-1]
-    if ff % _NB:
-        raise ValueError(f"fused_mlp: ff={ff} is not a multiple of {_NB}")
+    tile = _MLP_TILE if T == torch.bfloat16 else _NB
+    if ff % tile:
+        raise ValueError(f"fused_mlp: ff={ff} is not a multiple of {tile} (the "
+                         f"{'tensor-core' if tile == _MLP_TILE else 'GEMV'} kernel's "
+                         "column tile)")
+    if T == torch.bfloat16 and d > _MLP_MAX_D:
+        raise ValueError(f"fused_mlp: d={d} above {_MLP_MAX_D}: the tensor-core kernel "
+                         "stages x's rows whole in shared memory")
     g = torch.empty((B, ff), dtype=T, device=x.device)
     out = torch.empty_like(x)
-    w1_p, s1_p = _weight(ptr, w1, w1_scale, T, (d, ff))
-    w2_p, s2_p = _weight(ptr, w2, w2_scale, T, (ff, d))
+    _, s1_p = _weight(ptr, w1, w1_scale, T, (d, ff))   # checks, layer offsets
+    _, s2_p = _weight(ptr, w2, w2_scale, T, (ff, d))
+    (l1, n1), (l2, n2) = _stacked(w1, layer_idx), _stacked(w2, layer_idx)
+    work, counters = _mlp_workspace(x.device)
     lib = _lib()
     err = lib.fused_mlp_fwd(
         _build.dtype_code(x), x.data_ptr(),
         ptr(ln_scale, 1, f32, (d,)),
         ptr(ln_bias, 1, f32, (d,)),
-        w1_p, ptr(b1, 1, T, (ff,)), w2_p, ptr(b2, 1, T, (d,)), s1_p, s2_p,
-        g.data_ptr(), out.data_ptr(), B, d, ff, _build.stream_ptr(x))
+        w1.data_ptr(), ptr(b1, 1, T, (ff,)), w2.data_ptr(), ptr(b2, 1, T, (d,)),
+        s1_p, s2_p, g.data_ptr(), out.data_ptr(), work.data_ptr(), work.numel(),
+        counters.data_ptr(), B, d, ff, l1, n1, l2, n2, _build.stream_ptr(x))
     _build.check(lib, err, "fused_mlp")
     _count("fused_mlp", s1_p, s2_p)
     return out
@@ -487,7 +525,9 @@ def kernel_launches() -> dict:
     """Launches of each CUDA kernel of csrc/decoder_fused.cu since
     reset_kernel_launches(), counted by the library where it launches them:
     a wrapper call may launch several (fused_attn: the cross q GEMV, the
-    partials, the combine, the wo GEMV; a GEMV once per group of 8 rows)."""
+    partials, the combine, the wo GEMV; a GEMV once per group of 8 rows;
+    bf16 fused_mlp: mlp_fc1_kernel and mlp_fc2_kernel once per pass of up
+    to 32 rows)."""
     counts = (ctypes.c_longlong * len(KERNELS))()
     _lib().kernel_launches(counts)
     return dict(zip(KERNELS, counts))
@@ -508,7 +548,8 @@ def _lib() -> ctypes.CDLL:
         lib.fused_qkv_fwd.argtypes = [I] + [P] * 14 + [I, I, P]
         lib.fused_attn_fwd.argtypes = [I] + [P] * 18 + [I] * 5 + [P]
         lib.fused_attn_beam_fwd.argtypes = [I] + [P] * 11 + [I] * 5 + [P]
-        lib.fused_mlp_fwd.argtypes = [I] + [P] * 11 + [I, I, I, P]
+        lib.fused_mlp_fwd.argtypes = ([I] + [P] * 12 + [ctypes.c_longlong, P]
+                                      + [I] * 7 + [P])
         for fn in (lib.fused_qkv_fwd, lib.fused_attn_fwd, lib.fused_attn_beam_fwd,
                    lib.fused_mlp_fwd):
             fn.restype = I

@@ -6,8 +6,9 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from csrc/ (one nvcc per source, in parallel);
 3. holds every kernel against its plain PyTorch version at whisper-large-v3
-   shapes (B=4, and the decoder kernels also at 12 rows) in bf16 and fp32,
-   within the limits stated at F32_LIMITS, and times kernel, plain version and, for
+   shapes (B=4, and the decoder kernels also at 12 rows, fused_mlp at 16) in
+   bf16 and fp32, within the limits stated at F32_LIMITS, the bf16 fused_mlp
+   also to bit equality between two calls, and times kernel, plain version and, for
    the encoder attention, F.scaled_dot_product_attention as a yardstick (the
    port never calls it): the decoder kernels over float, mixed int8/float
    and all-int8 weights; the encoder-attention forward and its backward at
@@ -160,6 +161,12 @@ BF16_LIMITS = {                          # kernel: (atol, rms_rel)
     "encoder_attention_bh_bwd": (2.4e-3, 6.9e-4),
     "encoder_attention_qkv": (1.7e-3, 9.2e-3),
     "encoder_attention_qkv_bwd": (1.8e-3, 6.6e-4),
+    # fused_mlp with int8 fc1 and fc2 at the beam path's 16 rows, the same
+    # rule over the first readings there: the tensor-core kernel and the
+    # GEMV kernel it replaced both read (1.78e-4, 1.27e-4 / 1.23e-4) on an
+    # H100, over fused_mlp_int8's atol, from the plain version's own fp32
+    # product: an fp64 product moves no g the kernel rounds (PERF.md)
+    "fused_mlp_int8_r16": (7.2e-4, 5.1e-4),
 }
 # fp32 at large-v3 width, 2+2 layers: the largest over the outputs or leaves
 # of max |diff| / max |ref|, the fused-qkv path against the three
@@ -187,6 +194,9 @@ REPLACES = {
     "log_mel": "asr_finetune_tpu/ops/logmel_pallas.py:123",
 }
 REPLACES.update({k + "_int8": v for k, v in list(REPLACES.items()) if k.startswith("fused_")})
+# fused_mlp at the beam path's 16 rows (4 utterances x 4 beams): the same
+# kernels, timed at a second shape
+REPLACES.update({k + "_r16": REPLACES[k] for k in ("fused_mlp", "fused_mlp_int8")})
 SOURCES = {
     **{k: "asr_finetune_tpu_torch/csrc/encoder_attention.cu"
        for k in REPLACES if k.startswith("encoder_attention")},
@@ -312,6 +322,14 @@ def compare(name, out, ref, dtype_name):
     print(f"{name} [{dtype_name}]: max abs err {err:.3e}, max excess over the "
           f"rounding step {excess:.3e}, RMS err / RMS ref {rms_rel:.3e}")
     return err, rms_rel
+
+
+def same_bits(name, out, again) -> None:
+    """Two calls of a kernel on the same inputs must give the same bits."""
+    import torch
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+    print(f"{name}: two calls bit-equal")
 
 
 def bound(nbytes: float, flops: float, dtype_name: str):
@@ -486,10 +504,13 @@ def check_decoder_kernels(rows):
     layer 31 of 32: the self-attention at pos 0, 127, 200 of a 256 cache
     and at the main path's cache 128, pos 63; the cross-attention at S 1536,
     s_valid 1500. At 12 rows (the GEMVs run them as a group of 8 and one of
-    4) with one layer's weights unstacked. In bf16 the main path's shapes
-    (B=4) are timed with the calls cycling through the 32 layers, against
-    a bound that counts each operand read and each output written once:
-    float weights give the "fused_*" rows, mixed the "fused_*_int8" rows.
+    4) with one layer's weights unstacked. fused_mlp also at the beam path's
+    16 rows; in bf16 (the tensor-core kernels) two calls must give the same
+    bits. In bf16 the main path's shapes (B=4, and fused_mlp at 16 rows:
+    "fused_mlp_r16", "fused_mlp_int8_r16") are timed with the calls cycling
+    through the 32 layers, against a bound that counts each operand read and
+    each output written once: float weights give the "fused_*" rows, mixed
+    the "fused_*_int8" rows.
     The beam path's calls (beam_calls) at 4 utterances x 4 beams: the beam
     self-attention through a random ancestry map, the cross-attention with
     kv_group 4, with int8 K/V at 4 rows (G = 1) and at 16 (G = 4), each
@@ -544,11 +565,26 @@ def check_decoder_kernels(rows):
                 for name, (fn, plain, reads, flops) in calls.items():
                     out = fn(L - 1)
                     err = compare(name + sfx, out, plain(), dn)
+                    if name == "fused_mlp" and dt is torch.bfloat16:
+                        same_bits(name + sfx, out, fn(L - 1))
                     if dt is torch.bfloat16 and n_rows == B and kind != "all-int8":
                         it = iter(range(10 ** 9))
                         time_row(rows, name + sfx, err, lambda: fn(next(it) % L), plain,
                                  nbytes(*reads) + nbytes(*(out if isinstance(out, tuple)
                                                            else (out,))), flops, dn)
+            # fused_mlp at the beam path's 16 rows, one pass of the bf16
+            # tensor-core kernels (stacked weights, layer 31 of 32)
+            print(f"fused_mlp, {kind} weights [{dn}] at {B * BEAMS} rows:")
+            fn, plain, reads, flops = decoder_calls(DF, xb, qb, w, b, ln, kv[B], SELF_POS,
+                                                    True)["fused_mlp"]
+            out = fn(L - 1)
+            err = compare("fused_mlp" + sfx + ("_r16" if int8 else ""), out, plain(), dn)
+            if dt is torch.bfloat16:
+                same_bits("fused_mlp" + sfx, out, fn(L - 1))
+                if kind != "all-int8":
+                    it = iter(range(10 ** 9))
+                    time_row(rows, "fused_mlp" + sfx + "_r16", err, lambda: fn(next(it) % L),
+                             plain, nbytes(*reads, out), flops, dn)
             print(f"beam-path attention, {kind} weights [{dn}] at {B} x {BEAMS} rows (beam "
                   f"cache {SELF_T} pos {SELF_POS}, cross kv_group {BEAMS} and int8 K/V):")
             calls = beam_calls(DF, xb, qb, x, w, b, ln, beam_kv, anc, cross, cross8)
@@ -561,15 +597,20 @@ def check_decoder_kernels(rows):
                              nbytes(*reads, out) + extra_bytes, flops, dn)
             del w
         if dt is torch.bfloat16:
-            # the fixed cost of a GEMV launch: fused_mlp at ff=16 is two
-            # near-empty GEMV launches (the LN prologue, reduction, epilogue)
-            w1e, b1e = rn(L, D, 16, scale=D ** -0.5), rn(L, 16, scale=0.1)
-            w2e = rn(L, 16, D, scale=0.25)
+            # the fixed cost of the tensor-core MLP: fused_mlp at ff=64 (one
+            # column tile) is two launches, mlp_fc1_kernel (80 KB of W1 a
+            # call over 1 block, x's rows, LN, GELU) and mlp_fc2_kernel (20
+            # blocks, K split in one, the residual), next to nothing to stream
+            w1e, b1e = rn(L, D, 64, scale=D ** -0.5), rn(L, 64, scale=0.1)
+            w2e = rn(L, 64, D, scale=0.125)
             it = iter(range(10 ** 9))
+            DF.reset_kernel_launches()
+            DF.fused_mlp(x, *ln, w1e, b1e, w2e, b["fc2"], layer_idx=0)
+            probe = {k: v for k, v in DF.kernel_launches().items() if v}
             ms = device_ms(lambda: DF.fused_mlp(x, *ln, w1e, b1e, w2e, b["fc2"],
                                                 layer_idx=next(it) % L), 64)
-            print(f"  fused_mlp at ff=16 (two near-empty GEMV launches) [{dn}]: "
-                  f"{ms:.4f} ms")
+            print(f"  fused_mlp at ff=64 ({sum(probe.values())} launches a call: {probe}) "
+                  f"[{dn}]: {ms:.4f} ms")
         # beams wider than the Pallas kernels' 8: 2 utterances x WIDE_BEAMS
         # (a block serves 8 query rows of a KV row, then 2), float weights,
         # layer L-1 unstacked
@@ -1659,8 +1700,8 @@ def kernel_category(name: str) -> str:
         return ATTN_FWD
     if "w8a8" in low or "quantize_rows" in low:
         return W8A8
-    if "gemv_kernel" in low or "attn_partial" in low or "attn_combine" in low:
-        return "decoder kernels (gemv, attn_partial, attn_combine)"
+    if any(s in low for s in ("gemv_kernel", "attn_partial", "attn_combine", "mlp_fc")):
+        return "decoder kernels (gemv, attn_partial, attn_combine, mlp_fc1/fc2)"
     if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")):
         return "matrix products (cuBLAS)"
     if "multi_tensor" in low or "foreach" in low:
@@ -2080,15 +2121,17 @@ def step_breakdown():
             print(f"  {t / 4e3:8.3f} ms  {c // 4:5d} launches  {key[:90]}")
         # CUDA launches per step, as the library counts them where it
         # launches (the profiler drops kernel records at this rate): per
-        # layer the qkv, cross q, two wo and fc1/fc2 GEMVs, one launch per
-        # group of at most 8 rows, and a partial and a combine per attention
+        # layer the qkv, cross q and two wo GEMVs, one launch per group of at
+        # most 8 rows, a partial and a combine per attention, and the MLP's
+        # fc1 and fc2 kernels once per pass of up to 32 rows
         DF.reset_kernel_launches()
         for _ in range(4):
             step()
         torch.cuda.synchronize()
         per_step = {k: v / 4 for k, v in DF.kernel_launches().items()}
-        want = {"gemv_kernel": 6 * -(-n // 8) * L, "attn_partial_kernel": 2 * L,
-                "attn_combine_kernel": 2 * L}
+        want = {"gemv_kernel": 4 * -(-n // 8) * L, "attn_partial_kernel": 2 * L,
+                "attn_combine_kernel": 2 * L, "mlp_fc1_kernel": -(-n // 32) * L,
+                "mlp_fc2_kernel": -(-n // 32) * L}
         print(f"decode step {name}: CUDA kernel launches per step {per_step}")
         if per_step != want:
             raise AssertionError(f"decode step {name}: kernel launches {per_step} != {want}")
@@ -2140,6 +2183,9 @@ def main() -> int:
     train_main_path(rows, config=PEFT_CONFIG, extra=("--int8_matmul",), fused_qkv=True)
     step_breakdown()
     print(json.dumps({"step_device_ms": STEP_DEVICE}))
+    for k in ("fused_mlp", "fused_mlp_int8"):   # one kernel pair at every row count
+        rows[k + "_r16"]["launches"] = rows[k]["launches"]
+        rows[k + "_r16"]["launches_of"] = k
     print(card_line())
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,7 @@ import torch
 
 from asr_finetune_tpu.ops import decoder_fused as JDF
 from asr_finetune_tpu_torch.ops import decoder_fused as TDF
+from asr_finetune_tpu_torch.ops import quant as TQ
 
 D, B, T, S, FF, L = 256, 3, 256, 384, 512, 3
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -101,6 +102,33 @@ def test_fused_mlp(stacked):
     args = (x, lns, lnb, w1, b1, w2, b2)
     ref = JDF.fused_mlp(*map(_j, args), layer_idx=li)
     out = TDF.fused_mlp(*map(_t, args), layer_idx=li)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("weights", ["float", "int8"])
+@pytest.mark.parametrize("rows", [1, 16, 33])
+def test_fused_mlp_rows(rows, weights):
+    """fused_mlp at the row counts the card's tensor-core kernel serves in
+    one pass (1, 16) and in two (33), stacked weights at layer 2, float or
+    int8 fc1 and fc2 with their per-channel scales (the same numpy int8
+    arrays on both sides)."""
+    rng = np.random.default_rng(4 + rows)
+    x = _rand(rng, rows, D, scale=1.0)
+    lns = _layered(rng, True, D, scale=0.1, offset=1.0)
+    lnb = _layered(rng, True, D, scale=0.1)
+    w1, b1 = _layered(rng, True, D, FF, scale=D ** -0.5), _layered(rng, True, FF)
+    w2, b2 = _layered(rng, True, FF, D, scale=FF ** -0.5), _layered(rng, True, D)
+    scales = {}
+    if weights == "int8":
+        q1, q2 = (TQ.quantize_weight(torch.from_numpy(w)) for w in (w1, w2))
+        w1, w2 = q1[TQ.QUANT_KEY].numpy(), q2[TQ.QUANT_KEY].numpy()
+        scales = {"w1_scale": q1[TQ.SCALE_KEY].numpy(), "w2_scale": q2[TQ.SCALE_KEY].numpy()}
+    args = (x, lns, lnb, w1, b1, w2, b2)
+    ref = JDF.fused_mlp(*map(_j, args), layer_idx=2,
+                        **{k: _j(v) for k, v in scales.items()})
+    out = TDF.fused_mlp(*map(_t, args), layer_idx=2,
+                        **{k: _t(v) for k, v in scales.items()})
+    assert out.shape == (rows, D)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 

@@ -9,7 +9,9 @@ files). On a machine with the card:
 (--noconftest: tests/conftest.py imports jax, which that machine may lack.)
 
 Small shapes (d=256, 4 heads of 64, B=3, 8 and 12: the GEMVs take rows in
-groups of 8; the attention forward and backward at B=3 and 8, self and cross
+groups of 8; the bf16 MLP on the tensor cores at 1 to 33 rows, in passes of
+8, 16 and 32 rows, and (d, ff) = (256, 512) and (384, 1536), bit-equal
+twice; the attention forward and backward at B=3 and 8, self and cross
 shapes, s_valid < Tk; the forward also at 20 heads). Tolerance: fp32 1e-4 +
 1e-4|ref| (the sum order differs from the plain version's); bf16 4e-3 +
 2^-7|ref| (both round the same intermediates to bf16, so an output at a
@@ -148,7 +150,8 @@ def test_fused_attn_group_and_int8_kv_match_plain(dev, dtype, kv8, G):
     # the q and wo GEMVs once per group of 8 rows, one partial, one combine
     groups = -(-Bk * G // 8)
     assert DF.kernel_launches() == {"gemv_kernel": 2 * groups, "attn_partial_kernel": 1,
-                                    "attn_combine_kernel": 1}
+                                    "attn_combine_kernel": 1, "mlp_fc1_kernel": 0,
+                                    "mlp_fc2_kernel": 0}
     ref = DF.fused_attn_plain(x, kx[li], vx[li], wo[li], bo[li], n_valid=300,
                               ln_scale=lns[li], ln_bias=lnb[li], wq=wq[li], bq=bq[li],
                               k_scale=None if ks is None else ks[li],
@@ -399,6 +402,59 @@ def test_decoder_kernels_int8_weights_match_plain(dev, dtype, B, mix):
     _close(out, DF.fused_mlp_plain(x, lns[li], lnb[li], at("fc1")[0], b1[li],
                                    at("fc2")[0], bo[li], w1_scale=at("fc1")[1],
                                    w2_scale=at("fc2")[1]), dtype)
+
+
+@pytest.mark.parametrize("d,ff", [(256, 512), (384, 1536)])
+@pytest.mark.parametrize("weights", ["float", "int8", "mixed"])
+@pytest.mark.parametrize("B", [1, 3, 4, 8, 12, 16, 17, 32, 33])
+def test_fused_mlp_matches_plain(dev, B, weights, d, ff):
+    """The bf16 fused_mlp on the tensor cores: 8-, 16- and 32-row passes
+    (33 rows: two passes), fc1/fc2 float, both int8 or fc1 int8 beside a
+    float fc2, stacked weights read at layer 2 of 3; two calls give the same
+    bits, and each pass is one fc1 and one fc2 launch, no GEMV."""
+    g = torch.Generator(device=dev).manual_seed(B)
+    x = _rn(g, dev, B, d, dtype=torch.bfloat16)
+    lns, lnb = 1 + _rn(g, dev, L, d, scale=0.1), _rn(g, dev, L, d, scale=0.1)
+    w1 = _rn(g, dev, L, d, ff, scale=d ** -0.5)
+    w2 = _rn(g, dev, L, ff, d, scale=ff ** -0.5)
+    b1 = _rn(g, dev, L, ff, scale=0.1, dtype=torch.bfloat16)
+    b2 = _rn(g, dev, L, d, scale=0.1, dtype=torch.bfloat16)
+    int8 = {"float": (), "int8": ("fc1", "fc2"), "mixed": ("fc1",)}[weights]
+    (w1, s1), (w2, s2) = ((_int8(w) if n in int8 else (w.bfloat16(), None))
+                          for n, w in (("fc1", w1), ("fc2", w2)))
+    li = 2
+    DF.reset_kernel_launches()
+    out = DF.fused_mlp(x, lns, lnb, w1, b1, w2, b2, w1_scale=s1, w2_scale=s2, layer_idx=li)
+    passes = -(-B // 32)
+    assert DF.kernel_launches() == {"gemv_kernel": 0, "attn_partial_kernel": 0,
+                                    "attn_combine_kernel": 0, "mlp_fc1_kernel": passes,
+                                    "mlp_fc2_kernel": passes}
+    ref = DF.fused_mlp_plain(x, lns[li], lnb[li], w1[li], b1[li], w2[li], b2[li],
+                             w1_scale=None if s1 is None else s1[li],
+                             w2_scale=None if s2 is None else s2[li])
+    _close(out, ref, torch.bfloat16)
+    again = DF.fused_mlp(x, lns, lnb, w1, b1, w2, b2, w1_scale=s1, w2_scale=s2,
+                         layer_idx=li)
+    assert torch.equal(out, again)
+
+
+def test_fused_mlp_rejects_unsupported_shapes(dev):
+    """The tensor-core MLP takes ff as a multiple of its 64-column tile: a
+    bf16 call it cannot take raises and never falls back to the GEMV."""
+    B, ff = 3, 96   # a GEMV width (16 | 96), not a tile width
+    x = torch.zeros(B, D, device=dev, dtype=torch.bfloat16)
+    ln = torch.ones(D, device=dev)
+    w1 = torch.zeros(D, ff, device=dev, dtype=torch.bfloat16)
+    w2 = torch.zeros(ff, D, device=dev, dtype=torch.bfloat16)
+    b1 = torch.zeros(ff, device=dev, dtype=torch.bfloat16)
+    b2 = torch.zeros(D, device=dev, dtype=torch.bfloat16)
+    DF.reset_kernel_launches()
+    with pytest.raises(ValueError, match="multiple of 64"):
+        DF.fused_mlp(x, ln, ln, w1, b1, w2, b2)
+    assert sum(DF.kernel_launches().values()) == 0
+    out = DF.fused_mlp(x.float(), ln, ln, w1.float(), b1.float(), w2.float(), b2.float())
+    assert DF.kernel_launches()["gemv_kernel"] == 2   # fp32: the GEMV route takes 16 | ff
+    _close(out, x.float(), torch.float32)
 
 
 # m, K, N of each W8A8 case, and whether it runs the wide tile
