@@ -35,7 +35,8 @@
 // against 2 bytes (bf16), ~4 flop per byte against the ~295 the H100 needs
 // before its tensor cores limit. Everything is built to stream:
 //
-//  * gemv_kernel (fused_qkv, fused_attn's q and wo, and fp32 fused_mlp):
+//  * gemv_kernel (fused_qkv, fp32 fused_attn's q and wo, fused_attn_beam's wo,
+//    and fp32 fused_mlp):
 //    out[b, n] = sum_k h[b, k] W[k, n] for all rows of a group at once, so
 //    each weight byte is read once per group. A block owns 16 output columns
 //    and splits K over 128 lanes (16-byte loads, 8 columns per thread),
@@ -76,7 +77,28 @@
 //    round trips to the L2 that the memory system, loaded by that stream,
 //    makes slow: the activations, the split-K ticket and sums, g between
 //    the two kernels.
-//  * attn_partial_kernel: split-T flash-decoding. The TPU kernel's grid of B
+//  * attn_q_kernel, attn_chunk_kernel, attn_wo_kernel (bf16 fused_attn):
+//    three programmatic dependent launches a pass of up to 32 rows (self
+//    mode: the last two). The GEMV route spent most of a call in fixed
+//    costs: two to four GEMV launches of ~11 us (one a group of 8 rows),
+//    the combine a launch of its own, K read 16 bytes a lane through three
+//    dependent shuffles a key, V only after the chunk's softmax, nothing
+//    overlapped. Here the cross q (LN(x), then (v s + bq) 64^-0.5 in fp32)
+//    and wo ((v s + bo) + x) are the MLP's tensor-core products, the
+//    weights streamed through the TMA ring from the cached map of the
+//    stacked (L, d, d) weight, K split six ways at large-v3 (20 x 6
+//    blocks). The attention core is a block per (KV row, head, chunk of
+//    256 keys, up to 8 query rows of the KV row) that issues its K and V
+//    chunk as 64-key TMA boxes at entry (cross mode: before the wait for q,
+//    which the cross K/V do not depend on) and takes the scores and p.v on
+//    the tensor cores (mma.sync m16n8k16, the query rows as M, 8 of 16
+//    used); the combine of a (rows, head)'s chunks runs in its last
+//    chunk's block (found by a self-resetting ticket; a single chunk is its
+//    own combine) and writes o in bf16, so wo loads o as fc2 loads g. The q
+//    product lets the core start at once, the core lets wo start, so wo
+//    streams while the attention runs.
+//  * attn_partial_kernel (fp32 fused_attn, fused_attn_beam): split-T
+//    flash-decoding. The TPU kernel's grid of B
 //    programs uses few of the 132 SMs; here one block per (row, head,
 //    256-key chunk) scores its chunk (8 lanes per key row, 16-byte loads),
 //    takes a chunk-local softmax and writes (m, l, p@v); only keys below
@@ -98,6 +120,7 @@
 // residual are added in fp32, then cast. GELU uses erff (the Pallas kernel
 // needed an erf polynomial because Mosaic has none).
 #include <mutex>
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -122,9 +145,13 @@ constexpr int KEY_LANES = 8;             // lanes per key row (8 x 8 dims)
 constexpr int KEY_STEP = ATT_THREADS / KEY_LANES;  // keys per pass of a block
 
 // launches of each kernel since the last reset, counted on the host where
-// the launch is made (gemv, attn_partial, attn_combine, mlp_fc1, mlp_fc2):
-// chip_smoke.py holds a decode step's counts to what its rows and layers imply
-enum Kernel { K_GEMV = 0, K_PARTIAL = 1, K_COMBINE = 2, K_MLP1 = 3, K_MLP2 = 4, N_KERNELS = 5 };
+// the launch is made (gemv, attn_partial, attn_combine, mlp_fc1, mlp_fc2,
+// attn_q, attn_chunk, attn_wo): chip_smoke.py holds a decode step's counts
+// to what its rows and layers imply
+enum Kernel {
+  K_GEMV = 0, K_PARTIAL = 1, K_COMBINE = 2, K_MLP1 = 3, K_MLP2 = 4,
+  K_ATTN_Q = 5, K_CHUNK = 6, K_ATTN_WO = 7, N_KERNELS = 8
+};
 long long g_launches[N_KERNELS] = {};
 
 enum Prologue { PRO_LN = 0, PRO_INPUT = 1 };
@@ -693,8 +720,8 @@ cudaError_t mlp(const void* x, const float* ln_s, const float* ln_b, const void*
 }
 
 // ---------------------------------------------------------------------------
-// fused_mlp in bf16: two products on the tensor cores, the weights streamed
-// once a pass by TMA (the header's design notes)
+// The products of a pass on the tensor cores: bf16 fused_mlp's fc1 and fc2,
+// and bf16 fused_attn's cross q and wo (the header's design notes)
 // ---------------------------------------------------------------------------
 
 constexpr int MLP_TILE = 64;                 // output columns a block: wgmma's M
@@ -702,65 +729,80 @@ constexpr int MLP_KS = 128;                  // weight rows (k) a ring stage
 constexpr int MLP_MAX_ROWS = 32;             // decode rows a pass: wgmma's N, padded to 8/16/32
 constexpr int MLP_CONSUMERS = 128;           // one warpgroup runs the products
 constexpr int MLP_THREADS = MLP_CONSUMERS + 32;   // and one warp issues the loads
-constexpr int MLP_MAX_D = 1280;              // fc1 stages x's rows whole: d <= 1280
+constexpr int MLP_MAX_D = 1280;              // fc1 and q stage x's rows whole: d <= 1280
 constexpr int LN_CH = MLP_MAX_D / 256;       // 8-element chunks of a row a lane holds
-constexpr int MLP_FIRST = 2;                 // fc1's stages issued before x's loads
+constexpr int MLP_FIRST = 2;                 // stages issued before x's loads (LN kinds)
 constexpr int MLP_COUNTERS = 1024;           // split-K tickets of one kernel (tiles <= 1024)
+constexpr int SMEM_OPTIN = 227 * 1024;       // dynamic shared memory a block may take
+
+// What a product kernel computes: out (B, N) = epilogue(act (B, K) @ W[layer] (K, N)).
+//   P_FC1  act = LN(x) rounded to bf16;  GELU(v s + b1) into g (bf16)
+//   P_FC2  act = g;                      (v s + b2) + x into out (bf16)
+//   P_Q    act = LN(x) rounded to bf16;  (v s + bq) * 64^-0.5 into q (fp32)
+//   P_WO   act = o, the attention core's output; (v s + bo) + x (fc2's)
+enum ProdKind { P_FC1 = 0, P_FC2 = 1, P_Q = 2, P_WO = 3 };
+template <int KIND>
+__host__ __device__ constexpr bool ln_kind() {
+  return KIND == P_FC1 || KIND == P_Q;
+}
 
 // The weight ring: bf16 stages land 128-byte swizzled, wgmma's MN-major A
 // as they are; int8 stages land unswizzled, 64 bytes a row, and are widened
 // (exactly) into one of WIDE swizzled bf16 tiles before the products (wgmma
 // cannot transpose int8). bf16 rings are deep enough to hold a block's whole
 // weight tile at large-v3 and up to 16 rows (fc1: 10 stages, 160 KB, fewer
-// beside 32 rows' activations; fc2: 7 stages), so that it all streams while
-// the block waits for and stages its activations.
-template <typename WT, int NP, bool FC1>
-struct MlpCfg {
+// beside 32 rows' activations; fc2: 7 stages; q and wo, d x d split six
+// ways: 3), so that it all streams while the block waits for and stages its
+// activations.
+template <typename WT, int NP, int KIND>
+struct ProdCfg {
   static constexpr int BYTES = MLP_KS * 128;
   static constexpr int FIT1 = (192 * 1024 - NP * MLP_MAX_D * 2) / BYTES;   // beside fc1's act
-  static constexpr int STAGES = FC1 ? (FIT1 < 10 ? FIT1 : 10) : 7;
+  static constexpr int STAGES = KIND == P_FC1 ? (FIT1 < 10 ? FIT1 : 10) : KIND == P_FC2 ? 7 : 3;
   static constexpr int WIDE = 0;
 };
-template <int NP, bool FC1>
-struct MlpCfg<int8_t, NP, FC1> {
+template <int NP, int KIND>
+struct ProdCfg<int8_t, NP, KIND> {
   static constexpr int BYTES = MLP_KS * 64, STAGES = 5, WIDE = 3;
 };
 // Shared memory: the ring, the widened tiles, the swizzled activations
-// (fc1: LN(x) of the whole rows; fc2: g over the block's k range), the
-// barriers and a flag.
-template <typename WT, int NP, bool FC1>
-constexpr int mlp_smem(int act_bytes) {
-  using C = MlpCfg<WT, NP, FC1>;
+// (LN kinds: LN(x) of the whole rows; fc2 and wo: g or o over the block's
+// k range), the barriers and a flag.
+template <typename WT, int NP, int KIND>
+constexpr int prod_smem(int act_bytes) {
+  using C = ProdCfg<WT, NP, KIND>;
   return 1024 + C::STAGES * C::BYTES + C::WIDE * MLP_KS * 128 + act_bytes + 16 * C::STAGES + 16;
 }
 
-// One product of a pass: out (B, N) = epilogue(act (B, K) @ W[layer] (K, N)).
-// fc1: act = LN(x) rounded to bf16, computed here from x; epilogue GELU(v s1
-// + b1) into g. fc2: act = g; epilogue (v s2 + b2) + x into out. Block
-// (tile, split) owns output columns tile*64 .. +63 and the ring steps
-// [split*steps/splits, (split+1)*steps/splits) of K.
-struct MlpArgs {
-  const __nv_bfloat16* x;       // (B, d): the rows of this pass
-  const float* ln_s;            // fc1: (d,) fp32
+// a record of the attention core's partials per (row, head, chunk): acc[64],
+// m, l and two floats of padding (16-byte rows)
+constexpr int PART = HD + 4;
+
+// One product of a pass. Block (tile, split) owns output columns tile*64 ..
+// +63 and the ring steps [split*steps/splits, (split+1)*steps/splits) of K.
+struct ProdArgs {
+  const __nv_bfloat16* x;       // LN kinds: (B, K) the rows normalised; fc2/wo: the residual (B, N)
+  const float* ln_s;            // LN kinds: (K,) fp32
   const float* ln_b;
-  const __nv_bfloat16* act;     // fc2: g (B, ff)
+  const __nv_bfloat16* act;     // fc2: g (B, K); wo: o (B, K)
   const __nv_bfloat16* bias;    // (N,)
   const float* w_scale;         // (N,) fp32 of an int8 W, else null
-  __nv_bfloat16* out;           // (B, N)
-  float* part;                  // splits > 1: (tiles, splits, NP/2, 128) fp32 partial sums
+  void* out;                    // (B, N): fp32 for q, else bf16
+  float* sums;                  // splits > 1: (tiles, splits, NP/2, 128) fp32 partial sums
   int* counters;                // splits > 1: (tiles,) tickets, 0 between calls
   int B, K, N, layer, splits, steps;
 };
 
-// Timing probe, built only with -DMLP_TRACE (tools/bench_fused_mlp.py
-// --trace): thread 0 of each block records the globaltimer at entry and exit
-// (slots 0, 1) and clock64 at entry, after griddepcontrol.wait, after the
-// prologue, after the products and at exit (slots 2, 3, 4, 5, 6).
+// Timing probe of the MLP kernels, built only with -DMLP_TRACE
+// (tools/bench_fused_mlp.py --trace): thread 0 of each block records the
+// globaltimer at entry and exit (slots 0, 1) and clock64 at entry, after
+// griddepcontrol.wait, after the prologue, after the products and at exit
+// (slots 2, 3, 4, 5, 6).
 #ifdef MLP_TRACE
 __device__ unsigned long long g_mlp_trace[2][1024][8];
 #define MLP_STAMP(i)                                                                   \
-  if (threadIdx.x == 0) {                                                              \
-    unsigned long long* tr = g_mlp_trace[FC1 ? 0 : 1][blockIdx.y * gridDim.x + blockIdx.x]; \
+  if (KIND <= P_FC2 && threadIdx.x == 0) {                                             \
+    unsigned long long* tr = g_mlp_trace[KIND & 1][blockIdx.y * gridDim.x + blockIdx.x]; \
     tr[2 + (i)] = clock64();                                                           \
     if ((i) == 0 || (i) == 4) {                                                        \
       unsigned long long gt;                                                           \
@@ -771,6 +813,29 @@ __device__ unsigned long long g_mlp_trace[2][1024][8];
 #else
 #define MLP_STAMP(i)
 #endif
+
+// Timing probe of bf16 fused_attn's kernels, built only with -DATTN_TRACE
+// (tools/bench_fused_attn.py --trace): thread 0 of each block of attn_q
+// (kind 0), attn_chunk (1) and attn_wo (2) records the globaltimer at entry
+// (slot 0), after griddepcontrol.wait (1), with its operands in shared
+// memory (2: the activations; the core's K chunk) and at exit (3).
+#ifdef ATTN_TRACE
+__device__ unsigned long long g_attn_trace[3][4096][4];
+__device__ __forceinline__ void attn_stamp(int kind, int slot) {
+  if (threadIdx.x != 0) return;
+  unsigned long long gt;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(gt));
+  const int b = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  if (b < 4096) g_attn_trace[kind][b][slot] = gt;
+}
+#define ATTN_STAMP(kind, slot) attn_stamp(kind, slot)
+#else
+#define ATTN_STAMP(kind, slot)
+#endif
+// both probes at a product kernel's points
+#define PROD_STAMP(mlp_slot, attn_slot) \
+  MLP_STAMP(mlp_slot);                   \
+  if (KIND >= P_Q) ATTN_STAMP(KIND == P_Q ? 0 : 2, attn_slot)
 
 __device__ __forceinline__ void mlp_mma(float (&d)[4], uint64_t a, uint64_t b, int acc) {
   wgmma_ss_bf16_n8<1, 0>(d, a, b, acc);
@@ -828,9 +893,10 @@ __device__ __forceinline__ uint8_t* act_chunk(uint8_t* act, int b, int kc) {
   return act + (kc >> 3) * (NP * 128) + sw128(b, (kc & 7) * 16);
 }
 
-template <typename WT, int NP, bool FC1>
-__device__ __forceinline__ void mlp_body(const CUtensorMap* wmap, const MlpArgs& a) {
-  using C = MlpCfg<WT, NP, FC1>;
+template <typename WT, int NP, int KIND>
+__device__ __forceinline__ void prod_body(const CUtensorMap* wmap, const ProdArgs& a) {
+  using C = ProdCfg<WT, NP, KIND>;
+  constexpr bool LN = ln_kind<KIND>();
   constexpr int ACC = NP / 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = align1024(smem_raw);
@@ -839,15 +905,15 @@ __device__ __forceinline__ void mlp_body(const CUtensorMap* wmap, const MlpArgs&
   const int tile = blockIdx.x, split = blockIdx.y, S = a.splits;
   const int s0 = split * a.steps / S, nst = (split + 1) * a.steps / S - s0;
   const int k0 = s0 * MLP_KS, k1 = min((s0 + nst) * MLP_KS, a.K);
-  const int kt = FC1 ? 0 : k0;   // k of the activation tiles' first column
-  // 16-byte chunks of a tile row: fc1 all of K, fc2 the block's range
-  const int R8 = (FC1 ? a.steps : nst) * MLP_KS / 8;
+  const int kt = LN ? 0 : k0;   // k of the activation tiles' first column
+  // 16-byte chunks of a tile row: LN kinds all of K, fc2 and wo the block's range
+  const int R8 = (LN ? a.steps : nst) * MLP_KS / 8;
   uint64_t* full = reinterpret_cast<uint64_t*>(act + R8 / 8 * (NP * 128));
   uint64_t* empty = full + C::STAGES;
   volatile int* last = reinterpret_cast<volatile int*>(empty + C::STAGES);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = threadIdx.x;
   const int n0 = tile * MLP_TILE;
-  MLP_STAMP(0);
+  PROD_STAMP(0, 0);
 
   if (t == 0) {
     for (int s = 0; s < C::STAGES; ++s) {
@@ -872,20 +938,25 @@ __device__ __forceinline__ void mlp_body(const CUtensorMap* wmap, const MlpArgs&
         float v = acc[r];
         if (a.w_scale != nullptr) v = __fmul_rn(v, e_scale[r]);   // the int8 scale, after the sum
         v = __fadd_rn(v, e_bias[r]);
-        if constexpr (FC1) {
-          v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+        const long long o = (long long)item_row(r) * a.N + item_col(r);
+        if constexpr (KIND == P_Q) {
+          static_cast<float*>(a.out)[o] = __fmul_rn(v, 0.125f);   // 64^-0.5
         } else {
-          v = __fadd_rn(v, e_x[r]);
+          if constexpr (KIND == P_FC1) {
+            v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+          } else {
+            v = __fadd_rn(v, e_x[r]);
+          }
+          static_cast<__nv_bfloat16*>(a.out)[o] = __float2bfloat16(v);
         }
-        a.out[(long long)item_row(r) * a.N + item_col(r)] = __float2bfloat16(v);
       }
     }
   };
   if (warp == MLP_CONSUMERS / 32) {
     // the producer: the weights depend on no kernel before this one, so
-    // they stream from the start (fc1: the first stages only, then x's
+    // they stream from the start (LN kinds: the first stages only, then x's
     // loads, which would otherwise queue behind the weights)
-    const int first = FC1 ? min(MLP_FIRST, nst) : 0;
+    const int first = LN ? min(MLP_FIRST, nst) : 0;
     if (lane == 0) {
       for (int i = 0; i < first; ++i) {
         mbar_arrive_expect_tx(&full[i], C::BYTES);
@@ -893,7 +964,7 @@ __device__ __forceinline__ void mlp_body(const CUtensorMap* wmap, const MlpArgs&
       }
     }
     __syncwarp();
-    if constexpr (FC1) named_barrier(2, MLP_THREADS);
+    if constexpr (LN) named_barrier(2, MLP_THREADS);
     if (lane == 0) {
       for (int i = first; i < nst; ++i) {
         const int s = i % C::STAGES;
@@ -907,22 +978,24 @@ __device__ __forceinline__ void mlp_body(const CUtensorMap* wmap, const MlpArgs&
     return;
   }
   {
-    if constexpr (FC1) griddep_launch();   // fc2 may start: its weight loads overlap this kernel
-    griddep_wait();              // x and g are written by the kernels before
-    MLP_STAMP(1);
+    // the next kernel may start: fc2 streams W2 while fc1 runs; the
+    // attention core loads its cross K/V while q is computed
+    if constexpr (KIND == P_FC1 || KIND == P_Q) griddep_launch();
+    griddep_wait();              // x, g and o are written by the kernels before
+    PROD_STAMP(1, 1);
     // the activations, through cp.async (the load/store unit, not the busy
-    // TMA unit): fc1 x's whole rows into the tiles, to be normalised in
-    // place; fc2 g's k range. Rows >= B and k >= K are zeros.
+    // TMA unit): LN kinds x's whole rows into the tiles, to be normalised in
+    // place; fc2 and wo g's or o's k range. Rows >= B and k >= K are zeros.
     for (int c = t; c < NP * R8; c += MLP_CONSUMERS) {
       const int b = c / R8, kc = c - b * R8, k = kt + kc * 8;
       uint8_t* dst = act_chunk<NP>(act, b, kc);
-      if (b < a.B && k < (FC1 ? a.K : k1)) {
-        cp_async16(dst, (FC1 ? a.x : a.act) + (long long)b * a.K + k);
+      if (b < a.B && k < (LN ? a.K : k1)) {
+        cp_async16(dst, (LN ? a.x : a.act) + (long long)b * a.K + k);
       } else {
         *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
       }
     }
-    if constexpr (FC1) named_barrier_arrive(2, MLP_THREADS);   // the producer may go on
+    if constexpr (LN) named_barrier_arrive(2, MLP_THREADS);   // the producer may go on
     // the epilogue's operands meanwhile
 #pragma unroll
     for (int r = 0; r < ACC; ++r) {
@@ -931,10 +1004,10 @@ __device__ __forceinline__ void mlp_body(const CUtensorMap* wmap, const MlpArgs&
         const int col = item_col(r);
         e_scale[r] = a.w_scale != nullptr ? a.w_scale[col] : 1.f;
         e_bias[r] = to_f(a.bias[col]);
-        if constexpr (!FC1) e_x[r] = to_f(a.x[(long long)item_row(r) * a.N + col]);
+        if constexpr (!LN) e_x[r] = to_f(a.x[(long long)item_row(r) * a.N + col]);
       }
     }
-    if constexpr (FC1) {   // each lane's LN scale and bias, the same for every row
+    if constexpr (LN) {   // each lane's LN scale and bias, the same for every row
       float ls[LN_CH][8], lb[LN_CH][8];
 #pragma unroll
       for (int i = 0; i < LN_CH; ++i) {
@@ -951,7 +1024,8 @@ __device__ __forceinline__ void mlp_body(const CUtensorMap* wmap, const MlpArgs&
       // sums taken in fp64 and rounded once, the likeliest bits of any fp32
       // sum), then ((x - mean) * rstd) * scale + bias, each step rounded
       // alone (no FMA). A last bit apart here flips LN(x)'s bf16 rounding
-      // now and then, and one flip moves all of fc1's outputs on its row.
+      // now and then, and one flip moves all of the product's outputs on
+      // its row.
       const float inv_k = 1.f / a.K;
       for (int b = warp; b < a.B; b += MLP_CONSUMERS / 32) {
         float v[LN_CH][8];
@@ -998,7 +1072,7 @@ __device__ __forceinline__ void mlp_body(const CUtensorMap* wmap, const MlpArgs&
     }
     fence_proxy_async();
     named_barrier(1, MLP_CONSUMERS);
-    MLP_STAMP(2);
+    PROD_STAMP(2, 2);
 
     // the products. The tensor cores add a wgmma's products to its
     // accumulator with truncation, not an fp32 add's rounding: summed there
@@ -1052,17 +1126,17 @@ __device__ __forceinline__ void mlp_body(const CUtensorMap* wmap, const MlpArgs&
       // blocks to take a ticket adds them in split order (the same bits
       // whichever block that is) and resets the ticket for the next call.
       // The ticket's release / acquire orders the sums (no fences).
-      float* own = a.part + (long long)(tile * S + split) * ACC * MLP_CONSUMERS + t;
+      float* own = a.sums + (long long)(tile * S + split) * ACC * MLP_CONSUMERS + t;
 #pragma unroll
       for (int r = 0; r < ACC; ++r) own[r * MLP_CONSUMERS] = acc[r];
       named_barrier(1, MLP_CONSUMERS);
       if (t == 0) *last = ticket(&a.counters[tile]) == S - 1;
       named_barrier(1, MLP_CONSUMERS);
       if (!*last) {
-        MLP_STAMP(4);
+        PROD_STAMP(4, 3);
         return;
       }
-      const float* all = a.part + (long long)tile * S * ACC * MLP_CONSUMERS + t;
+      const float* all = a.sums + (long long)tile * S * ACC * MLP_CONSUMERS + t;
 #pragma unroll
       for (int r = 0; r < ACC; ++r) acc[r] = 0.f;
       for (int s4 = 0; s4 < S; s4 += 4) {   // 4 splits' loads in flight at once
@@ -1082,31 +1156,396 @@ __device__ __forceinline__ void mlp_body(const CUtensorMap* wmap, const MlpArgs&
     }
     epilogue();
   }
-  MLP_STAMP(4);
+  PROD_STAMP(4, 3);
 }
 
 template <typename WT, int NP>
 __global__ void __launch_bounds__(MLP_THREADS, 1)
-mlp_fc1_kernel(const __grid_constant__ CUtensorMap wmap, const MlpArgs a) {
-  mlp_body<WT, NP, true>(&wmap, a);
+mlp_fc1_kernel(const __grid_constant__ CUtensorMap wmap, const ProdArgs a) {
+  prod_body<WT, NP, P_FC1>(&wmap, a);
 }
 
 template <typename WT, int NP>
 __global__ void __launch_bounds__(MLP_THREADS, 1)
-mlp_fc2_kernel(const __grid_constant__ CUtensorMap wmap, const MlpArgs a) {
-  mlp_body<WT, NP, false>(&wmap, a);
+mlp_fc2_kernel(const __grid_constant__ CUtensorMap wmap, const ProdArgs a) {
+  prod_body<WT, NP, P_FC2>(&wmap, a);
 }
 
-// The tensor map of a stacked (L, K, N) weight, layer as its outer
-// coordinate: boxes of KS rows x 64 columns, bf16 128-byte swizzled, int8
-// as they are. Encoded once per weight and kept (keyed by base pointer,
-// dtype and shape; the strides follow from the shape, the weight being
-// contiguous), so a decode step encodes nothing.
-cudaError_t weight_map(const void* base, bool w8, int L, int K, int N, CUtensorMap* map) {
+template <typename WT, int NP>
+__global__ void __launch_bounds__(MLP_THREADS, 1)
+attn_q_kernel(const __grid_constant__ CUtensorMap wmap, const ProdArgs a) {
+  prod_body<WT, NP, P_Q>(&wmap, a);
+}
+
+template <typename WT, int NP>
+__global__ void __launch_bounds__(MLP_THREADS, 1)
+attn_wo_kernel(const __grid_constant__ CUtensorMap wmap, const ProdArgs a) {
+  prod_body<WT, NP, P_WO>(&wmap, a);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 fused_attn's attention core: one block per (KV row, head, chunk of
+// ACH keys, up to 8 query rows of the KV row), its K and V chunk loaded
+// whole by TMA at entry, scores and p.v from shared memory on the tensor
+// cores
+// ---------------------------------------------------------------------------
+
+constexpr int ACH = 256;                     // keys a block (measured: 128 no faster)
+constexpr int CORE_THREADS = ACH;
+constexpr int CORE_WARPS = CORE_THREADS / 32;
+constexpr int KV_BOX = 64;                   // keys a TMA box
+constexpr int MAX_SPLIT = 32;                // chunks a (row, head): n_valid <= 32 ACH
+constexpr int COMB_SCRATCH = 3 * MAX_SPLIT + 2;  // a row's combine floats: (m, l), w, L
+
+// byte offset of byte `col` of row `row` in a 64-byte-swizzled tile (rows
+// of 64 bytes, as TMA's CU_TENSOR_MAP_SWIZZLE_64B lands them: 16-byte chunk
+// c of row r at c ^ ((r / 2) % 4))
+__device__ __forceinline__ uint32_t sw64(int row, int col) {
+  return row * 64 + ((((col >> 4) ^ (row >> 1)) & 3) << 4) + (col & 15);
+}
+
+// D (16 x 8, fp32) += A (16 x 16, bf16 fragments) . B (16 x 8, bf16 fragments)
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two int8 values -> a bf16 pair, exactly
+__device__ __forceinline__ uint32_t widen2(int8_t lo, int8_t hi) {
+  return bf16x2(static_cast<float>(lo), static_cast<float>(hi));
+}
+
+// S's B fragment (K^T) of key row `key`: dims c, c + 1 and c + 8, c + 9
+__device__ __forceinline__ void kfrag(const uint8_t* tile, int key, int c, uint32_t& b0,
+                                      uint32_t& b1, __nv_bfloat16) {
+  b0 = *reinterpret_cast<const uint32_t*>(tile + sw128(key, 2 * c));
+  b1 = *reinterpret_cast<const uint32_t*>(tile + sw128(key, 2 * c + 16));
+}
+__device__ __forceinline__ void kfrag(const uint8_t* tile, int key, int c, uint32_t& b0,
+                                      uint32_t& b1, int8_t) {
+  const int8_t* lo = reinterpret_cast<const int8_t*>(tile + sw64(key, c));
+  const int8_t* hi = reinterpret_cast<const int8_t*>(tile + sw64(key, c + 8));
+  b0 = widen2(lo[0], lo[1]);
+  b1 = widen2(hi[0], hi[1]);
+}
+
+// O's B fragments (V) of keys k0 .. k0 + 15 and dims d0 .. d0 + 15: b[0],
+// b[1] of dims d0 .. d0 + 7, b[2], b[3] of dims d0 + 8 .. d0 + 15. bf16:
+// ldmatrix.trans of four 8 x 8 tiles, lane i naming row i % 8 of tile i /
+// 8; int8: each value gathered and widened
+__device__ __forceinline__ void vfrag(const uint8_t* tile, int k0, int d0, int lane,
+                                      uint32_t (&b)[4], __nv_bfloat16) {
+  const int key = k0 + ((lane >> 3) & 1) * 8 + (lane & 7);
+  const uint8_t* p = tile + sw128(key, 2 * d0 + (lane >> 4) * 16);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void vfrag(const uint8_t* tile, int k0, int d0, int lane,
+                                      uint32_t (&b)[4], int8_t) {
+  const int g = lane >> 2, qd = lane & 3;
+  auto at = [&](int key, int dim) {
+    return *reinterpret_cast<const int8_t*>(tile + sw64(key, dim));
+  };
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {   // (dims, keys) halves: (0, 0), (0, 8), (8, 0), (8, 8)
+    const int key = k0 + 2 * qd + (i & 1) * 8, dim = d0 + (i >> 1) * 8 + g;
+    b[i] = widen2(at(key, dim), at(key + 1, dim));
+  }
+}
+
+// What the attention core reads. The pass's query rows r0 .. r0 + n come in
+// groups of Gp rows that share a KV row: group z holds rows r0 + z Gp ..,
+// whose KV row is (r0 + z Gp) / G (kv_group G; Gp = G, or the pass's n
+// rows of one wider group). A block serves gs = min(Gp, 8) rows of a group,
+// so a group takes n_sub = ceil(Gp / gs) blocks, the last maybe fewer rows.
+struct CoreArgs {
+  const float* q;        // (N, d) fp32, pre-scaled by 64^-0.5
+  const float* k_scale;  // int8 K/V: (N / G, d) fp32 per-(row, head) scales at the layer, else null
+  const float* v_scale;  // the same of V, else null
+  float* part;           // n_split > 1: (N, d/64, n_split, PART) partials
+  int* counters;         // n_split > 1: (blocks of rows x d/64) tickets, 0 between calls
+  __nv_bfloat16* o;      // (N, d): the attention's output, wo's input
+  int d, n_valid, n_split, r0, Gp, gs, n_sub, G;
+  int kv_row0;           // the TMA row of KV row 0 of the layer (layer x KV rows)
+  int kv_early;          // the K/V predate the kernel before: load them before its wait
+};
+
+template <typename KV, int MAXG>
+constexpr int core_smem() {
+  return 1024 + 2 * ACH * HD * (int)sizeof(KV) + MAXG * HD * 4 + MAXG * COMB_SCRATCH * 4 +
+         CORE_WARPS * MAXG * 4 + 16;
+}
+
+// Chunk-local softmax of the block's query rows (the split-T flash-decoding
+// of the header): (acc[64] = sum_t p_t v_t, m, l = sum_t p_t) over the
+// chunk's keys t < n_valid, p_t = e^(s_t - m) rounded to bf16 for p.v, l
+// summed in fp32. Thread 0 issues the chunk's K and V as 64-key TMA boxes
+// at entry (only boxes holding valid keys), K's and V's on barriers of their
+// own, so the scores start as soon as K is in and V lands meanwhile; in
+// cross mode (kv_early) before the wait for the kernel before, which writes
+// q. q is rounded to bf16 after K's scale, as the Pallas kernel's q * ksc
+// (:237-243). The warps' p.v are summed through shared memory over the K
+// tile, which is dead by then. int8 K/V widen exactly; V's scale multiplies
+// the combined accumulator. A chunk then combines into o, or writes its
+// partials and the last chunk of its (rows, head) combines them (the
+// tail).
+template <typename KV, int MAXG>
+__global__ void __launch_bounds__(CORE_THREADS)
+attn_chunk_kernel(const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap, const CoreArgs a) {
+  constexpr int RB = HD * (int)sizeof(KV);   // bytes of a key row
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align1024(smem_raw);
+  uint8_t* vs = ks + ACH * RB;
+  float* q_s = reinterpret_cast<float*>(vs + ACH * RB);   // [MAXG][64]
+  float* scr = q_s + MAXG * HD;                           // [MAXG][COMB_SCRATCH]
+  float (*red)[MAXG] = reinterpret_cast<float (*)[MAXG]>(scr + MAXG * COMB_SCRATCH);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(scr + MAXG * COMB_SCRATCH + CORE_WARPS * MAXG);
+  float* acc_s = reinterpret_cast<float*>(ks);            // [CORE_WARPS][MAXG][64], over K
+
+  const int s = blockIdx.x, h = blockIdx.y, H = gridDim.y;
+  const int grp = blockIdx.z / a.n_sub, sub = blockIdx.z % a.n_sub;
+  const int G = min(a.gs, a.Gp - sub * a.gs);            // this block's rows
+  const int r0 = a.r0 + grp * a.Gp + sub * a.gs;         // its first query row
+  const int kvr = (a.r0 + grp * a.Gp) / a.G;             // their KV row
+  const int t0 = s * ACH, nk = min(ACH, a.n_valid - t0); // valid keys of the chunk
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  ATTN_STAMP(1, 0);
+
+  if (tid == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto issue = [&]() {
+    if (tid == 0) {
+      const int boxes = (nk + KV_BOX - 1) / KV_BOX;
+      mbar_arrive_expect_tx(&bar[0], boxes * KV_BOX * RB);
+      mbar_arrive_expect_tx(&bar[1], boxes * KV_BOX * RB);
+      for (int i = 0; i < boxes; ++i)
+        tma_load_3d(ks + i * KV_BOX * RB, &kmap, &bar[0], h * HD, t0 + i * KV_BOX,
+                    a.kv_row0 + kvr);
+      for (int i = 0; i < boxes; ++i)
+        tma_load_3d(vs + i * KV_BOX * RB, &vmap, &bar[1], h * HD, t0 + i * KV_BOX,
+                    a.kv_row0 + kvr);
+    }
+  };
+  if (a.kv_early) issue();
+  griddep_launch();   // the wo kernel may start streaming wo
+  griddep_wait();     // q (and a self cache's newest key) are written by the kernels before
+  ATTN_STAMP(1, 1);
+  if (!a.kv_early) issue();
+
+  for (int i = tid; i < G * HD; i += CORE_THREADS) {
+    const int g = i / HD, c = i - g * HD;
+    float qq = __ldcg(a.q + (long long)(r0 + g) * a.d + h * HD + c);
+    if (a.k_scale != nullptr) qq *= a.k_scale[(long long)kvr * a.d + h * HD + c];
+    q_s[i] = round_t<__nv_bfloat16>(qq);
+  }
+  __syncthreads();
+
+  float* ml_s = q_s;   // (m, l) of each query row, over q once the scores are taken
+  // the scores and p.v on the tensor cores (mma.sync m16n8k16, bf16 in,
+  // fp32 out): warp w takes keys 32 w .. 32 w + 31 of the chunk. S = Q K^T
+  // with the query rows as M (8 of 16 used) and the keys as N: each thread
+  // then holds query row g = lane / 4's scores of keys 8 j + 2 (lane % 4)
+  // + {0, 1}, which rounded to bf16 are P's A fragments for O = P V, V read
+  // by ldmatrix.trans (int8: gathered and widened exactly). Each pair of
+  // k16 steps sums into a fresh accumulator, added in fp32 (the tensor
+  // cores truncate as they accumulate). A warp whose keys all lie past the
+  // valid ones computes nothing: its V rows may not have been loaded.
+  const int g = lane >> 2, qd = lane & 3, kw = warp * 32;
+  const bool live = kw < nk, mine = g < G;
+  uint32_t qa[HD / 16][4];
+#pragma unroll
+  for (int k = 0; k < HD / 16; ++k) {
+    const float* qr = q_s + g * HD + 16 * k + 2 * qd;
+    qa[k][0] = mine ? bf16x2(qr[0], qr[1]) : 0u;
+    qa[k][2] = mine ? bf16x2(qr[8], qr[9]) : 0u;
+    qa[k][1] = qa[k][3] = 0u;
+  }
+  float sc[4][2];
+  mbar_wait(&bar[0], 0);
+  ATTN_STAMP(1, 2);
+  float mx = NEG;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
+    if (live) {
+      const int key = kw + 8 * j + g;   // B's column: this lane's key
+#pragma unroll
+      for (int k = 0; k < HD / 16; ++k) {
+        uint32_t b0, b1;
+        kfrag(ks, key, 16 * k + 2 * qd, b0, b1, KV{});
+        mma_bf16_16816(k < 2 ? d0 : d1, qa[k], b0, b1);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool ok = live && kw + 8 * j + 2 * qd + e < nk;
+      sc[j][e] = ok ? d0[e] + d1[e] : NEG;
+      mx = fmaxf(mx, sc[j][e]);
+    }
+  }
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+  if (qd == 0 && g < MAXG) red[warp][g] = mx;
+  __syncthreads();
+  float m = NEG;
+  for (int w = 0; w < CORE_WARPS; ++w) m = fmaxf(m, g < MAXG ? red[w][g] : NEG);
+  __syncthreads();
+  float ls = 0.f;
+  uint32_t pa[2][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float pe[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      pe[e] = mine && sc[j][e] > NEG ? expf(sc[j][e] - m) : 0.f;
+      ls += pe[e];                          // the sum takes p in fp32 ...
+    }
+    pa[j >> 1][(j & 1) * 2] = bf16x2(pe[0], pe[1]);   // ... p.v takes it in bf16
+    pa[j >> 1][(j & 1) * 2 + 1] = 0u;
+  }
+  ls += __shfl_xor_sync(0xffffffffu, ls, 1);
+  ls += __shfl_xor_sync(0xffffffffu, ls, 2);
+  if (qd == 0 && g < MAXG) red[warp][g] = ls;
+  __syncthreads();
+  float l = 0.f;
+  for (int w = 0; w < CORE_WARPS; ++w) l += g < MAXG ? red[w][g] : 0.f;
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  mbar_wait(&bar[1], 0);
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+#pragma unroll
+      for (int n = 0; n < HD / 16; ++n) {   // two dim n-tiles a step
+        uint32_t b[4];
+        vfrag(vs, kw + 16 * k, 16 * n, lane, b, KV{});
+        mma_bf16_16816(o[2 * n], pa[k], b[0], b[1]);
+        mma_bf16_16816(o[2 * n + 1], pa[k], b[2], b[3]);
+      }
+    }
+  }
+  if (mine) {
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<float2*>(acc_s + (warp * MAXG + g) * HD + 8 * n + 2 * qd) =
+          make_float2(o[n][0], o[n][1]);
+    if (warp == 0 && qd == 0) {
+      ml_s[2 * g] = m;
+      ml_s[2 * g + 1] = l;
+    }
+  }
+  __syncthreads();
+  // o[r, h*64 + j] = A_j [x v_scale] / L cast to bf16, A and L over the
+  // chunks in attn_combine_kernel's order (the header): one chunk is its
+  // own combine (e^0 = 1); otherwise every block writes its partials and
+  // the last of a (rows, head)'s chunks to take a ticket combines them all
+  auto o_at = [&](int g, int j) { return a.o + (long long)(r0 + g) * a.d + h * HD + j; };
+  auto vs_at = [&](int j) {
+    return a.v_scale != nullptr ? a.v_scale[(long long)kvr * a.d + h * HD + j] : 1.f;
+  };
+  if (a.n_split == 1) {
+    for (int i = tid; i < G * HD; i += CORE_THREADS) {
+      const int g = i / HD, j = i - g * HD;
+      float A = 0.f;
+#pragma unroll
+      for (int w = 0; w < CORE_WARPS; ++w) A += acc_s[(w * MAXG + g) * HD + j];
+      if (a.v_scale != nullptr) A *= vs_at(j);
+      *o_at(g, j) = __float2bfloat16(A / ml_s[2 * g + 1]);
+    }
+    ATTN_STAMP(1, 3);
+    return;
+  }
+  const int ns = a.n_split;
+  auto rec = [&](int g, int c) {
+    return a.part + ((long long)((r0 + g) * H + h) * ns + c) * PART;
+  };
+  for (int i = tid; i < G * HD; i += CORE_THREADS) {
+    const int g = i / HD, j = i - g * HD;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < CORE_WARPS; ++w) sum += acc_s[(w * MAXG + g) * HD + j];
+    rec(g, s)[j] = sum;
+  }
+  if (tid < 2 * G) rec(tid / 2, s)[HD + (tid & 1)] = ml_s[tid];
+  __shared__ int last;
+  int* counter = a.counters + blockIdx.z * H + h;
+  __syncthreads();
+  if (tid == 0) last = ticket(counter) == ns - 1;
+  __syncthreads();
+  if (!last) {
+    ATTN_STAMP(1, 3);
+    return;
+  }
+  // each row's chunks' (m, l) into shared memory, then their weights
+  // w[g][c] = e^(m_c - M) and L[g]
+  float2* ml = reinterpret_cast<float2*>(scr);   // [G][ns]
+  float* Ls = scr + 2 * MAXG * MAX_SPLIT;        // [G]
+  float* wts = Ls + MAXG;                        // [G][ns]
+  for (int i = tid; i < G * ns; i += CORE_THREADS)
+    ml[i] = __ldcg(reinterpret_cast<const float2*>(rec(i / ns, i % ns) + HD));
+  __syncthreads();
+  if (tid < G) {
+    float M = NEG, L = 0.f;
+    for (int c = 0; c < ns; ++c) M = fmaxf(M, ml[tid * ns + c].x);
+    for (int c = 0; c < ns; ++c) {
+      const float2 v = ml[tid * ns + c];
+      const float wc = expf(v.x - M);
+      L += v.y * wc;
+      wts[tid * ns + c] = wc;
+    }
+    Ls[tid] = L;
+  }
+  __syncthreads();
+  for (int i = tid; i < G * HD; i += CORE_THREADS) {
+    const int g = i / HD, j = i - g * HD;
+    const float* w = wts + g * ns;
+    float A = 0.f;
+#pragma unroll
+    for (int c0 = 0; c0 < MAX_SPLIT; c0 += 8) {   // 8 chunks' loads in flight at once
+      if (c0 >= ns) break;
+      float u[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) u[c] = c0 + c < ns ? __ldcg(rec(g, c0 + c) + j) : 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        if (c0 + c < ns) A += u[c] * w[c0 + c];
+    }
+    if (a.v_scale != nullptr) A *= vs_at(j);
+    *o_at(g, j) = __float2bfloat16(A / Ls[g]);
+  }
+  if (tid == 0) *counter = 0;
+  ATTN_STAMP(1, 3);
+}
+
+// ---------------------------------------------------------------------------
+// host: tensor maps, launches
+// ---------------------------------------------------------------------------
+
+// A 3-D tensor map over a contiguous (dims[2], dims[1], dims[0]) tensor at
+// base, boxes of box0 x box1 x 1, encoded once and kept (keyed by base,
+// element size, shape and box; the strides follow from the shape), so a
+// decode step encodes nothing: the stacked (L, K, N) weights (layer as the
+// outer coordinate) and the (L, B, T, d) K/V caches (layer x B + row).
+cudaError_t cached_map(const void* base, bool one_byte, uint64_t n0, uint64_t n1, uint64_t n2,
+                       uint32_t box0, uint32_t box1, CUtensorMapSwizzle swizzle,
+                       CUtensorMap* map) {
   struct Entry {
     CUtensorMap map;
     const void* base;
-    int w8, L, K, N;
+    uint64_t n[3];
+    uint32_t box[2];
+    int one_byte, swizzle;
   };
   constexpr int SLOTS = 256;
   static Entry cache[SLOTS];
@@ -1115,32 +1554,50 @@ cudaError_t weight_map(const void* base, bool w8, int L, int K, int N, CUtensorM
   std::lock_guard<std::mutex> lock(mu);
   for (int i = 0; i < used; ++i) {
     const Entry& c = cache[i];
-    if (c.base == base && c.w8 == (int)w8 && c.L == L && c.K == K && c.N == N) {
+    if (c.base == base && c.one_byte == (int)one_byte && c.n[0] == n0 && c.n[1] == n1 &&
+        c.n[2] == n2 && c.box[0] == box0 && c.box[1] == box1 && c.swizzle == (int)swizzle) {
       *map = c.map;
       return cudaSuccess;
     }
   }
-  const uint64_t es = w8 ? 1 : 2;
-  const uint64_t dims[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)L};
-  const uint64_t strides[2] = {(uint64_t)N * es, (uint64_t)K * N * es};
-  const uint32_t box[3] = {MLP_TILE, MLP_KS, 1};
+  const uint64_t es = one_byte ? 1 : 2;
+  const uint64_t dims[3] = {n0, n1, n2};
+  const uint64_t strides[2] = {n0 * es, n1 * n0 * es};
+  const uint32_t box[3] = {box0, box1, 1};
   Entry& c = cache[next];
   const cudaError_t e = encode_tensor_map(
-      &c.map, w8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base,
-      dims, strides, box, w8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
+      &c.map, one_byte ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+      base, dims, strides, box, swizzle);
   if (e != cudaSuccess) {
     c.base = nullptr;
     return e;
   }
   c.base = base;
-  c.w8 = w8;
-  c.L = L;
-  c.K = K;
-  c.N = N;
+  c.n[0] = n0;
+  c.n[1] = n1;
+  c.n[2] = n2;
+  c.box[0] = box0;
+  c.box[1] = box1;
+  c.one_byte = one_byte;
+  c.swizzle = swizzle;
   *map = c.map;
   next = (next + 1) % SLOTS;
   used = used < SLOTS ? used + 1 : SLOTS;
   return cudaSuccess;
+}
+
+// a stacked (L, K, N) weight: boxes of KS rows x 64 columns, bf16 128-byte
+// swizzled, int8 as they are
+cudaError_t weight_map(const void* base, bool w8, int L, int K, int N, CUtensorMap* map) {
+  return cached_map(base, w8, N, K, L, MLP_TILE, MLP_KS,
+                    w8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B, map);
+}
+
+// (L x rows, T, d) K or V: boxes of 64 keys x one head, bf16 rows of 128
+// bytes swizzled 128, int8 rows of 64 bytes swizzled 64
+cudaError_t kv_map(const void* base, bool kv8, int rows, int T, int d, CUtensorMap* map) {
+  return cached_map(base, kv8, d, T, rows, HD, KV_BOX,
+                    kv8 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B, map);
 }
 
 int sm_count() {
@@ -1151,57 +1608,72 @@ int sm_count() {
   return count[dev] > 0 ? count[dev] : 132;
 }
 
-template <typename WT, int NP, bool FC1>
-cudaError_t mlp_launch(MlpArgs a, const void* w, int L, float* work, long long work_floats,
-                       cudaStream_t st) {
-  const int tiles = a.N / MLP_TILE;
-  a.steps = (a.K + MLP_KS - 1) / MLP_KS;
-  // split K so that tiles x splits blocks fill the SMs in one wave (fc1 at
-  // large-v3: 80 x 1; fc2: 20 x 6)
-  a.splits = max(1, min(a.steps, sm_count() / tiles));
-  a.part = work;
-  const int span = (a.steps + a.splits - 1) / a.splits;   // the most steps a block takes
-  const int act_bytes = (FC1 ? a.steps : span) * (MLP_KS / 64) * NP * 128;
-  if ((FC1 && a.K > MLP_MAX_D) || act_bytes > NP * MLP_MAX_D * 2 || tiles > MLP_COUNTERS ||
-      (a.splits > 1 && (long long)tiles * a.splits * (NP / 2) * MLP_CONSUMERS > work_floats))
-    return cudaErrorInvalidValue;
-  CUtensorMap map;
-  cudaError_t e = weight_map(w, sizeof(WT) == 1, L, a.K, a.N, &map);
-  if (e != cudaSuccess) return e;
-  auto kernel = FC1 ? mlp_fc1_kernel<WT, NP> : mlp_fc2_kernel<WT, NP>;
-  static bool done[64] = {};
-  constexpr int SMEM_MAX = mlp_smem<WT, NP, FC1>(NP * MLP_MAX_D * 2);
-  if ((e = allow_dynamic_smem(kernel, SMEM_MAX, done)) != cudaSuccess) return e;
+// a launch that may start before the kernel before it ends (programmatic
+// dependent launch), which it waits for with griddepcontrol.wait
+template <typename Kernel, typename... Args>
+cudaError_t launch_pdl(Kernel kernel, dim3 grid, int threads, int smem, cudaStream_t st,
+                       Args... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles, a.splits, 1);
-  cfg.blockDim = dim3(MLP_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = mlp_smem<WT, NP, FC1>(act_bytes);
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, map, a);
-  ++g_launches[FC1 ? K_MLP1 : K_MLP2];
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-template <int NP, bool FC1>
-cudaError_t mlp_launch_w(const MlpArgs& a, const void* w, int L, float* work,
-                         long long work_floats, cudaStream_t st) {
-  return a.w_scale != nullptr
-             ? mlp_launch<int8_t, NP, FC1>(a, w, L, work, work_floats, st)
-             : mlp_launch<__nv_bfloat16, NP, FC1>(a, w, L, work, work_floats, st);
+template <typename WT, int NP, int KIND>
+cudaError_t prod_launch(ProdArgs a, const void* w, int L, float* work, long long work_floats,
+                        cudaStream_t st) {
+  constexpr bool LN = ln_kind<KIND>();
+  const int tiles = a.N / MLP_TILE;
+  a.steps = (a.K + MLP_KS - 1) / MLP_KS;
+  // split K so that tiles x splits blocks fill the SMs in one wave (fc1 at
+  // large-v3: 80 x 1; fc2: 20 x 6; q and wo: 20 x 6)
+  a.splits = max(1, min(a.steps, sm_count() / tiles));
+  a.sums = work;
+  const int span = (a.steps + a.splits - 1) / a.splits;   // the most steps a block takes
+  const int act_bytes = (LN ? a.steps : span) * (MLP_KS / 64) * NP * 128;
+  const int smem = prod_smem<WT, NP, KIND>(act_bytes);
+  if ((LN && a.K > MLP_MAX_D) || act_bytes > NP * MLP_MAX_D * 2 || tiles > MLP_COUNTERS ||
+      smem > SMEM_OPTIN ||
+      (a.splits > 1 && (long long)tiles * a.splits * (NP / 2) * MLP_CONSUMERS > work_floats))
+    return cudaErrorInvalidValue;
+  CUtensorMap map;
+  cudaError_t e = weight_map(w, sizeof(WT) == 1, L, a.K, a.N, &map);
+  if (e != cudaSuccess) return e;
+  auto kernel = KIND == P_FC1   ? mlp_fc1_kernel<WT, NP>
+                : KIND == P_FC2 ? mlp_fc2_kernel<WT, NP>
+                : KIND == P_Q   ? attn_q_kernel<WT, NP>
+                                : attn_wo_kernel<WT, NP>;
+  static bool done[64] = {};
+  if ((e = allow_dynamic_smem(kernel, SMEM_OPTIN, done)) != cudaSuccess) return e;
+  e = launch_pdl(kernel, dim3(tiles, a.splits, 1), MLP_THREADS, smem, st, map, a);
+  ++g_launches[KIND == P_FC1   ? K_MLP1
+               : KIND == P_FC2 ? K_MLP2
+               : KIND == P_Q   ? K_ATTN_Q
+                               : K_ATTN_WO];
+  return e;
 }
 
-template <int NP>
-cudaError_t mlp_pass(const MlpArgs& a1, const MlpArgs& a2, const void* w1, int L1,
-                     const void* w2, int L2, float* work, long long work_floats,
-                     cudaStream_t st) {
-  const cudaError_t e = mlp_launch_w<NP, true>(a1, w1, L1, work, work_floats, st);
-  if (e != cudaSuccess) return e;
-  return mlp_launch_w<NP, false>(a2, w2, L2, work, work_floats, st);
+// one product of a pass of n rows, NP = n padded to 8, 16 or 32
+template <int KIND>
+cudaError_t prod(const ProdArgs& a, const void* w, int L, float* work, long long work_floats,
+                 cudaStream_t st) {
+  auto go = [&](auto np) {
+    constexpr int NP = decltype(np)::value;
+    return a.w_scale != nullptr
+               ? prod_launch<int8_t, NP, KIND>(a, w, L, work, work_floats, st)
+               : prod_launch<__nv_bfloat16, NP, KIND>(a, w, L, work, work_floats, st);
+  };
+  return a.B <= 8    ? go(std::integral_constant<int, 8>{})
+         : a.B <= 16 ? go(std::integral_constant<int, 16>{})
+                     : go(std::integral_constant<int, 32>{});
 }
 
 // bf16 fused_mlp: passes of up to MLP_MAX_ROWS rows, two launches each (fc1,
@@ -1216,7 +1688,7 @@ cudaError_t mlp_tc(const __nv_bfloat16* x, const float* ln_s, const float* ln_b,
     return cudaErrorInvalidValue;
   for (int r0 = 0; r0 < B; r0 += MLP_MAX_ROWS) {
     const int n = min(MLP_MAX_ROWS, B - r0);
-    MlpArgs a1{};
+    ProdArgs a1{};
     a1.x = x + (long long)r0 * d;
     a1.ln_s = ln_s;
     a1.ln_b = ln_b;
@@ -1228,9 +1700,9 @@ cudaError_t mlp_tc(const __nv_bfloat16* x, const float* ln_s, const float* ln_b,
     a1.N = ff;
     a1.layer = l1;
     a1.counters = counters;
-    MlpArgs a2{};
+    ProdArgs a2{};
     a2.x = a1.x;
-    a2.act = a1.out;
+    a2.act = g + (long long)r0 * ff;
     a2.bias = b2;
     a2.w_scale = s2;
     a2.out = out + (long long)r0 * d;
@@ -1239,11 +1711,112 @@ cudaError_t mlp_tc(const __nv_bfloat16* x, const float* ln_s, const float* ln_b,
     a2.N = d;
     a2.layer = l2;
     a2.counters = counters + MLP_COUNTERS;
-    const cudaError_t e =
-        n <= 8 ? mlp_pass<8>(a1, a2, w1, L1, w2, L2, work, work_floats, st)
-        : n <= 16 ? mlp_pass<16>(a1, a2, w1, L1, w2, L2, work, work_floats, st)
-                  : mlp_pass<32>(a1, a2, w1, L1, w2, L2, work, work_floats, st);
+    cudaError_t e = prod<P_FC1>(a1, w1, L1, work, work_floats, st);
+    if (e == cudaSuccess) e = prod<P_FC2>(a2, w2, L2, work, work_floats, st);
     if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+template <typename KV, int MAXG>
+cudaError_t core_launch(const CoreArgs& a, const CUtensorMap& km, const CUtensorMap& vm,
+                        int n_groups, cudaStream_t st) {
+  auto kernel = attn_chunk_kernel<KV, MAXG>;
+  constexpr int smem = core_smem<KV, MAXG>();
+  static bool done[64] = {};
+  cudaError_t e = allow_dynamic_smem(kernel, smem, done);
+  if (e != cudaSuccess) return e;
+  e = launch_pdl(kernel, dim3(a.n_split, a.d / HD, n_groups * a.n_sub), CORE_THREADS, smem, st,
+                 km, vm, a);
+  ++g_launches[K_CHUNK];
+  return e;
+}
+
+template <typename KV>
+cudaError_t core(const CoreArgs& a, const CUtensorMap& km, const CUtensorMap& vm, int n_groups,
+                 cudaStream_t st) {
+  return a.gs == 1   ? core_launch<KV, 1>(a, km, vm, n_groups, st)
+         : a.gs == 2 ? core_launch<KV, 2>(a, km, vm, n_groups, st)
+         : a.gs <= 4 ? core_launch<KV, 4>(a, km, vm, n_groups, st)
+                     : core_launch<KV, MAX_GROUP>(a, km, vm, n_groups, st);
+}
+
+// bf16 fused_attn: passes of up to 32 rows, each q (cross mode) -> the
+// attention core -> wo with the combine, programmatic dependent launches
+// all. A pass holds whole groups of G rows (G <= 32: 32 / G of them), or
+// 32 rows of one wider group. wq, wo: stacked (Lq, d, d) / (Lo, d, d) bases
+// read at lq / lo; k, v: stacked (Lkv, N / G, T_len, d) bases read at lkv.
+cudaError_t attn_tc(const __nv_bfloat16* x, const float* q, const float* ln_s,
+                    const float* ln_b, const void* wq, const __nv_bfloat16* bq, const float* sq,
+                    int lq, int Lq, const void* k, const void* v, const float* k_scale,
+                    const float* v_scale, int lkv, int Lkv, const void* wo,
+                    const __nv_bfloat16* bo, const float* so, int lo, int Lo, float* q_buf,
+                    float* part, __nv_bfloat16* o_buf, __nv_bfloat16* out, float* work,
+                    long long work_floats,
+                    int* counters, int N, int T_len, int d, int n_valid, int G,
+                    cudaStream_t st) {
+  const bool cross = q == nullptr;
+  const int n_split = (n_valid + ACH - 1) / ACH;
+  if (N < 1 || G < 1 || N % G != 0 || d % MLP_TILE != 0 || d > MLP_MAX_D || n_valid < 1 ||
+      n_valid > T_len || n_split > MAX_SPLIT || lkv < 0 || lkv >= Lkv || lo < 0 || lo >= Lo ||
+      (cross && (lq < 0 || lq >= Lq)))
+    return cudaErrorInvalidValue;
+  const bool kv8 = k_scale != nullptr;
+  const int kv_rows = N / G;
+  CUtensorMap km, vm;
+  cudaError_t e = kv_map(k, kv8, Lkv * kv_rows, T_len, d, &km);
+  if (e == cudaSuccess) e = kv_map(v, kv8, Lkv * kv_rows, T_len, d, &vm);
+  if (e != cudaSuccess) return e;
+  for (int r0 = 0; r0 < N;) {
+    const int n = G <= MLP_MAX_ROWS ? min(N - r0, MLP_MAX_ROWS / G * G)
+                                    : min(MLP_MAX_ROWS, G - r0 % G);
+    if (cross) {
+      ProdArgs aq{};
+      aq.x = x + (long long)r0 * d;
+      aq.ln_s = ln_s;
+      aq.ln_b = ln_b;
+      aq.bias = bq;
+      aq.w_scale = sq;
+      aq.out = q_buf + (long long)r0 * d;
+      aq.B = n;
+      aq.K = d;
+      aq.N = d;
+      aq.layer = lq;
+      aq.counters = counters + 2 * MLP_COUNTERS;
+      if ((e = prod<P_Q>(aq, wq, Lq, work, work_floats, st)) != cudaSuccess) return e;
+    }
+    CoreArgs c{};
+    c.q = cross ? q_buf : q;
+    c.k_scale = k_scale;
+    c.v_scale = v_scale;
+    c.part = part;
+    c.counters = counters + 4 * MLP_COUNTERS;
+    c.o = o_buf;
+    c.d = d;
+    c.n_valid = n_valid;
+    c.n_split = n_split;
+    c.r0 = r0;
+    c.Gp = min(G, n);
+    c.gs = min(c.Gp, MAX_GROUP);
+    c.n_sub = (c.Gp + c.gs - 1) / c.gs;
+    c.G = G;
+    c.kv_row0 = lkv * kv_rows;
+    c.kv_early = cross;
+    e = kv8 ? core<int8_t>(c, km, vm, n / c.Gp, st) : core<__nv_bfloat16>(c, km, vm, n / c.Gp, st);
+    if (e != cudaSuccess) return e;
+    ProdArgs ao{};
+    ao.x = x + (long long)r0 * d;
+    ao.act = o_buf + (long long)r0 * d;
+    ao.bias = bo;
+    ao.w_scale = so;
+    ao.out = out + (long long)r0 * d;
+    ao.B = n;
+    ao.K = d;
+    ao.N = d;
+    ao.layer = lo;
+    ao.counters = counters + 3 * MLP_COUNTERS;
+    if ((e = prod<P_WO>(ao, wo, Lo, work, work_floats, st)) != cudaSuccess) return e;
+    r0 += n;
   }
   return cudaSuccess;
 }
@@ -1253,11 +1826,12 @@ cudaError_t mlp_tc(const __nv_bfloat16* x, const float* ln_s, const float* ln_b,
 // C entries. dtype: 0 = float32, 1 = bfloat16 (activations, float weights,
 // biases and caches); LN scale/bias and q are fp32. A weight whose scale
 // pointer (sq, sk, sv, so, s1, s2: (N,) fp32) is non-null is int8. Pointers
-// are already offset to the layer; every (B, n) array is contiguous.
-// Scratch: q_buf (B, d) fp32, part (B, d/64, ceil(T/256), 66) fp32, o_buf
-// (B, d) and g_buf (B, ff) in dtype. fused_attn: N query rows over N / G
-// KV rows of T_len positions; k/v int8 when k_scale/v_scale ((N / G, d)
-// fp32) are non-null.
+// are offset to the layer, except the stacked bases the tensor-core entries
+// read at a layer index; every (B, n) array is contiguous. Scratch: q_buf
+// (B, d) fp32, part (B, d/64, ceil(T/256), 66) fp32 (the GEMV route) or (B,
+// d/64, ceil(T/64), PART) (fused_attn_tc_fwd), o_buf (B, d) and g_buf (B,
+// ff) in dtype. fused_attn: N query rows over N / G KV rows of T_len
+// positions; k/v int8 when k_scale/v_scale ((N / G, d) fp32) are non-null.
 
 extern "C" int fused_qkv_fwd(int dtype, const void* x, const float* ln_s, const float* ln_b,
                              const void* wq, const void* bq, const void* wk, const void* wv,
@@ -1272,19 +1846,40 @@ extern "C" int fused_qkv_fwd(int dtype, const void* x, const float* ln_s, const 
                                       k_out, v_out, B, d, st));
 }
 
+// fp32 fused_attn: the GEMVs, the split-T partials and their combine
 extern "C" int fused_attn_fwd(int dtype, const void* x, const float* q, const float* ln_s,
                               const float* ln_b, const void* wq, const void* bq, const void* k,
                               const void* v, const float* k_scale, const float* v_scale,
                               const void* wo, const void* bo, const float* sq, const float* so,
                               float* q_buf, float* part, void* o_buf, void* out, int N,
                               int T_len, int d, int n_valid, int G, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);   // bf16: fused_attn_tc_fwd
   const AttnArgs a = attn_args(q, k, v, k_scale, nullptr, part, T_len, d, n_valid, G, 1);
-  return static_cast<int>(
-      dtype == 0 ? attn<float>(x, ln_s, ln_b, wq, bq, sq, a, v_scale, wo, bo, so, q_buf, o_buf,
-                               out, N, st)
-                 : attn<__nv_bfloat16>(x, ln_s, ln_b, wq, bq, sq, a, v_scale, wo, bo, so, q_buf,
-                                       o_buf, out, N, st));
+  return static_cast<int>(attn<float>(x, ln_s, ln_b, wq, bq, sq, a, v_scale, wo, bo, so, q_buf,
+                                      o_buf, out, N, static_cast<cudaStream_t>(stream)));
+}
+
+// bf16 fused_attn on the tensor-core products and the chunk core: wq (Lq,
+// d, d) and wo (Lo, d, d) are stacked bases read at lq and lo, k and v
+// (Lkv, N / G, T_len, d) stacked bases read at lkv (L = 1 for one layer's);
+// the scales are offset to the layer. q given: self mode (q (N, d) fp32);
+// q null: cross mode, q computed into q_buf from LN(x); o_buf (N, d) bf16
+// takes the attention's output. work and counters are fused_mlp_fwd's
+// (counters 5 x 1024: fused_attn takes the last three).
+extern "C" int fused_attn_tc_fwd(const void* x, const float* q, const float* ln_s,
+                                 const float* ln_b, const void* wq, const void* bq,
+                                 const float* sq, int lq, int Lq, const void* k, const void* v,
+                                 const float* k_scale, const float* v_scale, int lkv, int Lkv,
+                                 const void* wo, const void* bo, const float* so, int lo, int Lo,
+                                 float* q_buf, float* part, void* o_buf, void* out, float* work,
+                                 long long work_floats, int* counters, int N, int T_len, int d,
+                                 int n_valid, int G, void* stream) {
+  using bf = __nv_bfloat16;
+  return static_cast<int>(attn_tc(
+      static_cast<const bf*>(x), q, ln_s, ln_b, wq, static_cast<const bf*>(bq), sq, lq, Lq, k,
+      v, k_scale, v_scale, lkv, Lkv, wo, static_cast<const bf*>(bo), so, lo, Lo, q_buf, part,
+      static_cast<bf*>(o_buf), static_cast<bf*>(out), work, work_floats, counters, N, T_len, d,
+      n_valid, G, static_cast<cudaStream_t>(stream)));
 }
 
 // Beam self-attention over the unpermuted cache: anc (N, T_len) int32, the
@@ -1308,8 +1903,9 @@ extern "C" int fused_attn_beam_fwd(int dtype, const void* x, const float* q, con
 // (L = 1 for one layer's), read at layers l1 and l2; every other pointer is
 // already offset to its layer. bf16 runs the tensor-core kernels, which take
 // d and ff as multiples of 64 and d <= 1280 and use work (work_floats fp32:
-// split-K partial sums) and counters (2 x 1024 int32, zero before the first
-// call; each call leaves them zero); fp32 runs the GEMVs.
+// split-K partial sums) and counters (5 x 1024 int32, zero before the first
+// call; each call leaves them zero; fused_mlp takes the first two); fp32
+// runs the GEMVs.
 extern "C" int fused_mlp_fwd(int dtype, const void* x, const float* ln_s, const float* ln_b,
                              const void* w1, const void* b1, const void* w2, const void* b2,
                              const float* s1, const float* s2, void* g_buf, void* out,
@@ -1330,8 +1926,9 @@ extern "C" int fused_mlp_fwd(int dtype, const void* x, const float* ln_s, const 
                                  work_floats, counters, B, d, ff, l1, L1, l2, L2, st));
 }
 
-// out[5] = launches of gemv_kernel, attn_partial_kernel, attn_combine_kernel,
-// mlp_fc1_kernel, mlp_fc2_kernel since the last reset
+// out[8] = launches of gemv_kernel, attn_partial_kernel, attn_combine_kernel,
+// mlp_fc1_kernel, mlp_fc2_kernel, attn_q_kernel, attn_chunk_kernel,
+// attn_wo_kernel since the last reset
 extern "C" void kernel_launches(long long* out) {
   for (int i = 0; i < N_KERNELS; ++i) out[i] = g_launches[i];
 }
@@ -1339,6 +1936,16 @@ extern "C" void kernel_launches(long long* out) {
 #ifdef MLP_TRACE
 extern "C" int mlp_trace(unsigned long long* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(out, g_mlp_trace, sizeof(g_mlp_trace)));
+}
+#endif
+
+#ifdef ATTN_TRACE
+// out: the probe's (3, 4096, 4) stamps, then zeroed for the next call
+extern "C" int attn_trace(unsigned long long* out) {
+  static unsigned long long zeros[3 * 4096 * 4] = {};
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_attn_trace, sizeof(g_attn_trace));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_attn_trace, zeros, sizeof(g_attn_trace));
+  return static_cast<int>(e);
 }
 #endif
 

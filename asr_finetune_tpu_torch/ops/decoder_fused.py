@@ -15,17 +15,18 @@ a decode step runs four wrappers, each replacing one Pallas kernel:
 
 Bound on the card: bytes. A call streams one layer's weights (and K/V rows),
 a few flops per byte; the kernels are split-K GEMVs (once per group of up
-to 8 rows), a split-T attention, and for bf16 fused_mlp two tensor-core
-products fed by TMA (once per pass of up to 32 rows), all built to stream.
-The CUDA source says how.
+to 8 rows), a split-T attention, and for bf16 fused_mlp and fused_attn
+tensor-core products fed by TMA (once per pass of up to 32 rows), all built
+to stream. The CUDA source says how.
 
 Wrappers take unstacked per-layer weights (tests) or the full stacked
 (L, ...) tensors plus `layer_idx` (the decode loop); the kernels read layer
 l through a pointer offset, never through a copied slice. For CUDA tensors
 a wrapper launches its kernel(s) or raises; CPU tensors take the plain
 PyTorch version beside it. One wrapper call may launch more than one CUDA
-kernel (fused_attn: the cross q projection, attention partials, their
-combine, the wo projection), and counts once in LAUNCHES.
+kernel (bf16 fused_attn: the cross q product, the attention core with its
+combine, the wo product; fp32: the q GEMV, the partials, their combine, the
+wo GEMV), and counts once in LAUNCHES.
 
 int8 weights (the JAX kernels' w*_scale option): any projection may be int8
 ({"w_q8", "w_scale"} of ops/quant.py) while its neighbours in the same call
@@ -60,8 +61,11 @@ CHUNK = 256       # keys per attention block (csrc CHUNK)
 _NB = 16          # output columns per GEMV block (csrc NB)
 _MLP_TILE = 64    # output columns per bf16 MLP block (csrc MLP_TILE): d, ff % 64
 _MLP_MAX_D = 1280   # x's rows staged whole (csrc MLP_MAX_D): every Whisper width
-_MLP_COUNTERS = 1024                 # split-K tickets per MLP kernel (csrc MLP_COUNTERS)
+_MLP_COUNTERS = 1024                 # split-K tickets per product kernel (csrc MLP_COUNTERS)
 _MLP_WORK_FLOATS = 1 << 20           # split-K partial sums: 512 blocks x 32 rows x 64
+_PASS_ROWS = 32                      # rows a tensor-core pass (csrc MLP_MAX_ROWS)
+_PART = HEAD_DIM + 4                 # a bf16 attention partial record (csrc PART)
+_MIN_CHUNK = 64                      # the attention core's smallest chunk (csrc KV_BOX)
 
 # wrapper launches on the card, by kernel name (chip_smoke.py reads them); a
 # launch with any int8 weight counts under the name + "_int8". Cross
@@ -73,7 +77,24 @@ LAUNCHES = {f"{k}{v}": 0 for k in ("fused_qkv", "fused_attn_self", "fused_attn_b
                                   *ATTN_CROSS, "fused_mlp") for v in ("", "_int8")}
 # the CUDA kernels the wrappers launch, as kernel_launches() counts them
 KERNELS = ("gemv_kernel", "attn_partial_kernel", "attn_combine_kernel",
-           "mlp_fc1_kernel", "mlp_fc2_kernel")
+           "mlp_fc1_kernel", "mlp_fc2_kernel", "attn_q_kernel", "attn_chunk_kernel",
+           "attn_wo_kernel")
+
+
+def attn_passes(rows: int, kv_group: int = 1) -> list:
+    """The row counts of bf16 fused_attn's passes (csrc attn_tc): whole
+    groups of kv_group rows, as many as fit in 32 rows, or 32 rows at a time
+    of a wider group. Each pass is one launch of the attention core and of
+    the wo product, and in cross mode of the q product."""
+    out, r0 = [], 0
+    while r0 < rows:
+        if kv_group <= _PASS_ROWS:
+            n = min(rows - r0, _PASS_ROWS // kv_group * kv_group)
+        else:
+            n = min(_PASS_ROWS, kv_group - r0 % kv_group)
+        out.append(n)
+        r0 += n
+    return out
 
 
 def reset_launches() -> None:
@@ -348,11 +369,19 @@ def fused_attn(x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _attn_scratch(x, T_len):
-    """(part, o_buf, out) of an attention call over a cache of T_len."""
+    """(part, o_buf, out) of a GEMV-route attention call over a cache of
+    T_len."""
     N, d = x.shape
     part = torch.empty((N, d // HEAD_DIM, -(-T_len // CHUNK), HEAD_DIM + 2),
                        dtype=torch.float32, device=x.device)
     return part, torch.empty_like(x), torch.empty_like(x)
+
+
+def _stacked(w: torch.Tensor, layer_idx, ndim: int = 2) -> Tuple[int, int]:
+    """(layer, L) of an operand the kernel reads at `layer` of its stacked
+    base: a stacked (L, ...) one at layer_idx, or one layer's (rank `ndim`)
+    as (0, 1)."""
+    return (layer_idx, w.shape[0]) if w.dim() == ndim + 1 else (0, 1)
 
 
 def _fused_attn_cuda(x, k, v, wo, bo, q, n_valid, ln_scale, ln_bias, wq, bq,
@@ -365,7 +394,9 @@ def _fused_attn_cuda(x, k, v, wo, bo, q, n_valid, ln_scale, ln_bias, wq, bq,
     B = N // G
     if not 1 <= n_valid <= T_len:
         raise ValueError(f"fused_attn: {n_valid} valid keys for a cache of {T_len}")
-    part, o_buf, out = _attn_scratch(x, T_len)
+    if T == torch.bfloat16 and d > _MLP_MAX_D:
+        raise ValueError(f"fused_attn: d={d} above {_MLP_MAX_D}: the tensor-core q "
+                         "product stages x's rows whole in shared memory")
     if self_mode:
         if q.shape != (N, d) or q.dtype != f32 or not q.is_contiguous():
             raise ValueError("fused_attn: q must be a contiguous (N, d) fp32 tensor")
@@ -382,21 +413,35 @@ def _fused_attn_cuda(x, k, v, wo, bo, q, n_valid, ln_scale, ln_bias, wq, bq,
     ks_p = None if k_scale is None else ptr(k_scale, 2, f32, (B, d))
     vs_p = None if v_scale is None else ptr(v_scale, 2, f32, (B, d))
     wo_p, so_p = _weight(ptr, wo, wo_scale, T, (d, d))
+    k_p = ptr(k, 3, kv_dtype, (B, T_len, d))
+    v_p = ptr(v, 3, kv_dtype, (B, T_len, d))
+    q_buf_p = None if q_buf is None else q_buf.data_ptr()
+    out = torch.empty_like(x)
     lib = _lib()
-    err = lib.fused_attn_fwd(
-        _build.dtype_code(x), x.data_ptr(), q_ptr, ln_s, ln_b, wq_p, bq_p,
-        ptr(k, 3, kv_dtype, (B, T_len, d)),
-        ptr(v, 3, kv_dtype, (B, T_len, d)), ks_p, vs_p,
-        wo_p, ptr(bo, 1, T, (d,)), sq_p, so_p,
-        None if q_buf is None else q_buf.data_ptr(), part.data_ptr(),
-        o_buf.data_ptr(), out.data_ptr(), N, T_len, d, n_valid, G,
-        _build.stream_ptr(x))
-    _build.check(lib, err, "fused_attn")
-    if self_mode:
-        name = "fused_attn_self"
+    if T == torch.bfloat16:
+        # the tensor-core route reads the stacked bases at the layer
+        part = torch.empty((N, d // HEAD_DIM, -(-T_len // _MIN_CHUNK), _PART),
+                           dtype=f32, device=x.device)
+        o_buf = torch.empty_like(x)
+        lo, n_o = _stacked(wo, layer_idx)
+        lq, n_q = (0, 1) if self_mode else _stacked(wq, layer_idx)
+        lkv, n_kv = _stacked(k, layer_idx, 3)
+        work, counters = _workspace(x.device)
+        err = lib.fused_attn_tc_fwd(
+            x.data_ptr(), q_ptr, ln_s, ln_b, None if self_mode else wq.data_ptr(), bq_p,
+            sq_p, lq, n_q, k.data_ptr(), v.data_ptr(), ks_p, vs_p, lkv, n_kv,
+            wo.data_ptr(), ptr(bo, 1, T, (d,)), so_p, lo, n_o, q_buf_p, part.data_ptr(),
+            o_buf.data_ptr(), out.data_ptr(), work.data_ptr(), work.numel(),
+            counters.data_ptr(), N, T_len, d, n_valid, G, _build.stream_ptr(x))
     else:
-        name = ATTN_CROSS[(G > 1) + 2 * (k_scale is not None)]
-    _count(name, sq_p, so_p)
+        part, o_buf, _ = _attn_scratch(x, T_len)
+        err = lib.fused_attn_fwd(
+            _build.dtype_code(x), x.data_ptr(), q_ptr, ln_s, ln_b, wq_p, bq_p, k_p, v_p,
+            ks_p, vs_p, wo_p, ptr(bo, 1, T, (d,)), sq_p, so_p, q_buf_p, part.data_ptr(),
+            o_buf.data_ptr(), out.data_ptr(), N, T_len, d, n_valid, G, _build.stream_ptr(x))
+    _build.check(lib, err, "fused_attn")
+    _count("fused_attn_self" if self_mode else ATTN_CROSS[(G > 1) + 2 * (k_scale is not None)],
+           sq_p, so_p)
     return out
 
 
@@ -466,25 +511,20 @@ def fused_mlp(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
                            w1_scale, w2_scale)
 
 
-def _stacked(w: torch.Tensor, layer_idx) -> Tuple[int, int]:
-    """(layer, L) of a weight the kernel reads at `layer` of its (L, K, N)
-    base: a stacked weight at layer_idx, or one layer's as (0, 1)."""
-    return (layer_idx, w.shape[0]) if w.dim() == 3 else (0, 1)
+_WORK = {}
 
 
-_MLP_WORK = {}
-
-
-def _mlp_workspace(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The bf16 MLP kernels' split-K partial sums and ticket counters on
-    `device`, made once: the counters start at 0 and every call leaves them
-    so (the last block of a tile resets its ticket), and a call touches
-    either only after the kernels before it have finished."""
-    ws = _MLP_WORK.get(device)
+def _workspace(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core kernels' split-K partial sums and ticket counters on
+    `device` (fc1, fc2, q, wo, the attention core: 1024 tickets each), made
+    once: the counters start at 0 and every call leaves them so (the last
+    block of a tile, or of a row's chunks, resets its ticket), and a call
+    touches either only after the kernels before it have finished."""
+    ws = _WORK.get(device)
     if ws is None:
         ws = (torch.empty(_MLP_WORK_FLOATS, dtype=torch.float32, device=device),
-              torch.zeros(2 * _MLP_COUNTERS, dtype=torch.int32, device=device))
-        _MLP_WORK[device] = ws
+              torch.zeros(5 * _MLP_COUNTERS, dtype=torch.int32, device=device))
+        _WORK[device] = ws
     return ws
 
 
@@ -507,7 +547,7 @@ def _fused_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, layer_idx, w1_scale,
     _, s1_p = _weight(ptr, w1, w1_scale, T, (d, ff))   # checks, layer offsets
     _, s2_p = _weight(ptr, w2, w2_scale, T, (ff, d))
     (l1, n1), (l2, n2) = _stacked(w1, layer_idx), _stacked(w2, layer_idx)
-    work, counters = _mlp_workspace(x.device)
+    work, counters = _workspace(x.device)
     lib = _lib()
     err = lib.fused_mlp_fwd(
         _build.dtype_code(x), x.data_ptr(),
@@ -524,8 +564,10 @@ def _fused_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, layer_idx, w1_scale,
 def kernel_launches() -> dict:
     """Launches of each CUDA kernel of csrc/decoder_fused.cu since
     reset_kernel_launches(), counted by the library where it launches them:
-    a wrapper call may launch several (fused_attn: the cross q GEMV, the
-    partials, the combine, the wo GEMV; a GEMV once per group of 8 rows;
+    a wrapper call may launch several (bf16 fused_attn: attn_q_kernel in
+    cross mode, attn_chunk_kernel and attn_wo_kernel once per pass of
+    attn_passes; fp32 fused_attn and fused_attn_beam: the cross q GEMV, the
+    partials, the combine, the wo GEMV, a GEMV once per group of 8 rows;
     bf16 fused_mlp: mlp_fc1_kernel and mlp_fc2_kernel once per pass of up
     to 32 rows)."""
     counts = (ctypes.c_longlong * len(KERNELS))()
@@ -547,11 +589,14 @@ def _lib() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.fused_qkv_fwd.argtypes = [I] + [P] * 14 + [I, I, P]
         lib.fused_attn_fwd.argtypes = [I] + [P] * 18 + [I] * 5 + [P]
+        lib.fused_attn_tc_fwd.argtypes = ([P] * 7 + [I, I] + [P] * 4 + [I, I] + [P] * 3
+                                          + [I, I] + [P] * 5 + [ctypes.c_longlong, P]
+                                          + [I] * 5 + [P])
         lib.fused_attn_beam_fwd.argtypes = [I] + [P] * 11 + [I] * 5 + [P]
         lib.fused_mlp_fwd.argtypes = ([I] + [P] * 12 + [ctypes.c_longlong, P]
                                       + [I] * 7 + [P])
-        for fn in (lib.fused_qkv_fwd, lib.fused_attn_fwd, lib.fused_attn_beam_fwd,
-                   lib.fused_mlp_fwd):
+        for fn in (lib.fused_qkv_fwd, lib.fused_attn_fwd, lib.fused_attn_tc_fwd,
+                   lib.fused_attn_beam_fwd, lib.fused_mlp_fwd):
             fn.restype = I
         lib.kernel_launches.argtypes, lib.kernel_launches.restype = [P], None
         lib.reset_kernel_launches.argtypes, lib.reset_kernel_launches.restype = [], None

@@ -8,8 +8,9 @@
 3. holds every kernel against its plain PyTorch version at whisper-large-v3
    shapes (B=4, and the decoder kernels also at 12 rows, fused_mlp at 16) in
    bf16 and fp32, within the limits stated at F32_LIMITS, the bf16 fused_mlp
-   also to bit equality between two calls, and times kernel, plain version and, for
-   the encoder attention, F.scaled_dot_product_attention as a yardstick (the
+   and fused_attn also to bit equality between two calls, and times kernel,
+   plain version and, for the encoder attention,
+   F.scaled_dot_product_attention as a yardstick (the
    port never calls it): the decoder kernels over float, mixed int8/float
    and all-int8 weights; the encoder-attention forward and its backward at
    the encoder's self-attention and the teacher-forced cross-attention shapes,
@@ -505,12 +506,12 @@ def check_decoder_kernels(rows):
     and at the main path's cache 128, pos 63; the cross-attention at S 1536,
     s_valid 1500. At 12 rows (the GEMVs run them as a group of 8 and one of
     4) with one layer's weights unstacked. fused_mlp also at the beam path's
-    16 rows; in bf16 (the tensor-core kernels) two calls must give the same
-    bits. In bf16 the main path's shapes (B=4, and fused_mlp at 16 rows:
-    "fused_mlp_r16", "fused_mlp_int8_r16") are timed with the calls cycling
-    through the 32 layers, against a bound that counts each operand read and
-    each output written once: float weights give the "fused_*" rows, mixed
-    the "fused_*_int8" rows.
+    16 rows; in bf16 (the tensor-core kernels) two calls of fused_mlp or
+    fused_attn must give the same bits. In bf16 the main path's shapes (B=4,
+    and fused_mlp at 16 rows: "fused_mlp_r16", "fused_mlp_int8_r16") are
+    timed with the calls cycling through the 32 layers, against a bound that
+    counts each operand read and each output written once: float weights
+    give the "fused_*" rows, mixed the "fused_*_int8" rows.
     The beam path's calls (beam_calls) at 4 utterances x 4 beams: the beam
     self-attention through a random ancestry map, the cross-attention with
     kv_group 4, with int8 K/V at 4 rows (G = 1) and at 16 (G = 4), each
@@ -565,7 +566,7 @@ def check_decoder_kernels(rows):
                 for name, (fn, plain, reads, flops) in calls.items():
                     out = fn(L - 1)
                     err = compare(name + sfx, out, plain(), dn)
-                    if name == "fused_mlp" and dt is torch.bfloat16:
+                    if name != "fused_qkv" and dt is torch.bfloat16:
                         same_bits(name + sfx, out, fn(L - 1))
                     if dt is torch.bfloat16 and n_rows == B and kind != "all-int8":
                         it = iter(range(10 ** 9))
@@ -591,6 +592,8 @@ def check_decoder_kernels(rows):
             for name, (fn, plain, reads, flops, extra_bytes) in calls.items():
                 out = fn(L - 1)
                 err = compare(name + sfx, out, plain(), dn)
+                if name != "fused_attn_beam" and dt is torch.bfloat16:
+                    same_bits(name + sfx, out, fn(L - 1))
                 if dt is torch.bfloat16 and kind != "all-int8":
                     it = iter(range(10 ** 9))
                     time_row(rows, name + sfx, err, lambda: fn(next(it) % L), plain,
@@ -1700,8 +1703,9 @@ def kernel_category(name: str) -> str:
         return ATTN_FWD
     if "w8a8" in low or "quantize_rows" in low:
         return W8A8
-    if any(s in low for s in ("gemv_kernel", "attn_partial", "attn_combine", "mlp_fc")):
-        return "decoder kernels (gemv, attn_partial, attn_combine, mlp_fc1/fc2)"
+    if any(s in low for s in ("gemv_kernel", "attn_partial", "attn_combine", "mlp_fc",
+                              "attn_q_kernel", "attn_chunk", "attn_wo")):
+        return "decoder kernels (gemv, attn_partial/combine, mlp_fc1/fc2, attn_q/chunk/wo)"
     if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")):
         return "matrix products (cuBLAS)"
     if "multi_tensor" in low or "foreach" in low:
@@ -2121,17 +2125,24 @@ def step_breakdown():
             print(f"  {t / 4e3:8.3f} ms  {c // 4:5d} launches  {key[:90]}")
         # CUDA launches per step, as the library counts them where it
         # launches (the profiler drops kernel records at this rate): per
-        # layer the qkv, cross q and two wo GEMVs, one launch per group of at
-        # most 8 rows, a partial and a combine per attention, and the MLP's
-        # fc1 and fc2 kernels once per pass of up to 32 rows
+        # layer the qkv GEMV, one launch per group of at most 8 rows; the
+        # cross-attention's q product, attention core (with its combine) and
+        # wo once per pass of attn_passes, and so the self-attention's core
+        # and wo, or the beam self-attention's partial, combine and wo GEMV;
+        # the MLP's fc1 and fc2 kernels once per pass of up to 32 rows
         DF.reset_kernel_launches()
         for _ in range(4):
             step()
         torch.cuda.synchronize()
         per_step = {k: v / 4 for k, v in DF.kernel_launches().items()}
-        want = {"gemv_kernel": 4 * -(-n // 8) * L, "attn_partial_kernel": 2 * L,
-                "attn_combine_kernel": 2 * L, "mlp_fc1_kernel": -(-n // 32) * L,
-                "mlp_fc2_kernel": -(-n // 32) * L}
+        cross_p, self_p = len(DF.attn_passes(n, group)), len(DF.attn_passes(n))
+        beam = ancestry is not None
+        want = {"gemv_kernel": (2 if beam else 1) * -(-n // 8) * L,
+                "attn_partial_kernel": L if beam else 0, "attn_combine_kernel": L if beam else 0,
+                "mlp_fc1_kernel": -(-n // 32) * L, "mlp_fc2_kernel": -(-n // 32) * L,
+                "attn_q_kernel": cross_p * L,
+                "attn_chunk_kernel": (cross_p + (0 if beam else self_p)) * L,
+                "attn_wo_kernel": (cross_p + (0 if beam else self_p)) * L}
         print(f"decode step {name}: CUDA kernel launches per step {per_step}")
         if per_step != want:
             raise AssertionError(f"decode step {name}: kernel launches {per_step} != {want}")

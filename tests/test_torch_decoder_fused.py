@@ -132,6 +132,77 @@ def test_fused_mlp_rows(rows, weights):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
+def _int8_weight(w):
+    """The same numpy int8 weight and (..., 1, N) fp32 scale for both sides."""
+    q = TQ.quantize_weight(torch.from_numpy(w))
+    return q[TQ.QUANT_KEY].numpy(), q[TQ.SCALE_KEY].numpy()
+
+
+@pytest.mark.parametrize("kv8", [False, True])
+@pytest.mark.parametrize("weights", ["float", "int8"])
+@pytest.mark.parametrize("rows,G", [(1, 1), (16, 1), (33, 1), (16, 4), (24, 8)])
+def test_fused_attn_rows(rows, G, weights, kv8):
+    """Cross-attention at the row counts the card's tensor-core passes split
+    on (1 and 16 rows in one pass, 33 in two; 16 rows at kv_group 4 and 24
+    at kv_group 8, the JAX kernel's bound), stacked operands at layer 1,
+    float or int8 wq and wo, float or int8 K/V with per-(row, head) scales
+    (the same numpy arrays on both sides)."""
+    rng = np.random.default_rng(10 * rows + G)
+    Bk, s_valid = rows // G, 300
+    x = _rand(rng, rows, D, scale=1.0)
+    lns = _layered(rng, True, D, scale=0.1, offset=1.0)
+    lnb = _layered(rng, True, D, scale=0.1)
+    wq, bq = _layered(rng, True, D, D, scale=D ** -0.5), _layered(rng, True, D)
+    wo, bo = _layered(rng, True, D, D, scale=D ** -0.5), _layered(rng, True, D)
+    extra = {}
+    if weights == "int8":
+        (wq, extra["wq_scale"]), (wo, extra["wo_scale"]) = _int8_weight(wq), _int8_weight(wo)
+    if kv8:
+        k, v = (rng.integers(-127, 128, (L, Bk, S, D)).astype(np.int8) for _ in range(2))
+        for name in ("k_scale", "v_scale"):
+            extra[name] = np.repeat(np.exp(_rand(rng, L, Bk, D // 64)) / 127, 64,
+                                    axis=-1).astype(np.float32)
+    else:
+        k, v = _layered(rng, True, Bk, S, D), _layered(rng, True, Bk, S, D)
+    args = (x, k, v, wo, bo)
+    kw = dict(ln_scale=lns, ln_bias=lnb, wq=wq, bq=bq, **extra)
+    ref = JDF.fused_attn(*map(_j, args), s_valid=s_valid, layer_idx=1, kv_group=G,
+                         **{n: _j(a) for n, a in kw.items()})
+    out = TDF.fused_attn(*map(_t, args), s_valid=s_valid, layer_idx=1, kv_group=G,
+                         **{n: _t(a) for n, a in kw.items()})
+    assert out.shape == (rows, D)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("weights", ["float", "int8"])
+@pytest.mark.parametrize("rows", [1, 16, 33])
+def test_fused_attn_self_rows(rows, weights):
+    """Self-attention at the row counts of the card's passes, pos 200 of a
+    256 cache, stacked at layer 2, float or int8 wo."""
+    rng = np.random.default_rng(rows)
+    x, q = _rand(rng, rows, D), _rand(rng, rows, D)
+    k, v = _layered(rng, True, rows, T, D), _layered(rng, True, rows, T, D)
+    wo, bo = _layered(rng, True, D, D, scale=D ** -0.5), _layered(rng, True, D)
+    extra = {}
+    if weights == "int8":
+        wo, extra["wo_scale"] = _int8_weight(wo)
+    args = (x, k, v, wo, bo)
+    ref = JDF.fused_attn(*map(_j, args), q=_j(q), pos=jnp.int32(200), layer_idx=2,
+                         **{n: _j(a) for n, a in extra.items()})
+    out = TDF.fused_attn(*map(_t, args), q=_t(q), pos=200, layer_idx=2,
+                         **{n: _t(a) for n, a in extra.items()})
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("rows,G,passes", [
+    (1, 1, [1]), (16, 1, [16]), (32, 1, [32]), (33, 1, [32, 1]), (40, 1, [32, 8]),
+    (16, 4, [16]), (24, 8, [24]), (40, 10, [30, 10]), (80, 40, [32, 8, 32, 8])])
+def test_attn_passes(rows, G, passes):
+    """bf16 fused_attn's passes on the card: whole groups of kv_group rows
+    up to 32 rows, or 32 rows at a time of a wider group."""
+    assert TDF.attn_passes(rows, G) == passes
+
+
 def test_pending_options_raise():
     """fused_attn's int8 KV (k_scale/v_scale) and shared beam cross-KV
     (kv_group) are ported (tests/test_torch_beam.py); what raises is a

@@ -22,7 +22,11 @@ plain version, pure and with the outlier keep-mask and addend, at ragged m,
 K and N, on both tiles; it reads its weight from the K-major copy and raises
 without one. The beam self-attention kernel runs at 2, 3, 8 and 10 beams
 over a random ancestry map, the cross-attention's kv_group at 1, 3, 4, 8 and
-10 with float and int8 K/V. The encoder-attention kernels also run on the
+10 with float and int8 K/V. The bf16 fused_attn (tensor-core q and wo, the
+attention core) runs at 1 to 40 rows (passes of up to 32), kv_group 1, 4, 8
+and 10 over float, mixed and int8 weights and K/V, self at pos 0 to T-1 and
+cross at s_valid 1 to 1500 over S 1536, two calls bit-equal, its launches
+counted per pass. The encoder-attention kernels also run on the
 (BH, T, hd) and fused-qkv layouts, and the log-mel kernel (fp32) at 80 and
 128 mel bins."""
 import numpy as np
@@ -147,11 +151,16 @@ def test_fused_attn_group_and_int8_kv_match_plain(dev, dtype, kv8, G):
     DF.reset_kernel_launches()
     out = DF.fused_attn(x, kx, vx, wo, bo, s_valid=300, ln_scale=lns, ln_bias=lnb,
                         wq=wq, bq=bq, k_scale=ks, v_scale=vs, layer_idx=li, kv_group=G)
-    # the q and wo GEMVs once per group of 8 rows, one partial, one combine
-    groups = -(-Bk * G // 8)
-    assert DF.kernel_launches() == {"gemv_kernel": 2 * groups, "attn_partial_kernel": 1,
-                                    "attn_combine_kernel": 1, "mlp_fc1_kernel": 0,
-                                    "mlp_fc2_kernel": 0}
+    if dtype == torch.float32:
+        # the q and wo GEMVs once per group of 8 rows, one partial, one combine
+        want = {"gemv_kernel": 2 * -(-Bk * G // 8), "attn_partial_kernel": 1,
+                "attn_combine_kernel": 1}
+    else:
+        # the q product, the attention core and wo once per pass of <= 32 rows
+        passes = len(DF.attn_passes(Bk * G, G))
+        want = {"attn_q_kernel": passes, "attn_chunk_kernel": passes,
+                "attn_wo_kernel": passes}
+    assert DF.kernel_launches() == {**dict.fromkeys(DF.KERNELS, 0), **want}
     ref = DF.fused_attn_plain(x, kx[li], vx[li], wo[li], bo[li], n_valid=300,
                               ln_scale=lns[li], ln_bias=lnb[li], wq=wq[li], bq=bq[li],
                               k_scale=None if ks is None else ks[li],
@@ -159,6 +168,146 @@ def test_fused_attn_group_and_int8_kv_match_plain(dev, dtype, kv8, G):
     _close(out, ref, dtype)
     name = DF.ATTN_CROSS[(G > 1) + 2 * kv8]
     assert DF.LAUNCHES[name] == 1 and sum(DF.LAUNCHES.values()) == 1
+
+
+def _attn_weights(g, dev, weights):
+    """Stacked (L, D, D) wq and wo with their int8 scales (None for a float
+    one): "float", "mixed" (a merged-LoRA base: q float, o int8) or "int8"."""
+    out = []
+    for name in ("q", "o"):
+        w = _rn(g, dev, L, D, D, scale=D ** -0.5)
+        int8 = weights == "int8" or (weights == "mixed" and name == "o")
+        out.append(_int8(w) if int8 else (w.bfloat16(), None))
+    return out
+
+
+def _at_layer(t, li):
+    return None if t is None else t[li]
+
+
+def _check_tc_attn(call, plain, passes, kernels, launches_per_pass):
+    """One bf16 fused_attn call on the tensor-core route: held against its
+    plain version, bit-equal to a second call, and `launches_per_pass` of
+    `kernels` each pass, nothing else launched."""
+    DF.reset_kernel_launches()
+    out = call()
+    assert DF.kernel_launches() == {**dict.fromkeys(DF.KERNELS, 0),
+                                    **dict.fromkeys(kernels, passes)}
+    assert len(kernels) == launches_per_pass
+    _close(out, plain(), torch.bfloat16)
+    assert torch.equal(out, call())
+
+
+@pytest.mark.parametrize("weights", ["float", "mixed", "int8"])
+@pytest.mark.parametrize("B", [1, 4, 8, 9, 16, 32, 33, 40])
+def test_fused_attn_tc_matches_plain(dev, B, weights):
+    """bf16 fused_attn on the tensor cores at 1 to 40 rows (33 and 40: two
+    passes of up to 32), wq/wo float, mixed or int8, stacked at layer 2 of
+    3: self-attention at pos 0, 127, 200 and T-1 (2 launches a pass: the
+    core, wo with the combine) and cross-attention over S 384, s_valid 300
+    (3: q, the core, wo); two calls bit-equal, no GEMV, no combine."""
+    g = torch.Generator(device=dev).manual_seed(100 + B)
+    bf, li = torch.bfloat16, 2
+    x = _rn(g, dev, B, D, dtype=bf)
+    lns, lnb = 1 + _rn(g, dev, L, D, scale=0.1), _rn(g, dev, L, D, scale=0.1)
+    (wq, sq), (wo, so) = _attn_weights(g, dev, weights)
+    bq, bo = (_rn(g, dev, L, D, scale=0.1, dtype=bf) for _ in range(2))
+    passes = len(DF.attn_passes(B))
+    q = _rn(g, dev, B, D, scale=0.125)
+    k, v = _rn(g, dev, L, B, T, D, dtype=bf), _rn(g, dev, L, B, T, D, dtype=bf)
+    for pos in (0, 127, 200, T - 1):
+        _check_tc_attn(
+            lambda: DF.fused_attn(x, k, v, wo, bo, q=q, pos=pos, wo_scale=so, layer_idx=li),
+            lambda: DF.fused_attn_plain(x, k[li], v[li], wo[li], bo[li], q=q, n_valid=pos + 1,
+                                        wo_scale=_at_layer(so, li)),
+            passes, ("attn_chunk_kernel", "attn_wo_kernel"), 2)
+    kx, vx = _rn(g, dev, L, B, S, D, dtype=bf), _rn(g, dev, L, B, S, D, dtype=bf)
+    _check_tc_attn(
+        lambda: DF.fused_attn(x, kx, vx, wo, bo, s_valid=300, ln_scale=lns, ln_bias=lnb,
+                              wq=wq, bq=bq, wq_scale=sq, wo_scale=so, layer_idx=li),
+        lambda: DF.fused_attn_plain(x, kx[li], vx[li], wo[li], bo[li], n_valid=300,
+                                    ln_scale=lns[li], ln_bias=lnb[li], wq=wq[li], bq=bq[li],
+                                    wq_scale=_at_layer(sq, li), wo_scale=_at_layer(so, li)),
+        passes, ("attn_q_kernel", "attn_chunk_kernel", "attn_wo_kernel"), 3)
+
+
+@pytest.mark.parametrize("weights", ["float", "mixed", "int8"])
+@pytest.mark.parametrize("kv8", [False, True])
+@pytest.mark.parametrize("G", [1, 4, 8, 10])
+def test_fused_attn_tc_groups_match_plain(dev, G, kv8, weights):
+    """bf16 cross-attention of 4·G rows over 4 KV rows (kv_group G; G = 10:
+    passes of 30 and 10 rows), float or int8 K/V with per-(row, head)
+    scales, every kind of wq/wo, S 384, s_valid 300, stacked (layer 1)."""
+    g = torch.Generator(device=dev).manual_seed(200 + G)
+    bf, Bk, li = torch.bfloat16, 4, 1
+    x = _rn(g, dev, Bk * G, D, dtype=bf)
+    lns, lnb = 1 + _rn(g, dev, L, D, scale=0.1), _rn(g, dev, L, D, scale=0.1)
+    (wq, sq), (wo, so) = _attn_weights(g, dev, weights)
+    bq, bo = (_rn(g, dev, L, D, scale=0.1, dtype=bf) for _ in range(2))
+    if kv8:
+        kx, vx = (torch.randint(-127, 128, (L, Bk, S, D), generator=g, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.exp(_rn(g, dev, L, Bk, D // 64)).repeat_interleave(64, -1) / 127
+                  for _ in range(2))
+    else:
+        kx, vx = (_rn(g, dev, L, Bk, S, D, dtype=bf) for _ in range(2))
+        ks = vs = None
+    _check_tc_attn(
+        lambda: DF.fused_attn(x, kx, vx, wo, bo, s_valid=300, ln_scale=lns, ln_bias=lnb,
+                              wq=wq, bq=bq, k_scale=ks, v_scale=vs, wq_scale=sq, wo_scale=so,
+                              layer_idx=li, kv_group=G),
+        lambda: DF.fused_attn_plain(x, kx[li], vx[li], wo[li], bo[li], n_valid=300,
+                                    ln_scale=lns[li], ln_bias=lnb[li], wq=wq[li], bq=bq[li],
+                                    wq_scale=_at_layer(sq, li), wo_scale=_at_layer(so, li),
+                                    k_scale=_at_layer(ks, li), v_scale=_at_layer(vs, li),
+                                    kv_group=G),
+        len(DF.attn_passes(Bk * G, G)), ("attn_q_kernel", "attn_chunk_kernel", "attn_wo_kernel"),
+        3)
+
+
+@pytest.mark.parametrize("kv8", [False, True])
+@pytest.mark.parametrize("s_valid", [1, 255, 256, 257, 1500])
+def test_fused_attn_tc_cross_lengths(dev, s_valid, kv8):
+    """bf16 cross-attention over the decoder's padded source, S 1536, at
+    valid lengths on and around a chunk's edge, float or int8 K/V, 4 rows."""
+    g = torch.Generator(device=dev).manual_seed(s_valid)
+    bf, B, Sp = torch.bfloat16, 4, 1536
+    x = _rn(g, dev, B, D, dtype=bf)
+    lns, lnb = 1 + _rn(g, dev, D, scale=0.1), _rn(g, dev, D, scale=0.1)
+    (wq, _), (wo, _) = _attn_weights(g, dev, "float")
+    wq, wo = wq[0], wo[0]
+    bq, bo = (_rn(g, dev, D, scale=0.1, dtype=bf) for _ in range(2))
+    if kv8:
+        kx, vx = (torch.randint(-127, 128, (B, Sp, D), generator=g, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.exp(_rn(g, dev, B, D // 64)).repeat_interleave(64, -1) / 127
+                  for _ in range(2))
+    else:
+        kx, vx = (_rn(g, dev, B, Sp, D, dtype=bf) for _ in range(2))
+        ks = vs = None
+    _check_tc_attn(
+        lambda: DF.fused_attn(x, kx, vx, wo, bo, s_valid=s_valid, ln_scale=lns, ln_bias=lnb,
+                              wq=wq, bq=bq, k_scale=ks, v_scale=vs),
+        lambda: DF.fused_attn_plain(x, kx, vx, wo, bo, n_valid=s_valid, ln_scale=lns,
+                                    ln_bias=lnb, wq=wq, bq=bq, k_scale=ks, v_scale=vs),
+        1, ("attn_q_kernel", "attn_chunk_kernel", "attn_wo_kernel"), 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attn_beam_keeps_its_kernels(dev, dtype):
+    """fused_attn_beam keeps the GEMV route in both dtypes: its partial, its
+    combine and the wo GEMV once per group of 8 rows (4 x 4 rows: 2)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    K, N = 4, 16
+    x, q = _rn(g, dev, N, D, dtype=dtype), _rn(g, dev, N, D, scale=0.125)
+    k, v = _rn(g, dev, N, T, D, dtype=dtype), _rn(g, dev, N, T, D, dtype=dtype)
+    anc = torch.randint(0, K, (4, K, T), generator=g, device=dev, dtype=torch.int32)
+    wo, bo = _rn(g, dev, D, D, scale=D ** -0.5, dtype=dtype), _rn(g, dev, D, dtype=dtype)
+    DF.reset_kernel_launches()
+    out = DF.fused_attn_beam(x, k, v, wo, bo, q=q, pos=100, ancestry=anc)
+    assert DF.kernel_launches() == {**dict.fromkeys(DF.KERNELS, 0), "gemv_kernel": 2,
+                                    "attn_partial_kernel": 1, "attn_combine_kernel": 1}
+    _close(out, DF.fused_attn_beam_plain(x, k, v, wo, bo, q, 100, anc), dtype)
 
 
 # the forward's (Tq, Tk, s_valid): self and cross as before, then every Tq
@@ -426,8 +575,7 @@ def test_fused_mlp_matches_plain(dev, B, weights, d, ff):
     DF.reset_kernel_launches()
     out = DF.fused_mlp(x, lns, lnb, w1, b1, w2, b2, w1_scale=s1, w2_scale=s2, layer_idx=li)
     passes = -(-B // 32)
-    assert DF.kernel_launches() == {"gemv_kernel": 0, "attn_partial_kernel": 0,
-                                    "attn_combine_kernel": 0, "mlp_fc1_kernel": passes,
+    assert DF.kernel_launches() == {**dict.fromkeys(DF.KERNELS, 0), "mlp_fc1_kernel": passes,
                                     "mlp_fc2_kernel": passes}
     ref = DF.fused_mlp_plain(x, lns[li], lnb[li], w1[li], b1[li], w2[li], b2[li],
                              w1_scale=None if s1 is None else s1[li],
