@@ -35,8 +35,8 @@
 // against 2 bytes (bf16), ~4 flop per byte against the ~295 the H100 needs
 // before its tensor cores limit. Everything is built to stream:
 //
-//  * gemv_kernel (fused_qkv, fp32 fused_attn's q and wo, fused_attn_beam's wo,
-//    and fp32 fused_mlp):
+//  * gemv_kernel (fp32 fused_qkv, fp32 fused_attn's q and wo, fused_attn_beam's
+//    wo, and fp32 fused_mlp):
 //    out[b, n] = sum_k h[b, k] W[k, n] for all rows of a group at once, so
 //    each weight byte is read once per group. A block owns 16 output columns
 //    and splits K over 128 lanes (16-byte loads, 8 columns per thread),
@@ -47,6 +47,28 @@
 //    serves up to three projections (blockIdx.y), so fused_qkv is one
 //    launch. Accumulators for 4 rows when B <= 4, else 8; more rows run as
 //    groups of 8, one launch each.
+//  * qkv_kernel (bf16 fused_qkv): one programmatic dependent launch a pass of
+//    up to 32 rows, the three projections the MLP's tensor-core product with
+//    an LN prologue (as the cross q's). The GEMV held fused_qkv at 4.6x its
+//    bound with fixed costs: one launch for each group of 8 rows (two at the
+//    beam path's 16, each reading the 9.8 MB of weights again), on the CUDA
+//    cores, and two more copies a layer to put k and v into the cache. Here
+//    the grid is 3 x d/64 column tiles, K split so that it is one wave
+//    (large-v3: 60 x 2 blocks); a block takes its projection from its tile,
+//    the weight from that projection's cached tensor map (the layer a TMA
+//    coordinate) and its type too, so int8 and float projections mix in one
+//    launch (a merged PEFT base: int8 k beside float q and v). The epilogue
+//    writes q in fp32 and k and v in bf16 straight into the self cache's
+//    row pos (a row stride of T x d), so the step copies nothing. Before
+//    griddepcontrol.wait only the layer's parameters load, which no kernel
+//    writes (the weight stream; the biases, scales and LN's scale and bias,
+//    whose round trip so leaves the critical path); x (by TMA boxes that
+//    land swizzled, not by cp.async: 120 blocks read the same rows), the
+//    partial sums, the tickets and the cache rows all come after it, and the
+//    self core that follows issues its K/V boxes only after its own wait.
+//    What bounds it: not the 9.8 MB weight stream (2.9 us) but fixed costs:
+//    LN(x) at ~1.3 us a row a warp (its fp32 -> fp64 conversions' latency),
+//    the split sums' round trip, the launch.
 //  * mlp_fc1_kernel, mlp_fc2_kernel (bf16 fused_mlp): the two products on
 //    the tensor cores, one launch each a pass of up to 32 rows. The GEMVs
 //    held fused_mlp at 5.7x its bound with fixed costs, not flops: two
@@ -146,11 +168,11 @@ constexpr int KEY_STEP = ATT_THREADS / KEY_LANES;  // keys per pass of a block
 
 // launches of each kernel since the last reset, counted on the host where
 // the launch is made (gemv, attn_partial, attn_combine, mlp_fc1, mlp_fc2,
-// attn_q, attn_chunk, attn_wo): chip_smoke.py holds a decode step's counts
-// to what its rows and layers imply
+// attn_q, attn_chunk, attn_wo, qkv): chip_smoke.py holds a decode step's
+// counts to what its rows and layers imply
 enum Kernel {
   K_GEMV = 0, K_PARTIAL = 1, K_COMBINE = 2, K_MLP1 = 3, K_MLP2 = 4,
-  K_ATTN_Q = 5, K_CHUNK = 6, K_ATTN_WO = 7, N_KERNELS = 8
+  K_ATTN_Q = 5, K_CHUNK = 6, K_ATTN_WO = 7, K_QKV = 8, N_KERNELS = 9
 };
 long long g_launches[N_KERNELS] = {};
 
@@ -733,6 +755,7 @@ constexpr int MLP_MAX_D = 1280;              // fc1 and q stage x's rows whole: 
 constexpr int LN_CH = MLP_MAX_D / 256;       // 8-element chunks of a row a lane holds
 constexpr int MLP_FIRST = 2;                 // stages issued before x's loads (LN kinds)
 constexpr int MLP_COUNTERS = 1024;           // split-K tickets of one kernel (tiles <= 1024)
+constexpr int QKV_STAGES = 5;                // bf16 qkv ring: a block's 5 steps (d 1280 split 2)
 constexpr int SMEM_OPTIN = 227 * 1024;       // dynamic shared memory a block may take
 
 // What a product kernel computes: out (B, N) = epilogue(act (B, K) @ W[layer] (K, N)).
@@ -740,10 +763,12 @@ constexpr int SMEM_OPTIN = 227 * 1024;       // dynamic shared memory a block ma
 //   P_FC2  act = g;                      (v s + b2) + x into out (bf16)
 //   P_Q    act = LN(x) rounded to bf16;  (v s + bq) * 64^-0.5 into q (fp32)
 //   P_WO   act = o, the attention core's output; (v s + bo) + x (fc2's)
-enum ProdKind { P_FC1 = 0, P_FC2 = 1, P_Q = 2, P_WO = 3 };
+//   P_QKV  act = LN(x) rounded to bf16;  by role: q as P_Q's; k = v s and
+//          v = v s + bv in bf16, at a row stride of out_ld (the cache's)
+enum ProdKind { P_FC1 = 0, P_FC2 = 1, P_Q = 2, P_WO = 3, P_QKV = 4 };
 template <int KIND>
 __host__ __device__ constexpr bool ln_kind() {
-  return KIND == P_FC1 || KIND == P_Q;
+  return KIND == P_FC1 || KIND == P_Q || KIND == P_QKV;
 }
 
 // The weight ring: bf16 stages land 128-byte swizzled, wgmma's MN-major A
@@ -752,13 +777,16 @@ __host__ __device__ constexpr bool ln_kind() {
 // cannot transpose int8). bf16 rings are deep enough to hold a block's whole
 // weight tile at large-v3 and up to 16 rows (fc1: 10 stages, 160 KB, fewer
 // beside 32 rows' activations; fc2: 7 stages; q and wo, d x d split six
-// ways: 3), so that it all streams while the block waits for and stages its
-// activations.
+// ways: 3; qkv, d x d split two ways: 5), so that it all streams while the
+// block waits for and stages its activations.
 template <typename WT, int NP, int KIND>
 struct ProdCfg {
   static constexpr int BYTES = MLP_KS * 128;
   static constexpr int FIT1 = (192 * 1024 - NP * MLP_MAX_D * 2) / BYTES;   // beside fc1's act
-  static constexpr int STAGES = KIND == P_FC1 ? (FIT1 < 10 ? FIT1 : 10) : KIND == P_FC2 ? 7 : 3;
+  static constexpr int STAGES = KIND == P_FC1   ? (FIT1 < 10 ? FIT1 : 10)
+                                : KIND == P_FC2 ? 7
+                                : KIND == P_QKV ? QKV_STAGES
+                                                : 3;
   static constexpr int WIDE = 0;
 };
 template <int NP, int KIND>
@@ -785,12 +813,15 @@ struct ProdArgs {
   const float* ln_s;            // LN kinds: (K,) fp32
   const float* ln_b;
   const __nv_bfloat16* act;     // fc2: g (B, K); wo: o (B, K)
-  const __nv_bfloat16* bias;    // (N,)
+  const __nv_bfloat16* bias;    // (N,), or null (qkv's k)
   const float* w_scale;         // (N,) fp32 of an int8 W, else null
   void* out;                    // (B, N): fp32 for q, else bf16
   float* sums;                  // splits > 1: (tiles, splits, NP/2, 128) fp32 partial sums
   int* counters;                // splits > 1: (tiles,) tickets, 0 between calls
   int B, K, N, layer, splits, steps;
+  long long out_ld;             // qkv: elements from one row of out to the next
+  int role;                     // qkv: 0 q, 1 k, 2 v
+  int x_row0;                   // qkv: the pass's first row of x (its TMA coordinate)
 };
 
 // Timing probe of the MLP kernels, built only with -DMLP_TRACE
@@ -832,10 +863,16 @@ __device__ __forceinline__ void attn_stamp(int kind, int slot) {
 #else
 #define ATTN_STAMP(kind, slot)
 #endif
+// qkv's inner phases, in the core's slots (no core runs in a qkv-only
+// timing): x landed (0), LN(x) done (1), the products done (2), the split
+// sums added (3, a tile's last block)
+#define QKV_STAMP(slot) \
+  if (KIND == P_QKV) ATTN_STAMP(1, slot)
+
 // both probes at a product kernel's points
 #define PROD_STAMP(mlp_slot, attn_slot) \
   MLP_STAMP(mlp_slot);                   \
-  if (KIND >= P_Q) ATTN_STAMP(KIND == P_Q ? 0 : 2, attn_slot)
+  if (KIND != P_FC1 && KIND != P_FC2) ATTN_STAMP(KIND == P_WO ? 2 : 0, attn_slot)
 
 __device__ __forceinline__ void mlp_mma(float (&d)[4], uint64_t a, uint64_t b, int acc) {
   wgmma_ss_bf16_n8<1, 0>(d, a, b, acc);
@@ -893,8 +930,11 @@ __device__ __forceinline__ uint8_t* act_chunk(uint8_t* act, int b, int kc) {
   return act + (kc >> 3) * (NP * 128) + sw128(b, (kc & 7) * 16);
 }
 
+// Block (tile, blockIdx.y) of a product: tile is blockIdx.x, or for qkv the
+// column tile within the block's projection
 template <typename WT, int NP, int KIND>
-__device__ __forceinline__ void prod_body(const CUtensorMap* wmap, const ProdArgs& a) {
+__device__ __forceinline__ void prod_body(const CUtensorMap* wmap, const ProdArgs& a, int tile,
+                                          const CUtensorMap* xmap = nullptr) {
   using C = ProdCfg<WT, NP, KIND>;
   constexpr bool LN = ln_kind<KIND>();
   constexpr int ACC = NP / 2;
@@ -902,7 +942,7 @@ __device__ __forceinline__ void prod_body(const CUtensorMap* wmap, const ProdArg
   uint8_t* ring = align1024(smem_raw);
   uint8_t* wide = ring + C::STAGES * C::BYTES;
   uint8_t* act = wide + C::WIDE * MLP_KS * 128;
-  const int tile = blockIdx.x, split = blockIdx.y, S = a.splits;
+  const int split = blockIdx.y, S = a.splits;
   const int s0 = split * a.steps / S, nst = (split + 1) * a.steps / S - s0;
   const int k0 = s0 * MLP_KS, k1 = min((s0 + nst) * MLP_KS, a.K);
   const int kt = LN ? 0 : k0;   // k of the activation tiles' first column
@@ -911,6 +951,11 @@ __device__ __forceinline__ void prod_body(const CUtensorMap* wmap, const ProdArg
   uint64_t* full = reinterpret_cast<uint64_t*>(act + R8 / 8 * (NP * 128));
   uint64_t* empty = full + C::STAGES;
   volatile int* last = reinterpret_cast<volatile int*>(empty + C::STAGES);
+  // qkv loads x by TMA boxes of 64 columns x NP rows that land 128-byte
+  // swizzled, as the tiles are (at 32 rows 6.0 -> ~1 us to x in shared
+  // memory against 5,120 cp.async a block, 120 blocks at the same lines)
+  constexpr bool TMA_X = KIND == P_QKV;
+  uint64_t* xbar = empty + C::STAGES + 1;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = threadIdx.x;
   const int n0 = tile * MLP_TILE;
   PROD_STAMP(0, 0);
@@ -920,6 +965,7 @@ __device__ __forceinline__ void prod_body(const CUtensorMap* wmap, const ProdArg
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], MLP_CONSUMERS / 32);
     }
+    if constexpr (TMA_X) mbar_init(xbar, 1);
     mbar_fence_init();
   }
   __syncthreads();
@@ -937,14 +983,15 @@ __device__ __forceinline__ void prod_body(const CUtensorMap* wmap, const ProdArg
       if (mine(r)) {
         float v = acc[r];
         if (a.w_scale != nullptr) v = __fmul_rn(v, e_scale[r]);   // the int8 scale, after the sum
-        v = __fadd_rn(v, e_bias[r]);
-        const long long o = (long long)item_row(r) * a.N + item_col(r);
-        if constexpr (KIND == P_Q) {
+        if (KIND != P_QKV || a.bias != nullptr) v = __fadd_rn(v, e_bias[r]);
+        const long long ld = KIND == P_QKV ? a.out_ld : (long long)a.N;
+        const long long o = (long long)item_row(r) * ld + item_col(r);
+        if (KIND == P_Q || (KIND == P_QKV && a.role == 0)) {
           static_cast<float*>(a.out)[o] = __fmul_rn(v, 0.125f);   // 64^-0.5
         } else {
           if constexpr (KIND == P_FC1) {
             v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-          } else {
+          } else if constexpr (KIND == P_FC2 || KIND == P_WO) {
             v = __fadd_rn(v, e_x[r]);
           }
           static_cast<__nv_bfloat16*>(a.out)[o] = __float2bfloat16(v);
@@ -979,46 +1026,76 @@ __device__ __forceinline__ void prod_body(const CUtensorMap* wmap, const ProdArg
   }
   {
     // the next kernel may start: fc2 streams W2 while fc1 runs; the
-    // attention core loads its cross K/V while q is computed
-    if constexpr (KIND == P_FC1 || KIND == P_Q) griddep_launch();
+    // attention core loads its cross K/V while q is computed (after qkv,
+    // the self core waits before its K/V: qkv writes their row pos)
+    if constexpr (LN) griddep_launch();
+    // the operands no kernel before writes, the layer's parameters: the
+    // weights' scale and bias, LN's. qkv loads them before its wait (at 4
+    // rows 8.3 -> 6.5 us a call: their round trip leaves the critical path)
+    constexpr bool EARLY = KIND == P_QKV;
+    float ls[LN_CH][8], lb[LN_CH][8];
+    auto params = [&]() {
+#pragma unroll
+      for (int r = 0; r < ACC; ++r) {
+        e_scale[r] = e_bias[r] = e_x[r] = 0.f;
+        if (mine(r)) {
+          const int col = item_col(r);
+          e_scale[r] = a.w_scale != nullptr ? a.w_scale[col] : 1.f;
+          e_bias[r] = KIND != P_QKV || a.bias != nullptr ? to_f(a.bias[col]) : 0.f;
+        }
+      }
+      if constexpr (LN) {   // each lane's LN scale and bias, the same for every row
+#pragma unroll
+        for (int i = 0; i < LN_CH; ++i) {
+          const int k = (lane + 32 * i) * 8;
+          if (k < a.K) {
+            load8(a.ln_s + k, ls[i]);
+            load8(a.ln_b + k, lb[i]);
+          }
+        }
+      }
+    };
+    if constexpr (EARLY) params();
     griddep_wait();              // x, g and o are written by the kernels before
     PROD_STAMP(1, 1);
-    // the activations, through cp.async (the load/store unit, not the busy
-    // TMA unit): LN kinds x's whole rows into the tiles, to be normalised in
-    // place; fc2 and wo g's or o's k range. Rows >= B and k >= K are zeros.
-    for (int c = t; c < NP * R8; c += MLP_CONSUMERS) {
-      const int b = c / R8, kc = c - b * R8, k = kt + kc * 8;
-      uint8_t* dst = act_chunk<NP>(act, b, kc);
-      if (b < a.B && k < (LN ? a.K : k1)) {
-        cp_async16(dst, (LN ? a.x : a.act) + (long long)b * a.K + k);
-      } else {
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    // the activations: LN kinds x's whole rows into the tiles, to be
+    // normalised in place; fc2 and wo g's or o's k range. Rows >= B and k
+    // >= K are zeros. qkv's by TMA, issued ahead of the rest of the weight
+    // stream; the others through cp.async (the load/store unit, not the
+    // busy TMA unit)
+    if constexpr (TMA_X) {
+      if (t == 0) {
+        mbar_arrive_expect_tx(xbar, R8 / 8 * NP * 128);
+        for (int j = 0; j < R8 / 8; ++j)
+          tma_load_3d(act + j * (NP * 128), xmap, xbar, j * 64, a.x_row0, 0);
+      }
+    } else {
+      for (int c = t; c < NP * R8; c += MLP_CONSUMERS) {
+        const int b = c / R8, kc = c - b * R8, k = kt + kc * 8;
+        uint8_t* dst = act_chunk<NP>(act, b, kc);
+        if (b < a.B && k < (LN ? a.K : k1)) {
+          cp_async16(dst, (LN ? a.x : a.act) + (long long)b * a.K + k);
+        } else {
+          *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+        }
       }
     }
     if constexpr (LN) named_barrier_arrive(2, MLP_THREADS);   // the producer may go on
     // the epilogue's operands meanwhile
+    if constexpr (!EARLY) params();
+    if constexpr (!LN) {
 #pragma unroll
-    for (int r = 0; r < ACC; ++r) {
-      e_scale[r] = e_bias[r] = e_x[r] = 0.f;
-      if (mine(r)) {
-        const int col = item_col(r);
-        e_scale[r] = a.w_scale != nullptr ? a.w_scale[col] : 1.f;
-        e_bias[r] = to_f(a.bias[col]);
-        if constexpr (!LN) e_x[r] = to_f(a.x[(long long)item_row(r) * a.N + col]);
-      }
+      for (int r = 0; r < ACC; ++r)
+        if (mine(r)) e_x[r] = to_f(a.x[(long long)item_row(r) * a.N + item_col(r)]);
     }
-    if constexpr (LN) {   // each lane's LN scale and bias, the same for every row
-      float ls[LN_CH][8], lb[LN_CH][8];
-#pragma unroll
-      for (int i = 0; i < LN_CH; ++i) {
-        const int k = (lane + 32 * i) * 8;
-        if (k < a.K) {
-          load8(a.ln_s + k, ls[i]);
-          load8(a.ln_b + k, lb[i]);
-        }
+    if constexpr (LN) {
+      if constexpr (TMA_X) {
+        mbar_wait(xbar, 0);
+      } else {
+        cp_async_wait_all();
+        named_barrier(1, MLP_CONSUMERS);
       }
-      cp_async_wait_all();
-      named_barrier(1, MLP_CONSUMERS);
+      QKV_STAMP(0);
       // LN in place, a warp a row, in the plain version's operations: the
       // mean and the variance about it as fp32 sums times fp32(1 / d) (the
       // sums taken in fp64 and rounded once, the likeliest bits of any fp32
@@ -1070,6 +1147,7 @@ __device__ __forceinline__ void prod_body(const CUtensorMap* wmap, const ProdArg
     } else {
       cp_async_wait_all();
     }
+    QKV_STAMP(1);
     fence_proxy_async();
     named_barrier(1, MLP_CONSUMERS);
     PROD_STAMP(2, 2);
@@ -1120,6 +1198,7 @@ __device__ __forceinline__ void prod_body(const CUtensorMap* wmap, const ProdArg
         for (int r = 0; r < ACC; ++r) acc[r] += pair[pp][r];
     }
     MLP_STAMP(3);
+    QKV_STAMP(2);
 
     if (S > 1) {
       // split K: every block writes its partial sums; the last of a tile's
@@ -1153,6 +1232,7 @@ __device__ __forceinline__ void prod_body(const CUtensorMap* wmap, const ProdArg
             if (s4 + u < S) acc[r] += p[u][r];
       }
       if (t == 0) a.counters[tile] = 0;
+      QKV_STAMP(3);
     }
     epilogue();
   }
@@ -1162,25 +1242,51 @@ __device__ __forceinline__ void prod_body(const CUtensorMap* wmap, const ProdArg
 template <typename WT, int NP>
 __global__ void __launch_bounds__(MLP_THREADS, 1)
 mlp_fc1_kernel(const __grid_constant__ CUtensorMap wmap, const ProdArgs a) {
-  prod_body<WT, NP, P_FC1>(&wmap, a);
+  prod_body<WT, NP, P_FC1>(&wmap, a, blockIdx.x);
 }
 
 template <typename WT, int NP>
 __global__ void __launch_bounds__(MLP_THREADS, 1)
 mlp_fc2_kernel(const __grid_constant__ CUtensorMap wmap, const ProdArgs a) {
-  prod_body<WT, NP, P_FC2>(&wmap, a);
+  prod_body<WT, NP, P_FC2>(&wmap, a, blockIdx.x);
 }
 
 template <typename WT, int NP>
 __global__ void __launch_bounds__(MLP_THREADS, 1)
 attn_q_kernel(const __grid_constant__ CUtensorMap wmap, const ProdArgs a) {
-  prod_body<WT, NP, P_Q>(&wmap, a);
+  prod_body<WT, NP, P_Q>(&wmap, a, blockIdx.x);
 }
 
 template <typename WT, int NP>
 __global__ void __launch_bounds__(MLP_THREADS, 1)
 attn_wo_kernel(const __grid_constant__ CUtensorMap wmap, const ProdArgs a) {
-  prod_body<WT, NP, P_WO>(&wmap, a);
+  prod_body<WT, NP, P_WO>(&wmap, a, blockIdx.x);
+}
+
+// bf16 fused_qkv's three projections in one launch: the grid's tiles are
+// q's, then k's, then v's; a block reads its projection's map and takes its
+// weight type (bit p of w8: projection p is int8), uniform within the block
+struct QkvArgs {
+  ProdArgs p[3];
+  int w8;
+};
+
+template <int NP>
+__global__ void __launch_bounds__(MLP_THREADS, 1)
+qkv_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+           const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mx,
+           const QkvArgs a) {
+  const int tiles = a.p[0].N / MLP_TILE;
+  const int proj = blockIdx.x / tiles, tile = blockIdx.x - proj * tiles;
+  const CUtensorMap* map = proj == 0 ? &mq : proj == 1 ? &mk : &mv;
+  // the block's arguments in registers (read in place through the run-time
+  // index, every shared-memory store might alias them)
+  const ProdArgs pa = a.p[proj];
+  if ((a.w8 >> proj) & 1) {
+    prod_body<int8_t, NP, P_QKV>(map, pa, tile, &mx);
+  } else {
+    prod_body<__nv_bfloat16, NP, P_QKV>(map, pa, tile, &mx);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1718,6 +1824,86 @@ cudaError_t mlp_tc(const __nv_bfloat16* x, const float* ln_s, const float* ln_b,
   return cudaSuccess;
 }
 
+template <int NP>
+cudaError_t qkv_launch(const QkvArgs& a, const CUtensorMap (&m)[4], int tiles, int act_bytes,
+                       cudaStream_t st) {
+  auto kernel = qkv_kernel<NP>;
+  // the block's layout is its weight type's: launch with the larger
+  const int smem = max(prod_smem<__nv_bfloat16, NP, P_QKV>(act_bytes),
+                       prod_smem<int8_t, NP, P_QKV>(act_bytes));
+  if (smem > SMEM_OPTIN) return cudaErrorInvalidValue;
+  static bool done[64] = {};
+  cudaError_t e = allow_dynamic_smem(kernel, SMEM_OPTIN, done);
+  if (e != cudaSuccess) return e;
+  e = launch_pdl(kernel, dim3(3 * tiles, a.p[0].splits, 1), MLP_THREADS, smem, st, m[0], m[1],
+                 m[2], m[3], a);
+  ++g_launches[K_QKV];
+  return e;
+}
+
+// bf16 fused_qkv: passes of up to MLP_MAX_ROWS rows, one launch each; w[i],
+// the stacked (L[i], d, d) bases of q, k, v, read at layer[i]; out[i] with
+// a row stride of ld[i] elements (k and v: a cache's row pos); sums and
+// counters the kernel's own regions of the workspace.
+cudaError_t qkv_tc(const __nv_bfloat16* x, const float* ln_s, const float* ln_b,
+                   const void* const (&w)[3], const __nv_bfloat16* const (&bias)[3],
+                   const float* const (&scale)[3], const int (&layer)[3], const int (&L)[3],
+                   void* const (&out)[3], const long long (&ld)[3], float* sums,
+                   long long sums_floats, int* counters, int B, int d, cudaStream_t st) {
+  if (B < 1 || d % MLP_TILE != 0 || d > MLP_MAX_D) return cudaErrorInvalidValue;
+  const int tiles = d / MLP_TILE, steps = (d + MLP_KS - 1) / MLP_KS;
+  if (3 * tiles > MLP_COUNTERS) return cudaErrorInvalidValue;
+  // K split so that the three projections' tiles fill the SMs in one wave
+  // (large-v3: 60 x 2)
+  const int splits = max(1, min(steps, sm_count() / (3 * tiles)));
+  CUtensorMap m[4];
+  for (int i = 0; i < 3; ++i) {
+    if (layer[i] < 0 || layer[i] >= L[i] || ld[i] < d) return cudaErrorInvalidValue;
+    const cudaError_t e = weight_map(w[i], scale[i] != nullptr, L[i], d, d, &m[i]);
+    if (e != cudaSuccess) return e;
+  }
+  for (int r0 = 0; r0 < B; r0 += MLP_MAX_ROWS) {
+    const int n = min(MLP_MAX_ROWS, B - r0);
+    const int np = n <= 8 ? 8 : n <= 16 ? 16 : 32;
+    const long long per = (long long)tiles * splits * (np / 2) * MLP_CONSUMERS;
+    if (splits > 1 && 3 * per > sums_floats) return cudaErrorInvalidValue;
+    QkvArgs a{};
+    for (int i = 0; i < 3; ++i) {
+      ProdArgs& pa = a.p[i];
+      pa.x = x + (long long)r0 * d;
+      pa.ln_s = ln_s;
+      pa.ln_b = ln_b;
+      pa.bias = bias[i];
+      pa.w_scale = scale[i];
+      pa.out = i == 0 ? static_cast<void*>(static_cast<float*>(out[0]) + r0 * ld[0])
+                      : static_cast<void*>(static_cast<__nv_bfloat16*>(out[i]) + r0 * ld[i]);
+      pa.sums = sums + i * per;
+      pa.counters = counters + i * tiles;
+      pa.B = n;
+      pa.K = d;
+      pa.N = d;
+      pa.layer = layer[i];
+      pa.splits = splits;
+      pa.steps = steps;
+      pa.out_ld = ld[i];
+      pa.role = i;
+      if (scale[i] != nullptr) a.w8 |= 1 << i;
+    }
+    const int act_bytes = steps * (MLP_KS / 64) * np * 128;   // LN(x)'s whole rows
+    {   // x's (d, B) rows: boxes of 64 columns x np rows, 128-byte swizzled;
+        // rows past B land as zeros
+      const cudaError_t e = cached_map(x, false, d, B, 1, 64, np, CU_TENSOR_MAP_SWIZZLE_128B, &m[3]);
+      if (e != cudaSuccess) return e;
+      for (int i = 0; i < 3; ++i) a.p[i].x_row0 = r0;
+    }
+    const cudaError_t e = np == 8    ? qkv_launch<8>(a, m, tiles, act_bytes, st)
+                          : np == 16 ? qkv_launch<16>(a, m, tiles, act_bytes, st)
+                                     : qkv_launch<32>(a, m, tiles, act_bytes, st);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
 template <typename KV, int MAXG>
 cudaError_t core_launch(const CoreArgs& a, const CUtensorMap& km, const CUtensorMap& vm,
                         int n_groups, cudaStream_t st) {
@@ -1838,12 +2024,35 @@ extern "C" int fused_qkv_fwd(int dtype, const void* x, const float* ln_s, const 
                              const void* bv, const float* sq, const float* sk, const float* sv,
                              float* q_out, void* k_out, void* v_out, int B, int d,
                              void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      dtype == 0 ? qkv<float>(x, ln_s, ln_b, wq, bq, wk, wv, bv, sq, sk, sv, q_out, k_out,
-                              v_out, B, d, st)
-                 : qkv<__nv_bfloat16>(x, ln_s, ln_b, wq, bq, wk, wv, bv, sq, sk, sv, q_out,
-                                      k_out, v_out, B, d, st));
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);   // bf16: fused_qkv_tc_fwd
+  return static_cast<int>(qkv<float>(x, ln_s, ln_b, wq, bq, wk, wv, bv, sq, sk, sv, q_out, k_out,
+                                     v_out, B, d, static_cast<cudaStream_t>(stream)));
+}
+
+// bf16 fused_qkv on the tensor cores: wq, wk, wv are stacked (L, d, d)
+// bases read at their layer (L = 1 for one layer's), int8 where their scale
+// (sq, sk, sv) is non-null; biases, scales and LN offset to the layer. q_out
+// (B, d) fp32; k_out and v_out bf16 rows k_ld and v_ld elements apart (d,
+// or a self cache's T x d with the pointer at row 0, position pos of the
+// layer). sums (sums_floats fp32) and counters (1024 int32, zero before the
+// first call; each call leaves them zero) are this kernel's own.
+extern "C" int fused_qkv_tc_fwd(const void* x, const float* ln_s, const float* ln_b,
+                                const void* wq, const void* bq, const float* sq, int lq, int Lq,
+                                const void* wk, const float* sk, int lk, int Lk, const void* wv,
+                                const void* bv, const float* sv, int lv, int Lv, float* q_out,
+                                void* k_out, long long k_ld, void* v_out, long long v_ld,
+                                float* sums, long long sums_floats, int* counters, int B, int d,
+                                void* stream) {
+  using bf = __nv_bfloat16;
+  const void* const w[3] = {wq, wk, wv};
+  const bf* const bias[3] = {static_cast<const bf*>(bq), nullptr, static_cast<const bf*>(bv)};
+  const float* const scale[3] = {sq, sk, sv};
+  const int layer[3] = {lq, lk, lv}, L[3] = {Lq, Lk, Lv};
+  void* const out[3] = {q_out, k_out, v_out};
+  const long long ld[3] = {d, k_ld, v_ld};
+  return static_cast<int>(qkv_tc(static_cast<const bf*>(x), ln_s, ln_b, w, bias, scale, layer,
+                                 L, out, ld, sums, sums_floats, counters, B, d,
+                                 static_cast<cudaStream_t>(stream)));
 }
 
 // fp32 fused_attn: the GEMVs, the split-T partials and their combine
@@ -1926,9 +2135,9 @@ extern "C" int fused_mlp_fwd(int dtype, const void* x, const float* ln_s, const 
                                  work_floats, counters, B, d, ff, l1, L1, l2, L2, st));
 }
 
-// out[8] = launches of gemv_kernel, attn_partial_kernel, attn_combine_kernel,
+// out[9] = launches of gemv_kernel, attn_partial_kernel, attn_combine_kernel,
 // mlp_fc1_kernel, mlp_fc2_kernel, attn_q_kernel, attn_chunk_kernel,
-// attn_wo_kernel since the last reset
+// attn_wo_kernel, qkv_kernel since the last reset
 extern "C" void kernel_launches(long long* out) {
   for (int i = 0; i < N_KERNELS; ++i) out[i] = g_launches[i];
 }

@@ -687,7 +687,8 @@ def decode_step_fused(params: Params, token: torch.Tensor, pos: int,
                       cross_group: int = 1
                       ) -> Tuple[torch.Tensor, Params]:
     """One autoregressive step through the fused layer kernels
-    (ops/decoder_fused.py): per layer fused_qkv, self-attention fused_attn
+    (ops/decoder_fused.py): per layer fused_qkv (k and v written into the
+    cache's row pos), self-attention fused_attn
     (fused_attn_beam with an ancestry map), cross-attention fused_attn and
     fused_mlp, each reading layer l of the stacked weights / cache / cross
     K/V in place.
@@ -731,14 +732,13 @@ def decode_step_fused(params: Params, token: torch.Tensor, pos: int,
         xk, xv = cross_kv["k"], cross_kv["v"]
         xk_s = xv_s = None
     for l in range(cfg.decoder_layers):
-        q, k_new, v_new = DF.fused_qkv(
+        # k and v land in the cache's (l, :, pos, :) row in place: the JAX
+        # step's dynamic_update_slice on the loop carry
+        q, _, _ = DF.fused_qkv(
             x, lay["ln1"]["scale"], lay["ln1"]["bias"],
             wq, sa["q"]["b"], wk, wv, sa["v"]["b"],
-            wq_scale=sq, wk_scale=sk, wv_scale=sv, kv_dtype=ck.dtype, layer_idx=l)
-        # in-place index assignment of the (l, :, pos, :) row: the JAX
-        # step's dynamic_update_slice on the loop carry
-        ck[l, :, pos] = k_new
-        cv[l, :, pos] = v_new
+            wq_scale=sq, wk_scale=sk, wv_scale=sv, layer_idx=l,
+            cache_k=ck, cache_v=cv, pos=pos)
         if ancestry is not None:
             x = DF.fused_attn_beam(x, ck, cv, wo, sa["o"]["b"], q=q, pos=pos,
                                    ancestry=ancestry, wo_scale=so, layer_idx=l)

@@ -14,10 +14,14 @@ a decode step runs four wrappers, each replacing one Pallas kernel:
   fused_mlp   ← `fused_mlp` (:681; pl.pallas_call :738, `_mlp_kernel` :649)
 
 Bound on the card: bytes. A call streams one layer's weights (and K/V rows),
-a few flops per byte; the kernels are split-K GEMVs (once per group of up
-to 8 rows), a split-T attention, and for bf16 fused_mlp and fused_attn
-tensor-core products fed by TMA (once per pass of up to 32 rows), all built
-to stream. The CUDA source says how.
+a few flops per byte; the kernels are, for bf16 fused_qkv, fused_attn and
+fused_mlp, tensor-core products fed by TMA (once per pass of up to 32
+rows), and otherwise split-K GEMVs (once per group of up to 8 rows) and a
+split-T attention, all built to stream. The CUDA source says how.
+
+fused_qkv writes k and v straight into a self cache when given one
+(cache_k, cache_v, pos): the decode step's row pos of layer l, with no copy
+after the call.
 
 Wrappers take unstacked per-layer weights (tests) or the full stacked
 (L, ...) tensors plus `layer_idx` (the decode loop); the kernels read layer
@@ -63,6 +67,7 @@ _MLP_TILE = 64    # output columns per bf16 MLP block (csrc MLP_TILE): d, ff % 6
 _MLP_MAX_D = 1280   # x's rows staged whole (csrc MLP_MAX_D): every Whisper width
 _MLP_COUNTERS = 1024                 # split-K tickets per product kernel (csrc MLP_COUNTERS)
 _MLP_WORK_FLOATS = 1 << 20           # split-K partial sums: 512 blocks x 32 rows x 64
+_N_COUNTERS = 6                      # ticket regions: fc1, fc2, q, wo, the core, qkv
 _PASS_ROWS = 32                      # rows a tensor-core pass (csrc MLP_MAX_ROWS)
 _PART = HEAD_DIM + 4                 # a bf16 attention partial record (csrc PART)
 _MIN_CHUNK = 64                      # the attention core's smallest chunk (csrc KV_BOX)
@@ -78,7 +83,7 @@ LAUNCHES = {f"{k}{v}": 0 for k in ("fused_qkv", "fused_attn_self", "fused_attn_b
 # the CUDA kernels the wrappers launch, as kernel_launches() counts them
 KERNELS = ("gemv_kernel", "attn_partial_kernel", "attn_combine_kernel",
            "mlp_fc1_kernel", "mlp_fc2_kernel", "attn_q_kernel", "attn_chunk_kernel",
-           "attn_wo_kernel")
+           "attn_wo_kernel", "qkv_kernel")
 
 
 def attn_passes(rows: int, kv_group: int = 1) -> list:
@@ -276,47 +281,95 @@ def fused_qkv(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
               wq: torch.Tensor, bq: torch.Tensor, wk: torch.Tensor,
               wv: torch.Tensor, bv: torch.Tensor,
               wq_scale=None, wk_scale=None, wv_scale=None,
-              kv_dtype=None, layer_idx=None
+              kv_dtype=None, layer_idx=None, cache_k=None, cache_v=None, pos=None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (B, d) → (q (B, d) fp32 pre-scaled by hd^-0.5, k (B, d), v (B, d)).
 
     With layer_idx the weights come stacked ((L, d, d), biases (L, d)) and
     the kernel reads layer layer_idx in place. w*_scale: an int8 weight's
-    per-output-channel scale (the module docstring)."""
+    per-output-channel scale (the module docstring). cache_k, cache_v and
+    pos: the self cache ((L, B, T, d) read at layer_idx, or (B, T, d)) whose
+    row pos takes k and v (in the cache's dtype) in place of new tensors; k
+    and v are then views of those rows, equal to what the call without a
+    cache returns."""
+    if (cache_k is None) != (cache_v is None) or (cache_k is None) != (pos is None):
+        raise ValueError("fused_qkv: pass cache_k, cache_v and pos together")
+    if cache_k is not None:
+        kv_dtype = kv_dtype or cache_k.dtype
+        rows = tuple(_cache_row(c, layer_idx, pos, x.shape[0], kv_dtype)
+                     for c in (cache_k, cache_v))
+    else:
+        rows = None
     if x.device.type == "cpu":
-        return fused_qkv_plain(
+        q, k, v = fused_qkv_plain(
             x, _at(ln_scale, layer_idx, 1), _at(ln_bias, layer_idx, 1),
             _at(wq, layer_idx, 2), _at(bq, layer_idx, 1),
             _at(wk, layer_idx, 2), _at(wv, layer_idx, 2),
             _at(bv, layer_idx, 1), kv_dtype, _at(wq_scale, layer_idx, 2),
             _at(wk_scale, layer_idx, 2), _at(wv_scale, layer_idx, 2))
+        if rows is None:
+            return q, k, v
+        rows[0].copy_(k)   # the JAX step's dynamic_update_slice of the cache
+        rows[1].copy_(v)
+        return (q, *rows)
     return _fused_qkv_cuda(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, kv_dtype,
-                           layer_idx, wq_scale, wk_scale, wv_scale)
+                           layer_idx, wq_scale, wk_scale, wv_scale, rows)
+
+
+def _cache_row(cache: torch.Tensor, layer_idx, pos, rows: int, dtype) -> torch.Tensor:
+    """Row `pos` of a self cache at layer_idx: a (rows, d) view."""
+    c = _at(cache, layer_idx, 3)
+    if c.dim() != 3 or c.shape[0] != rows or c.dtype != dtype:
+        raise ValueError(f"fused_qkv: cache {tuple(cache.shape)} {cache.dtype} at layer "
+                         f"{layer_idx} for {rows} rows of {dtype}")
+    if not 0 <= int(pos) < c.shape[1]:
+        raise IndexError(f"fused_qkv: pos {pos} outside a cache of {c.shape[1]}")
+    return c[:, int(pos)]
 
 
 def _fused_qkv_cuda(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, kv_dtype,
-                    layer_idx, wq_scale, wk_scale, wv_scale):
+                    layer_idx, wq_scale, wk_scale, wv_scale, rows):
     B, d = _check_x(x, "fused_qkv")
     if (kv_dtype or x.dtype) != x.dtype:
         raise TypeError("the CUDA fused_qkv writes k/v in x's dtype")
     T, f32 = x.dtype, torch.float32
+    if T == torch.bfloat16 and d > _MLP_MAX_D:
+        raise ValueError(f"fused_qkv: d={d} above {_MLP_MAX_D}: the tensor-core kernel "
+                         "stages x's rows whole in shared memory")
+    if rows is not None and any(r.device != x.device or r.stride(1) != 1 for r in rows):
+        raise ValueError("fused_qkv: the cache must lie on x's device, d innermost")
     ptr = functools.partial(_ptr, layer_idx=layer_idx, device=x.device)
     q = torch.empty((B, d), dtype=f32, device=x.device)
-    k = torch.empty_like(x)
-    v = torch.empty_like(x)
     wq_p, sq_p = _weight(ptr, wq, wq_scale, T, (d, d))
     wk_p, sk_p = _weight(ptr, wk, wk_scale, T, (d, d))
     wv_p, sv_p = _weight(ptr, wv, wv_scale, T, (d, d))
+    ln_s, ln_b = ptr(ln_scale, 1, f32, (d,)), ptr(ln_bias, 1, f32, (d,))
+    bq_p, bv_p = ptr(bq, 1, T, (d,)), ptr(bv, 1, T, (d,))
     lib = _lib()
-    err = lib.fused_qkv_fwd(
-        _build.dtype_code(x), x.data_ptr(),
-        ptr(ln_scale, 1, f32, (d,)),
-        ptr(ln_bias, 1, f32, (d,)),
-        wq_p, ptr(bq, 1, T, (d,)), wk_p, wv_p, ptr(bv, 1, T, (d,)),
-        sq_p, sk_p, sv_p,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), B, d, _build.stream_ptr(x))
+    if T == torch.bfloat16:
+        # the tensor-core route reads the stacked bases at the layer and
+        # writes k and v where they go: the cache's rows, or new tensors
+        k, v = rows if rows is not None else (torch.empty_like(x), torch.empty_like(x))
+        (lq, n_q), (lk, n_k), (lv, n_v) = (_stacked(w, layer_idx) for w in (wq, wk, wv))
+        work, counters = _workspace(x.device)
+        err = lib.fused_qkv_tc_fwd(
+            x.data_ptr(), ln_s, ln_b, wq.data_ptr(), bq_p, sq_p, lq, n_q,
+            wk.data_ptr(), sk_p, lk, n_k, wv.data_ptr(), bv_p, sv_p, lv, n_v,
+            q.data_ptr(), k.data_ptr(), k.stride(0), v.data_ptr(), v.stride(0),
+            work.data_ptr() + 4 * _MLP_WORK_FLOATS, _MLP_WORK_FLOATS,
+            counters.data_ptr() + 4 * 5 * _MLP_COUNTERS, B, d, _build.stream_ptr(x))
+    else:
+        k, v = torch.empty_like(x), torch.empty_like(x)
+        err = lib.fused_qkv_fwd(
+            _build.dtype_code(x), x.data_ptr(), ln_s, ln_b, wq_p, bq_p, wk_p, wv_p, bv_p,
+            sq_p, sk_p, sv_p, q.data_ptr(), k.data_ptr(), v.data_ptr(), B, d,
+            _build.stream_ptr(x))
     _build.check(lib, err, "fused_qkv")
     _count("fused_qkv", sq_p, sk_p, sv_p)
+    if rows is not None and T != torch.bfloat16:   # the GEMV route's k/v into the cache
+        rows[0].copy_(k)
+        rows[1].copy_(v)
+        k, v = rows
     return q, k, v
 
 
@@ -431,7 +484,7 @@ def _fused_attn_cuda(x, k, v, wo, bo, q, n_valid, ln_scale, ln_bias, wq, bq,
             x.data_ptr(), q_ptr, ln_s, ln_b, None if self_mode else wq.data_ptr(), bq_p,
             sq_p, lq, n_q, k.data_ptr(), v.data_ptr(), ks_p, vs_p, lkv, n_kv,
             wo.data_ptr(), ptr(bo, 1, T, (d,)), so_p, lo, n_o, q_buf_p, part.data_ptr(),
-            o_buf.data_ptr(), out.data_ptr(), work.data_ptr(), work.numel(),
+            o_buf.data_ptr(), out.data_ptr(), work.data_ptr(), _MLP_WORK_FLOATS,
             counters.data_ptr(), N, T_len, d, n_valid, G, _build.stream_ptr(x))
     else:
         part, o_buf, _ = _attn_scratch(x, T_len)
@@ -516,14 +569,15 @@ _WORK = {}
 
 def _workspace(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """The tensor-core kernels' split-K partial sums and ticket counters on
-    `device` (fc1, fc2, q, wo, the attention core: 1024 tickets each), made
-    once: the counters start at 0 and every call leaves them so (the last
-    block of a tile, or of a row's chunks, resets its ticket), and a call
-    touches either only after the kernels before it have finished."""
+    `device` (fc1, fc2, q, wo, the attention core, qkv: 1024 tickets each;
+    the sums: fused_mlp's and fused_attn's, then qkv's own), made once: the
+    counters start at 0 and every call leaves them so (the last block of a
+    tile, or of a row's chunks, resets its ticket), and a call touches
+    either only after the kernels before it have finished."""
     ws = _WORK.get(device)
     if ws is None:
-        ws = (torch.empty(_MLP_WORK_FLOATS, dtype=torch.float32, device=device),
-              torch.zeros(5 * _MLP_COUNTERS, dtype=torch.int32, device=device))
+        ws = (torch.empty(2 * _MLP_WORK_FLOATS, dtype=torch.float32, device=device),
+              torch.zeros(_N_COUNTERS * _MLP_COUNTERS, dtype=torch.int32, device=device))
         _WORK[device] = ws
     return ws
 
@@ -554,7 +608,7 @@ def _fused_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, layer_idx, w1_scale,
         ptr(ln_scale, 1, f32, (d,)),
         ptr(ln_bias, 1, f32, (d,)),
         w1.data_ptr(), ptr(b1, 1, T, (ff,)), w2.data_ptr(), ptr(b2, 1, T, (d,)),
-        s1_p, s2_p, g.data_ptr(), out.data_ptr(), work.data_ptr(), work.numel(),
+        s1_p, s2_p, g.data_ptr(), out.data_ptr(), work.data_ptr(), _MLP_WORK_FLOATS,
         counters.data_ptr(), B, d, ff, l1, n1, l2, n2, _build.stream_ptr(x))
     _build.check(lib, err, "fused_mlp")
     _count("fused_mlp", s1_p, s2_p)
@@ -569,7 +623,8 @@ def kernel_launches() -> dict:
     attn_passes; fp32 fused_attn and fused_attn_beam: the cross q GEMV, the
     partials, the combine, the wo GEMV, a GEMV once per group of 8 rows;
     bf16 fused_mlp: mlp_fc1_kernel and mlp_fc2_kernel once per pass of up
-    to 32 rows)."""
+    to 32 rows; bf16 fused_qkv: qkv_kernel once per pass of up to 32 rows,
+    fp32 the GEMV once per group of 8)."""
     counts = (ctypes.c_longlong * len(KERNELS))()
     _lib().kernel_launches(counts)
     return dict(zip(KERNELS, counts))
@@ -593,10 +648,13 @@ def _lib() -> ctypes.CDLL:
                                           + [I, I] + [P] * 5 + [ctypes.c_longlong, P]
                                           + [I] * 5 + [P])
         lib.fused_attn_beam_fwd.argtypes = [I] + [P] * 11 + [I] * 5 + [P]
+        LL = ctypes.c_longlong
+        lib.fused_qkv_tc_fwd.argtypes = ([P] * 6 + [I, I] + [P] * 2 + [I, I] + [P] * 3
+                                         + [I, I] + [P] * 2 + [LL, P, LL, P, LL, P, I, I, P])
         lib.fused_mlp_fwd.argtypes = ([I] + [P] * 12 + [ctypes.c_longlong, P]
                                       + [I] * 7 + [P])
-        for fn in (lib.fused_qkv_fwd, lib.fused_attn_fwd, lib.fused_attn_tc_fwd,
-                   lib.fused_attn_beam_fwd, lib.fused_mlp_fwd):
+        for fn in (lib.fused_qkv_fwd, lib.fused_qkv_tc_fwd, lib.fused_attn_fwd,
+                   lib.fused_attn_tc_fwd, lib.fused_attn_beam_fwd, lib.fused_mlp_fwd):
             fn.restype = I
         lib.kernel_launches.argtypes, lib.kernel_launches.restype = [P], None
         lib.reset_kernel_launches.argtypes, lib.reset_kernel_launches.restype = [], None

@@ -6,9 +6,12 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from csrc/ (one nvcc per source, in parallel);
 3. holds every kernel against its plain PyTorch version at whisper-large-v3
-   shapes (B=4, and the decoder kernels also at 12 rows, fused_mlp at 16) in
-   bf16 and fp32, within the limits stated at F32_LIMITS, the bf16 fused_mlp
-   and fused_attn also to bit equality between two calls, and times kernel,
+   shapes (B=4, and the decoder kernels also at 12 rows, fused_qkv and
+   fused_mlp at 16, fused_mlp with int8 fc1 at 32) in bf16 and fp32, within
+   the limits stated at F32_LIMITS, the bf16 fused_qkv, fused_mlp and
+   fused_attn also to bit equality between two calls (fused_qkv also in its
+   cache form: k and v into a self cache's row pos, nothing else touched),
+   and times kernel,
    plain version and, for the encoder attention,
    F.scaled_dot_product_attention as a yardstick (the
    port never calls it): the decoder kernels over float, mixed int8/float
@@ -168,6 +171,15 @@ BF16_LIMITS = {                          # kernel: (atol, rms_rel)
     # H100, over fused_mlp_int8's atol, from the plain version's own fp32
     # product: an fp64 product moves no g the kernel rounds (PERF.md)
     "fused_mlp_int8_r16": (7.2e-4, 5.1e-4),
+    # fused_mlp with int8 fc1 at 32 rows (a beam-8 decode of 4 utterances
+    # over a merged int8 base), fc2 int8 or float, the same rule over the
+    # readings at 32 rows on an H100 (tools/bench_fused_mlp.py --check, fc2
+    # float: 3.55e-4, 1.59e-4): an fp64 product of the same bf16 LN(x) puts
+    # the kernel's g no further from it than the plain version's fp32
+    # product (13 / 19 g values rounded otherwise, against 18 / 21); the
+    # excess is single g values at a rounding boundary that either product
+    # may round the other way (PERF.md)
+    "fused_mlp_int8_r32": (1.42e-3, 6.4e-4),
 }
 # fp32 at large-v3 width, 2+2 layers: the largest over the outputs or leaves
 # of max |diff| / max |ref|, the fused-qkv path against the three
@@ -195,9 +207,10 @@ REPLACES = {
     "log_mel": "asr_finetune_tpu/ops/logmel_pallas.py:123",
 }
 REPLACES.update({k + "_int8": v for k, v in list(REPLACES.items()) if k.startswith("fused_")})
-# fused_mlp at the beam path's 16 rows (4 utterances x 4 beams): the same
-# kernels, timed at a second shape
-REPLACES.update({k + "_r16": REPLACES[k] for k in ("fused_mlp", "fused_mlp_int8")})
+# fused_qkv and fused_mlp at the beam path's 16 rows (4 utterances x 4
+# beams): the same kernels, timed at a second shape
+REPLACES.update({k + "_r16": REPLACES[k] for k in ("fused_mlp", "fused_mlp_int8", "fused_qkv",
+                                                  "fused_qkv_int8")})
 SOURCES = {
     **{k: "asr_finetune_tpu_torch/csrc/encoder_attention.cu"
        for k in REPLACES if k.startswith("encoder_attention")},
@@ -326,9 +339,11 @@ def compare(name, out, ref, dtype_name):
 
 
 def same_bits(name, out, again) -> None:
-    """Two calls of a kernel on the same inputs must give the same bits."""
+    """Two calls of a kernel on the same inputs must give the same bits
+    (tuples element by element)."""
     import torch
-    if not torch.equal(out, again):
+    outs, agains = (t if isinstance(t, tuple) else (t,) for t in (out, again))
+    if not all(torch.equal(a, b) for a, b in zip(outs, agains)):
         raise AssertionError(f"{name}: two calls on the same inputs differ")
     print(f"{name}: two calls bit-equal")
 
@@ -360,6 +375,11 @@ def time_row(rows, name, err, fn, plain_fn, moved, flops, dtype_name,
                   "max_abs_err": err[0], "rms_rel_err": err[1],
                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                   "library_ms": library_ms}
+    if name.startswith("fused_"):   # the CUDA kernels one call launches, by name
+        from asr_finetune_tpu_torch.ops import decoder_fused as DF
+        DF.reset_kernel_launches()
+        fn()
+        rows[name]["cuda_kernels"] = {k: v for k, v in DF.kernel_launches().items() if v}
     print(f"  {name} [{dtype_name}] kernel {ms:.4f} ms (device; eager call "
           f"{eager:.4f} ms)  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})"
           + ("" if library_ms is None else f"  library {library_ms:.4f} ms"))
@@ -505,13 +525,19 @@ def check_decoder_kernels(rows):
     layer 31 of 32: the self-attention at pos 0, 127, 200 of a 256 cache
     and at the main path's cache 128, pos 63; the cross-attention at S 1536,
     s_valid 1500. At 12 rows (the GEMVs run them as a group of 8 and one of
-    4) with one layer's weights unstacked. fused_mlp also at the beam path's
-    16 rows; in bf16 (the tensor-core kernels) two calls of fused_mlp or
-    fused_attn must give the same bits. In bf16 the main path's shapes (B=4,
-    and fused_mlp at 16 rows: "fused_mlp_r16", "fused_mlp_int8_r16") are
-    timed with the calls cycling through the 32 layers, against a bound that
+    4) with one layer's weights unstacked. fused_qkv and fused_mlp also at
+    the beam path's 16 rows; in bf16 (the tensor-core kernels) two calls of
+    fused_qkv, fused_mlp or fused_attn must give the same bits, and
+    fused_qkv's cache form (k and v into row SELF_POS of layer 31 of the
+    main path's (32, 4, 128, d) self cache) must write the bits of the call
+    without one there and nowhere else. In bf16 the main path's shapes
+    (B=4, and fused_qkv and fused_mlp at 16 rows: "fused_qkv_r16",
+    "fused_qkv_int8_r16", "fused_mlp_r16", "fused_mlp_int8_r16") are timed
+    with the calls cycling through the 32 layers, against a bound that
     counts each operand read and each output written once: float weights
-    give the "fused_*" rows, mixed the "fused_*_int8" rows.
+    give the "fused_*" rows, mixed the "fused_*_int8" rows. fused_mlp with
+    int8 fc1 at 32 rows, fc2 int8 or float ("fused_mlp_int8_r32"), in both
+    dtypes.
     The beam path's calls (beam_calls) at 4 utterances x 4 beams: the beam
     self-attention through a random ancestry map, the cross-attention with
     kv_group 4, with int8 K/V at 4 rows (G = 1) and at 16 (G = 4), each
@@ -566,26 +592,33 @@ def check_decoder_kernels(rows):
                 for name, (fn, plain, reads, flops) in calls.items():
                     out = fn(L - 1)
                     err = compare(name + sfx, out, plain(), dn)
-                    if name != "fused_qkv" and dt is torch.bfloat16:
+                    if dt is torch.bfloat16:
                         same_bits(name + sfx, out, fn(L - 1))
                     if dt is torch.bfloat16 and n_rows == B and kind != "all-int8":
                         it = iter(range(10 ** 9))
                         time_row(rows, name + sfx, err, lambda: fn(next(it) % L), plain,
                                  nbytes(*reads) + nbytes(*(out if isinstance(out, tuple)
                                                            else (out,))), flops, dn)
-            # fused_mlp at the beam path's 16 rows, one pass of the bf16
-            # tensor-core kernels (stacked weights, layer 31 of 32)
-            print(f"fused_mlp, {kind} weights [{dn}] at {B * BEAMS} rows:")
-            fn, plain, reads, flops = decoder_calls(DF, xb, qb, w, b, ln, kv[B], SELF_POS,
-                                                    True)["fused_mlp"]
-            out = fn(L - 1)
-            err = compare("fused_mlp" + sfx + ("_r16" if int8 else ""), out, plain(), dn)
+            # fused_qkv's cache form at B = 4: k and v into row SELF_POS of
+            # layer 31 of the self cache, nothing else written
             if dt is torch.bfloat16:
-                same_bits("fused_mlp" + sfx, out, fn(L - 1))
-                if kind != "all-int8":
-                    it = iter(range(10 ** 9))
-                    time_row(rows, "fused_mlp" + sfx + "_r16", err, lambda: fn(next(it) % L),
-                             plain, nbytes(*reads, out), flops, dn)
+                check_qkv_cache(DF, x, w, b, ln, kv[B]["self"], kind)
+            # fused_qkv and fused_mlp at the beam path's 16 rows, one pass of
+            # the bf16 tensor-core kernels (stacked weights, layer 31 of 32)
+            calls16 = decoder_calls(DF, xb, qb, w, b, ln, kv[B], SELF_POS, True)
+            for name in ("fused_qkv", "fused_mlp"):
+                print(f"{name}, {kind} weights [{dn}] at {B * BEAMS} rows:")
+                fn, plain, reads, flops = calls16[name]
+                out = fn(L - 1)
+                err = compare(name + sfx + ("_r16" if int8 and name == "fused_mlp" else ""),
+                              out, plain(), dn)
+                if dt is torch.bfloat16:
+                    same_bits(name + sfx, out, fn(L - 1))
+                    if kind != "all-int8":
+                        it = iter(range(10 ** 9))
+                        time_row(rows, name + sfx + "_r16", err, lambda: fn(next(it) % L),
+                                 plain, nbytes(*reads) + nbytes(*(out if isinstance(out, tuple)
+                                                                  else (out,))), flops, dn)
             print(f"beam-path attention, {kind} weights [{dn}] at {B} x {BEAMS} rows (beam "
                   f"cache {SELF_T} pos {SELF_POS}, cross kv_group {BEAMS} and int8 K/V):")
             calls = beam_calls(DF, xb, qb, x, w, b, ln, beam_kv, anc, cross, cross8)
@@ -599,6 +632,7 @@ def check_decoder_kernels(rows):
                     time_row(rows, name + sfx, err, lambda: fn(next(it) % L), plain,
                              nbytes(*reads, out) + extra_bytes, flops, dn)
             del w
+        check_mlp_r32(DF, Q, w32, b, ln, rn(32, D), dn)
         if dt is torch.bfloat16:
             # the fixed cost of the tensor-core MLP: fused_mlp at ff=64 (one
             # column tile) is two launches, mlp_fc1_kernel (80 KB of W1 a
@@ -638,6 +672,56 @@ def check_decoder_kernels(rows):
                                         v_scale=vs, kv_group=WIDE_BEAMS, **cq), dn)
         del w32, kv, cross, beam_kv, cross8, kw, vw
         torch.cuda.empty_cache()
+
+
+def check_qkv_cache(DF, x, w, b, ln, self_kv, kind) -> None:
+    """bf16 fused_qkv's cache form at layer L-1 of the stacked (L, B,
+    SELF_T, D) self cache: k and v land in row SELF_POS bit for bit as the
+    call without a cache returns them, the returned k and v are views of
+    those rows, and no other element of the cache changes."""
+    import torch
+    li = L - 1
+    args = (x, *ln, w["q"][0], b["q"], w["k"][0], w["v"][0], b["v"])
+    scales = dict(wq_scale=w["q"][1], wk_scale=w["k"][1], wv_scale=w["v"][1], layer_idx=li)
+    ref = DF.fused_qkv(*args, **scales)
+    ck, cv = (t.clone() for t in self_kv)
+    want_k, want_v = ck.clone(), cv.clone()
+    want_k[li, :, SELF_POS], want_v[li, :, SELF_POS] = ref[1], ref[2]
+    q, k, v = DF.fused_qkv(*args, **scales, cache_k=ck, cache_v=cv, pos=SELF_POS)
+    if not (torch.equal(q, ref[0]) and torch.equal(ck, want_k) and torch.equal(cv, want_v)
+            and k.data_ptr() == ck[li, :, SELF_POS].data_ptr()
+            and v.data_ptr() == cv[li, :, SELF_POS].data_ptr()):
+        raise AssertionError(f"fused_qkv cache form, {kind} weights: the cache rows differ "
+                             "from the call without a cache, or other elements changed")
+    print(f"fused_qkv cache form, {kind} weights: row {SELF_POS} of layer {li} written bit "
+          "for bit, nothing else")
+    del ck, cv, want_k, want_v
+
+
+def check_mlp_r32(DF, Q, w32, b, ln, x32, dn) -> None:
+    """fused_mlp at 32 rows (one full pass of the bf16 tensor-core kernels)
+    with int8 fc1 beside an int8 or a float fc2, stacked at layer L-1,
+    against its plain version under "fused_mlp_int8_r32"; bf16 also two
+    calls bit-equal."""
+    import torch
+    li = L - 1
+    q1, q2 = Q.quantize_weight(w32["fc1"]), Q.quantize_weight(w32["fc2"])
+    for label, w2, s2 in (("int8", q2[Q.QUANT_KEY], q2[Q.SCALE_KEY]),
+                          ("mixed", w32["fc2"].to(x32.dtype), None)):
+        def fn():
+            return DF.fused_mlp(x32, *ln, q1[Q.QUANT_KEY], b["fc1"], w2, b["fc2"],
+                                w1_scale=q1[Q.SCALE_KEY], w2_scale=s2, layer_idx=li)
+        out = fn()
+        print(f"fused_mlp at 32 rows, fc1 int8, fc2 {'int8' if s2 is not None else 'float'} "
+              f"({label}) [{dn}]:")
+        compare("fused_mlp_int8_r32", out,
+                DF.fused_mlp_plain(x32, ln[0][li], ln[1][li], q1[Q.QUANT_KEY][li],
+                                   b["fc1"][li], w2[li], b["fc2"][li],
+                                   w1_scale=q1[Q.SCALE_KEY][li],
+                                   w2_scale=None if s2 is None else s2[li]), dn)
+        if x32.dtype == torch.bfloat16:
+            same_bits(f"fused_mlp_int8_r32 ({label})", out, fn())
+    del q1, q2
 
 
 def check_encoder_attention(rows):
@@ -1704,8 +1788,8 @@ def kernel_category(name: str) -> str:
     if "w8a8" in low or "quantize_rows" in low:
         return W8A8
     if any(s in low for s in ("gemv_kernel", "attn_partial", "attn_combine", "mlp_fc",
-                              "attn_q_kernel", "attn_chunk", "attn_wo")):
-        return "decoder kernels (gemv, attn_partial/combine, mlp_fc1/fc2, attn_q/chunk/wo)"
+                              "attn_q_kernel", "attn_chunk", "attn_wo", "qkv_kernel")):
+        return "decoder kernels (gemv, attn_partial/combine, mlp_fc1/fc2, attn_q/chunk/wo, qkv)"
     if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")):
         return "matrix products (cuBLAS)"
     if "multi_tensor" in low or "foreach" in low:
@@ -2125,10 +2209,11 @@ def step_breakdown():
             print(f"  {t / 4e3:8.3f} ms  {c // 4:5d} launches  {key[:90]}")
         # CUDA launches per step, as the library counts them where it
         # launches (the profiler drops kernel records at this rate): per
-        # layer the qkv GEMV, one launch per group of at most 8 rows; the
+        # layer the qkv kernel once per pass of up to 32 rows; the
         # cross-attention's q product, attention core (with its combine) and
         # wo once per pass of attn_passes, and so the self-attention's core
-        # and wo, or the beam self-attention's partial, combine and wo GEMV;
+        # and wo, or the beam self-attention's partial, combine and wo GEMV
+        # (one launch per group of at most 8 rows, the step's only GEMV);
         # the MLP's fc1 and fc2 kernels once per pass of up to 32 rows
         DF.reset_kernel_launches()
         for _ in range(4):
@@ -2137,7 +2222,7 @@ def step_breakdown():
         per_step = {k: v / 4 for k, v in DF.kernel_launches().items()}
         cross_p, self_p = len(DF.attn_passes(n, group)), len(DF.attn_passes(n))
         beam = ancestry is not None
-        want = {"gemv_kernel": (2 if beam else 1) * -(-n // 8) * L,
+        want = {"gemv_kernel": (-(-n // 8) * L) if beam else 0, "qkv_kernel": -(-n // 32) * L,
                 "attn_partial_kernel": L if beam else 0, "attn_combine_kernel": L if beam else 0,
                 "mlp_fc1_kernel": -(-n // 32) * L, "mlp_fc2_kernel": -(-n // 32) * L,
                 "attn_q_kernel": cross_p * L,
@@ -2194,7 +2279,7 @@ def main() -> int:
     train_main_path(rows, config=PEFT_CONFIG, extra=("--int8_matmul",), fused_qkv=True)
     step_breakdown()
     print(json.dumps({"step_device_ms": STEP_DEVICE}))
-    for k in ("fused_mlp", "fused_mlp_int8"):   # one kernel pair at every row count
+    for k in ("fused_mlp", "fused_mlp_int8", "fused_qkv", "fused_qkv_int8"):   # every row count
         rows[k + "_r16"]["launches"] = rows[k]["launches"]
         rows[k + "_r16"]["launches_of"] = k
     print(card_line())

@@ -53,6 +53,84 @@ def test_fused_qkv(stacked):
     assert out[0].dtype == torch.float32
 
 
+def _qkv_operands(rng, rows, weights):
+    """x (rows, D) and stacked (L, ...) fused_qkv operands; weights "float",
+    "int8" (q, k, v int8 with per-channel scales) or "mixed" (a merged-LoRA
+    base: k int8 beside float q and v), the same numpy arrays for both."""
+    x = _rand(rng, rows, D, scale=1.0)
+    lns = _layered(rng, True, D, scale=0.1, offset=1.0)
+    lnb = _layered(rng, True, D, scale=0.1)
+    wq, wk, wv = (_layered(rng, True, D, D, scale=D ** -0.5) for _ in range(3))
+    bq, bv = _layered(rng, True, D), _layered(rng, True, D)
+    int8 = {"float": "", "int8": "qkv", "mixed": "k"}[weights]
+    scales = {}
+    if "q" in int8:
+        wq, scales["wq_scale"] = _int8_weight(wq)
+    if "k" in int8:
+        wk, scales["wk_scale"] = _int8_weight(wk)
+    if "v" in int8:
+        wv, scales["wv_scale"] = _int8_weight(wv)
+    return (x, lns, lnb, wq, bq, wk, wv, bv), scales
+
+
+@pytest.mark.parametrize("weights", ["float", "int8", "mixed"])
+@pytest.mark.parametrize("rows", [1, 16, 33])
+def test_fused_qkv_rows(rows, weights):
+    """fused_qkv at the row counts the card's tensor-core kernel serves in
+    one pass (1, 16) and in two (33), stacked weights at layer 1, float,
+    int8 or mixed q/k/v (the same numpy int8 arrays on both sides)."""
+    rng = np.random.default_rng(40 + rows)
+    args, scales = _qkv_operands(rng, rows, weights)
+    ref = JDF.fused_qkv(*map(_j, args), layer_idx=1, **{k: _j(v) for k, v in scales.items()})
+    out = TDF.fused_qkv(*map(_t, args), layer_idx=1, **{k: _t(v) for k, v in scales.items()})
+    for o, r in zip(out, ref):
+        assert o.shape == (rows, D)
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), **TOL)
+
+
+@pytest.mark.parametrize("weights", ["float", "mixed"])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_fused_qkv_writes_the_cache(stacked, weights):
+    """The cache form: k and v go into row pos of the self cache (layer 1
+    of an (L, B, T, d) cache, or a (B, T, d) one), the call returns JAX
+    fused_qkv's (q, k, v) with k and v views of those rows, and no other
+    element of the cache changes."""
+    rng = np.random.default_rng(7)
+    args, scales = _qkv_operands(rng, B, weights)
+    li, pos = (1 if stacked else None), 37
+    if not stacked:
+        args = args[:1] + tuple(a[1] for a in args[1:])
+        scales = {k: v[1] for k, v in scales.items()}
+    ck, cv = (_t(_layered(rng, stacked, B, T, D)) for _ in range(2))
+    ck0, cv0 = ck.clone(), cv.clone()
+    ref = JDF.fused_qkv(*map(_j, args), layer_idx=li, **{k: _j(v) for k, v in scales.items()})
+    q, k, v = TDF.fused_qkv(*map(_t, args), layer_idx=li, cache_k=ck, cache_v=cv, pos=pos,
+                            **{k_: _t(v_) for k_, v_ in scales.items()})
+    for o, r in zip((q, k, v), ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), **TOL)
+    at = (lambda c: c[li]) if stacked else (lambda c: c)
+    assert k.data_ptr() == at(ck)[:, pos].data_ptr()
+    assert torch.equal(at(ck)[:, pos], k) and torch.equal(at(cv)[:, pos], v)
+    for c, c0 in ((ck, ck0), (cv, cv0)):
+        at(c)[:, pos] = at(c0)[:, pos]
+        assert torch.equal(c, c0)
+
+
+def test_fused_qkv_cache_operands_are_checked():
+    """cache_k, cache_v and pos come together, at the rows and dtype of the
+    call, pos inside the cache."""
+    rng = np.random.default_rng(8)
+    args, _ = _qkv_operands(rng, B, "float")
+    args = tuple(map(_t, args))
+    ck = torch.zeros(L, B, T, D)
+    with pytest.raises(ValueError, match="together"):
+        TDF.fused_qkv(*args, layer_idx=0, cache_k=ck, pos=0)
+    with pytest.raises(ValueError, match="rows"):
+        TDF.fused_qkv(*args, layer_idx=0, cache_k=ck[:, :2], cache_v=ck[:, :2], pos=0)
+    with pytest.raises(IndexError, match="pos"):
+        TDF.fused_qkv(*args, layer_idx=0, cache_k=ck, cache_v=ck.clone(), pos=T)
+
+
 @pytest.mark.parametrize("stacked", [False, True])
 @pytest.mark.parametrize("pos", [0, 127, 200, T - 1])
 def test_fused_attn_self(stacked, pos):

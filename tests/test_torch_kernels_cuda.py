@@ -26,7 +26,10 @@ over a random ancestry map, the cross-attention's kv_group at 1, 3, 4, 8 and
 attention core) runs at 1 to 40 rows (passes of up to 32), kv_group 1, 4, 8
 and 10 over float, mixed and int8 weights and K/V, self at pos 0 to T-1 and
 cross at s_valid 1 to 1500 over S 1536, two calls bit-equal, its launches
-counted per pass. The encoder-attention kernels also run on the
+counted per pass. The bf16 fused_qkv (one tensor-core launch a pass of up to
+32 rows) runs at 1 to 33 rows over float, int8 and mixed q/k/v, two calls
+bit-equal, and writes k and v into a self cache's row pos and nowhere else.
+The encoder-attention kernels also run on the
 (BH, T, hd) and fused-qkv layouts, and the log-mel kernel (fp32) at 80 and
 128 mel bins."""
 import numpy as np
@@ -584,6 +587,79 @@ def test_fused_mlp_matches_plain(dev, B, weights, d, ff):
     again = DF.fused_mlp(x, lns, lnb, w1, b1, w2, b2, w1_scale=s1, w2_scale=s2,
                          layer_idx=li)
     assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("weights", ["float", "int8", "mixed"])
+@pytest.mark.parametrize("B", [1, 4, 12, 16, 32, 33])
+def test_fused_qkv_tc_matches_plain(dev, B, weights):
+    """bf16 fused_qkv on the tensor cores at 1 to 33 rows (33: two passes of
+    up to 32), q/k/v float, all int8, or mixed (k int8 beside float q and v:
+    a merged-LoRA base), stacked at layer 2 of 3: one qkv_kernel launch a
+    pass and no other kernel, held against its plain version, two calls
+    bit-equal. The cache form writes k and v into row pos of layer 2 of an
+    (L, B, T, d) cache, bit-equal to the call without one, returns views of
+    those rows and leaves every other element of the cache as it was."""
+    g = torch.Generator(device=dev).manual_seed(300 + B)
+    bf, li, pos = torch.bfloat16, 2, 77
+    x = _rn(g, dev, B, D, dtype=bf)
+    lns, lnb = 1 + _rn(g, dev, L, D, scale=0.1), _rn(g, dev, L, D, scale=0.1)
+    int8 = {"float": "", "int8": "qkv", "mixed": "k"}[weights]
+    w = {}
+    for n in "qkv":
+        t = _rn(g, dev, L, D, D, scale=D ** -0.5)
+        w[n] = _int8(t) if n in int8 else (t.to(bf), None)
+    bq, bv = (_rn(g, dev, L, D, scale=0.1, dtype=bf) for _ in range(2))
+
+    def call(**kw):
+        return DF.fused_qkv(x, lns, lnb, w["q"][0], bq, w["k"][0], w["v"][0], bv,
+                            wq_scale=w["q"][1], wk_scale=w["k"][1], wv_scale=w["v"][1],
+                            layer_idx=li, **kw)
+    DF.reset_kernel_launches()
+    out = call()
+    assert DF.kernel_launches() == {**dict.fromkeys(DF.KERNELS, 0),
+                                    "qkv_kernel": -(-B // 32)}
+    ref = DF.fused_qkv_plain(x, lns[li], lnb[li], w["q"][0][li], bq[li], w["k"][0][li],
+                             w["v"][0][li], bv[li], wq_scale=_at_layer(w["q"][1], li),
+                             wk_scale=_at_layer(w["k"][1], li),
+                             wv_scale=_at_layer(w["v"][1], li))
+    for o, r in zip(out, ref):
+        assert o.shape == (B, D) and o.dtype == r.dtype
+        _close(o, r, bf)
+    assert all(torch.equal(a, b) for a, b in zip(out, call()))
+    ck, cv = (_rn(g, dev, L, B, T, D, dtype=bf) for _ in range(2))
+    want_k, want_v = ck.clone(), cv.clone()
+    want_k[li, :, pos], want_v[li, :, pos] = out[1], out[2]
+    DF.reset_kernel_launches()
+    q, k, v = call(cache_k=ck, cache_v=cv, pos=pos)
+    assert DF.kernel_launches()["qkv_kernel"] == -(-B // 32)
+    assert sum(DF.kernel_launches().values()) == -(-B // 32)
+    assert torch.equal(q, out[0]) and torch.equal(ck, want_k) and torch.equal(cv, want_v)
+    assert k.data_ptr() == ck[li, :, pos].data_ptr() and torch.equal(v, out[2])
+
+
+def test_fused_qkv_rejects_unsupported_shapes(dev):
+    """The tensor-core qkv stages x's rows whole: a bf16 call wider than
+    1280 raises and never falls back to the GEMV; fp32 takes the GEMV (one
+    launch a group of 8 rows) and copies its k and v into a given cache."""
+    B, d = 3, 1344
+    ln = torch.ones(d, device=dev)
+    x = torch.zeros(B, d, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(d, d, device=dev, dtype=torch.bfloat16)
+    b = torch.zeros(d, device=dev, dtype=torch.bfloat16)
+    DF.reset_kernel_launches()
+    with pytest.raises(ValueError, match="1280"):
+        DF.fused_qkv(x, ln, ln, w, b, w, w, b)
+    assert sum(DF.kernel_launches().values()) == 0
+    g = torch.Generator(device=dev).manual_seed(9)
+    x, w, b = _rn(g, dev, 12, D), _rn(g, dev, D, D, scale=D ** -0.5), _rn(g, dev, D)
+    ln = torch.ones(D, device=dev)
+    ck, cv = torch.zeros(12, T, D, device=dev), torch.zeros(12, T, D, device=dev)
+    q, k, v = DF.fused_qkv(x, ln, ln, w, b, w, w, b, cache_k=ck, cache_v=cv, pos=5)
+    assert DF.kernel_launches() == {**dict.fromkeys(DF.KERNELS, 0), "gemv_kernel": 2}
+    ref = DF.fused_qkv_plain(x, ln, ln, w, b, w, w, b)
+    for o, r in zip((q, ck[:, 5], cv[:, 5]), ref):
+        _close(o, r, torch.float32)
+    assert k.data_ptr() == ck[:, 5].data_ptr() and int(ck.count_nonzero()) == 12 * D
 
 
 def test_fused_mlp_rejects_unsupported_shapes(dev):

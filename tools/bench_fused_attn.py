@@ -112,14 +112,10 @@ def profile(fn, calls: int = 32) -> dict:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
 
 
-def trace(DF, call) -> dict:
-    """Phases of one call's blocks from a build with -DATTN_TRACE, the call
-    replayed from a CUDA graph as the timing does (eager launches would show
-    the host's gaps): for each kernel, its blocks, its first and last
-    block's start and its last block's end (us, globaltimer, from the
-    call's first start), and over its blocks the median and largest time
-    from entry to the end of griddepcontrol.wait, to its operands in shared
-    memory, and to exit."""
+def replay_stamps(DF, call):
+    """The probe's (3, 4096, 4) globaltimer stamps of one call(L - 1) in a
+    build with -DATTN_TRACE, the call replayed from a CUDA graph as the
+    timing does (eager launches would show the host's gaps)."""
     import numpy as np
     import torch
     lib = DF._lib()
@@ -141,7 +137,17 @@ def trace(DF, call) -> dict:
     graph.replay()
     torch.cuda.synchronize()
     lib.attn_trace(ctypes.addressof(buf))
-    t = np.frombuffer(buf, dtype=np.uint64).reshape(3, 4096, 4).astype(np.int64)
+    return np.frombuffer(buf, dtype=np.uint64).reshape(3, 4096, 4).astype(np.int64)
+
+
+def trace(DF, call) -> dict:
+    """Phases of one call's blocks (replay_stamps): for each kernel, its
+    blocks, its first and last block's start and its last block's end (us,
+    globaltimer, from the call's first start), and over its blocks the
+    median and largest time from entry to the end of griddepcontrol.wait,
+    to its operands in shared memory, and to exit."""
+    import numpy as np
+    t = replay_stamps(DF, call)
     live = [t[k][t[k, :, 0] > 0] for k in range(3)]
     t0 = min(int(b[:, 0].min()) for b in live if len(b))
     out = {}

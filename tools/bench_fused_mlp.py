@@ -15,7 +15,12 @@ per-channel scales) and mixed (fc1 int8, fc2 bf16). The bound counts each
 operand read and each output written once, over 3.35 TB/s (H100 SXM).
 --check also holds each call against fused_mlp_plain (max abs error, and
 chip_smoke.py's bf16 measures) and two calls against each other (bit
-equality); --profile adds the device time per
+equality), and attributes the difference with an fp64 yardstick: the same
+bf16-rounded LN(x) through both products in fp64 (g and the output rounded
+to bf16 where the kernel rounds them); it counts the g values the kernel
+(its own g, read through the C entry) and the plain version (its fp32
+product) round otherwise than the yardstick, and each one's excess over a
+rounding step against the yardstick's output; --profile adds the device time per
 call of each CUDA kernel (torch.profiler, eager calls); --host the host's
 time per call (launches enqueued, not waited for); --trace builds
 csrc/decoder_fused.cu with -DMLP_TRACE (its timing probe) into a library of
@@ -126,6 +131,70 @@ def trace(DF, call) -> dict:
     return out
 
 
+def f64_attribution(DF, x, ln, w, b, li) -> dict:
+    """The kernel and the plain version against an fp64 product of the same
+    bf16-rounded operands: g flips (bf16 g values that differ from the
+    yardstick's) and the excess over one rounding step of each output."""
+    import torch
+    from asr_finetune_tpu_torch.ops import _build
+    (w1, s1), (w2, s2) = w["fc1"], w["fc2"]
+    at = lambda t: None if t is None else t[li]   # noqa: E731
+    n, ff, bf = x.shape[0], w1.shape[-1], x.dtype
+    # the kernel's own g: fused_mlp's C entry with a g buffer of ours
+    g_k, out_k = torch.empty((n, ff), dtype=bf, device=x.device), torch.empty_like(x)
+    work, counters = DF._workspace(x.device)
+    lib = DF._lib()
+    err = lib.fused_mlp_fwd(
+        1, x.data_ptr(), ln[0][li].data_ptr(), ln[1][li].data_ptr(), w1.data_ptr(),
+        b["fc1"][li].data_ptr(), w2.data_ptr(), b["fc2"][li].data_ptr(),
+        None if s1 is None else s1[li].data_ptr(), None if s2 is None else s2[li].data_ptr(),
+        g_k.data_ptr(), out_k.data_ptr(), work.data_ptr(), DF._MLP_WORK_FLOATS,
+        counters.data_ptr(), n, D, ff, li, L, li, L, _build.stream_ptr(x))
+    _build.check(lib, err, "fused_mlp")
+    h = DF._ln(x, ln[0][li], ln[1][li]).to(bf).float()
+    # the kernels' LN(x): the bf16 qkv kernel, whose LN prologue is fc1's
+    # code, gives q = LN(x) 64^-0.5 exactly with wq = I and bq = 0
+    eye, zero = torch.eye(D, device=x.device, dtype=bf), torch.zeros(D, device=x.device,
+                                                                        dtype=bf)
+    h_k = DF.fused_qkv(x, ln[0][li], ln[1][li], eye, zero, eye, eye, zero)[0] * 8
+    x64 = x.double()
+    mean = x64.mean(-1, keepdim=True)
+    h_64 = ((x64 - mean) / ((x64 - mean).square().mean(-1, keepdim=True) + 1e-5).sqrt()
+            * ln[0][li].double() + ln[1][li].double()).to(bf).float()
+
+    def product(a, wt, s, dt):
+        y = a.to(dt) @ wt[li].to(dt)
+        return y if s is None else y * s[li].reshape(-1).to(dt)
+
+    def chain64(hh):   # g and the output from hh in fp64, each rounded to bf16
+        g = torch.nn.functional.gelu(product(hh, w1, s1, torch.float64)
+                                     + b["fc1"][li].double()).to(bf)
+        return g, (product(g.float(), w2, s2, torch.float64) + b["fc2"][li].double()
+                   + x64).to(bf).float()
+    g_p = torch.nn.functional.gelu(product(h, w1, s1, torch.float32)
+                                   + b["fc1"][li].float()).to(bf)
+    out_p = DF.fused_mlp_plain(x, ln[0][li], ln[1][li], w1[li], b["fc1"][li], w2[li],
+                               b["fc2"][li], w1_scale=at(s1), w2_scale=at(s2)).float()
+
+    def excess(o, ref):
+        return float(((o - ref).abs() - 2.0 ** -7 * ref.abs()).max())
+    row = {"kernel_out_equals_wrapper": bool(torch.equal(out_k, DF.fused_mlp(
+        x, *ln, w1, b["fc1"], w2, b["fc2"], w1_scale=s1, w2_scale=s2, layer_idx=li))),
+        "h_flips_kernel_vs_plain": int((h_k != h).sum()),
+        "h_flips_kernel_vs_f64": int((h_k != h_64).sum()),
+        "h_flips_plain_vs_f64": int((h != h_64).sum()),
+        "h_flip_rows_kernel_vs_plain": sorted({int(r) for r in (h_k != h).nonzero()[:, 0]})}
+    # yardsticks: "same_h" the fp64 products from the plain version's bf16
+    # LN(x); "f64" everything in fp64 from x, LN included
+    for tag, hh in (("same_h", h), ("f64", h_64)):
+        g_64, out_64 = chain64(hh)
+        row[f"g_flips_kernel_vs_{tag}"] = int((g_k != g_64).sum())
+        row[f"g_flips_plain_vs_{tag}"] = int((g_p != g_64).sum())
+        row[f"excess_kernel_vs_{tag}"] = excess(out_k.float(), out_64)
+        row[f"excess_plain_vs_{tag}"] = excess(out_p, out_64)
+    return row
+
+
 def load_variant(defines) -> None:
     """Build csrc/decoder_fused.cu with extra -D flags into a library of its
     own and have the wrappers load that one."""
@@ -232,6 +301,7 @@ def main() -> int:
                                        / ref.float().square().mean().sqrt())
                 row["bit_equal"] = bool(torch.equal(out, call(li)))
                 row["finite"] = bool(out.isfinite().all())
+                row.update(f64_attribution(DF, x, ln, w, b, li))
             it = iter(range(10 ** 9))
             row["ms"] = device_ms(lambda: call(next(it) % L))
             if args.host:
