@@ -35,8 +35,8 @@
 // against 2 bytes (bf16), ~4 flop per byte against the ~295 the H100 needs
 // before its tensor cores limit. Everything is built to stream:
 //
-//  * gemv_kernel (fp32 fused_qkv, fp32 fused_attn's q and wo, fused_attn_beam's
-//    wo, and fp32 fused_mlp):
+//  * gemv_kernel (the fp32 route: fused_qkv, fused_attn's q and wo,
+//    fused_attn_beam's wo, fused_mlp; bf16 calls run the tensor cores):
 //    out[b, n] = sum_k h[b, k] W[k, n] for all rows of a group at once, so
 //    each weight byte is read once per group. A block owns 16 output columns
 //    and splits K over 128 lanes (16-byte loads, 8 columns per thread),
@@ -119,6 +119,23 @@
 //    own combine) and writes o in bf16, so wo loads o as fc2 loads g. The q
 //    product lets the core start at once, the core lets wo start, so wo
 //    streams while the attention runs.
+//  * attn_chunk_kernel in beam mode, attn_wo_kernel (bf16 fused_attn_beam):
+//    two programmatic dependent launches a pass of up to 32 rows (q comes
+//    from fused_qkv). The GEMV route held it at 13x its bound with fixed
+//    costs: four launches a layer (the partials, their combine, the wo
+//    GEMV once per group of 8 rows, each group reading wo's 3.3 MB again),
+//    the scores on the CUDA cores, 8 lanes a key through three dependent
+//    shuffles, nothing overlapped. What bounds it is bytes (the distinct
+//    live cache rows, wo, x) but at 16 rows it moves ~7 MB, ~2 us at 3.35
+//    TB/s: fixed costs still dominate. Here it is the cross and self
+//    attention's core and wo product: a block per (query row, head, chunk
+//    of 256 keys) gathers each key row of its head, 128 bytes of K and of V,
+//    from the cache row the ancestry names (cp.async, 16 bytes a thread,
+//    into the swizzled tile TMA would land, K and V on barriers of their
+//    own), and the scores and p.v on the tensor cores, the ticketed combine
+//    and o in bf16 are the self core's, unchanged; wo streams while the
+//    core runs. Only chunks with valid keys are read: T rows a query, never
+//    the K x T the Pallas kernel masks over.
 //  * attn_partial_kernel (fp32 fused_attn, fused_attn_beam): split-T
 //    flash-decoding. The TPU kernel's grid of B
 //    programs uses few of the 132 SMs; here one block per (row, head,
@@ -129,9 +146,9 @@
 //    kv_group G a block serves up to 8 query rows of one KV row, so a shared
 //    cross K/V chunk is read once per 8 rows, not G times (G x fewer bytes on
 //    the decode's largest read up to 8 beams); int8 K/V halves those bytes
-//    again. The beam
-//    kernel is the same block reading each key row through the ancestry
-//    map: T rows per query, never the K*T the Pallas kernel masks over.
+//    again. In fp32
+//    fused_attn_beam the same block reads each key row through the
+//    ancestry map.
 //  * The TPU's head-expansion matrix M is a lane trick: here each block
 //    reduces its own head directly.
 //
@@ -1379,12 +1396,61 @@ struct CoreArgs {
   int d, n_valid, n_split, r0, Gp, gs, n_sub, G;
   int kv_row0;           // the TMA row of KV row 0 of the layer (layer x KV rows)
   int kv_early;          // the K/V predate the kernel before: load them before its wait
+  // beam mode (anc non-null; bf16, one query row a block): query row r
+  // reads key t from cache row (r - r % beam) + anc[r, t] of the layer,
+  // gathered a key row at a time from the stacked (L x N, T_len, d) bases
+  const int* anc;        // (N, T_len) int32 ancestry
+  const __nv_bfloat16* kb;
+  const __nv_bfloat16* vb;
+  int beam, T_len;
 };
 
 template <typename KV, int MAXG>
 constexpr int core_smem() {
   return 1024 + 2 * ACH * HD * (int)sizeof(KV) + MAXG * HD * 4 + MAXG * COMB_SCRATCH * 4 +
          CORE_WARPS * MAXG * 4 + 16;
+}
+
+// Beam mode's loads: query row r's keys t0 .. t0 + nk - 1 of head h, each
+// key row's 128 bytes of K and of V from cache row (r - r % beam) + anc[r,
+// t] of the layer, by cp.async, 16 bytes a thread, into the 128-byte
+// swizzled tiles the TMA boxes land (so the scores and p.v read them
+// unchanged). Every thread's K copies complete on bar[0] and then its V
+// copies on bar[1] (a no-increment arrival each: the barriers count
+// CORE_THREADS), so the scores start while V lands. Keys past nk up to the
+// last live warp's 32 are zeros, where a box would have loaded cache rows:
+// p is 0 there, and 0 x a stale bit pattern could be NaN. The caller
+// issues this after griddepcontrol.wait: fused_qkv, the kernel before,
+// writes the newest key (row pos) into the cache; the ancestry, which
+// addresses every copy, loads with them.
+__device__ __forceinline__ void gather_kv(const CoreArgs& a, uint8_t* ks, uint8_t* vs,
+                                          uint64_t* bar, int r, int h, int t0, int nk) {
+  constexpr int PIECES = HD * 2 / 16;                        // 16-byte pieces a key row
+  constexpr int PER = ACH * PIECES / CORE_THREADS;           // pieces a thread, K or V
+  const int tid = threadIdx.x;
+  const int* anc = a.anc + (long long)r * a.T_len + t0;
+  const long long row0 = (long long)a.kv_row0 + (r - r % a.beam);
+  const int nz = min(ACH, (nk + 31) / 32 * 32);              // keys the live warps read
+  long long off[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = tid + u * CORE_THREADS, key = i / PIECES, c = i % PIECES;
+    off[u] = -1;
+    if (key < nk) {
+      off[u] = ((row0 + anc[key]) * a.T_len + t0 + key) * a.d + h * HD + c * 8;
+      cp_async16(ks + sw128(key, c * 16), a.kb + off[u]);
+    } else if (key < nz) {
+      *reinterpret_cast<uint4*>(ks + sw128(key, c * 16)) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(vs + sw128(key, c * 16)) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  cp_async_arrive_noinc(&bar[0]);
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = tid + u * CORE_THREADS, key = i / PIECES, c = i % PIECES;
+    if (off[u] >= 0) cp_async16(vs + sw128(key, c * 16), a.vb + off[u]);
+  }
+  cp_async_arrive_noinc(&bar[1]);
 }
 
 // Chunk-local softmax of the block's query rows (the split-T flash-decoding
@@ -1399,7 +1465,9 @@ constexpr int core_smem() {
 // tile, which is dead by then. int8 K/V widen exactly; V's scale multiplies
 // the combined accumulator. A chunk then combines into o, or writes its
 // partials and the last chunk of its (rows, head) combines them (the
-// tail).
+// tail). Beam mode (a.anc, bf16, one query row a block) takes the chunk's
+// key rows from the cache rows the ancestry names instead of whole boxes:
+// gather_kv.
 template <typename KV, int MAXG>
 __global__ void __launch_bounds__(CORE_THREADS)
 attn_chunk_kernel(const __grid_constant__ CUtensorMap kmap,
@@ -1423,13 +1491,19 @@ attn_chunk_kernel(const __grid_constant__ CUtensorMap kmap,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   ATTN_STAMP(1, 0);
 
-  if (tid == 0) {
-    mbar_init(&bar[0], 1);
-    mbar_init(&bar[1], 1);
+  if (tid == 0) {   // a gather's barriers take every thread's arrival
+    mbar_init(&bar[0], a.anc != nullptr ? CORE_THREADS : 1);
+    mbar_init(&bar[1], a.anc != nullptr ? CORE_THREADS : 1);
     mbar_fence_init();
   }
   __syncthreads();
   auto issue = [&]() {
+    if constexpr (std::is_same<KV, __nv_bfloat16>::value && MAXG == 1) {   // beam mode's instance
+      if (a.anc != nullptr) {
+        gather_kv(a, ks, vs, bar, r0, h, t0, nk);
+        return;
+      }
+    }
     if (tid == 0) {
       const int boxes = (nk + KV_BOX - 1) / KV_BOX;
       mbar_arrive_expect_tx(&bar[0], boxes * KV_BOX * RB);
@@ -1444,7 +1518,9 @@ attn_chunk_kernel(const __grid_constant__ CUtensorMap kmap,
   };
   if (a.kv_early) issue();
   griddep_launch();   // the wo kernel may start streaming wo
-  griddep_wait();     // q (and a self cache's newest key) are written by the kernels before
+  // q (and a self cache's newest key) are written by the kernels before:
+  // self and beam mode issue their K/V after this wait
+  griddep_wait();
   ATTN_STAMP(1, 1);
   if (!a.kv_early) issue();
 
@@ -1932,27 +2008,33 @@ cudaError_t core(const CoreArgs& a, const CUtensorMap& km, const CUtensorMap& vm
 // all. A pass holds whole groups of G rows (G <= 32: 32 / G of them), or
 // 32 rows of one wider group. wq, wo: stacked (Lq, d, d) / (Lo, d, d) bases
 // read at lq / lo; k, v: stacked (Lkv, N / G, T_len, d) bases read at lkv.
+// anc: beam self-attention (q given, G = 1, bf16 K/V, the (N, T_len)
+// ancestry of `beam` hypotheses an utterance), the core gathering each key
+// row through it; passes of 32 rows need not hold whole utterances.
 cudaError_t attn_tc(const __nv_bfloat16* x, const float* q, const float* ln_s,
                     const float* ln_b, const void* wq, const __nv_bfloat16* bq, const float* sq,
                     int lq, int Lq, const void* k, const void* v, const float* k_scale,
-                    const float* v_scale, int lkv, int Lkv, const void* wo,
-                    const __nv_bfloat16* bo, const float* so, int lo, int Lo, float* q_buf,
-                    float* part, __nv_bfloat16* o_buf, __nv_bfloat16* out, float* work,
-                    long long work_floats,
-                    int* counters, int N, int T_len, int d, int n_valid, int G,
-                    cudaStream_t st) {
+                    const float* v_scale, int lkv, int Lkv, const int* anc, int beam,
+                    const void* wo, const __nv_bfloat16* bo, const float* so, int lo, int Lo,
+                    float* q_buf, float* part, __nv_bfloat16* o_buf, __nv_bfloat16* out,
+                    float* work, long long work_floats, int* counters, int N, int T_len, int d,
+                    int n_valid, int G, cudaStream_t st) {
   const bool cross = q == nullptr;
   const int n_split = (n_valid + ACH - 1) / ACH;
   if (N < 1 || G < 1 || N % G != 0 || d % MLP_TILE != 0 || d > MLP_MAX_D || n_valid < 1 ||
       n_valid > T_len || n_split > MAX_SPLIT || lkv < 0 || lkv >= Lkv || lo < 0 || lo >= Lo ||
-      (cross && (lq < 0 || lq >= Lq)))
+      (cross && (lq < 0 || lq >= Lq)) ||
+      (anc != nullptr && (cross || G != 1 || beam < 1 || N % beam != 0 || k_scale != nullptr)))
     return cudaErrorInvalidValue;
   const bool kv8 = k_scale != nullptr;
   const int kv_rows = N / G;
-  CUtensorMap km, vm;
-  cudaError_t e = kv_map(k, kv8, Lkv * kv_rows, T_len, d, &km);
-  if (e == cudaSuccess) e = kv_map(v, kv8, Lkv * kv_rows, T_len, d, &vm);
-  if (e != cudaSuccess) return e;
+  CUtensorMap km{}, vm{};   // beam mode gathers by address: no maps
+  cudaError_t e = cudaSuccess;
+  if (anc == nullptr) {
+    e = kv_map(k, kv8, Lkv * kv_rows, T_len, d, &km);
+    if (e == cudaSuccess) e = kv_map(v, kv8, Lkv * kv_rows, T_len, d, &vm);
+    if (e != cudaSuccess) return e;
+  }
   for (int r0 = 0; r0 < N;) {
     const int n = G <= MLP_MAX_ROWS ? min(N - r0, MLP_MAX_ROWS / G * G)
                                     : min(MLP_MAX_ROWS, G - r0 % G);
@@ -1988,6 +2070,11 @@ cudaError_t attn_tc(const __nv_bfloat16* x, const float* q, const float* ln_s,
     c.G = G;
     c.kv_row0 = lkv * kv_rows;
     c.kv_early = cross;
+    c.anc = anc;
+    c.kb = static_cast<const __nv_bfloat16*>(k);
+    c.vb = static_cast<const __nv_bfloat16*>(v);
+    c.beam = beam;
+    c.T_len = T_len;
     e = kv8 ? core<int8_t>(c, km, vm, n / c.Gp, st) : core<__nv_bfloat16>(c, km, vm, n / c.Gp, st);
     if (e != cudaSuccess) return e;
     ProdArgs ao{};
@@ -2086,26 +2173,46 @@ extern "C" int fused_attn_tc_fwd(const void* x, const float* q, const float* ln_
   using bf = __nv_bfloat16;
   return static_cast<int>(attn_tc(
       static_cast<const bf*>(x), q, ln_s, ln_b, wq, static_cast<const bf*>(bq), sq, lq, Lq, k,
-      v, k_scale, v_scale, lkv, Lkv, wo, static_cast<const bf*>(bo), so, lo, Lo, q_buf, part,
+      v, k_scale, v_scale, lkv, Lkv, nullptr, 0, wo, static_cast<const bf*>(bo), so, lo, Lo,
+      q_buf, part,
       static_cast<bf*>(o_buf), static_cast<bf*>(out), work, work_floats, counters, N, T_len, d,
       n_valid, G, static_cast<cudaStream_t>(stream)));
 }
 
-// Beam self-attention over the unpermuted cache: anc (N, T_len) int32, the
-// (B, beam, T_len) ancestry map; query row r reads position t from cache row
-// (r - r % beam) + anc[r, t].
+// fp32 beam self-attention over the unpermuted cache, the GEMV route: anc
+// (N, T_len) int32, the (B, beam, T_len) ancestry map; query row r reads
+// position t from cache row (r - r % beam) + anc[r, t]. k and v are offset
+// to the layer.
 extern "C" int fused_attn_beam_fwd(int dtype, const void* x, const float* q, const void* k,
                                    const void* v, const int* anc, const void* wo,
                                    const void* bo, const float* so, float* part, void* o_buf,
                                    void* out, int N, int T_len, int d, int n_valid, int beam,
                                    void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);   // bf16: the _tc entry
   const AttnArgs a = attn_args(q, k, v, nullptr, anc, part, T_len, d, n_valid, 1, beam);
-  return static_cast<int>(
-      dtype == 0 ? attn<float>(x, nullptr, nullptr, nullptr, nullptr, nullptr, a, nullptr, wo,
-                               bo, so, nullptr, o_buf, out, N, st)
-                 : attn<__nv_bfloat16>(x, nullptr, nullptr, nullptr, nullptr, nullptr, a,
-                                       nullptr, wo, bo, so, nullptr, o_buf, out, N, st));
+  return static_cast<int>(attn<float>(x, nullptr, nullptr, nullptr, nullptr, nullptr, a, nullptr,
+                                      wo, bo, so, nullptr, o_buf, out, N,
+                                      static_cast<cudaStream_t>(stream)));
+}
+
+// bf16 beam self-attention on the attention core in beam mode and the wo
+// product, two programmatic dependent launches a pass of up to 32 rows: k
+// and v are the stacked (Lkv, N, T_len, d) cache bases read at lkv, wo (Lo,
+// d, d) read at lo, int8 where so is non-null; anc as fused_attn_beam_fwd's;
+// part, o_buf, work and counters as fused_attn_tc_fwd's.
+extern "C" int fused_attn_beam_tc_fwd(const void* x, const float* q, const void* k,
+                                      const void* v, int lkv, int Lkv, const int* anc,
+                                      const void* wo, const void* bo, const float* so, int lo,
+                                      int Lo, float* part, void* o_buf, void* out, float* work,
+                                      long long work_floats, int* counters, int N, int T_len,
+                                      int d, int n_valid, int beam, void* stream) {
+  using bf = __nv_bfloat16;
+  if (q == nullptr || anc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(attn_tc(
+      static_cast<const bf*>(x), q, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 1, k, v,
+      nullptr, nullptr, lkv, Lkv, anc, beam, wo, static_cast<const bf*>(bo), so, lo, Lo, nullptr,
+      part, static_cast<bf*>(o_buf), static_cast<bf*>(out), work, work_floats, counters, N,
+      T_len, d, n_valid, 1, static_cast<cudaStream_t>(stream)));
 }
 
 // fused_mlp: w1 (L1, d, ff) and w2 (L2, ff, d) are the stacked weights' bases

@@ -14,10 +14,11 @@ a decode step runs four wrappers, each replacing one Pallas kernel:
   fused_mlp   ← `fused_mlp` (:681; pl.pallas_call :738, `_mlp_kernel` :649)
 
 Bound on the card: bytes. A call streams one layer's weights (and K/V rows),
-a few flops per byte; the kernels are, for bf16 fused_qkv, fused_attn and
-fused_mlp, tensor-core products fed by TMA (once per pass of up to 32
-rows), and otherwise split-K GEMVs (once per group of up to 8 rows) and a
-split-T attention, all built to stream. The CUDA source says how.
+a few flops per byte; the kernels are, for every bf16 call, tensor-core
+products fed by TMA and an attention core (once per pass of up to 32 rows;
+fused_attn_beam's core gathers each key row through the ancestry map), and
+for fp32 split-K GEMVs (once per group of up to 8 rows) and a split-T
+attention, all built to stream. The CUDA source says how.
 
 fused_qkv writes k and v straight into a self cache when given one
 (cache_k, cache_v, pos): the decode step's row pos of layer l, with no copy
@@ -29,8 +30,9 @@ l through a pointer offset, never through a copied slice. For CUDA tensors
 a wrapper launches its kernel(s) or raises; CPU tensors take the plain
 PyTorch version beside it. One wrapper call may launch more than one CUDA
 kernel (bf16 fused_attn: the cross q product, the attention core with its
-combine, the wo product; fp32: the q GEMV, the partials, their combine, the
-wo GEMV), and counts once in LAUNCHES.
+combine, the wo product, and so bf16 fused_attn_beam without q; fp32: the q
+GEMV, the partials, their combine, the wo GEMV), and counts once in
+LAUNCHES.
 
 int8 weights (the JAX kernels' w*_scale option): any projection may be int8
 ({"w_q8", "w_scale"} of ops/quant.py) while its neighbours in the same call
@@ -90,7 +92,8 @@ def attn_passes(rows: int, kv_group: int = 1) -> list:
     """The row counts of bf16 fused_attn's passes (csrc attn_tc): whole
     groups of kv_group rows, as many as fit in 32 rows, or 32 rows at a time
     of a wider group. Each pass is one launch of the attention core and of
-    the wo product, and in cross mode of the q product."""
+    the wo product, and in cross mode of the q product. bf16 fused_attn_beam
+    takes attn_passes(rows): its passes need not hold whole utterances."""
     out, r0 = [], 0
     while r0 < rows:
         if kv_group <= _PASS_ROWS:
@@ -118,11 +121,20 @@ def _count(name: str, *scales) -> None:
 
 def _ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         eps: float = 1e-5) -> torch.Tensor:
-    """fp32 layer norm over the last axis (models/whisper.layer_norm)."""
+    """fp32 layer norm over the last axis (models/whisper.layer_norm) in the
+    bf16 kernels' operations: the sum of x, then of the fp32 squares of
+    (x - mean), each taken in fp64 and rounded once to fp32, times fp32(1/d);
+    then ((x - mean) * rstd) * scale + bias, each step rounded alone. An fp32
+    sum (torch's mean) may round a last bit otherwise, which at a bf16
+    rounding boundary moves LN(x)'s bf16 value and a whole output row."""
     x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = ((x32 - mean) ** 2).mean(dim=-1, keepdim=True)
-    return (x32 - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    inv_d = torch.tensor(1.0 / x32.shape[-1], dtype=torch.float32)
+
+    def mean(t):
+        return t.double().sum(dim=-1, keepdim=True).float() * inv_d
+
+    dv = x32 - mean(x32)
+    return dv * torch.rsqrt(mean(dv * dv) + eps) * scale.float() + bias.float()
 
 
 def _proj(h: torch.Tensor, w: torch.Tensor, dtype: torch.dtype,
@@ -533,15 +545,32 @@ def fused_attn_beam(x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "tensor on x's device")
     T = x.dtype
     ptr = functools.partial(_ptr, layer_idx=layer_idx, device=x.device)
-    part, o_buf, out = _attn_scratch(x, T_len)
     wo_p, so_p = _weight(ptr, wo, wo_scale, T, (d, d))
+    k_p, v_p = ptr(k, 3, T, (N, T_len, d)), ptr(v, 3, T, (N, T_len, d))
+    bo_p = ptr(bo, 1, T, (d,))
     lib = _lib()
-    err = lib.fused_attn_beam_fwd(
-        _build.dtype_code(x), x.data_ptr(), q.data_ptr(),
-        ptr(k, 3, T, (N, T_len, d)), ptr(v, 3, T, (N, T_len, d)),
-        ancestry.data_ptr(), wo_p, ptr(bo, 1, T, (d,)), so_p, part.data_ptr(),
-        o_buf.data_ptr(), out.data_ptr(), N, T_len, d, n_valid, K,
-        _build.stream_ptr(x))
+    if T == torch.bfloat16:
+        # the attention core in beam mode and the wo product, reading the
+        # stacked bases at the layer, in passes of attn_passes(N)
+        if d > _MLP_MAX_D:
+            raise ValueError(f"fused_attn_beam: d={d} above {_MLP_MAX_D}: the tensor-core "
+                             "wo product's tile")
+        part = torch.empty((N, d // HEAD_DIM, -(-T_len // _MIN_CHUNK), _PART),
+                           dtype=torch.float32, device=x.device)
+        o_buf, out = torch.empty_like(x), torch.empty_like(x)
+        (lkv, n_kv), (lo, n_o) = _stacked(k, layer_idx, 3), _stacked(wo, layer_idx)
+        work, counters = _workspace(x.device)
+        err = lib.fused_attn_beam_tc_fwd(
+            x.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), lkv, n_kv,
+            ancestry.data_ptr(), wo.data_ptr(), bo_p, so_p, lo, n_o, part.data_ptr(),
+            o_buf.data_ptr(), out.data_ptr(), work.data_ptr(), _MLP_WORK_FLOATS,
+            counters.data_ptr(), N, T_len, d, n_valid, K, _build.stream_ptr(x))
+    else:
+        part, o_buf, out = _attn_scratch(x, T_len)
+        err = lib.fused_attn_beam_fwd(
+            _build.dtype_code(x), x.data_ptr(), q.data_ptr(), k_p, v_p, ancestry.data_ptr(),
+            wo_p, bo_p, so_p, part.data_ptr(), o_buf.data_ptr(), out.data_ptr(), N, T_len, d,
+            n_valid, K, _build.stream_ptr(x))
     _build.check(lib, err, "fused_attn_beam")
     _count("fused_attn_beam", so_p)
     return out
@@ -620,8 +649,9 @@ def kernel_launches() -> dict:
     reset_kernel_launches(), counted by the library where it launches them:
     a wrapper call may launch several (bf16 fused_attn: attn_q_kernel in
     cross mode, attn_chunk_kernel and attn_wo_kernel once per pass of
-    attn_passes; fp32 fused_attn and fused_attn_beam: the cross q GEMV, the
-    partials, the combine, the wo GEMV, a GEMV once per group of 8 rows;
+    attn_passes, and so bf16 fused_attn_beam, its passes attn_passes(N);
+    fp32 fused_attn and fused_attn_beam: the cross q GEMV, the partials, the
+    combine, the wo GEMV, a GEMV once per group of 8 rows;
     bf16 fused_mlp: mlp_fc1_kernel and mlp_fc2_kernel once per pass of up
     to 32 rows; bf16 fused_qkv: qkv_kernel once per pass of up to 32 rows,
     fp32 the GEMV once per group of 8)."""
@@ -649,12 +679,15 @@ def _lib() -> ctypes.CDLL:
                                           + [I] * 5 + [P])
         lib.fused_attn_beam_fwd.argtypes = [I] + [P] * 11 + [I] * 5 + [P]
         LL = ctypes.c_longlong
+        lib.fused_attn_beam_tc_fwd.argtypes = ([P] * 4 + [I, I] + [P] * 4 + [I, I] + [P] * 4
+                                               + [LL, P] + [I] * 5 + [P])
         lib.fused_qkv_tc_fwd.argtypes = ([P] * 6 + [I, I] + [P] * 2 + [I, I] + [P] * 3
                                          + [I, I] + [P] * 2 + [LL, P, LL, P, LL, P, I, I, P])
         lib.fused_mlp_fwd.argtypes = ([I] + [P] * 12 + [ctypes.c_longlong, P]
                                       + [I] * 7 + [P])
         for fn in (lib.fused_qkv_fwd, lib.fused_qkv_tc_fwd, lib.fused_attn_fwd,
-                   lib.fused_attn_tc_fwd, lib.fused_attn_beam_fwd, lib.fused_mlp_fwd):
+                   lib.fused_attn_tc_fwd, lib.fused_attn_beam_fwd, lib.fused_attn_beam_tc_fwd,
+                   lib.fused_mlp_fwd):
             fn.restype = I
         lib.kernel_launches.argtypes, lib.kernel_launches.restype = [P], None
         lib.reset_kernel_launches.argtypes, lib.reset_kernel_launches.restype = [], None

@@ -8,8 +8,9 @@
 3. holds every kernel against its plain PyTorch version at whisper-large-v3
    shapes (B=4, and the decoder kernels also at 12 rows, fused_qkv and
    fused_mlp at 16, fused_mlp with int8 fc1 at 32) in bf16 and fp32, within
-   the limits stated at F32_LIMITS, the bf16 fused_qkv, fused_mlp and
-   fused_attn also to bit equality between two calls (fused_qkv also in its
+   the limits stated at F32_LIMITS, the bf16 fused_qkv, fused_mlp,
+   fused_attn and fused_attn_beam also to bit equality between two calls
+   (fused_qkv also in its
    cache form: k and v into a self cache's row pos, nothing else touched),
    and times kernel,
    plain version and, for the encoder attention,
@@ -21,8 +22,9 @@
    W8A8 kernel bit for bit at the PEFT main path's six product shapes, pure
    and with the outlier keep-mask and addend, timed beside torch._int_mm (the
    int8 dot alone) and the bf16 product with the dequantized weight; the
-   beam path's attention at 4 utterances x 4 beams: the ancestry-masked
-   beam self-attention, the cross-attention over K/V shared per utterance
+   beam path's attention at 4 utterances x 4 beams: the beam
+   self-attention through an ancestry map, the cross-attention over K/V
+   shared per utterance
    (kv_group 4) and over int8 K/V (G = 1 and 4); both again at 2 x 10
    beams, wider than the Pallas kernels' 8; the encoder-attention kernels on
    the (BH, T, hd) layout (80 x 1536 rows, keys valid below 1500) and on one
@@ -47,7 +49,8 @@
 5. the serving main path: transcribes four seeded synthetic 16 kHz wavs (one
    longer than 30 s) with `asr_finetune_tpu_torch.cli.transcribe` at
    large-v3 (32+32 layers, random weights from a seed, bf16), asserts every
-   kernel's launch count against the count the path implies, prints
+   kernel's launch count against the count the path implies (and each
+   decode path's CUDA kernels: no GEMV, partial or combine in bf16), prints
    utterances/s, ms/step and peak memory; then the same with beam-4
    (`--generation_num_beams 4`: 16 hypothesis rows over cross K/V held at
    the 4 utterances' rows), with `--decode_kv_int8`, and with the cache
@@ -527,7 +530,8 @@ def check_decoder_kernels(rows):
     s_valid 1500. At 12 rows (the GEMVs run them as a group of 8 and one of
     4) with one layer's weights unstacked. fused_qkv and fused_mlp also at
     the beam path's 16 rows; in bf16 (the tensor-core kernels) two calls of
-    fused_qkv, fused_mlp or fused_attn must give the same bits, and
+    fused_qkv, fused_mlp, fused_attn or fused_attn_beam must give the same
+    bits, and
     fused_qkv's cache form (k and v into row SELF_POS of layer 31 of the
     main path's (32, 4, 128, d) self cache) must write the bits of the call
     without one there and nowhere else. In bf16 the main path's shapes
@@ -625,7 +629,7 @@ def check_decoder_kernels(rows):
             for name, (fn, plain, reads, flops, extra_bytes) in calls.items():
                 out = fn(L - 1)
                 err = compare(name + sfx, out, plain(), dn)
-                if name != "fused_attn_beam" and dt is torch.bfloat16:
+                if dt is torch.bfloat16:
                     same_bits(name + sfx, out, fn(L - 1))
                 if dt is torch.bfloat16 and kind != "all-int8":
                     it = iter(range(10 ** 9))
@@ -659,9 +663,12 @@ def check_decoder_kernels(rows):
         ancw = torch.randint(0, WIDE_BEAMS, (2, WIDE_BEAMS, SELF_T), generator=g,
                              device=dev, dtype=torch.int32)
         wo1, bo1 = w32["o"][li].to(dt), b["o"][li]
-        compare("fused_attn_beam",
-                DF.fused_attn_beam(xw, kw, vw, wo1, bo1, q=qw, pos=SELF_POS, ancestry=ancw),
+        out = DF.fused_attn_beam(xw, kw, vw, wo1, bo1, q=qw, pos=SELF_POS, ancestry=ancw)
+        compare("fused_attn_beam", out,
                 DF.fused_attn_beam_plain(xw, kw, vw, wo1, bo1, qw, SELF_POS, ancw), dn)
+        if dt is torch.bfloat16:
+            same_bits("fused_attn_beam (2 x 10 rows)", out,
+                      DF.fused_attn_beam(xw, kw, vw, wo1, bo1, q=qw, pos=SELF_POS, ancestry=ancw))
         cq = dict(ln_scale=ln[0][li], ln_bias=ln[1][li], wq=w32["q"][li].to(dt), bq=b["q"][li])
         for name, (k_, v_, ks, vs) in (
                 ("fused_attn_cross_group", (cross[0][li, :2], cross[1][li, :2], None, None)),
@@ -1285,6 +1292,7 @@ def main_path(rows, beams: int = 1, kv_int8: bool = False, reorder: bool = False
     from asr_finetune_tpu_torch.cli import transcribe
     from asr_finetune_tpu_torch.evaluation import decode as decode_lib
     from asr_finetune_tpu_torch.models import whisper as W
+    from asr_finetune_tpu_torch.ops import decoder_fused as DF
 
     max_len = 64
     path = "transcribe" + (f"_beam{beams}" if beams > 1 else "") + ("_kv8" if kv_int8 else "") \
@@ -1336,6 +1344,7 @@ def main_path(rows, beams: int = 1, kv_int8: bool = False, reorder: bool = False
         setattr(decode_lib, decode_name, decode)
         os.environ.update(env)
         reset_all_launches()
+        DF.reset_kernel_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
@@ -1352,6 +1361,7 @@ def main_path(rows, beams: int = 1, kv_int8: bool = False, reorder: bool = False
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = all_launches()
+        cuda_kernels = DF.kernel_launches()
         peak = torch.cuda.max_memory_allocated()
         lines = open(f"{tmp}/out.jsonl").read().splitlines()
 
@@ -1378,8 +1388,9 @@ def main_path(rows, beams: int = 1, kv_int8: bool = False, reorder: bool = False
                              **{k: n_dec * stats["steps"] for k in kernels})
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
-    record_launches(rows, path, launches)
     label = f"main path {path}"
+    check_decoder_cuda_kernels(label, cuda_kernels)
+    record_launches(rows, path, launches)
     n_utt = 4
     print(f"{label}: whisper-large-v3 (32+32 layers, bf16, random init), "
           f"4 wavs / 5 windows / {stats['encode']} batches of {B}"
@@ -1408,6 +1419,7 @@ def evaluator_path(rows):
     from asr_finetune_tpu_torch.data.audiofolder import read_wav
     from asr_finetune_tpu_torch.data.collator import Collator, CollatorConfig
     from asr_finetune_tpu_torch.evaluation.evaluate import EvalConfig, OfflineEvaluator
+    from asr_finetune_tpu_torch.ops import decoder_fused as DF
 
     built = run_lib.build_model(config_lib.parse_args(
         ["--model_type", "large-v3", "--bf16", "--device", "cuda"]))
@@ -1424,6 +1436,7 @@ def evaluator_path(rows):
                          checkpoint_every=1, output_dir=f"{tmp}/eval",
                          compute_dtype=torch.bfloat16)
         reset_all_launches()
+        DF.reset_kernel_launches()
         t0 = time.perf_counter()
         OfflineEvaluator(built.cfg, built.params, built.tokenizer, cfg).run(batches[:1])
         first = all_launches()
@@ -1432,6 +1445,7 @@ def evaluator_path(rows):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         second = all_launches()
+        cuda_kernels = DF.kernel_launches()
         files = sorted(os.listdir(f"{tmp}/eval"))
         with open(f"{tmp}/eval/eval_final.json", encoding="utf-8") as f:
             on_disk = json.load(f)
@@ -1449,11 +1463,27 @@ def evaluator_path(rows):
         if n["encoder_attention"] != 32 or len({n[k] for k in BEAM_DECODER}) != 1 \
                 or n["fused_qkv"] == 0:
             raise AssertionError(f"evaluator launches {n}")
+    check_decoder_cuda_kernels(f"offline evaluator, beam-{BEAMS}", cuda_kernels)
     launches = {k: first[k] + second[k] for k in first}
     record_launches(rows, f"evaluate_beam{BEAMS}", launches)
     print(f"offline evaluator, beam-{BEAMS}, large-v3 32+32 bf16: 4 utterances in 2 batches "
           f"(run stopped after batch 1, resumed at batch 2), corpus WER {final['wer']:.2f}%, "
           f"{wall:.3f} s for both runs; launches {json.dumps({k: v for k, v in launches.items() if v})}")
+
+
+def check_decoder_cuda_kernels(label: str, counts: dict) -> None:
+    """A bf16 decode path's CUDA kernel launches (DF.kernel_launches) over
+    decode steps of at most 32 rows: per layer one pass of qkv, of the cross
+    q product, of fc1 and of fc2, and two of the attention core and of wo
+    (the cross-attention's and the self or beam self-attention's); no GEMV,
+    partial or combine kernel, which only fp32 calls launch."""
+    n = counts["qkv_kernel"]
+    want = {**counts, "gemv_kernel": 0, "attn_partial_kernel": 0, "attn_combine_kernel": 0,
+            "mlp_fc1_kernel": n, "mlp_fc2_kernel": n, "attn_q_kernel": n,
+            "attn_chunk_kernel": 2 * n, "attn_wo_kernel": 2 * n}
+    if n == 0 or counts != want:
+        raise AssertionError(f"{label}: CUDA kernel launches {counts}, expected {want}")
+    print(f"{label}: CUDA kernel launches {json.dumps({k: v for k, v in counts.items() if v})}")
 
 
 def record_launches(rows, path: str, launches) -> None:
@@ -2211,23 +2241,21 @@ def step_breakdown():
         # launches (the profiler drops kernel records at this rate): per
         # layer the qkv kernel once per pass of up to 32 rows; the
         # cross-attention's q product, attention core (with its combine) and
-        # wo once per pass of attn_passes, and so the self-attention's core
-        # and wo, or the beam self-attention's partial, combine and wo GEMV
-        # (one launch per group of at most 8 rows, the step's only GEMV);
-        # the MLP's fc1 and fc2 kernels once per pass of up to 32 rows
+        # wo once per pass of attn_passes, and so the self-attention's or
+        # the beam self-attention's core and wo; the MLP's fc1 and fc2
+        # kernels once per pass of up to 32 rows; no GEMV, partial or
+        # combine kernel (the fp32 route's)
         DF.reset_kernel_launches()
         for _ in range(4):
             step()
         torch.cuda.synchronize()
         per_step = {k: v / 4 for k, v in DF.kernel_launches().items()}
         cross_p, self_p = len(DF.attn_passes(n, group)), len(DF.attn_passes(n))
-        beam = ancestry is not None
-        want = {"gemv_kernel": (-(-n // 8) * L) if beam else 0, "qkv_kernel": -(-n // 32) * L,
-                "attn_partial_kernel": L if beam else 0, "attn_combine_kernel": L if beam else 0,
+        want = {"gemv_kernel": 0, "qkv_kernel": -(-n // 32) * L,
+                "attn_partial_kernel": 0, "attn_combine_kernel": 0,
                 "mlp_fc1_kernel": -(-n // 32) * L, "mlp_fc2_kernel": -(-n // 32) * L,
-                "attn_q_kernel": cross_p * L,
-                "attn_chunk_kernel": (cross_p + (0 if beam else self_p)) * L,
-                "attn_wo_kernel": (cross_p + (0 if beam else self_p)) * L}
+                "attn_q_kernel": cross_p * L, "attn_chunk_kernel": (cross_p + self_p) * L,
+                "attn_wo_kernel": (cross_p + self_p) * L}
         print(f"decode step {name}: CUDA kernel launches per step {per_step}")
         if per_step != want:
             raise AssertionError(f"decode step {name}: kernel launches {per_step} != {want}")

@@ -87,6 +87,51 @@ def test_fused_attn_beam_matches_jax(pos, wo_kind):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
+def _grown_ancestry(rng, nb, k, T, pos):
+    """The ancestry map beam_decode holds at step pos: each step writes every
+    row's own key at t, then a seeded reorder gives each hypothesis a
+    parent's history, so rows share prefixes as in a real decode."""
+    anc = np.zeros((nb, k, T), np.int32)
+    for t in range(pos):
+        anc[:, :, t] = np.arange(k)
+        parents = rng.integers(0, k, (nb, k))
+        anc = np.take_along_axis(anc, parents[:, :, None], axis=1)
+    anc[:, :, pos] = np.arange(k)
+    return anc
+
+
+@pytest.mark.parametrize("wo_kind", ["float", "int8"])
+@pytest.mark.parametrize("pos", [63, 255])
+@pytest.mark.parametrize("case", ["grown", "one_beam"])
+def test_fused_attn_beam_decode_ancestries_match_jax(case, pos, wo_kind):
+    """Beam self-attention against JAX over the ancestries a decode makes:
+    one grown by seeded beam reorders (K = 4: shared prefixes, live rows
+    fewer than K at most positions) and a single beam (K = 1: every key in
+    the row's own cache row), stacked (layer 1 of 3), float or int8 wo."""
+    rng = np.random.default_rng(1000 + pos)
+    T, kb = 256, K if case == "grown" else 1
+    n = NB * kb
+    x, q = _rand(rng, n, D, scale=1.0), _rand(rng, n, D)
+    k, v = _rand(rng, L, n, T, D), _rand(rng, L, n, T, D)
+    anc = _grown_ancestry(rng, NB, kb, T, pos)
+    if case == "grown":   # reorders shared histories: fewer live rows than beams
+        assert len(set(anc[0, :, pos // 2].tolist())) < kb
+    bo = _rand(rng, L, D)
+    if wo_kind == "int8":
+        wo, so = _int8_wo(rng)
+    else:
+        wo, so = _rand(rng, L, D, D, scale=D ** -0.5), None
+    ref = JDF.fused_attn_beam(jnp.asarray(x), jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(wo), jnp.asarray(bo), q=jnp.asarray(q),
+                              pos=jnp.int32(pos), ancestry=jnp.asarray(anc),
+                              wo_scale=None if so is None else jnp.asarray(so),
+                              layer_idx=1)
+    out = TDF.fused_attn_beam(_t(x), _t(k), _t(v), _t(wo), _t(bo), q=_t(q), pos=pos,
+                              ancestry=_t(anc), wo_scale=None if so is None else _t(so),
+                              layer_idx=1)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
 def test_fused_attn_beam_with_own_rows_is_self_attention():
     """With every position owned by the row itself, the beam kernel's plain
     version is fused_attn's self-attention, bit for bit."""

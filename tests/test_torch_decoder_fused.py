@@ -272,12 +272,54 @@ def test_fused_attn_self_rows(rows, weights):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
+def _ln_f64_sums(x, scale, bias, eps=1e-5):
+    """The bf16 kernels' LN prologue in numpy: the sums of x and of the fp32
+    squares of (x - mean) in fp64, each rounded once to fp32 and times
+    fp32(1/d); then ((x - mean) * rstd) * scale + bias, each step in fp32."""
+    inv_d = np.float32(1.0 / x.shape[-1])
+    mean = x.astype(np.float64).sum(-1, keepdims=True).astype(np.float32) * inv_d
+    dv = x - mean
+    var = (dv * dv).astype(np.float64).sum(-1, keepdims=True).astype(np.float32) * inv_d
+    rstd = np.float32(1.0) / np.sqrt(var + np.float32(eps))
+    return dv * rstd * scale + bias
+
+
+@pytest.mark.parametrize("d", [256, 1280])
+def test_ln_equals_the_fp64_sum_reference(d):
+    """The plain versions' LN(x) is the kernels' arithmetic bit for bit, at
+    a tiny width and at large-v3's."""
+    rng = np.random.default_rng(d)
+    x = _rand(rng, 64, d, scale=3.0, offset=0.5)
+    lns, lnb = _rand(rng, d, scale=0.1, offset=1.0), _rand(rng, d, scale=0.1)
+    out = TDF._ln(_t(x), _t(lns), _t(lnb)).numpy()
+    np.testing.assert_array_equal(out, _ln_f64_sums(x, lns, lnb))
+
+
+def test_ln_keeps_a_sum_that_fp32_rounds():
+    """A row whose fp32 sum drops ones added to 2^24 (torch's fp32 mean, the
+    former plain LN, rounds it otherwise than the fp64 sum): LN(x) follows
+    the fp64 sum, as the kernels do, and differs from the fp32-mean LN."""
+    x = np.ones((1, D), np.float32)
+    x[0, 0] = 2.0 ** 24
+    lns, lnb = np.ones(D, np.float32), np.zeros(D, np.float32)
+    t = _t(x)
+    fp32_mean = t.mean(dim=-1, keepdim=True)
+    assert float(fp32_mean) != np.float32(x.astype(np.float64).sum()) * np.float32(1.0 / D)
+    old = (t - fp32_mean) * torch.rsqrt(((t - fp32_mean) ** 2).mean(-1, keepdim=True) + 1e-5)
+    out = TDF._ln(t, _t(lns), _t(lnb)).numpy()
+    np.testing.assert_array_equal(out, _ln_f64_sums(x, lns, lnb))
+    assert not np.array_equal(out, old.numpy())
+
+
 @pytest.mark.parametrize("rows,G,passes", [
-    (1, 1, [1]), (16, 1, [16]), (32, 1, [32]), (33, 1, [32, 1]), (40, 1, [32, 8]),
-    (16, 4, [16]), (24, 8, [24]), (40, 10, [30, 10]), (80, 40, [32, 8, 32, 8])])
+    (1, 1, [1]), (16, 1, [16]), (20, 1, [20]), (32, 1, [32]), (33, 1, [32, 1]),
+    (40, 1, [32, 8]), (16, 4, [16]), (24, 8, [24]), (40, 10, [30, 10]),
+    (80, 40, [32, 8, 32, 8])])
 def test_attn_passes(rows, G, passes):
     """bf16 fused_attn's passes on the card: whole groups of kv_group rows
-    up to 32 rows, or 32 rows at a time of a wider group."""
+    up to 32 rows, or 32 rows at a time of a wider group. G = 1 is also
+    bf16 fused_attn_beam's at the beam path's rows: 4 x 4 (16), 2 x 10
+    (20) and 4 x 10 (40: a pass need not hold whole utterances)."""
     assert TDF.attn_passes(rows, G) == passes
 
 

@@ -21,7 +21,9 @@ and a merged-LoRA mix). The W8A8 kernel is held to bit equality with its
 plain version, pure and with the outlier keep-mask and addend, at ragged m,
 K and N, on both tiles; it reads its weight from the K-major copy and raises
 without one. The beam self-attention kernel runs at 2, 3, 8 and 10 beams
-over a random ancestry map, the cross-attention's kv_group at 1, 3, 4, 8 and
+over a random ancestry map (bf16: the attention core gathering each key row
+through it, then wo, once per pass of up to 32 rows, bit-equal twice, no
+GEMV), the cross-attention's kv_group at 1, 3, 4, 8 and
 10 with float and int8 K/V. The bf16 fused_attn (tensor-core q and wo, the
 attention core) runs at 1 to 40 rows (passes of up to 32), kv_group 1, 4, 8
 and 10 over float, mixed and int8 weights and K/V, self at pos 0 to T-1 and
@@ -296,21 +298,50 @@ def test_fused_attn_tc_cross_lengths(dev, s_valid, kv8):
         1, ("attn_q_kernel", "attn_chunk_kernel", "attn_wo_kernel"), 3)
 
 
+@pytest.mark.parametrize("K", [4, 10])   # 4 x 4 rows: one pass; 4 x 10: passes of 32 and 8
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fused_attn_beam_keeps_its_kernels(dev, dtype):
-    """fused_attn_beam keeps the GEMV route in both dtypes: its partial, its
-    combine and the wo GEMV once per group of 8 rows (4 x 4 rows: 2)."""
+def test_fused_attn_beam_keeps_its_kernels(dev, dtype, K):
+    """bf16 fused_attn_beam runs the attention core in beam mode and the wo
+    product once per pass of attn_passes (16 rows: 1 + 1; 40 rows: 2 + 2),
+    no GEMV, partial or combine, two calls bit-equal; fp32 keeps the GEMV
+    route: its partial, its combine and the wo GEMV once per group of 8
+    rows."""
     g = torch.Generator(device=dev).manual_seed(5)
-    K, N = 4, 16
+    N = 4 * K
     x, q = _rn(g, dev, N, D, dtype=dtype), _rn(g, dev, N, D, scale=0.125)
     k, v = _rn(g, dev, N, T, D, dtype=dtype), _rn(g, dev, N, T, D, dtype=dtype)
     anc = torch.randint(0, K, (4, K, T), generator=g, device=dev, dtype=torch.int32)
     wo, bo = _rn(g, dev, D, D, scale=D ** -0.5, dtype=dtype), _rn(g, dev, D, dtype=dtype)
     DF.reset_kernel_launches()
     out = DF.fused_attn_beam(x, k, v, wo, bo, q=q, pos=100, ancestry=anc)
-    assert DF.kernel_launches() == {**dict.fromkeys(DF.KERNELS, 0), "gemv_kernel": 2,
-                                    "attn_partial_kernel": 1, "attn_combine_kernel": 1}
+    if dtype == torch.bfloat16:
+        passes = len(DF.attn_passes(N))
+        want = {"attn_chunk_kernel": passes, "attn_wo_kernel": passes}
+    else:
+        want = {"gemv_kernel": -(-N // 8), "attn_partial_kernel": 1, "attn_combine_kernel": 1}
+    assert DF.kernel_launches() == {**dict.fromkeys(DF.KERNELS, 0), **want}
     _close(out, DF.fused_attn_beam_plain(x, k, v, wo, bo, q, 100, anc), dtype)
+    if dtype == torch.bfloat16:
+        assert torch.equal(out, DF.fused_attn_beam(x, k, v, wo, bo, q=q, pos=100, ancestry=anc))
+
+
+@pytest.mark.parametrize("pos", [255, 256, 300, 447])
+def test_fused_attn_beam_tc_long_cache(dev, pos):
+    """bf16 fused_attn_beam over Whisper's longest cache (448): two chunks
+    of 256 keys past pos 255, combined by the last chunk's block; 4 x 4
+    rows, stacked at layer 1, bit-equal twice."""
+    g = torch.Generator(device=dev).manual_seed(pos)
+    bf, K, N, T_long, li = torch.bfloat16, 4, 16, 448, 1
+    x, q = _rn(g, dev, N, D, dtype=bf), _rn(g, dev, N, D, scale=0.125)
+    k, v = (_rn(g, dev, L, N, T_long, D, dtype=bf) for _ in range(2))
+    anc = torch.randint(0, K, (4, K, T_long), generator=g, device=dev, dtype=torch.int32)
+    wo, bo = _rn(g, dev, L, D, D, scale=D ** -0.5, dtype=bf), _rn(g, dev, L, D, dtype=bf)
+
+    def call():
+        return DF.fused_attn_beam(x, k, v, wo, bo, q=q, pos=pos, ancestry=anc, layer_idx=li)
+    out = call()
+    _close(out, DF.fused_attn_beam_plain(x, k[li], v[li], wo[li], bo[li], q, pos, anc), bf)
+    assert torch.equal(out, call())
 
 
 # the forward's (Tq, Tk, s_valid): self and cross as before, then every Tq

@@ -9,15 +9,20 @@ trees, for example a parent commit unpacked by `git archive` into a
 git-ignored directory and this one, can be timed in turns in one process
 each on the same card. At whisper-large-v3 width (d 1280, 20 heads, 32
 stacked layers, random weights from a seed, batch 4) it times one fused_attn
-call by CUDA-graph replay, the calls cycling through the 32 layers, for each
-variant of VARIANTS: cross-attention over the padded source (S 1536, s_valid
-1500) with G = 1 (4 rows) or kv_group 4 (16 rows, beam-4), bf16 or int8 K/V,
-and self-attention over the decode cache (128, pos 63), each with float
-weights, and cross and self also with an int8 wo (a merged-LoRA base). The
-bound counts each operand read and each output written once, over 3.35
-TB/s (H100 SXM). --check also holds each call against fused_attn_plain
+or fused_attn_beam call by CUDA-graph replay, the calls cycling through the
+32 layers, for each variant of VARIANTS: cross-attention over the padded
+source (S 1536, s_valid 1500) with G = 1 (4 rows) or kv_group 4 (16 rows,
+beam-4), bf16 or int8 K/V, self-attention over the decode cache (128, pos
+63), and beam self-attention over a (32, rows, 128, 1280) cache through a
+seeded ancestry map at pos 63 (4 x 4 rows, or 2 x 10), each with float
+weights, and cross, self and beam-4 also with an int8 wo (a merged-LoRA
+base). The bound counts each operand read and each output written once
+(beam: each distinct live cache row at each position once, as chip_smoke.py's
+beam_calls), over 3.35 TB/s (H100 SXM). --check also holds each call
+against fused_attn_plain or fused_attn_beam_plain
 (max abs error, and chip_smoke.py's bf16 measures) and two calls against
-each other (bit equality); --profile adds the device time per call of each
+each other (bit equality), beam variants also both against an fp64
+yardstick (beam_f64: output flips and excess of kernel and plain); --profile adds the device time per call of each
 CUDA kernel (torch.profiler, eager calls) and the launches a call; --host
 the host's time per call (launches enqueued, not waited for);
 --sdpa times the attention alone on the same K/V with
@@ -43,15 +48,18 @@ HBM_BYTES_PER_S = 3.35e12
 D, H, L, B = 1280, 20, 32, 4
 S_PAD, S_VALID = 1536, 1500
 SELF_T, SELF_POS = 128, 63
-# name: (mode, kv_group, int8 K/V, int8 wo)
+# name: (mode, kv_group or beams, int8 K/V, int8 wo, utterances)
 VARIANTS = {
-    "cross_g4": ("cross", 4, False, False),
-    "cross": ("cross", 1, False, False),
-    "cross_kv8_g4": ("cross", 4, True, False),
-    "cross_kv8": ("cross", 1, True, False),
-    "self": ("self", 1, False, False),
-    "cross_wo8": ("cross", 1, False, True),
-    "self_wo8": ("self", 1, False, True),
+    "cross_g4": ("cross", 4, False, False, B),
+    "cross": ("cross", 1, False, False, B),
+    "cross_kv8_g4": ("cross", 4, True, False, B),
+    "cross_kv8": ("cross", 1, True, False, B),
+    "self": ("self", 1, False, False, B),
+    "cross_wo8": ("cross", 1, False, True, B),
+    "self_wo8": ("self", 1, False, True, B),
+    "beam": ("beam", 4, False, False, B),
+    "beam_wo8": ("beam", 4, False, True, B),
+    "beam_w10": ("beam", 10, False, False, 2),
 }
 
 
@@ -205,6 +213,28 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def beam_f64(x, k, v, wo, bo, q, pos, anc, so):
+    """fused_attn_beam of one layer's operands with every sum in fp64,
+    rounding to bf16 what the kernel and the plain version both round (q,
+    p for p.v, o, the output): the yardstick --check holds both against."""
+    import torch
+    nb, beams, _ = anc.shape
+    n, (rows_n, d) = pos + 1, x.shape
+    rows = (torch.arange(nb, device=x.device)[:, None, None] * beams
+            + anc[:, :, :n].long()).reshape(rows_n, n)
+    cols = torch.arange(n, device=x.device)[None, :]
+    kh, vh = (t[rows, cols].double().view(rows_n, n, H, 64) for t in (k, v))
+    qh = q.to(torch.bfloat16).double().view(rows_n, H, 64)
+    s = torch.einsum("rhd,rthd->rht", qh, kh)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    pv = torch.einsum("rht,rthd->rhd", e.to(torch.bfloat16).double(), vh)
+    o = (pv / e.sum(-1, keepdim=True)).reshape(rows_n, d).to(torch.bfloat16).double()
+    y = o @ wo.double()
+    if so is not None:
+        y = y * so.reshape(-1).double()
+    return (y + bo.double() + x.double()).to(torch.bfloat16).float()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve().parent.parent))
@@ -256,11 +286,28 @@ def main() -> int:
     self_kv = (rn(L, B, SELF_T, D), rn(L, B, SELF_T, D))
     li = L - 1
     for name in args.variants:
-        mode, G, kv8, wo8 = VARIANTS[name]
-        n = B * G
+        mode, G, kv8, wo8, utts = VARIANTS[name]
+        n = utts * G
         x = rn(n, D)
         wo_, so = wo[wo8]
-        if mode == "self":
+        extra = 0   # bytes beyond the operands': the beam's live cache rows
+        if mode == "beam":
+            kb, vb = rn(L, n, SELF_T, D), rn(L, n, SELF_T, D)
+            anc = torch.randint(0, G, (utts, G, SELF_T), generator=g, device=dev,
+                                dtype=torch.int32)
+            q, nv = rn(n, D, scale=0.125, dtype=f32), SELF_POS + 1
+
+            def call(layer):
+                return DF.fused_attn_beam(x, kb, vb, wo_, bo, q=q, pos=SELF_POS, ancestry=anc,
+                                          wo_scale=so, layer_idx=layer)
+
+            def plain():
+                return DF.fused_attn_beam_plain(x, kb[li], vb[li], wo_[li], bo[li], q, SELF_POS,
+                                                anc, None if so is None else so[li])
+            live = sum(len(set(anc[u, :, t].tolist())) for u in range(utts) for t in range(nv))
+            reads = (x, q, anc[:, :, :nv], wo_[li], None if so is None else so[li], bo[li])
+            extra = 2 * live * D * kb.element_size()
+        elif mode == "self":
             k, v, ks, vs, nv = *self_kv, None, None, SELF_POS + 1
             q = rn(n, D, scale=0.125, dtype=f32)
 
@@ -271,7 +318,8 @@ def main() -> int:
             def plain():
                 return DF.fused_attn_plain(x, k[li], v[li], wo_[li], bo[li], q=q, n_valid=nv,
                                            wo_scale=None if so is None else so[li])
-            reads = (x, q, k[li][:, :nv], v[li][:, :nv], wo_[li], so, bo[li])
+            reads = (x, q, k[li][:, :nv], v[li][:, :nv], wo_[li],
+                     None if so is None else so[li], bo[li])
         else:
             k, v, ks, vs = cross8 if kv8 else (*cross, None, None)
             nv = S_VALID
@@ -304,9 +352,16 @@ def main() -> int:
                                    / ref.float().square().mean().sqrt())
             row["bit_equal"] = bool(torch.equal(out, call(li)))
             row["finite"] = bool(out.isfinite().all())
+            if mode == "beam":   # both against the fp64 yardstick: whose rounding moved
+                y64 = beam_f64(x, kb[li], vb[li], wo_[li], bo[li], q, SELF_POS, anc,
+                               None if so is None else so[li])
+                for tag, o_ in (("kernel", out.float()), ("plain", ref.float())):
+                    row[f"flips_{tag}_vs_f64"] = int((o_ != y64).sum())
+                    row[f"excess_{tag}_vs_f64"] = float(
+                        ((o_ - y64).abs() - 2.0 ** -7 * y64.abs()).max())
         it = iter(range(10 ** 9))
         row["ms"] = device_ms(lambda: call(next(it) % L))
-        row["bound_ms"] = (nbytes(*reads) + nbytes(x)) / HBM_BYTES_PER_S * 1e3
+        row["bound_ms"] = (nbytes(*reads) + nbytes(x) + extra) / HBM_BYTES_PER_S * 1e3
         if args.host:
             row["host_us"] = host_us(lambda: call(next(it) % L))
         if args.trace:
@@ -317,7 +372,7 @@ def main() -> int:
             torch.cuda.synchronize()
             row["launches"] = {k_: c for k_, c in DF.kernel_launches().items() if c}
             row["by_kernel_us"] = profile(lambda: call(next(it) % L))
-        if args.sdpa:
+        if args.sdpa and mode != "beam":   # no library call gathers through an ancestry
             fk, fv = (cross if mode == "cross" else self_kv)
             Bk = fk.shape[1]
             qh = rn(Bk, H, G, 64)
