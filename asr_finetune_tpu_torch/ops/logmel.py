@@ -80,12 +80,19 @@ def _dft_mat(n_fft: int) -> np.ndarray:
     return np.concatenate([cos_m, sin_m], axis=1)
 
 
+@functools.lru_cache(maxsize=16)
+def device_tables(n_mels: int, device: torch.device) -> tuple:
+    """The (400, 402) windowed DFT matrix and the (201, n_mels) filter bank
+    on `device`, uploaded once per (n_mels, device): an upload at every call
+    is a pageable host-to-device copy, which synchronises the stream."""
+    return (torch.from_numpy(_dft_mat(N_FFT)).to(device),
+            torch.from_numpy(mel_filter_bank(n_mels=n_mels)).to(device))
+
+
 def log_mel_spectrogram(audio: torch.Tensor, n_mels: int = 80,
                         global_norm: bool = True) -> torch.Tensor:
     """Waveform (B, 480000) float32 → log-mel features (B, 3000, n_mels)."""
-    dev = audio.device
-    filt = torch.from_numpy(_dft_mat(N_FFT)).to(dev)             # (400, 402)
-    mel_m = torch.from_numpy(mel_filter_bank(n_mels=n_mels)).to(dev)
+    filt, mel_m = device_tables(n_mels, audio.device)           # (400, 402), (201, n_mels)
     pad = N_FFT // 2
     x = torch.nn.functional.pad(audio.float()[:, None, :], (pad, pad),
                                 mode="reflect")[:, 0]

@@ -30,8 +30,11 @@
    the (BH, T, hd) layout (80 x 1536 rows, keys valid below 1500) and on one
    fused (4, 1500, 3840) qkv buffer, forward and backward, with SDPA as the
    yardstick; W8A8 also at the fused q|k|v product 1280 -> 3840; the log-mel
-   kernel (fp32) at B 4, 80 and 128 mels, the production conv form
-   (ops/logmel.log_mel_spectrogram) as its yardstick;
+   kernel (fp32: an FFT in shared memory, band sums, the floor in the call)
+   at B 4, 80 and 128 mels, two calls bit-equal, its two CUDA launches a
+   call asserted, the production conv form (ops/logmel.log_mel_spectrogram,
+   tables resident) and a torch.stft form as its yardsticks, and its and the
+   plain version's error against float64 on a tonal input;
 4. runs an fp32 greedy decode at large-v3 width and 2+2 layers through the
    fused kernels and through the plain decode step: the tokens must be equal,
    over a float base and over a merged int8 base; a beam-4 decode the same
@@ -1140,16 +1143,41 @@ def check_attention_layouts(rows):
         torch.cuda.empty_cache()
 
 
+def cuda_events(fn, calls: int = 4) -> dict:
+    """Launches per call of every CUDA kernel, copy and memset of fn(), by
+    name (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {name: n for _, n, name in kernel_times(prof, calls)}
+
+
 def check_log_mel(rows):
-    """Phase 3f: the log-mel kernel (fp32 on the CUDA cores, no TF32) against
-    its plain version at B 4 over 30 s of seeded noise (one utterance part
-    silence), 80 and 128 mel bins, normalized output within the fp32 limits;
-    timed at 128 (large-v3's) beside the production conv form
-    ops/logmel.log_mel_spectrogram as the yardstick (not one PyTorch call:
-    the frames' product and the mel product)."""
+    """Phase 3f: the log-mel kernel (fp32 on the CUDA cores: the 200-point
+    FFT in shared memory, the filters' band sums, the floor in the same call)
+    against its plain version at B 4 over 30 s of seeded noise (one
+    utterance part silence), 80 and 128 mel bins: the normalized output
+    within the fp32 limits, two calls bit-equal, the CUDA kernels a call
+    launches asserted (log_mel_kernel and log_mel_floor_kernel, no copy).
+    At 128 (large-v3's), by CUDA-graph replay: the function, the kernel's
+    raw output, the plain version, and two yardsticks the port never
+    calls, the production conv form ops/logmel.log_mel_spectrogram (its
+    tables resident: the profiler shows it no copy) and torch.stft (cuFFT)
+    with power, the mel product, log10 and the floor
+    (tools/bench_log_mel.stft_log_mel); the bound from the audio in, the
+    output out and the fast transform's operations (flops_per_frame); and,
+    on a tonal input (a few sinusoids, a quiet tail), the largest error of
+    the kernel and of the plain version against the function in float64."""
     import torch
     from asr_finetune_tpu_torch.ops import logmel as LM
     from asr_finetune_tpu_torch.ops import logmel_fused as LF
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    from bench_log_mel import log_mel_f64, stft_log_mel, tonal_audio
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(10)
@@ -1161,25 +1189,47 @@ def check_log_mel(rows):
         if out.shape != (B, LM.NUM_FRAMES, n_mels):
             raise AssertionError(f"log_mel output {tuple(out.shape)}")
         err = compare("log_mel", out, LF.log_mel_fused_plain(audio, n_mels), "float32")
+        same_bits("log_mel", out, LF.log_mel_fused(audio, n_mels))
+        events = cuda_events(lambda: LF.log_mel_fused(audio, n_mels))
+        kernels = {k: sorted(n for name, n in events.items() if f"::{k}(" in name)
+                   for k in ("log_mel_kernel", "log_mel_floor_kernel")}
+        print(f"  CUDA launches a call: {events}")
+        if len(events) != 2 or kernels != {"log_mel_kernel": [1.0],
+                                           "log_mel_floor_kernel": [1.0]}:
+            raise AssertionError(f"log_mel: CUDA launches a call {events}")
         if n_mels == 128:
-            # the plain version and the conv form upload their DFT and mel
-            # tables at every call, which a CUDA graph cannot capture: their
-            # device time is the profiler's sum over their kernels and copies
+            conv = cuda_events(lambda: LM.log_mel_spectrogram(audio, n_mels))
+            print(f"  conv form's CUDA launches a call: {conv}")
+            if any("Memcpy" in name for name in conv):
+                raise AssertionError(f"log_mel: the conv form copies its tables: {conv}")
+            window = torch.hann_window(400, periodic=True, dtype=torch.float64).float().to(dev)
+            melfb = LM.device_tables(n_mels, dev)[1]
+            tone = tonal_audio(B, dev)
+            f64 = log_mel_f64(tone, n_mels)
+            tonal = {"kernel": float((LF.log_mel_fused(tone, n_mels) - f64).abs().max()),
+                     "plain": float((LF.log_mel_fused_plain(tone, n_mels) - f64).abs().max())}
+            print(f"  tonal input, largest error against float64: kernel {tonal['kernel']:.3e}, "
+                  f"plain {tonal['plain']:.3e}")
+            del tone, f64
             b_ms, b_by = bound(nbytes(audio, out),
-                               B * LM.NUM_FRAMES * (400 * 402 * 2 + 201 * n_mels * 2),
-                               "float32")
+                               B * LM.NUM_FRAMES * LF.flops_per_frame(n_mels), "float32")
             r = rows["log_mel"] = {
                 "name": "log_mel", "route": "cuda", "source": SOURCES["log_mel"],
                 "replaces": REPLACES["log_mel"], "launches": 0, "max_abs_err": err[0],
-                "rms_rel_err": err[1],
+                "rms_rel_err": err[1], "cuda_launches_a_call": events,
+                "timed_by": "CUDA-graph replay",
                 "ms": device_ms(lambda: LF.log_mel_fused(audio, n_mels), 16),
                 "raw_ms": device_ms(lambda: LF._log10_mel_cuda(audio, n_mels), 16),
-                "plain_ms": profiled_ms(lambda: LF.log_mel_fused_plain(audio, n_mels)),
+                "plain_ms": device_ms(lambda: LF.log_mel_fused_plain(audio, n_mels), 16),
                 "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": profiled_ms(lambda: LM.log_mel_spectrogram(audio, n_mels))}
-            print(f"  log_mel [float32] {n_mels} mels: function {r['ms']:.4f} ms (device; the "
-                  f"kernel alone {r['raw_ms']:.4f} ms)  plain {r['plain_ms']:.4f} ms  bound "
-                  f"{b_ms:.4f} ms ({b_by})  conv form {r['library_ms']:.4f} ms")
+                "library_ms": device_ms(lambda: LM.log_mel_spectrogram(audio, n_mels), 16),
+                "library_stft_ms": device_ms(lambda: stft_log_mel(audio, window, melfb), 16),
+                "tonal_f64_err": tonal}
+            print(f"  log_mel [float32] {n_mels} mels: function {r['ms']:.4f} ms (device, "
+                  f"graph replay; the kernel's raw output {r['raw_ms']:.4f} ms)  plain "
+                  f"{r['plain_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})  conv form "
+                  f"{r['library_ms']:.4f} ms  torch.stft form {r['library_stft_ms']:.4f} ms  "
+                  f"({card_line()})")
     del audio
     torch.cuda.empty_cache()
 

@@ -33,7 +33,8 @@ counted per pass. The bf16 fused_qkv (one tensor-core launch a pass of up to
 bit-equal, and writes k and v into a self cache's row pos and nowhere else.
 The encoder-attention kernels also run on the
 (BH, T, hd) and fused-qkv layouts, and the log-mel kernel (fp32) at 80 and
-128 mel bins."""
+128 mel bins, its floor bit-equal to the plain floor of its raw output and
+two replays of a captured call bit-equal to an eager call."""
 import numpy as np
 import pytest
 import torch
@@ -480,6 +481,34 @@ def test_log_mel_matches_plain(dev, n_mels):
     np.testing.assert_allclose(LF.log_mel_fused(audio, n_mels).cpu().numpy(),
                                LF.log_mel_fused_plain(audio, n_mels).cpu().numpy(),
                                rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_mels", [1, 80, 128])
+def test_log_mel_graph_replay(dev, n_mels):
+    """The floor's per-utterance max and tickets come back to their idle
+    values inside each call: two replays of a captured call give the same
+    bits as each other and as an eager call, and the floor equals
+    _normalize of the kernel's raw output bit for bit."""
+    from asr_finetune_tpu_torch.ops import logmel_fused as LF
+    g = torch.Generator(device=dev).manual_seed(9)
+    audio = torch.randn((2, 480000), generator=g, device=dev) * 0.1
+    audio[1, :150_000] = 0.0
+    eager = LF.log_mel_fused(audio, n_mels)
+    assert torch.equal(eager, LF._normalize(LF._log10_mel_cuda(audio, n_mels)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        LF.log_mel_fused(audio, n_mels)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = LF.log_mel_fused(audio, n_mels)
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, out) and torch.equal(out, eager)
+    assert torch.equal(LF.log_mel_fused(audio, n_mels), eager)
 
 
 @pytest.mark.parametrize("fault", ["time stride", "base"])
