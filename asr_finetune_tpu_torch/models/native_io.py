@@ -1,8 +1,10 @@
-"""Read the native checkpoint the JAX package exports (models/native_io.py:30-75).
+"""Read and write the JAX package's native checkpoint (models/native_io.py:30-75).
 
 Format: `params.npz` of flattened leaves keyed by "/"-joined tree paths
 ("encoder/layers/attn/q/w", stacked (L, d_in, d_out)), plus `config.json`
-carrying the WhisperConfig under "whisper_config".
+carrying the WhisperConfig under "whisper_config" and the format's name.
+`save_params` writes exactly what the JAX `save_params` writes, so an
+export of either package loads in the other.
 
 `params_from_numpy` is the weight carry between the two packages: it turns
 that flat dict into the port's parameters, a nested dict of tensors with the
@@ -13,6 +15,7 @@ int8 and fp32) and an adapter tree (training/lora.py) alike.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import Any, Dict, Tuple
@@ -24,6 +27,7 @@ from .configs import WhisperConfig
 
 PARAMS_FILE = "params.npz"
 CONFIG_FILE = "config.json"
+FORMAT = "asr_finetune_tpu.native_io.v1"
 
 Params = Dict[str, Any]
 
@@ -58,6 +62,16 @@ def params_to_numpy(params: Params, prefix: str = "") -> Dict[str, np.ndarray]:
             v = v.detach().cpu()
             out[key] = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
     return out
+
+
+def save_params(path: str, params: Params, cfg: WhisperConfig) -> None:
+    """params (a tree of tensors) as `path`/params.npz (params_to_numpy's
+    leaves) and `path`/config.json."""
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, PARAMS_FILE), **params_to_numpy(params))
+    with open(os.path.join(path, CONFIG_FILE), "w") as f:
+        json.dump({"whisper_config": dataclasses.asdict(cfg), "format": FORMAT},
+                  f, indent=2)
 
 
 def load_params(path: str, device, dtype: torch.dtype = torch.float32

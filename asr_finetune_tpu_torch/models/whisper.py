@@ -129,13 +129,15 @@ def cast_matmul_weights_(params: Params, dtype: torch.dtype) -> Params:
     layer norms and the fp32 conv stem stay as they are. Each old tensor is
     released as its cast replaces it, so the peak is one leaf above the
     model. What the model computes in `dtype` is unchanged: `dense`,
-    `_embed` and `tied_logits_weight` cast the same values at use."""
+    `_embed` and `tied_logits_weight` cast the same values at use. An int8
+    weight stays int8 and its `w_scale` fp32, as the decoder kernels read
+    them (a merged PEFT export is such a mixed base)."""
     def cast(tree):
         for k, v in tree.items():
             if isinstance(v, dict):
                 if not k.startswith("ln"):
                     cast(v)
-            else:
+            elif v.is_floating_point() and k != Q.SCALE_KEY:
                 tree[k] = v.to(dtype)
 
     cast(params["encoder"]["layers"])

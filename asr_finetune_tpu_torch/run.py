@@ -17,16 +17,21 @@ into eval shards, AdamW (in PEFT over the trained adapter leaves), the train
 step, the int8 outlier calibration, checkpoints (adapters only in PEFT) and
 the Trainer; its eval decode takes --generation_num_beams,
 --length_penalty, --decode_kv_int8 and --decode_w_int8 as transcription
-does. Not ported, and raising NotImplementedError: --spec_augment,
---offload_optimizer / --offload_param, --tp > 1, --host_logmel and parquet
-data.
+does. `run_trial` also takes the HPO controller's arguments
+(hpo/controller.py): the trial's directory, its early-stop hook, step
+count, resume and index. Not ported, and raising NotImplementedError:
+--spec_augment, --offload_optimizer / --offload_param, --tp > 1,
+--host_logmel and parquet data.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
+import gc
 import json
 import logging
 import os
+import traceback
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -275,14 +280,18 @@ def calibrate_outliers(args, built: BuiltModel, step_cfg: TrainStepConfig,
     return idx_map
 
 
-def setup_trial(args, hp: Optional[Dict[str, Any]] = None) -> Trainer:
+def setup_trial(args, hp: Optional[Dict[str, Any]] = None,
+                trial_dir: Optional[str] = None, on_evaluate=None,
+                max_steps_override: Optional[int] = None,
+                trial_index: int = 0) -> Trainer:
     """Everything of one training run up to the first step: model (fp32
     masters, or a frozen base and adapters), AdamW, train state, data, the
-    int8 outlier calibration, checkpoints and the Trainer."""
+    int8 outlier calibration, checkpoints and the Trainer. run_trial's
+    arguments of the same names say what the others do."""
     hp = dict(hp or {})
     setup_logging(logging.DEBUG if args.debug else logging.INFO)
     _check_pending_training(args)
-    out_dir = os.path.join(args.output_dir, args.output_tag)
+    out_dir = trial_dir or os.path.join(args.output_dir, args.output_tag)
     os.makedirs(out_dir, exist_ok=True)
     dump_config(out_dir, {**vars(args), **{f"hp.{k}": v for k, v in hp.items()}})
 
@@ -309,7 +318,10 @@ def setup_trial(args, hp: Optional[Dict[str, Any]] = None) -> Trainer:
         remat=args.gradient_checkpointing,
         label_smoothing=args.label_smoothing,
         on_device_logmel=True, n_mels=cfg.num_mel_bins,
-        max_steps=args.max_steps, lora=built.lora, seed=args.random_seed,
+        max_steps=args.max_steps, lora=built.lora,
+        # each trial its own lora-dropout stream (JAX run.py:336-339); 7919
+        # (a prime) keeps the trials' streams apart
+        seed=args.random_seed + 7919 * trial_index,
         quant=(quant_lib.QuantConfig(matmul=args.int8_matmul,
                                      outlier_cols=args.int8_outlier_cols)
                if int8_base else None))
@@ -321,7 +333,7 @@ def setup_trial(args, hp: Optional[Dict[str, Any]] = None) -> Trainer:
     if (int8_base and args.int8_matmul and args.int8_outlier_cols
             and args.int8_outlier_calibrate):
         calibrate_outliers(args, built, step_cfg, state, eval_batches_fn)
-    max_steps = args.max_steps or (
+    max_steps = max_steps_override or args.max_steps or (
         (n_train // max(args.per_device_train_batch_size, 1))
         * args.num_train_epochs)
     tcfg = TrainerConfig(
@@ -345,17 +357,64 @@ def setup_trial(args, hp: Optional[Dict[str, Any]] = None) -> Trainer:
     return Trainer(cfg, state, opt, step_cfg, tcfg, built.tokenizer,
                    built.device, train_iter=train_iter_factory,
                    eval_batches_fn=eval_batches_fn, checkpoints=ckpt,
-                   metrics_logger=MetricsLogger(out_dir))
+                   metrics_logger=MetricsLogger(out_dir), on_evaluate=on_evaluate)
 
 
-def run_trial(args, hp: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """One full training run with optional hyperparameter overrides."""
-    trainer = setup_trial(args, hp)
+def _trial_device(args, devices) -> str:
+    """The device a trial runs on: --device, or the one device the HPO
+    controller gives it."""
+    if devices is None:
+        return args.device
+    if isinstance(devices, (list, tuple)):
+        if len(devices) != 1:
+            raise NotImplementedError(
+                f"a trial over {len(devices)} devices: packing trials over cards "
+                "is not ported yet (the port trains on one card)")
+        devices = devices[0]
+    return str(devices)
+
+
+def run_trial(args, hp: Optional[Dict[str, Any]] = None,
+              trial_dir: Optional[str] = None, on_evaluate=None,
+              max_steps_override: Optional[int] = None,
+              resume_override: Optional[bool] = None,
+              devices=None, trial_index: int = 0) -> Dict[str, Any]:
+    """One full training run with optional hyperparameter overrides (the
+    JAX run_trial, asr_finetune_tpu/run.py:275-279).
+
+    trial_dir: the run's output directory (default output_dir/output_tag);
+    on_evaluate(step, metrics) → False stops the run after that eval (the
+    HPO scheduler's hook); max_steps_override: the trainer's max_steps (the
+    optimizer's schedule keeps args.max_steps, as in JAX);
+    resume_override: replaces --resume_training; devices: None, or the one
+    device to train on; trial_index: the trial's number, which sets its
+    lora-dropout stream.
+
+    When it returns or raises, the trial holds no device memory: the
+    trainer is dropped, and an exception's traceback keeps no frame's
+    locals (the HPO controller holds it while it writes error.txt)."""
+    args = copy.copy(args)
+    args.device = _trial_device(args, devices)
+    trainer = None
     try:
-        result = trainer.train(resume=args.resume_training)
+        trainer = setup_trial(args, hp, trial_dir, on_evaluate, max_steps_override,
+                              trial_index)
+        resume = args.resume_training if resume_override is None else resume_override
+        try:
+            result = trainer.train(resume=resume)
+        finally:
+            trainer.metrics.close()
+        save_trial_manifest(trainer.cfg.output_dir, {
+            "result": result, "hp": hp or {},
+            "args": {k: v for k, v in vars(args).items() if not k.startswith("_")}})
+        return result
+    except BaseException as e:
+        traceback.clear_frames(e.__traceback__)
+        raise
     finally:
-        trainer.metrics.close()
-    save_trial_manifest(trainer.cfg.output_dir, {
-        "result": result, "hp": hp or {},
-        "args": {k: v for k, v in vars(args).items() if not k.startswith("_")}})
-    return result
+        # the dead trial's objects collected and their cached device memory
+        # handed back, so the next trial starts from what the process held
+        trainer = None
+        gc.collect()
+        if torch.device(args.device).type == "cuda":
+            torch.cuda.empty_cache()

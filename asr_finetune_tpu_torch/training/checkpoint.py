@@ -183,3 +183,12 @@ def save_trial_manifest(directory: str, payload: Dict[str, Any]) -> None:
     os.makedirs(directory, exist_ok=True)
     with open(os.path.join(directory, "trial_manifest.json"), "w") as f:
         json.dump(payload, f, indent=2, default=str)
+
+
+def load_trial_manifest(directory: str) -> Optional[Dict[str, Any]]:
+    """The sidecar save_trial_manifest wrote in `directory`, None if none."""
+    path = os.path.join(directory, "trial_manifest.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)

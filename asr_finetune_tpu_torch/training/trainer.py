@@ -15,9 +15,13 @@ Counterpart of asr_finetune_tpu/training/trainer.py (`Trainer.train` /
   adapters, which it merges into the (int8 or bf16) base;
 - a checkpoint every save_steps (a multiple of eval_steps, so it is scored
   on fresh metrics) and at the end; resume restores the latest one and
-  restarts the data stream at its step.
-The JAX trainer's host-offload, multi-host and HPO early-stop hooks are not
-ported: the port trains in one process, and HPO is still to port.
+  restarts the data stream at its step;
+- the HPO hook `on_evaluate(step, metrics) -> bool` (the ASHA early-stop
+  channel, JAX :115-118, :332-348): called after each eval that yields
+  metrics; False stops the trial once that step's periodic checkpoint is
+  saved, and the final save still follows, labelled max_steps as in JAX.
+The JAX trainer's host-offload and multi-host hooks are not ported: the
+port trains in one process.
 """
 from __future__ import annotations
 
@@ -91,10 +95,12 @@ class Trainer:
                  train_iter: Callable[[int], Iterator[Dict[str, Any]]],
                  eval_batches_fn: Optional[Callable[[int], List[Dict[str, Any]]]] = None,
                  checkpoints: Optional[CheckpointManager] = None,
-                 metrics_logger: Optional[MetricsLogger] = None):
+                 metrics_logger: Optional[MetricsLogger] = None,
+                 on_evaluate: Optional[Callable[[int, Dict[str, float]], bool]] = None):
         """train_iter(start_step) → infinite iterator of device batches;
         eval_batches_fn(shard_id) → list of numpy eval batches of one
-        validation shard."""
+        validation shard; on_evaluate(step, metrics) → False to stop the
+        trial early."""
         self.model_cfg = model_cfg
         self.state = state
         self.cfg = cfg
@@ -105,6 +111,7 @@ class Trainer:
         self.eval_batches_fn = eval_batches_fn
         self.checkpoints = checkpoints
         self.metrics = metrics_logger or MetricsLogger(cfg.output_dir)
+        self.on_evaluate = on_evaluate
         self._train_step = make_train_step(model_cfg, opt, step_cfg)
         self._eval_loss_step = make_eval_loss_step(model_cfg, step_cfg)
         forced = tokenizer.prefix_tokens(cfg.language, cfg.task,
@@ -219,6 +226,7 @@ class Trainer:
                     utts_since = 0
                     t_log = time.time()
 
+                stop_early = False
                 if self.cfg.eval_steps and step % self.cfg.eval_steps == 0 \
                         and step >= self.cfg.eval_delay:
                     em = self.evaluate(step)
@@ -226,10 +234,16 @@ class Trainer:
                         self.metrics.log(step, em)
                         logger.info("step %d eval: %s", step,
                                     {k: round(v, 4) for k, v in em.items()})
+                        if self.on_evaluate is not None:
+                            stop_early = not self.on_evaluate(step, em)
 
                 if self.checkpoints is not None and self.cfg.save_steps \
                         and step % self.cfg.save_steps == 0:
                     self.checkpoints.save(step, self.state, self.last_eval_metrics)
+
+                if stop_early:
+                    logger.info("trial stopped early at step %d (scheduler)", step)
+                    break
         finally:
             if hasattr(it, "close"):
                 it.close()   # releases the prefetch thread

@@ -79,6 +79,17 @@
    its dynamic top-k outlier form (the calibration stays unfused, as the JAX
    trial's, and records no such class) into the fused-qkv attention kernel,
    forward and backward;
+   7c. the HPO main path: `asr_finetune_tpu_torch.cli.train_hyper` with
+   largev3_peft_debug.config and --int8_matmul, TPE search with ASHA, 3
+   trials of large-v3 at their own AdaLoRA ranks, each 4 steps with an eval
+   and a checkpoint every 2, one line per trial (hp, status, ASHA
+   decisions, wall, ms/step, peak memory, launches); asserts no trial
+   errored, every trial launched W8A8, the attention kernels and the int8
+   decoder kernels, and the device memory came back after each trial; then
+   --resume_training runs nothing, `cli.export` writes the best trial merged
+   (no K-major copy), `cli.transcribe --model_path` serves it through the
+   decoder kernels with tokens equal to the plain decode's, and
+   `cli.prepare_model --verify` converts an HF directory it writes;
 8. one decode step's device time by CUDA kernel, greedy and on each beam
    path, with the launches per step asserted; then the card line again,
    one JSON line `{"kernels": [...]}`, and last `{"ok": true, "device": {...}}`.
@@ -2209,6 +2220,303 @@ def _probe(state):
             ("base.decoder.embed", p["decoder"]["embed"])]
 
 
+# Phase 7c, the HPO main path: 3 trials of large-v3 PEFT over the int8 base
+HPO_TRIALS = 3
+# device memory a finished trial may leave allocated beyond what the process
+# held before the first trial: the kernels' workspaces and the log-mel
+# tables are made once per device and kept, a trial's model and state are
+# gigabytes
+HPO_MEM_MARGIN = 256 * 2 ** 20
+# the kernels every trial must launch: W8A8, the encoder-attention forward
+# and backward, and the int8 / mixed-weight option of each decoder kernel
+# (the eval decode over the merged base)
+HPO_KERNELS = ("w8a8", "encoder_attention", "encoder_attention_bwd",
+               *(k + "_int8" for k in DECODER))
+
+
+def write_hf_dir(path, seed: int = 0) -> dict:
+    """An HF-layout Whisper checkpoint directory at whisper-tiny's widths
+    and depth (d 384, 6 heads of 64, ff 1536, 4 + 4 layers, vocab 51865):
+    config.json and a pytorch_model.bin written by torch.save, the weights
+    random from `seed`, under the names WhisperForConditionalGeneration's
+    state_dict uses. No transformers needed. Returns the config."""
+    import torch
+    d, heads, ff, layers, vocab, n_mels, src, tgt = 384, 6, 1536, 4, 51865, 80, 1500, 448
+    cfg = {"vocab_size": vocab, "num_mel_bins": n_mels, "d_model": d,
+           "encoder_layers": layers, "decoder_layers": layers,
+           "encoder_attention_heads": heads, "decoder_attention_heads": heads,
+           "encoder_ffn_dim": ff, "decoder_ffn_dim": ff, "max_source_positions": src,
+           "max_target_positions": tgt, "pad_token_id": 50257, "bos_token_id": 50257,
+           "eos_token_id": 50257, "decoder_start_token_id": 50258}
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g) * 0.02
+
+    def ln(name):
+        sd[name + ".weight"], sd[name + ".bias"] = 1.0 + r(d), r(d)
+
+    sd = {"model.encoder.conv1.weight": r(d, n_mels, 3), "model.encoder.conv1.bias": r(d),
+          "model.encoder.conv2.weight": r(d, d, 3), "model.encoder.conv2.bias": r(d),
+          "model.encoder.embed_positions.weight": r(src, d),
+          "model.decoder.embed_tokens.weight": r(vocab, d),
+          "model.decoder.embed_positions.weight": r(tgt, d)}
+    for side in ("encoder", "decoder"):
+        for i in range(layers):
+            p = f"model.{side}.layers.{i}"
+            for blk in ("self_attn",) + (("encoder_attn",) if side == "decoder" else ()):
+                for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                    sd[f"{p}.{blk}.{proj}.weight"] = r(d, d)
+                    if proj != "k_proj":
+                        sd[f"{p}.{blk}.{proj}.bias"] = r(d)
+                ln(f"{p}.{blk}_layer_norm")
+            sd[f"{p}.fc1.weight"], sd[f"{p}.fc1.bias"] = r(ff, d), r(ff)
+            sd[f"{p}.fc2.weight"], sd[f"{p}.fc2.bias"] = r(d, ff), r(d)
+            ln(f"{p}.final_layer_norm")
+        ln(f"model.{side}.layer_norm")
+    os.makedirs(path, exist_ok=True)
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    return cfg
+
+
+def hpo_main_path(rows, device: str = "cuda", model: str = "large-v3",
+                  trials: int = HPO_TRIALS):
+    """Phase 7c, the HPO main path and the deployment half:
+    `asr_finetune_tpu_torch.cli.train_hyper` with the repo's
+    largev3_peft_debug.config and --int8_matmul: TPE search
+    (large_small_OPTUNA, the production searcher) over learning_rate, the
+    AdaLoRA rank and alpha, with ASHA (grace period 2), `trials` trials of
+    whisper-large-v3 at full width and depth over the int8 base, each 4
+    steps of batch 4 with an eval (loss + WER of the decode through the
+    decoder kernels' int8 and mixed options) and a checkpoint every 2, on
+    the 20 seeded wavs of phase 6. Prints one line per trial (hp, status,
+    final step, ASHA decisions, wall, ms/step, peak memory, launches) and
+    asserts: no trial errored; best_result.json names a trial; every trial
+    launched W8A8, the encoder-attention forward and backward and the int8
+    decoder kernels; after each trial the device memory allocated is back
+    within HPO_MEM_MARGIN of its value before the first. Then:
+    --resume_training runs no trial, launches no kernel and names the same
+    best trial; `cli.export` of the best trial's checkpoints (merged: q/v
+    fp32, the rest int8, no K-major copy) reloads, and `cli.transcribe
+    --model_path <export>` (fp32) decodes four of the wavs through the
+    decoder kernels' int8 options, its tokens equal to the plain decode of
+    the same merged tree on the same device; `cli.prepare_model --verify`
+    converts a whisper-tiny-shaped HF directory and runs its forward on the
+    device. `device` and `model` let the same function run a small model
+    on the CPU."""
+    import glob
+    import torch
+    from asr_finetune_tpu_torch import run as run_lib
+    from asr_finetune_tpu_torch.cli import export as export_cli
+    from asr_finetune_tpu_torch.cli import prepare_model, train_hyper, transcribe
+    from asr_finetune_tpu_torch.evaluation import decode as decode_lib
+    from asr_finetune_tpu_torch.hpo import schedulers as sched_lib
+    from asr_finetune_tpu_torch.models import native_io
+    from asr_finetune_tpu_torch.ops import quant as Q
+    from asr_finetune_tpu_torch.training import trainer as trainer_lib
+    from asr_finetune_tpu_torch.training.optim import leaves
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def allocated() -> int:
+        return torch.cuda.memory_allocated() if on_card else 0
+
+    tag = next(line.split("=", 1)[1].strip() for line in open(PEFT_CONFIG)
+               if line.startswith("output_tag"))
+    runs, decisions, step_s, decodes = [], {}, [], []
+    orig = (run_lib.run_trial, sched_lib.AshaScheduler.on_result,
+            trainer_lib.make_train_step, decode_lib.greedy_decode)
+
+    def on_result(self, trial_id, step, metrics):
+        go = orig[1](self, trial_id, step, metrics)
+        decisions.setdefault(trial_id, []).append(f"step {step} {'go on' if go else 'stop'}")
+        return go
+
+    def make_train_step(*a, **k):
+        inner = orig[2](*a, **k)
+
+        def step(state, batch):
+            sync()
+            t0 = time.perf_counter()
+            m = inner(state, batch)
+            sync()
+            step_s.append(time.perf_counter() - t0)
+            return m
+        return step
+
+    def run_trial(args, hp=None, trial_dir=None, **k):
+        sync()
+        before, n_steps = all_launches(), len(step_s)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            return orig[0](args, hp, trial_dir, **k)
+        finally:
+            sync()
+            after = all_launches()
+            runs.append({"trial": os.path.basename(trial_dir), "hp": hp,
+                         "wall": time.perf_counter() - t0, "steps": step_s[n_steps:],
+                         "peak": torch.cuda.max_memory_allocated() if on_card else 0,
+                         "allocated": allocated(),
+                         "launches": {n: after[n] - before[n] for n in after}})
+
+    def greedy_decode(params, mel, *a, **k):
+        out = orig[3](params, mel, *a, **k)
+        decodes.append((params, mel, a, k, out[0].clone()))
+        return out
+
+    def patch(on: bool):
+        (run_lib.run_trial, sched_lib.AshaScheduler.on_result,
+         trainer_lib.make_train_step) = ((run_trial, on_result, make_train_step)
+                                         if on else orig[:3])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = f"{tmp}/data"
+        os.makedirs(data)
+        write_audiofolder(data, TRAIN_UTTS)
+        argv = ["-c", PEFT_CONFIG, "--model_type", model, "--device", device, "--no-debug",
+                "--int8_matmul", "--data_mode", "folder", "--dataset_name", data,
+                "--val_split", "0.2", "--search_schedule_mode", "large_small_OPTUNA",
+                "--num_samples", str(trials), "--max_steps", str(TRAIN_STEPS),
+                "--eval_steps", "2", "--save_steps", "2", "--grace_period", "2",
+                "--logging_steps", "2", "--eval_sample_fraction", "1.0",
+                "--generation_max_length", str(TRAIN_GEN_LEN), "--wer_weight", "0.7",
+                "--storage_path", f"{tmp}/hpo"]
+        sync()
+        base = allocated()
+        reset_all_launches()
+        patch(True)
+        t0 = time.perf_counter()
+        try:
+            summary = train_hyper.main(argv)
+        finally:
+            patch(False)
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+        exp = f"{tmp}/hpo/{tag}"
+        with open(f"{exp}/experiment_state.json") as f:
+            state = json.load(f)["trials"]
+        with open(f"{exp}/best_result.json") as f:
+            best = json.load(f)
+
+        label = "HPO main path"
+        print(f"{label}: cli.train_hyper -c {PEFT_CONFIG} --int8_matmul, {model}, "
+              f"TPE + ASHA, {trials} trials of {TRAIN_STEPS} steps, wall {wall:.3f} s; "
+              f"best {json.dumps(summary, default=str)}")
+        for r in runs:
+            rec = state[r["trial"]]
+            s = r["steps"]
+            ms = 1e3 * float(np.mean(s[1:]))
+            print(f"  {r['trial']}: hp {json.dumps(r['hp'])} status {rec['status']} final step "
+                  f"{rec.get('result', {}).get('final_step')} ASHA "
+                  f"{', '.join(decisions.get(r['trial'], [])) or 'no rung'}; wall "
+                  f"{r['wall']:.3f} s, {ms:.3f} ms/step (steps 2-{len(s)}), peak "
+                  f"{r['peak'] / 2**30:.2f} GiB, allocated after {r['allocated'] / 2**20:.1f} "
+                  f"MiB ({(r['allocated'] - base) / 2**20:+.1f} MiB on the start); launches "
+                  f"{json.dumps({k: v for k, v in r['launches'].items() if v})}")
+        if sorted(state) != [f"trial_{i:04d}" for i in range(trials)] or any(
+                rec["status"] != "completed" for rec in state.values()):
+            raise AssertionError(f"{label}: a trial did not complete: "
+                                 f"{ {k: v['status'] for k, v in state.items()} }")
+        if best["best_trial"] not in state or summary["best_trial"] != best["best_trial"]:
+            raise AssertionError(f"{label}: best_result.json names no trial: {best}")
+        if len(runs) != trials or len(step_s) < trials * 2:
+            raise AssertionError(f"{label}: {len(runs)} trials ran, {len(step_s)} steps")
+        for r in runs:
+            silent = [k for k in HPO_KERNELS if r["launches"][k] == 0]
+            if silent:
+                raise AssertionError(f"{label}: {r['trial']} launched no {silent}")
+            if r["allocated"] - base > HPO_MEM_MARGIN:
+                raise AssertionError(
+                    f"{label}: {r['trial']} left {(r['allocated'] - base) / 2**20:.1f} MiB "
+                    f"allocated (margin {HPO_MEM_MARGIN / 2**20:.0f} MiB)")
+        record_launches(rows, "train_hyper", launches)
+        print(f"{label}: launches {json.dumps({k: v for k, v in launches.items() if v})}")
+
+        # resume: every trial completed, so nothing runs
+        reset_all_launches()
+        n_runs = len(runs)
+        patch(True)
+        try:
+            again = train_hyper.main(argv + ["--resume_training"])
+        finally:
+            patch(False)
+        rerun = {k: v for k, v in all_launches().items() if v}
+        if again["best_trial"] != summary["best_trial"] or len(runs) != n_runs or rerun:
+            raise AssertionError(f"{label} resumed: best {again['best_trial']} (was "
+                                 f"{summary['best_trial']}), {len(runs) - n_runs} trials "
+                                 f"run, launches {rerun}")
+        print(f"{label} resumed: best {again['best_trial']}, no trial run, no launch")
+
+        # export the best trial, merged, then serve it
+        out = f"{tmp}/export"
+        sync()
+        t0 = time.perf_counter()
+        export_cli.main(["--checkpoint_dir", f"{exp}/{best['best_trial']}/checkpoints",
+                         "--export_dir", out, "-c", PEFT_CONFIG, "--model_type", model,
+                         "--device", device, "--no-debug"])
+        export_s = time.perf_counter() - t0
+        npz = f"{out}/params.npz"
+        with np.load(npz) as z:
+            kinds = {k: z[k].dtype.name for k in z.files}
+        reloaded, _ = native_io.load_params(out, device)
+        n_reloaded = len(leaves(reloaded))
+        del reloaded
+        q, k = ("decoder/layers/self_attn/q/", "decoder/layers/self_attn/k/")
+        if any(Q.KMAJOR_KEY in name for name in kinds) or n_reloaded != len(kinds) \
+                or kinds.get(q + "w") != "float32" or kinds.get(k + "w_q8") != "int8":
+            raise AssertionError(f"{label}: export leaves {kinds}")
+        print(f"{label}: cli.export of {best['best_trial']} (rank "
+              f"{best['hp'].get('rank')}): {len(kinds)} leaves, "
+              f"{sum(1 for v in kinds.values() if v == 'int8')} int8, "
+              f"{os.path.getsize(npz) / 1e9:.3f} GB in {export_s:.3f} s, no K-major copy")
+
+        wavs = sorted(glob.glob(f"{data}/*.wav"))[:B]
+        reset_all_launches()
+        decode_lib.greedy_decode = greedy_decode
+        try:
+            results = transcribe.main([
+                "--model_path", out, "--inputs", *wavs, "--device", device, "--no-bf16",
+                "--per_device_eval_batch_size", str(B),
+                "--generation_max_length", str(TRAIN_GEN_LEN)])
+        finally:
+            decode_lib.greedy_decode = orig[3]
+        served = all_launches()
+        silent = [n for n in HPO_KERNELS[3:] if served[n] == 0]
+        if len(results) != len(wavs) or len(decodes) != 1 or silent:
+            raise AssertionError(f"{label}: transcribe --model_path export: {len(results)} "
+                                 f"transcripts, {len(decodes)} decodes, launched no {silent}")
+        params, mel, a, kw, tokens = decodes.pop()
+        plain = orig[3](params, mel, *a, **{**kw, "fused": False})[0]
+        del params, mel
+        if not torch.equal(plain.cpu(), tokens.cpu()):
+            raise AssertionError(f"{label}: the export's fused decode differs from the plain "
+                                 f"one:\n{tokens.tolist()}\n{plain.tolist()}")
+        print(f"{label}: cli.transcribe --model_path export (fp32, mixed int8 base): "
+              f"{len(results)} wavs, tokens {tuple(tokens.shape)} equal the plain decode's; "
+              f"launches {json.dumps({k: v for k, v in served.items() if v})}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_hf_dir(f"{tmp}/hf")
+        reset_all_launches()
+        prepare_model.main(["--hf_dir", f"{tmp}/hf", "--output", f"{tmp}/native",
+                            "--verify", "--device", device])
+        prepared = {k: v for k, v in all_launches().items() if v}
+        if not prepared.get("encoder_attention"):
+            raise AssertionError(f"prepare_model --verify launched {prepared}")
+        print(f"prepare_model --verify (whisper-tiny shapes, pytorch_model.bin) on {device}: "
+              f"launches {json.dumps(prepared)}")
+    if on_card:
+        torch.cuda.empty_cache()
+
+
 def step_breakdown():
     """One whisper-large-v3 decode step at batch 4 (bf16, cache 128 at pos
     63), greedy and on each beam path (4 x 4 hypothesis rows over cross K/V
@@ -2355,6 +2663,7 @@ def main() -> int:
     train_main_path(rows)
     train_main_path(rows, config=PEFT_CONFIG, extra=("--int8_matmul",))
     train_main_path(rows, config=PEFT_CONFIG, extra=("--int8_matmul",), fused_qkv=True)
+    hpo_main_path(rows)
     step_breakdown()
     print(json.dumps({"step_device_ms": STEP_DEVICE}))
     for k in ("fused_mlp", "fused_mlp_int8", "fused_qkv", "fused_qkv_int8"):   # every row count
