@@ -4,19 +4,26 @@
     [--device cuda|cpu]`
 
 Counterpart of asr_finetune_tpu/cli/train.py: one training run of one
-configuration (run.run_trial), full fine-tuning on one card unless
---device cpu is given. To re-train a previous HPO experiment's best trial,
-pass --from_best <experiment storage dir>: the hyperparameter overrides are
-read from its best_result.json.
+configuration (run.run_trial), on one card unless --device cpu is given.
+To re-train a previous HPO experiment's best trial, pass --from_best
+<experiment storage dir>: the hyperparameter overrides are read from its
+best_result.json.
+
+Data-parallel over cards, one process each (parallel/mesh.py):
+`torchrun --nproc_per_node N -m asr_finetune_tpu_torch.cli.train ...`, or
+Slurm with COORDINATOR_ADDRESS; every rank prints the result.
 """
 from __future__ import annotations
 
 import json
+import logging
 import os
 import sys
 
 from .. import config as config_lib
 from .. import run as run_lib
+from ..parallel import mesh
+from ..utils.logging_utils import setup_logging
 
 
 def main(argv=None):
@@ -31,7 +38,9 @@ def main(argv=None):
         hp = best.get("hp") or {}
         print(f"re-training best trial {best.get('best_trial')} hp={hp}")
     args = config_lib.parse_args(argv)
-    result = run_lib.run_trial(args, hp=hp)
+    setup_logging(logging.DEBUG if args.debug else logging.INFO)
+    with mesh.joined(args.device):
+        result = run_lib.run_trial(args, hp=hp)
     print(json.dumps(result, default=str))
     return result
 

@@ -9,31 +9,30 @@ one card unless --device cpu is given, saves best_result.json and prints
 the summary as one JSON line; `--resume_training` restores an unfinished
 experiment (completed trials skipped, errored and unfinished ones re-run).
 
-The JAX entry joins a multi-host run when COORDINATOR_ADDRESS (or the
-reference's `ip_head`) is set. The port runs in one process: with either
-set it raises NotImplementedError instead of carrying on alone.
+Data-parallel trials: under torchrun, or with COORDINATOR_ADDRESS (or the
+reference's `ip_head`) set under Slurm, every process joins the group
+(parallel/mesh.py), runs the controller and takes part in every trial, the
+trials one after another over the whole group; rank 0 writes the
+experiment's files. --run_on_local_machine stays one process, as in JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
-import os
+import logging
 
 from .. import config as config_lib
 from ..hpo import controller
-
-MULTI_PROCESS_ENV = ("COORDINATOR_ADDRESS", "ip_head")
+from ..parallel import mesh
+from ..utils.logging_utils import setup_logging
 
 
 def main(argv=None):
     args = config_lib.parse_args(argv)
-    if not args.run_on_local_machine:
-        named = [k for k in MULTI_PROCESS_ENV if os.environ.get(k)]
-        if named:
-            raise NotImplementedError(
-                f"{', '.join(named)} set: a multi-process experiment is not ported "
-                "yet (the port runs one process on one card); unset it or pass "
-                "--run_on_local_machine")
-    summary = controller.run_experiment(args)
+    setup_logging(logging.DEBUG if args.debug else logging.INFO)
+    with (contextlib.nullcontext() if args.run_on_local_machine
+          else mesh.joined(args.device)):
+        summary = controller.run_experiment(args)
     print(json.dumps(summary, default=str))
     return summary
 

@@ -12,9 +12,9 @@ of user flags; no per-key dict deletions before splatting.
 
 The PyTorch port keeps its own copy of the flags (the port imports nothing
 of asr_finetune_tpu) and adds --device. Flags of paths not ported yet
-(SpecAugment, offload, tensor parallelism, HPO, parquet data) parse as
-before; the code that reads them raises NotImplementedError where it meets
-one that is set.
+(SpecAugment, tensor parallelism, host log-mel, trial packing, parquet
+data) parse as before; the code that reads them raises
+NotImplementedError where it meets one that is set.
 """
 from __future__ import annotations
 
@@ -159,15 +159,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "adapts decoder self/cross q,v only")
     p.add_argument("--offload_optimizer", action=argparse.BooleanOptionalAction,
                    default=False,
-                   help="keep Adam m/v in pinned host memory between steps "
-                        "(DeepSpeed ZeRO-3 offload_optimizer analogue, "
-                        "reference trainers.py:403-406); for configs whose "
-                        "optimizer state exceeds HBM")
+                   help="keep AdamW's m/v (this rank's ZeRO shard) in pinned "
+                        "host memory between steps, each leaf copied to the card "
+                        "for its update and back (DeepSpeed ZeRO-3 "
+                        "offload_optimizer analogue, reference "
+                        "trainers.py:403-406); results bit-equal to resident")
     p.add_argument("--offload_param", action=argparse.BooleanOptionalAction,
                    default=False,
-                   help="PEFT: keep the frozen base in pinned host memory, "
-                        "gathered HBM-ward inside each step (ZeRO-3 "
-                        "offload_param analogue, trainers.py:407-410)")
+                   help="PEFT: keep the frozen base (int8 w_q8, w_scale and "
+                        "the K-major copies included) in pinned host memory, "
+                        "copied to the card for each step and each evaluation "
+                        "and never kept there (ZeRO-3 offload_param analogue, "
+                        "trainers.py:407-410); full fine-tuning ignores it")
     p.add_argument("--adalora", action=argparse.BooleanOptionalAction, default=False)
     p.add_argument("--adalora_target_rank", type=int, default=0,
                    help="0 = rank//2")

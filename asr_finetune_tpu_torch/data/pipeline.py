@@ -1,10 +1,13 @@
 """Deterministic host input pipeline: shuffle, batch, prefetch (PyTorch port).
 
-Counterpart of asr_finetune_tpu/data/pipeline.py, single process:
+Counterpart of asr_finetune_tpu/data/pipeline.py:
 
 - `IndexSampler`: seeded per-epoch shuffling, optional length grouping
-  (sort within windows of batch × 16 by transcript length, HF
-  LengthGroupedSampler's role) and `batches_from_step`, the infinite stream
+  (sort within windows of batch × process_count × 16 by transcript length,
+  HF LengthGroupedSampler's role), the process shard (JAX :44-90: rank
+  `process_index` of `process_count` takes idx[process_index::process_count]
+  of the grouped permutation, so every rank contributes similar-length rows
+  to the same global batch) and `batches_from_step`, the infinite stream
   resumable at a global step, so a resumed run sees exactly the batches an
   uninterrupted one would;
 - `DataPipeline`: reader + collator + sampler → numpy batches, bad rows
@@ -14,8 +17,9 @@ Counterpart of asr_finetune_tpu/data/pipeline.py, single process:
   non_blocking=True; a producer exception is re-raised on the consumer
   side instead of ending the stream silently.
 
-The JAX package's multi-process sharding (process_index / process_count,
-make_global_batch) is not ported: the port trains on one card.
+Under data parallelism each rank's batch is its rows of the global batch;
+the counterpart of the JAX `make_global_batch` is the train step's
+gradient reduction over the ranks, not a gathered tensor.
 """
 from __future__ import annotations
 
@@ -38,26 +42,31 @@ TELEMETRY_EVERY = 5        # batches between samples/sec log lines
 
 
 class IndexSampler:
-    """Seeded, epoch-aware index stream (shuffled, the ragged tail of an
-    epoch dropped); with `lengths`, length-grouped."""
+    """Seeded, epoch-aware index stream of one process's shard (shuffled,
+    the ragged tail of its epoch dropped); with `lengths`, length-grouped.
+    batch_size is the process's rows per batch."""
 
     def __init__(self, n: int, batch_size: int, seed: int = 0,
-                 lengths: Optional[np.ndarray] = None):
+                 lengths: Optional[np.ndarray] = None,
+                 process_index: int = 0, process_count: int = 1):
         self.n = n
         self.batch_size = batch_size
         self.seed = seed
         self.lengths = None if lengths is None else np.asarray(lengths)
+        self.process_index = process_index
+        self.process_count = process_count
 
     def epoch_indices(self, epoch: int) -> np.ndarray:
         idx = np.arange(self.n)
         np.random.default_rng(self.seed + epoch).shuffle(idx)
         if self.lengths is not None:
-            w = self.batch_size * LENGTH_GROUP_FACTOR
+            w = self.batch_size * self.process_count * LENGTH_GROUP_FACTOR
             for i in range(0, len(idx), w):
                 win = idx[i : i + w]
                 idx[i : i + len(win)] = win[np.argsort(self.lengths[win],
                                                        kind="stable")]
-        return idx[: (len(idx) // self.batch_size) * self.batch_size]
+        shard = idx[self.process_index :: self.process_count]
+        return shard[: (len(shard) // self.batch_size) * self.batch_size]
 
     def batches(self, epoch: int) -> Iterator[np.ndarray]:
         idx = self.epoch_indices(epoch)
@@ -70,9 +79,9 @@ class IndexSampler:
         per_epoch = len(self.epoch_indices(0)) // self.batch_size
         if per_epoch == 0:
             raise ValueError(
-                f"train split ({len(self.epoch_indices(0))} rows) is smaller "
-                f"than the batch ({self.batch_size}); reduce "
-                "per_device_train_batch_size or provide more data")
+                f"train split ({len(self.epoch_indices(0))} rows of this "
+                f"process's shard) is smaller than the batch ({self.batch_size}); "
+                "reduce per_device_train_batch_size or provide more data")
         step = start_step
         while True:
             epoch, offset = divmod(step, per_epoch)

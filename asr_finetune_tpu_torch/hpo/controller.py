@@ -24,6 +24,14 @@ The JAX controller packs trials onto disjoint chip subsets
 (1 on --device cpu) and runs one trial at a time on one card; a
 configuration that would open more than one slot raises
 NotImplementedError rather than run its trials one after another.
+
+In a process group (parallel/mesh.py) every rank runs this controller and
+takes part in every trial, one after another over the whole group, as the
+JAX controller does over hosts (:131-133). The searcher, scheduler and
+PBT decisions agree on every rank because the metrics do; rank 0 alone
+writes the experiment's files (experiment, scheduler and searcher state,
+best_result, error.txt). A trial that raises on a rank ends the
+experiment there: the other ranks would wait in its collectives.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ import torch
 
 from .. import run as run_lib
 from ..device import resolve_device
+from ..parallel import mesh
 from ..utils.logging_utils import setup_logging
 from .schedulers import AshaScheduler, PbtScheduler, calculate_grace_period
 from .search import make_searcher
@@ -57,6 +66,8 @@ class ExperimentState:
                 self.trials = json.load(f).get("trials", {})
 
     def save(self):
+        if not mesh.is_primary():
+            return
         os.makedirs(os.path.dirname(self.path), exist_ok=True)
         tmp = self.path + ".tmp"
         with open(tmp, "w") as f:
@@ -84,8 +95,11 @@ def _metric_cfg(args):
 
 def count_slots(args) -> int:
     """The number of trials the JAX controller would run at once on this
-    host's cards (controller.py:123-140). The port runs one: more raises."""
+    host's cards (controller.py:123-140). The port runs one: more raises.
+    In a process group every trial spans the group: one slot."""
     resolve_device(args.device)       # no card and no --device cpu: raise here
+    if mesh.world() > 1:
+        return 1
     n_cards = 1 if torch.device(args.device).type == "cpu" else torch.cuda.device_count()
     chips = int(args.chips_per_trial) if args.chips_per_trial else 0
     n_slots = 1
@@ -106,7 +120,7 @@ def run_experiment(args) -> Dict[str, Any]:
     exp_dir = os.path.join(args.storage_path, args.output_tag)
     os.makedirs(exp_dir, exist_ok=True)
     state = ExperimentState(os.path.join(exp_dir, "experiment_state.json"))
-
+    mesh.barrier()   # every rank has read the experiment before rank 0 writes
     metric, mode = _metric_cfg(args)
     space = get_whisper_hyperparameters(args)
     searcher = make_searcher(args.search_schedule_mode, space,
@@ -138,8 +152,11 @@ def run_experiment(args) -> Dict[str, Any]:
             if rec.get("status") == "completed" \
                     and metric in rec.get("result", {}):
                 searcher.observe(rec["hp"], rec["result"][metric])
+    mesh.barrier()   # every rank has read the searcher and scheduler state
 
     def save_searcher():
+        if not mesh.is_primary():
+            return
         tmp = searcher_path + ".tmp"
         with open(tmp, "w") as f:
             json.dump(searcher.state_dict(), f)
@@ -182,13 +199,17 @@ def run_experiment(args) -> Dict[str, Any]:
             results.append((trial_id, result))
         except Exception as e:  # noqa: BLE001 — per-trial fault isolation
             logger.exception("%s errored", trial_id)
-            os.makedirs(trial_dir, exist_ok=True)
-            with open(os.path.join(trial_dir, "error.txt"), "a") as f:
-                f.write(traceback.format_exc())
+            if mesh.is_primary():
+                os.makedirs(trial_dir, exist_ok=True)
+                with open(os.path.join(trial_dir, "error.txt"), "a") as f:
+                    f.write(traceback.format_exc())
             state.record(trial_id, status="errored", error=str(e))
+            if mesh.world() > 1:
+                raise
         finally:
-            with open(sched_path, "w") as f:
-                json.dump(asha.state_dict(), f)
+            if mesh.is_primary():
+                with open(sched_path, "w") as f:
+                    json.dump(asha.state_dict(), f)
 
     for i in range(args.num_samples):
         run_one(i)
@@ -234,6 +255,8 @@ def _run_pbt(args, state: ExperimentState, space, exp_dir, metric, mode
             except Exception as e:  # noqa: BLE001
                 logger.exception("%s errored", p["trial_id"])
                 state.record(p["trial_id"], status="errored", error=str(e))
+                if mesh.world() > 1:
+                    raise
                 p["steps"] = target  # don't wedge the loop on one bad member
         if min(p["steps"] for p in population) >= args.burn_in_period * seg:
             decisions = pbt.exploit_explore(rng, [
@@ -243,9 +266,10 @@ def _run_pbt(args, state: ExperimentState, space, exp_dir, metric, mode
                 if d["clone_from"]:
                     src_ckpt = os.path.join(exp_dir, d["clone_from"], "checkpoints")
                     dst_ckpt = os.path.join(exp_dir, p["trial_id"], "checkpoints")
-                    if os.path.exists(src_ckpt):
+                    if os.path.exists(src_ckpt) and mesh.is_primary():
                         shutil.rmtree(dst_ckpt, ignore_errors=True)
                         shutil.copytree(src_ckpt, dst_ckpt)
+                    mesh.barrier()
                     logger.info("PBT: %s exploits %s with hp=%s",
                                 p["trial_id"], d["clone_from"], d["hp"])
                 p["hp"] = d["hp"]
@@ -268,8 +292,9 @@ def _finalize(exp_dir, state, results, metric, mode) -> Dict[str, Any]:
                "metric": metric, "mode": mode,
                "hp": state.trials.get(best_tid, {}).get("hp")}
     # best_result.npy analogue (train_hyper.py:390-394) + readable JSON
-    np.save(os.path.join(exp_dir, "best_result.npy"), summary)  # type: ignore
-    with open(os.path.join(exp_dir, "best_result.json"), "w") as f:
-        json.dump(summary, f, indent=2, default=str)
+    if mesh.is_primary():
+        np.save(os.path.join(exp_dir, "best_result.npy"), summary)  # type: ignore
+        with open(os.path.join(exp_dir, "best_result.json"), "w") as f:
+            json.dump(summary, f, indent=2, default=str)
     logger.info("best trial %s: %s", best_tid, best)
     return summary

@@ -205,10 +205,17 @@ class LoraDropout:
     for the same seed and step, differs across steps and sites, and the
     remat recompute redraws exactly the mask of the forward. The JAX
     package draws from lax.rng_bit_generator, whose bits depend on the
-    backend: the two masks have one law, not one stream."""
+    backend: the two masks have one law, not one stream.
+
+    Under data parallelism a rank holds rows [row0, row0 + B) of a global
+    batch of `rows` rows: it draws the global batch's mask and takes its
+    rows, so the masks are those of one process over the global batch.
+    rows 0 (one process) draws x's own shape, the same bits as always."""
     rate: float
     seed: int
     step: int = 0
+    row0: int = 0
+    rows: int = 0
 
     def __call__(self, x: torch.Tensor, site: str) -> torch.Tensor:
         if self.rate <= 0.0:
@@ -217,7 +224,11 @@ class LoraDropout:
                                  digest_size=8).digest()
         g = torch.Generator(device=x.device)
         g.manual_seed(int.from_bytes(digest, "little") >> 1)
-        u = torch.rand(x.shape, generator=g, device=x.device)
+        if self.rows:
+            u = torch.rand((self.rows,) + tuple(x.shape[1:]), generator=g,
+                           device=x.device)[self.row0: self.row0 + x.shape[0]]
+        else:
+            u = torch.rand(x.shape, generator=g, device=x.device)
         return torch.where(u >= self.rate, x / (1.0 - self.rate),
                            torch.zeros_like(x))
 

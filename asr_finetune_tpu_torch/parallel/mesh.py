@@ -1,0 +1,229 @@
+"""The process group of data-parallel training (counterpart of
+asr_finetune_tpu/parallel/mesh.py `initialize_distributed` :31-42 and
+`create_mesh`'s data axis :46-61).
+
+One process per card, PyTorch's way; the JAX package instead runs one
+process per host over all its chips. A process learns its place from its
+environment (`launch_from_env`):
+- torchrun: RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE and the
+  rendezvous at MASTER_ADDR:MASTER_PORT;
+- the JAX names COORDINATOR_ADDRESS or `ip_head` (host:port, the
+  rendezvous) with RANK and WORLD_SIZE, or under Slurm with SLURM_PROCID,
+  SLURM_NTASKS, SLURM_LOCALID and SLURM_NTASKS_PER_NODE;
+- none of these: one process, no group, and every collective below is the
+  identity.
+
+The data-parallel size is the world size. `initialize` joins the group
+(NCCL when each rank of a host has a card of its own, gloo on the CPU and
+when ranks share a card) and pins the rank's card, `cuda:<local_rank %
+device_count>`. There is no fallback: a rank that cannot reach its card,
+a group that fails to form and a failed collective all raise.
+
+Gloo reduces CPU tensors only on every build: `all_reduce_sum_` stages a
+CUDA tensor through the host under gloo.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import logging
+import os
+from typing import Any, Iterator, List, Mapping, Optional
+
+import torch
+import torch.distributed as dist
+
+from ..device import resolve_device
+
+logger = logging.getLogger(__name__)
+
+COORDINATOR_ENV = ("COORDINATOR_ADDRESS", "ip_head")
+
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """This process's place in the group, as its environment gives it."""
+    rank: int = 0
+    world: int = 1
+    local_rank: int = 0
+    local_world: int = 1
+    init_method: Optional[str] = None     # None: one process, no group
+    source: str = "single process"
+
+
+def _int(environ: Mapping[str, str], name: str, default: int) -> int:
+    value = environ.get(name)
+    if value in (None, ""):
+        return default
+    # Slurm writes per-node counts as "2(x3)"
+    return int(value.split("(")[0].split(",")[0])
+
+
+def _tcp(address: str, name: str) -> str:
+    if ":" not in address:
+        raise ValueError(f"{name}={address!r}: expected host:port")
+    return f"tcp://{address}"
+
+
+def launch_from_env(environ: Optional[Mapping[str, str]] = None) -> Launch:
+    """Where this process stands, from torchrun's, Slurm's or the JAX
+    package's variables (module docstring). Raises ValueError when a
+    coordinator is named but the process count is not."""
+    env = os.environ if environ is None else environ
+    coord_name = next((n for n in COORDINATOR_ENV if env.get(n)), None)
+    if env.get("RANK") not in (None, "") and env.get("WORLD_SIZE") not in (None, ""):
+        world = _int(env, "WORLD_SIZE", 1)
+        if coord_name:
+            init, source = _tcp(env[coord_name], coord_name), coord_name
+        else:
+            if not env.get("MASTER_ADDR") or not env.get("MASTER_PORT"):
+                raise ValueError("RANK and WORLD_SIZE are set but MASTER_ADDR and "
+                                 "MASTER_PORT are not: name the rendezvous")
+            init, source = "env://", "torchrun"
+        return Launch(rank=_int(env, "RANK", 0), world=world,
+                      local_rank=_int(env, "LOCAL_RANK", 0),
+                      local_world=_int(env, "LOCAL_WORLD_SIZE", 1),
+                      init_method=init, source=source)
+    if coord_name:
+        if env.get("SLURM_PROCID") in (None, "") or env.get("SLURM_NTASKS") in (None, ""):
+            raise ValueError(
+                f"{coord_name} is set but no process count and rank are: set "
+                "WORLD_SIZE and RANK (or LOCAL_RANK and LOCAL_WORLD_SIZE with them), "
+                "run under Slurm (SLURM_NTASKS, SLURM_PROCID), or unset it for one "
+                "process")
+        return Launch(rank=_int(env, "SLURM_PROCID", 0), world=_int(env, "SLURM_NTASKS", 1),
+                      local_rank=_int(env, "SLURM_LOCALID", 0),
+                      local_world=_int(env, "SLURM_NTASKS_PER_NODE", 1),
+                      init_method=_tcp(env[coord_name], coord_name),
+                      source=f"Slurm, {coord_name}")
+    return Launch()
+
+
+def _card(device: str, launch: Launch) -> str:
+    """The rank's device name: cuda:<local_rank % device_count> in a group
+    on cards, else `device` as given."""
+    if launch.init_method is None or torch.device(device).type != "cuda":
+        return device
+    resolve_device("cuda")            # no card: raise before counting them
+    return f"cuda:{launch.local_rank % torch.cuda.device_count()}"
+
+
+def backend_for(device: torch.device, launch: Launch) -> str:
+    """NCCL when each rank of a host has a card of its own; gloo on the CPU
+    and when ranks share a card."""
+    if device.type == "cuda" and launch.local_world <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def active() -> bool:
+    """Whether this process is in a group."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def initialize(device: str = "cuda") -> torch.device:
+    """Join the group the environment names (a no-op without one, or when
+    already joined) and return this rank's device, resolved (a missing card
+    raises). Logs the rank, world, backend and device."""
+    launch = launch_from_env()
+    if active():
+        return resolve_device(local_device(device))
+    dev = resolve_device(_card(device, launch))
+    if launch.init_method is None:
+        return dev
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = backend_for(dev, launch)
+    dist.init_process_group(backend, init_method=launch.init_method,
+                            rank=launch.rank, world_size=launch.world)
+    logger.info("process group (%s): rank %d of %d, local rank %d of %d, backend %s, "
+                "device %s", launch.source, launch.rank, launch.world, launch.local_rank,
+                launch.local_world, backend, dev)
+    return dev
+
+
+def shutdown() -> None:
+    """Leave the group, if in one."""
+    if active():
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def joined(device: str = "cuda") -> Iterator[torch.device]:
+    """`initialize` for the duration of the block, yielding this rank's
+    device; the group is left after it when this call joined it."""
+    owner = not active()
+    dev = initialize(device)
+    try:
+        yield dev
+    finally:
+        if owner:
+            shutdown()
+
+
+def rank() -> int:
+    return dist.get_rank() if active() else 0
+
+
+def world() -> int:
+    return dist.get_world_size() if active() else 1
+
+
+def is_primary() -> bool:
+    return rank() == 0
+
+
+def local_device(device: str) -> str:
+    """The device a rank trains on: `device` as given outside a group or on
+    the CPU, else its card cuda:<local_rank % device_count>."""
+    return _card(device, launch_from_env() if active() else Launch())
+
+
+def barrier() -> None:
+    if active():
+        dist.barrier()
+
+
+def _gloo() -> bool:
+    return dist.get_backend() == "gloo"
+
+
+def comm_device(t: torch.Tensor) -> torch.device:
+    """Where a collective over `t` must run: the rank's card under NCCL,
+    t's own device under gloo."""
+    if active() and not _gloo():
+        return torch.device("cuda", torch.cuda.current_device())
+    return t.device
+
+
+def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
+    """Sum `t` over the ranks, in place (gloo: a CUDA tensor through the
+    host); returns t. Every rank receives the same bits."""
+    if not active():
+        return t
+    data = t.detach()
+    if _gloo() and data.device.type != "cpu":
+        host = data.cpu()
+        dist.all_reduce(host)
+        data.copy_(host)
+    else:
+        dist.all_reduce(data)
+    return t
+
+
+def broadcast_object(obj: Any, src: int = 0) -> Any:
+    """Rank src's `obj` on every rank (picklable objects)."""
+    if not active():
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
+
+
+def all_gather_object(obj: Any) -> List[Any]:
+    """Every rank's `obj`, in rank order."""
+    if not active():
+        return [obj]
+    out: List[Any] = [None] * world()
+    dist.all_gather_object(out, obj)
+    return out

@@ -11,17 +11,24 @@ With --peft (JAX run.py:87-106) it also draws the LoRA/AdaLoRA adapters
 per output channel with --load_in_8bit (the other leaves stay fp32), else
 every leaf cast to bf16.
 
-`build_data` and `run_trial` are the training half, single process:
-reader + collator + length-grouped sampler + prefetch, the validation split
-into eval shards, AdamW (in PEFT over the trained adapter leaves), the train
-step, the int8 outlier calibration, checkpoints (adapters only in PEFT) and
-the Trainer; its eval decode takes --generation_num_beams,
---length_penalty, --decode_kv_int8 and --decode_w_int8 as transcription
-does. `run_trial` also takes the HPO controller's arguments
-(hpo/controller.py): the trial's directory, its early-stop hook, step
-count, resume and index. Not ported, and raising NotImplementedError:
---spec_augment, --offload_optimizer / --offload_param, --tp > 1,
---host_logmel and parquet data.
+`build_data` and `run_trial` are the training half: reader + collator +
+length-grouped sampler + prefetch, the validation split into eval shards,
+AdamW (in PEFT over the trained adapter leaves), the train step, the int8
+outlier calibration, checkpoints (adapters only in PEFT) and the Trainer;
+its eval decode takes --generation_num_beams, --length_penalty,
+--decode_kv_int8 and --decode_w_int8 as transcription does. `run_trial`
+also takes the HPO controller's arguments (hpo/controller.py): the trial's
+directory, its early-stop hook, step count, resume and index.
+
+In a process group (parallel/mesh.py; JAX run.py:163-245, :341-396) each
+rank trains on its card and its shard of the train stream, per-device
+batch rows each; the optimizer state is ZeRO-split over the ranks and,
+with --offload_optimizer, kept in pinned host memory, as is a PEFT run's
+frozen base with --offload_param (parallel/sharding.py); every rank runs
+the outlier calibration on the same full batch and installs rank 0's sets;
+rank 0 writes the config dump. Not ported, and raising
+NotImplementedError: --spec_augment, --tp > 1, --host_logmel and parquet
+data.
 """
 from __future__ import annotations
 
@@ -47,6 +54,8 @@ from .models.configs import WhisperConfig, get_config
 from .models.convert_hf import load_pretrained
 from .models.tokenizer import load_tokenizer
 from .ops import quant as quant_lib
+from .parallel import mesh
+from .parallel.sharding import Placement
 from .training import lora as lora_lib
 from .training import optim as optim_lib
 from .training.checkpoint import CheckpointManager, save_trial_manifest
@@ -150,14 +159,12 @@ def build_model(args, train: bool = False,
 def _check_pending_training(args) -> None:
     pending = [flag for flag, on in (
         ("--spec_augment", args.spec_augment),
-        ("--offload_optimizer", args.offload_optimizer),
-        ("--offload_param", args.offload_param),
         ("--tp > 1", args.tp > 1),
         ("--host_logmel", args.host_logmel)) if on]
     if pending:
         raise NotImplementedError(
-            f"{', '.join(pending)}: not ported yet (the port trains on one "
-            "card with log-mel on the device)")
+            f"{', '.join(pending)}: not ported yet (the port trains data-parallel, "
+            "one card a process, with log-mel on the device)")
 
 
 def _resolve_path(args, name: str) -> str:
@@ -210,9 +217,11 @@ def build_data(args, tokenizer, model_cfg: WhisperConfig, device: torch.device):
     lengths = None
     if args.group_by_length and hasattr(train_reader, "transcript_lengths"):
         lengths = np.asarray(train_reader.transcript_lengths())[train_indices]
+    # this rank's shard of the train stream, per-device rows a batch
     sampler = IndexSampler(len(train_indices),
                            args.per_device_train_batch_size * accum,
-                           seed=args.random_seed, lengths=lengths)
+                           seed=args.random_seed, lengths=lengths,
+                           process_index=mesh.rank(), process_count=mesh.world())
 
     class _RemapReader:
         def read(self, idx):
@@ -264,7 +273,10 @@ def calibrate_outliers(args, built: BuiltModel, step_cfg: TrainStepConfig,
     (d, d) q/k/v products and never the wide (d, 3d) one. The sets then
     hold the JAX classes and nothing more, and under ASR_TPU_FUSED_QKV the
     wide product finds no calibrated class and takes W8A8's dynamic top-k
-    form, as in the JAX trial."""
+    form, as in the JAX trial.
+
+    In a process group every rank calibrates on the same full batch (JAX
+    run.py:380-396) and installs rank 0's sets, so all run one program."""
     from .data.pipeline import to_device
     batch = eval_batches_fn(0)[0]
     rows = {k: np.asarray(batch[k])[:4] for k in ("audio", "decoder_input_ids", "labels")
@@ -275,6 +287,9 @@ def calibrate_outliers(args, built: BuiltModel, step_cfg: TrainStepConfig,
     idx_map = quant_lib.calibrate_int8_outliers(
         lambda: estep(cstate, to_device(rows, built.device)), step_cfg.quant,
         threshold=args.int8_outlier_threshold, max_cols=args.int8_outlier_cols * 2)
+    # every rank calibrated on the same batch; all install rank 0's sets
+    idx_map = mesh.broadcast_object(idx_map)
+    step_cfg.quant.static_idx = idx_map
     logger.info("int8 outlier calibration (thr %.1f): %s", args.int8_outlier_threshold,
                 {k: len(v) for k, v in idx_map.items()})
     return idx_map
@@ -293,7 +308,8 @@ def setup_trial(args, hp: Optional[Dict[str, Any]] = None,
     _check_pending_training(args)
     out_dir = trial_dir or os.path.join(args.output_dir, args.output_tag)
     os.makedirs(out_dir, exist_ok=True)
-    dump_config(out_dir, {**vars(args), **{f"hp.{k}": v for k, v in hp.items()}})
+    if mesh.is_primary():
+        dump_config(out_dir, {**vars(args), **{f"hp.{k}": v for k, v in hp.items()}})
 
     built = build_model(args, train=True, hp=hp)
     cfg = built.cfg
@@ -325,16 +341,25 @@ def setup_trial(args, hp: Optional[Dict[str, Any]] = None,
         quant=(quant_lib.QuantConfig(matmul=args.int8_matmul,
                                      outlier_cols=args.int8_outlier_cols)
                if int8_base else None))
+    if args.offload_param and not peft:
+        logger.warning("--offload_param offloads a PEFT run's frozen base; full "
+                       "fine-tuning trains every weight on the card")
+    placement = Placement(built.device, offload_optimizer=args.offload_optimizer,
+                          offload_param=args.offload_param and peft)
     state = make_train_state(built.params, opt, built.adapters,
-                             adalora=peft and args.adalora)
+                             adalora=peft and args.adalora, placement=placement)
 
     train_iter_factory, eval_batches_fn, n_train, num_shards = build_data(
         args, built.tokenizer, cfg, built.device)
     if (int8_base and args.int8_matmul and args.int8_outlier_cols
             and args.int8_outlier_calibrate):
         calibrate_outliers(args, built, step_cfg, state, eval_batches_fn)
+    placement.base_to_host_(state["params"])
+    if placement.offload_param and built.device.type == "cuda":
+        torch.cuda.empty_cache()
+    # an epoch is the train split over the global batch (JAX run.py:428-430)
     max_steps = max_steps_override or args.max_steps or (
-        (n_train // max(args.per_device_train_batch_size, 1))
+        (n_train // max(args.per_device_train_batch_size * mesh.world(), 1))
         * args.num_train_epochs)
     tcfg = TrainerConfig(
         max_steps=max_steps, eval_steps=args.eval_steps,
@@ -357,19 +382,20 @@ def setup_trial(args, hp: Optional[Dict[str, Any]] = None,
     return Trainer(cfg, state, opt, step_cfg, tcfg, built.tokenizer,
                    built.device, train_iter=train_iter_factory,
                    eval_batches_fn=eval_batches_fn, checkpoints=ckpt,
-                   metrics_logger=MetricsLogger(out_dir), on_evaluate=on_evaluate)
+                   metrics_logger=MetricsLogger(out_dir), on_evaluate=on_evaluate,
+                   placement=placement)
 
 
 def _trial_device(args, devices) -> str:
-    """The device a trial runs on: --device, or the one device the HPO
-    controller gives it."""
+    """The device a trial runs on: the rank's (--device, in a group on cards
+    the rank's card), or the one device the HPO controller gives it."""
     if devices is None:
-        return args.device
+        return mesh.local_device(args.device)
     if isinstance(devices, (list, tuple)):
         if len(devices) != 1:
             raise NotImplementedError(
                 f"a trial over {len(devices)} devices: packing trials over cards "
-                "is not ported yet (the port trains on one card)")
+                "is not ported yet (a trial spans one card, or every rank of the group)")
         devices = devices[0]
     return str(devices)
 
@@ -404,9 +430,10 @@ def run_trial(args, hp: Optional[Dict[str, Any]] = None,
             result = trainer.train(resume=resume)
         finally:
             trainer.metrics.close()
-        save_trial_manifest(trainer.cfg.output_dir, {
-            "result": result, "hp": hp or {},
-            "args": {k: v for k, v in vars(args).items() if not k.startswith("_")}})
+        if mesh.is_primary():
+            save_trial_manifest(trainer.cfg.output_dir, {
+                "result": result, "hp": hp or {},
+                "args": {k: v for k, v in vars(args).items() if not k.startswith("_")}})
         return result
     except BaseException as e:
         traceback.clear_frames(e.__traceback__)

@@ -24,6 +24,13 @@ is. A save is written to a temporary directory and renamed, so a crash never
 leaves a half checkpoint that `latest_step` would pick. Port checkpoints do
 not load in the JAX package. Restore copies into the live tensors in place,
 so the parameters keep their identity (and requires_grad).
+
+In a process group (parallel/) a checkpoint is the whole state, whatever
+the world size: every rank takes part in gathering the ZeRO-split moments
+leaf by leaf, rank 0 writes, and a barrier ends the save; on restore every
+rank reads the file and takes its own slice. So a run saved at one world
+size resumes at another. The ranks share the checkpoint directory (one
+host, or a shared filesystem); what a rank finds there is rank 0's answer.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..parallel import mesh
 from .optim import leaves
 
 STATE_FILE = "state.pt"
@@ -43,6 +51,25 @@ TREES = ("params", "adapters", "sensitivity", "rank_mask")
 
 def _step_dir(directory: str, step: int) -> str:
     return os.path.join(directory, f"step_{step:08d}")
+
+
+def _shards(opt: Dict[str, Any]) -> list:
+    """Each moment's LeafShard; None (whole) where the state has none."""
+    return opt.get("shards") or [None] * len(opt["names"])
+
+
+def _whole(opt: Dict[str, Any], key: str) -> Dict[str, torch.Tensor]:
+    """Moment `key` of every leaf, whole: a split leaf gathered over the
+    ranks one at a time and kept on the host by rank 0 only."""
+    out = {}
+    for k, s, m in zip(opt["names"], _shards(opt), opt[key]):
+        if s is None or s.axis is None:
+            out[k] = m
+        else:
+            full = s.gather(m)
+            if mesh.is_primary():
+                out[k] = full.cpu()
+    return out
 
 
 class CheckpointManager:
@@ -99,26 +126,32 @@ class CheckpointManager:
 
     def save(self, step: int, state: Dict[str, Any],
              metrics: Optional[Dict[str, float]] = None) -> bool:
-        if step in self.all_steps():
+        """Write checkpoint `step` (rank 0; every rank of a group calls it).
+        Returns False, writing nothing, when that step is already saved."""
+        if mesh.broadcast_object(step in self.all_steps()):
             return False
-        final = _step_dir(self.directory, step)
-        tmp = final + ".tmp"
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()   # offloaded moments: their copies landed
         opt = state["opt_state"]
-        payload = {
-            "step": int(state["step"]),
-            "opt_count": int(opt["count"]),
-            "mu": dict(zip(opt["names"], opt["mu"])),
-            "nu": dict(zip(opt["names"], opt["nu"])),
-            **{t: {k: p.detach() for k, p in leaves(state[t])}
-               for t in self._trees(state)},
-        }
-        torch.save(payload, os.path.join(tmp, STATE_FILE))
-        with open(os.path.join(tmp, METRICS_FILE), "w") as f:
-            json.dump({k: float(v) for k, v in (metrics or {}).items()}, f)
-        os.replace(tmp, final)
-        self._prune()
+        whole = {key: _whole(opt, key) for key in ("mu", "nu")}
+        if mesh.is_primary():
+            final = _step_dir(self.directory, step)
+            tmp = final + ".tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            payload = {
+                "step": int(state["step"]),
+                "opt_count": int(opt["count"]),
+                **whole,
+                **{t: {k: p.detach() for k, p in leaves(state[t])}
+                   for t in self._trees(state)},
+            }
+            torch.save(payload, os.path.join(tmp, STATE_FILE))
+            with open(os.path.join(tmp, METRICS_FILE), "w") as f:
+                json.dump({k: float(v) for k, v in (metrics or {}).items()}, f)
+            os.replace(tmp, final)
+            self._prune()
+        mesh.barrier()
         return True
 
     def _prune(self) -> None:
@@ -156,9 +189,9 @@ class CheckpointManager:
             for t in self._trees(state_like):
                 for k, p in leaves(state_like[t]):
                     p.copy_(saved[t][k])
-            for k, m, v in zip(opt["names"], opt["mu"], opt["nu"]):
-                m.copy_(saved["mu"][k])
-                v.copy_(saved["nu"][k])
+            for k, s, m, v in zip(opt["names"], _shards(opt), opt["mu"], opt["nu"]):
+                m.copy_(saved["mu"][k] if s is None else s.of(saved["mu"][k]))
+                v.copy_(saved["nu"][k] if s is None else s.of(saved["nu"][k]))
         opt["count"] = saved["opt_count"]
         state_like["step"] = saved["step"]
         return state_like

@@ -14,10 +14,15 @@ the arithmetic is optax's own:
   1 - b^count, update = mu_hat / (sqrt(nu_hat) + eps), plus weight_decay ·
   param (decoupled), times -lr, added to the fp32 master in place.
 
-The moments are fp32 tensors beside the parameters. The update runs leaf
-by leaf (the stacked tree has a few dozen leaves), so its scratch is two
-copies of the largest leaf, not of the model; the clip factor stays on the
-device (no host sync).
+The moments are fp32 tensors beside the parameters, or in pinned host
+memory (--offload_optimizer, parallel/sharding.py): a moment held on
+another device than its parameter is copied to it for the leaf's update
+and back after it, asynchronously. The update runs leaf by leaf (the
+stacked tree has a few dozen leaves), so its scratch, and what an
+offloaded state puts on the card, is a few copies of the largest leaf,
+not of the model; the clip factor stays on the device (no host sync).
+Under ZeRO (parallel/sharding.py) each rank passes its slices of the
+parameters and gradients, and the norm of the whole gradients.
 
 PEFT (`adapter_freeze_mask`, :22, and `make_optimizer(trainable_mask=...)`,
 :84-89, optax.multi_transform with set_to_zero): the optimizer updates only
@@ -132,18 +137,24 @@ class AdamW:
         keep = dict(leaves(self.trainable_mask))
         return [(k, t) for k, t in pairs if keep[k]]
 
-    def init(self, params: List[torch.Tensor]) -> Dict[str, object]:
-        """{"count": updates applied, "mu", "nu": fp32 zeros like params}."""
-        return {"count": 0,
-                "mu": [torch.zeros_like(p, dtype=torch.float32) for p in params],
-                "nu": [torch.zeros_like(p, dtype=torch.float32) for p in params]}
+    def init(self, params: List[torch.Tensor],
+             zeros: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+             ) -> Dict[str, object]:
+        """{"count": updates applied, "mu", "nu": fp32 zeros like params};
+        `zeros(p)` makes each moment (default: beside p)."""
+        zeros = zeros or (lambda p: torch.zeros_like(p, dtype=torch.float32))
+        return {"count": 0, "mu": [zeros(p) for p in params],
+                "nu": [zeros(p) for p in params]}
 
     @torch.no_grad()
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-             state: Dict[str, object]) -> torch.Tensor:
+             state: Dict[str, object], norm: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
         """Clip `grads` in place, update the moments and apply the update to
-        `params` in place; returns the pre-clip global gradient norm."""
-        g_norm = global_norm(grads)
+        `params` in place; returns the pre-clip global gradient norm, that
+        of `grads` or the given `norm` (params and grads are then slices of
+        the leaves whose gradients it measured)."""
+        g_norm = global_norm(grads) if norm is None else norm
         div = mul = None
         if self.max_grad_norm and self.max_grad_norm > 0:
             # optax: select(norm < max, g, (g / norm) * max); the unclipped
@@ -156,7 +167,11 @@ class AdamW:
         lr = self.schedule(int(state["count"]))
         count = int(state["count"]) + 1
         bc1, bc2 = 1 - self.b1 ** count, 1 - self.b2 ** count
-        for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
+        for p, g, held_mu, held_nu in zip(params, grads, state["mu"], state["nu"]):
+            staged = held_mu.device != p.device
+            mu, nu = ((held_mu.to(p.device, non_blocking=True),
+                       held_nu.to(p.device, non_blocking=True)) if staged
+                      else (held_mu, held_nu))
             if div is not None:
                 g.div_(div).mul_(mul)
             mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
@@ -165,6 +180,11 @@ class AdamW:
             if self.weight_decay:
                 upd.add_(p, alpha=self.weight_decay)
             p.add_(upd, alpha=-lr)
+            if staged:
+                # back to the host on the same stream: the next use, a copy
+                # to the card or a checkpoint after a synchronize, sees it
+                held_mu.copy_(mu, non_blocking=True)
+                held_nu.copy_(nu, non_blocking=True)
         state["count"] = count
         return g_norm
 

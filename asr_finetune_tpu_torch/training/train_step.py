@@ -28,9 +28,26 @@ Counterpart of asr_finetune_tpu/training/train_step.py (`make_train_state`
 - AdamW (training/optim.py) updates the trained leaves in place; the
   state's step counter drives the schedule.
 
+Data parallelism (parallel/, one process per card in a group): each rank
+runs its rows of the global batch. The loss is the token mean over the
+global (micro)batch, as the JAX loss over a sharded batch is: the ranks
+sum their microbatch token counts first, each back-propagates its share
+local_sum / global_tokens, and the gradients are summed over the ranks,
+so `grad_norm`, the clip and AdaLoRA's mask update see the reduced
+gradients on every rank. AdaLoRA's orth_reg enters the gradients once
+(rank 0's). Lora dropout draws the global batch's masks by row
+(models/whisper.LoraDropout). The metrics are the global batch's.
+
+ZeRO and offload (parallel/sharding.py, `Placement`): each rank holds the
+AdamW moments of its slice of every split leaf (`opt_state["shards"]`),
+updates that slice and gathers the whole leaf back, so every rank holds
+the same parameters (or adapters); the moments may live in pinned host
+memory between steps, and a PEFT run's frozen base too, copied to the card
+for the step.
+
 Metrics stay on the device: the trainer fetches a whole logging window at
 once. Not ported (their flags raise NotImplementedError in run.py):
-SpecAugment, host offload and tensor parallelism.
+SpecAugment and tensor parallelism.
 """
 from __future__ import annotations
 
@@ -44,6 +61,8 @@ from ..models.configs import WhisperConfig
 from ..ops import logmel as logmel_ops
 from ..ops.fused_ce import fused_cross_entropy
 from ..ops.quant import QuantConfig
+from ..parallel import mesh
+from ..parallel.sharding import Placement
 from . import lora as lora_lib
 from .optim import AdamW, global_norm, leaves
 
@@ -71,13 +90,16 @@ class TrainStepConfig:
 
 
 def make_train_state(params: Params, opt: AdamW, adapters: Optional[Params] = None,
-                     adalora: bool = False) -> Dict[str, Any]:
+                     adalora: bool = False,
+                     placement: Optional[Placement] = None) -> Dict[str, Any]:
     """Full fine-tuning: {"step", "params", "opt_state"}, the fp32 masters
     made leaves that require grad, in place in the tree. PEFT (adapters
     given): also "adapters" (fp32, every leaf requiring grad; the base is
     left as it is) and under AdaLoRA "sensitivity" and "rank_mask". The
-    optimizer state holds moments for the leaves `opt.trainable` picks, and
-    their paths under "names"."""
+    optimizer state holds moments for this rank's part ("shards") of the
+    leaves `opt.trainable` picks, where `placement` keeps them (default:
+    beside the leaves), and their paths under "names"."""
+    placement = placement or Placement()
     tree = params if adapters is None else adapters
     what = "full fine-tuning keeps fp32 master weights" if adapters is None \
         else "PEFT trains fp32 adapters"
@@ -86,8 +108,11 @@ def make_train_state(params: Params, opt: AdamW, adapters: Optional[Params] = No
             raise TypeError(f"{what}, got a {p.dtype} leaf")
         p.requires_grad_(True)
     trained = opt.trainable(tree)
-    opt_state = opt.init([p for _, p in trained])
+    shards = placement.leaf_shards([p for _, p in trained])
+    opt_state = opt.init([s.of(p) for s, (_, p) in zip(shards, trained)],
+                         zeros=placement.moment_zeros)
     opt_state["names"] = [k for k, _ in trained]
+    opt_state["shards"] = shards
     state = {"step": 0, "params": params, "opt_state": opt_state}
     if adapters is not None:
         state["adapters"] = adapters
@@ -143,7 +168,9 @@ def compute_grads(params: Params, batch: Dict[str, torch.Tensor],
     """Gradients of the loss (plus orth_reg) on every leaf of the params
     (full) or of the adapters (PEFT), in `leaves` order and averaged over
     microbatches, and the step's metrics. With `step` and a lora dropout
-    rate, PEFT draws dropout masks (one stream per microbatch)."""
+    rate, PEFT draws dropout masks (one stream per microbatch). In a
+    process group, `batch` is this rank's rows of the global batch and the
+    gradients and metrics are the global batch's (module docstring)."""
     peft = cfg.mode == "peft"
     ps = [p for _, p in leaves(adapters if peft else params)]
     for p in ps:
@@ -151,20 +178,38 @@ def compute_grads(params: Params, batch: Dict[str, torch.Tensor],
     n_micro = cfg.accum_steps
     micro = ([batch] if n_micro == 1 else
              [{k: v[i] for k, v in batch.items()} for i in range(n_micro)])
+    dp = mesh.active()
+    if dp:
+        rank, world = mesh.rank(), mesh.world()
+        local_n = torch.stack([(mb["labels"] != W.IGNORE_ID).sum() for mb in micro])
+        global_n = mesh.all_reduce_sum_(local_n.clone())
+        share = local_n / global_n.clamp(min=1)
     loss_sum = torch.zeros((), dtype=torch.float32)
     tok_sum = torch.zeros((), dtype=torch.long)
     reg_sum = None
     for i, mb in enumerate(micro):
         dropout = None
         if peft and step is not None and cfg.lora is not None and cfg.lora.dropout > 0:
-            dropout = W.LoraDropout(cfg.lora.dropout, cfg.seed, step * n_micro + i)
+            rows = mb["labels"].shape[0]
+            dropout = W.LoraDropout(cfg.lora.dropout, cfg.seed, step * n_micro + i,
+                                    **(dict(row0=rank * rows, rows=world * rows)
+                                       if dp else {}))
         loss, n, reg = loss_fn(params, mb, model_cfg, cfg, adapters, rank_mask, dropout)
-        (loss if reg is None else loss + reg).backward()
+        if dp:
+            loss = loss * share[i]      # this rank's part of the global mean
+            n = global_n[i]
+        # orth_reg enters the gradients summed over the ranks once: rank 0's
+        with_reg = reg is not None and not (dp and rank)
+        (loss + reg if with_reg else loss).backward()
         loss_sum = loss_sum.to(loss.device) + loss.detach()
         tok_sum = tok_sum.to(n.device) + n
         if reg is not None:
             reg_sum = reg.detach() if reg_sum is None else reg_sum + reg.detach()
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in ps]
+    if dp:
+        for g in grads:
+            mesh.all_reduce_sum_(g)
+        mesh.all_reduce_sum_(loss_sum)
     if n_micro > 1:
         torch._foreach_mul_(grads, 1.0 / n_micro)
     metrics = {"loss": loss_sum / n_micro, "tokens": tok_sum}
@@ -180,21 +225,41 @@ def _tree_like(tree: Params, values: Dict[str, torch.Tensor], prefix: str = "") 
             for k, v in tree.items()}
 
 
-def make_train_step(model_cfg: WhisperConfig, opt: AdamW, cfg: TrainStepConfig):
-    """Returns step(state, batch) → metrics; the state is updated in place."""
+def _update(opt: AdamW, params: List[torch.Tensor], grads: List[torch.Tensor],
+            opt_state: Dict[str, Any]) -> torch.Tensor:
+    """AdamW over this rank's slice of each leaf (ZeRO; the whole leaf when
+    unsplit), clipped by the norm of the whole gradients, then each split
+    leaf gathered whole on every rank. Returns that norm."""
+    shards = opt_state["shards"]
+    norm = global_norm(grads)
+    opt.step([s.of(p) for s, p in zip(shards, params)],
+             [s.of(g) for s, g in zip(shards, grads)], opt_state, norm=norm)
+    for s, p in zip(shards, params):
+        s.gather_(p)
+    return norm
+
+
+def make_train_step(model_cfg: WhisperConfig, opt: AdamW, cfg: TrainStepConfig,
+                    placement: Optional[Placement] = None):
+    """Returns step(state, batch) → metrics; the state is updated in place.
+    `placement` says where the frozen base lives between steps (default:
+    on the device, as given)."""
+    placement = placement or Placement()
+
     def full_step(state, batch):
         params = state["params"]
         grads, metrics = compute_grads(params, batch, model_cfg, cfg)
-        metrics["grad_norm"] = opt.step([p for _, p in leaves(params)], grads,
-                                        state["opt_state"])
+        metrics["grad_norm"] = _update(opt, [p for _, p in leaves(params)], grads,
+                                       state["opt_state"])
         for _, p in leaves(params):
             p.grad = None
         return metrics
 
     def peft_step(state, batch):
         adapters, step_no = state["adapters"], state["step"]
-        grads, metrics = compute_grads(state["params"], batch, model_cfg, cfg,
-                                       adapters, state.get("rank_mask"), step_no)
+        grads, metrics = compute_grads(placement.base_on_device(state["params"]), batch,
+                                       model_cfg, cfg, adapters, state.get("rank_mask"),
+                                       step_no)
         named = dict(zip((k for k, _ in leaves(adapters)), grads))
         metrics["grad_norm"] = global_norm(grads)
         adalora = cfg.lora is not None and cfg.lora.adalora and "sensitivity" in state
@@ -202,7 +267,7 @@ def make_train_step(model_cfg: WhisperConfig, opt: AdamW, cfg: TrainStepConfig):
         # the update clips its gradients in place; the mask update reads the
         # unclipped ones (the adapters are small)
         tg = [named[k].clone() if adalora else named[k] for k, _ in trained]
-        opt.step([p for _, p in trained], tg, state["opt_state"])
+        _update(opt, [p for _, p in trained], tg, state["opt_state"])
         if adalora:
             state["rank_mask"], state["sensitivity"] = lora_lib.adalora_update_mask(
                 adapters, _tree_like(adapters, named), state["sensitivity"],
@@ -221,7 +286,8 @@ def make_train_step(model_cfg: WhisperConfig, opt: AdamW, cfg: TrainStepConfig):
 
 def make_eval_loss_step(model_cfg: WhisperConfig, cfg: TrainStepConfig):
     """batch → {"loss", "tokens"} without gradients (PEFT: the state's
-    adapters, rank-masked, no dropout)."""
+    adapters, rank-masked, no dropout), on this process's batch alone: the
+    trainer reduces an evaluation over the ranks."""
     def step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]
              ) -> Dict[str, torch.Tensor]:
         with torch.no_grad():

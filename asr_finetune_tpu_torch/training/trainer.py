@@ -2,7 +2,7 @@
 checkpointing, resume (PyTorch port).
 
 Counterpart of asr_finetune_tpu/training/trainer.py (`Trainer.train` /
-`evaluate`, :171-355), single process:
+`evaluate`, :171-355):
 - every step runs the train step (training/train_step.py); per-step metrics
   stay on the device and are fetched once per logging window (loss mean,
   last grad_norm, utterances/s, tokens/s, the memory line);
@@ -20,8 +20,19 @@ Counterpart of asr_finetune_tpu/training/trainer.py (`Trainer.train` /
   channel, JAX :115-118, :332-348): called after each eval that yields
   metrics; False stops the trial once that step's periodic checkpoint is
   saved, and the final save still follows, labelled max_steps as in JAX.
-The JAX trainer's host-offload and multi-host hooks are not ported: the
-port trains in one process.
+
+Data parallelism (parallel/; JAX :111-144, :185-215, :296-325): each rank
+trains on its rows of the global batch (training/train_step.py). Every
+rank builds the same full eval batches and takes its contiguous slice;
+the loss sums and token counts are summed over the ranks, each rank
+decodes its slice and the texts are gathered in row order, so every rank
+computes the same eval metrics. The early-stop verdict is rank 0's,
+broadcast, or the ranks would part at the next collective. Rank 0 writes
+metrics.jsonl and every rank its metrics_host<r>.jsonl; each logging
+window rank 0's record carries every rank's host<r>_rss_gb,
+host<r>_hbm_in_use_gb and host<r>_hbm_peak_gb (one all-gather). An
+offloaded frozen base (parallel/sharding.Placement) is copied to the card
+once per evaluate().
 """
 from __future__ import annotations
 
@@ -38,7 +49,10 @@ from ..evaluation import decode as decode_lib
 from ..evaluation import wer as wer_lib
 from ..evaluation.normalize import normalize
 from ..models.configs import WhisperConfig
+from ..models.whisper import IGNORE_ID
 from ..ops import logmel as logmel_ops
+from ..parallel import mesh
+from ..parallel.sharding import Placement
 from ..utils.logging_utils import MetricsLogger, memory_stats
 from . import lora as lora_lib
 from .checkpoint import CheckpointManager
@@ -87,7 +101,8 @@ class TrainerConfig:
 
 
 class Trainer:
-    """Single-process training loop over the eager train step."""
+    """Training loop over the eager train step, in one process or on each
+    rank of a group."""
 
     def __init__(self, model_cfg: WhisperConfig, state: Dict[str, Any],
                  opt: AdamW, step_cfg: TrainStepConfig, cfg: TrainerConfig,
@@ -96,11 +111,12 @@ class Trainer:
                  eval_batches_fn: Optional[Callable[[int], List[Dict[str, Any]]]] = None,
                  checkpoints: Optional[CheckpointManager] = None,
                  metrics_logger: Optional[MetricsLogger] = None,
-                 on_evaluate: Optional[Callable[[int, Dict[str, float]], bool]] = None):
+                 on_evaluate: Optional[Callable[[int, Dict[str, float]], bool]] = None,
+                 placement: Optional[Placement] = None):
         """train_iter(start_step) → infinite iterator of device batches;
         eval_batches_fn(shard_id) → list of numpy eval batches of one
         validation shard; on_evaluate(step, metrics) → False to stop the
-        trial early."""
+        trial early; placement: where the frozen base lives between steps."""
         self.model_cfg = model_cfg
         self.state = state
         self.cfg = cfg
@@ -112,7 +128,8 @@ class Trainer:
         self.checkpoints = checkpoints
         self.metrics = metrics_logger or MetricsLogger(cfg.output_dir)
         self.on_evaluate = on_evaluate
-        self._train_step = make_train_step(model_cfg, opt, step_cfg)
+        self.placement = placement or Placement(device)
+        self._train_step = make_train_step(model_cfg, opt, step_cfg, self.placement)
         self._eval_loss_step = make_eval_loss_step(model_cfg, step_cfg)
         forced = tokenizer.prefix_tokens(cfg.language, cfg.task,
                                          predict_timestamps=cfg.return_timestamps)
@@ -139,30 +156,45 @@ class Trainer:
         rng = np.random.default_rng(self.cfg.seed + step)
         shard_id = int(rng.integers(self.cfg.eval_num_shards))
         batches = self.eval_batches_fn(shard_id)
+        rank, world = mesh.rank(), mesh.world()
+        # an offloaded base: one copy to the card for the whole evaluation
+        state = dict(self.state, params=self.placement.base_on_device(self.state["params"]))
+        adapters = state.get("adapters")
+        if adapters is not None:
+            with torch.no_grad():
+                adapters = lora_lib.apply_rank_mask(adapters, state.get("rank_mask"))
 
         losses, counts = [], []
         refs: List[str] = []
         hyps: List[str] = []
         for batch in batches:
-            dev_batch = to_device({k: v for k, v in batch.items()
-                                   if k in DEVICE_KEYS}, self.device)
+            full = {k: v for k, v in batch.items() if k in DEVICE_KEYS}
+            rows = len(next(iter(full.values())))
+            if rows % world:
+                raise ValueError(f"eval batch {rows} not divisible by {world} ranks")
+            lo, nl = rank * rows // world, rows // world
+            dev_batch = to_device({k: np.asarray(v)[lo: lo + nl] for k, v in full.items()},
+                                  self.device)
             n_valid = int(batch.get("n_valid", len(batch["text"])))
-            m = self._eval_loss_step(self.state, dev_batch)
-            losses.append(float(m["loss"]))
-            counts.append(int(m["tokens"]))
+            m = self._eval_loss_step(state, dev_batch)
+            if world > 1:
+                # the global batch's mean: the ranks' loss sums over their tokens
+                n = (dev_batch["labels"] != IGNORE_ID).sum().float()
+                total = mesh.all_reduce_sum_(torch.stack([m["loss"] * n, n]))
+                losses.append(float(total[0] / total[1].clamp(min=1)))
+                counts.append(max(int(total[1]), 1))
+            else:
+                losses.append(float(m["loss"]))
+                counts.append(int(m["tokens"]))
             if self.cfg.compute_wer:
                 mel = dev_batch.get("mel")
                 if mel is None:
                     mel = logmel_ops.log_mel_spectrogram(
                         dev_batch["audio"], n_mels=self.step_cfg.n_mels)
-                adapters = self.state.get("adapters")
-                if adapters is not None:
-                    with torch.no_grad():
-                        adapters = lora_lib.apply_rank_mask(
-                            adapters, self.state.get("rank_mask"))
-                tokens, _ = self._decode(self.state["params"], mel, adapters)
-                texts = self.tokenizer.batch_decode(tokens[:n_valid].cpu().tolist())
-                hyps.extend(normalize(t) for t in texts)
+                tokens, _ = self._decode(state["params"], mel, adapters)
+                texts = self.tokenizer.batch_decode(tokens.cpu().tolist())
+                texts = [t for part in mesh.all_gather_object(texts) for t in part]
+                hyps.extend(normalize(t) for t in texts[:n_valid])
                 refs.extend(normalize(str(t)) for t in batch["text"][:n_valid])
 
         total = max(sum(counts), 1)
@@ -189,7 +221,7 @@ class Trainer:
     def train(self, resume: bool = False) -> Dict[str, Any]:
         start_step = 0
         if resume and self.checkpoints is not None:
-            latest = self.checkpoints.latest_step()
+            latest = mesh.broadcast_object(self.checkpoints.latest_step())
             if latest is not None:
                 self.state = self.checkpoints.restore(self.state, latest)
                 start_step = int(latest)
@@ -209,18 +241,28 @@ class Trainer:
                 m = self._train_step(self.state, dev_batch)
                 step += 1
                 window.append(m)
-                utts_since += int(np.prod(dev_batch["labels"].shape[:-1]))
+                # the global batch's utterances: every rank's rows
+                utts_since += int(np.prod(dev_batch["labels"].shape[:-1])) * mesh.world()
 
                 if step % self.cfg.logging_steps == 0:
                     win = [{k: v.item() for k, v in w_.items()} for w_ in window]
                     dt = time.time() - t_log
+                    host = memory_stats(self.device)
+                    self.metrics.log_host(step, host)
                     rec = {
                         "loss": float(np.mean([w_["loss"] for w_ in win])),
                         "grad_norm": float(win[-1]["grad_norm"]),
                         "utt_per_sec": utts_since / max(dt, 1e-9),
                         "tokens_per_sec": sum(w_["tokens"] for w_ in win) / max(dt, 1e-9),
-                        **memory_stats(self.device),
+                        **host,
                     }
+                    if mesh.world() > 1:
+                        every = mesh.all_gather_object([host.get(k, 0.0) for k in (
+                            "host_rss_gb", "cuda_mem_in_use_gb", "cuda_peak_gb")])
+                        for r, (rss, in_use, peak) in enumerate(every):
+                            rec.update({f"host{r}_rss_gb": rss,
+                                        f"host{r}_hbm_in_use_gb": in_use,
+                                        f"host{r}_hbm_peak_gb": peak})
                     self.metrics.log(step, rec)
                     window.clear()
                     utts_since = 0
@@ -235,7 +277,8 @@ class Trainer:
                         logger.info("step %d eval: %s", step,
                                     {k: round(v, 4) for k, v in em.items()})
                         if self.on_evaluate is not None:
-                            stop_early = not self.on_evaluate(step, em)
+                            stop_early = mesh.broadcast_object(
+                                not self.on_evaluate(step, em))
 
                 if self.checkpoints is not None and self.cfg.save_steps \
                         and step % self.cfg.save_steps == 0:

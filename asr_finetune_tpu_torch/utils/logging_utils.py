@@ -1,13 +1,15 @@
 """Metrics logging for the port: JSONL history, TensorBoard scalars when
 available, config dumps, memory readings.
 
-Counterpart of asr_finetune_tpu/utils/logging_utils.py, single process:
-`MetricsLogger` appends every record to `metrics.jsonl` and mirrors the
-float fields to TensorBoard when `torch.utils.tensorboard` imports (as the
-JAX module, :60-68). The JAX module's per-host files (metrics_host<i>.jsonl)
-are not ported: the port trains on one card. `memory_stats` is the memory
-line of a logging record: host RSS and, on a card, the device memory in
-use and its peak (`torch.cuda.max_memory_allocated`).
+Counterpart of asr_finetune_tpu/utils/logging_utils.py (:34-112):
+`MetricsLogger` has two channels. The global records (`log`) go to
+`metrics.jsonl` and, when `torch.utils.tensorboard` imports, to
+TensorBoard, from rank 0 only (every rank computes the same values). The
+per-process telemetry (`log_host`) goes to `metrics_host<r>.jsonl`, its
+records carrying `process_index`, and a `host<r>/` TensorBoard run, from
+every rank. `memory_stats` is the memory line of a logging record: host
+RSS and, on a card, the device memory in use and its peak
+(`torch.cuda.max_memory_allocated`).
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import time
 from typing import Any, Dict
 
 import torch
+
+from ..parallel import mesh
 
 logger = logging.getLogger(__name__)
 
@@ -40,38 +44,63 @@ def memory_stats(device: torch.device) -> Dict[str, float]:
 
 
 class MetricsLogger:
-    """Appends metric dicts to metrics.jsonl and mirrors them to TB."""
+    """Appends global metric dicts to metrics.jsonl and mirrors them to TB
+    (rank 0), and this process's telemetry to metrics_host<r>.jsonl."""
 
     def __init__(self, directory: str, use_tensorboard: bool = True):
         self.directory = directory
+        self._pi = mesh.rank()
+        self._active = self._pi == 0
         os.makedirs(directory, exist_ok=True)
-        self._jsonl = open(os.path.join(directory, "metrics.jsonl"), "a")
-        self._tb = None
+        self._jsonl = (open(os.path.join(directory, "metrics.jsonl"), "a")
+                       if self._active else None)
+        self._host_jsonl = open(
+            os.path.join(directory, f"metrics_host{self._pi}.jsonl"), "a")
+        self._tb = self._host_tb = None
         if use_tensorboard:
             try:
                 from torch.utils.tensorboard import SummaryWriter
-                self._tb = SummaryWriter(log_dir=directory)
+                if self._active:
+                    self._tb = SummaryWriter(log_dir=directory)
+                self._host_tb = SummaryWriter(
+                    log_dir=os.path.join(directory, f"host{self._pi}"))
             except Exception as e:  # noqa: BLE001
                 logger.warning("tensorboard writer unavailable: %s", e)
 
-    def log(self, step: int, metrics: Dict[str, Any]) -> None:
-        rec = {"step": int(step), "time": time.time()}
+    @staticmethod
+    def _write(jsonl, tb, rec: Dict[str, Any], step: int, skip=("step", "time")) -> None:
+        jsonl.write(json.dumps(rec) + "\n")
+        jsonl.flush()
+        if tb is not None:
+            for k, v in rec.items():
+                if k not in skip and isinstance(v, float):
+                    tb.add_scalar(k, v, step)
+
+    @staticmethod
+    def _record(step: int, metrics: Dict[str, Any], **extra) -> Dict[str, Any]:
+        rec = {"step": int(step), "time": time.time(), **extra}
         for k, v in metrics.items():
             try:
                 rec[k] = float(v)
             except (TypeError, ValueError):
                 rec[k] = v
-        self._jsonl.write(json.dumps(rec) + "\n")
-        self._jsonl.flush()
-        if self._tb is not None:
-            for k, v in rec.items():
-                if k not in ("step", "time") and isinstance(v, float):
-                    self._tb.add_scalar(k, v, step)
+        return rec
+
+    def log(self, step: int, metrics: Dict[str, Any]) -> None:
+        """A global record (rank 0 writes it; the others drop it)."""
+        if self._active:
+            self._write(self._jsonl, self._tb, self._record(step, metrics), step)
+
+    def log_host(self, step: int, metrics: Dict[str, Any]) -> None:
+        """This process's telemetry, called on every rank."""
+        rec = self._record(step, metrics, process_index=self._pi)
+        self._write(self._host_jsonl, self._host_tb, rec, step,
+                    skip=("step", "time", "process_index"))
 
     def close(self) -> None:
-        self._jsonl.close()
-        if self._tb is not None:
-            self._tb.close()
+        for f in (self._jsonl, self._host_jsonl, self._tb, self._host_tb):
+            if f is not None:
+                f.close()
 
 
 def dump_config(directory: str, config: Dict[str, Any],

@@ -90,7 +90,23 @@
    (no K-major copy), `cli.transcribe --model_path` serves it through the
    decoder kernels with tokens equal to the plain decode's, and
    `cli.prepare_model --verify` converts an HF directory it writes;
-8. one decode step's device time by CUDA kernel, greedy and on each beam
+8. data parallelism and offload (asr_finetune_tpu_torch/parallel/): 8a, two
+   rank processes of `cli.train` sharing the card (a gloo group),
+   large-v3 PEFT over the int8 base with --int8_matmul and AdaLoRA, 2 rows
+   a rank, 4 steps, evals at steps 2 and 4, a checkpoint at 4, against one
+   process at batch 4 over the same global batches (loss, grad_norm and
+   adapters within DP_LIMITS), the ranks' evals, adapters and rank masks
+   equal, every kernel of the path launched on each rank, the checkpoint
+   resumed in one process; 8b, full fine-tuning with --offload_optimizer
+   in one rank of an NCCL group, 3 steps bit-equal to resident (both on
+   plain attention with deterministic algorithms: the bf16 attention
+   backward's dq varies run to run) with m and v pinned on the host
+   between steps, then on the kernels, peak memory and ms/step against
+   phase 6; 8c, PEFT-int8 with --offload_param --offload_optimizer, 3
+   steps and an eval, the same way against phase 7, the base pinned on the
+   host and the device memory back after each step; each one JSON line of
+   its readings;
+9. one decode step's device time by CUDA kernel, greedy and on each beam
    path, with the launches per step asserted; then the card line again,
    one JSON line `{"kernels": [...]}`, and last `{"ok": true, "device": {...}}`.
 
@@ -1865,6 +1881,8 @@ def write_audiofolder(folder, n: int, seed: int = 0) -> None:
 # device ms of step 4 by training path: attention forward and backward, W8A8, all
 # kernels, and the step's end-to-end ms (printed as one JSON line)
 STEP_DEVICE: dict = {}
+# ms/step (steps 2-3) and peak device memory by training path, for phase 8
+TRAIN_READINGS: dict = {}
 ATTN_BWD = "attention backward (enc_attn_bwd_di/dkdv_wgmma, dq_store)"
 ATTN_FWD = "attention forward (enc_attn_fwd_*)"
 W8A8 = "W8A8 (quantize_rows, w8a8_wgmma)"
@@ -2160,6 +2178,7 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
     if st["calib"] is not None:
         print(f"{label}: calibrated outlier columns per (d_in, d_out) class: "
               + ", ".join(f"{k}: {len(v)} {list(v)}" for k, v in sorted(st["calib"].items())))
+    TRAIN_READINGS[label] = {"step_ms": 1e3 * step_s, "peak_gib": peak / 2**30}
     print(f"{label}: {1e3 * step_s:.3f} ms/step end to end (steps 2-3; step 1 "
           f"{1e3 * steps[0]['s']:.3f} ms); {B / step_s:.3f} utterances/s; "
           f"{tokens / step_s:.1f} label tokens/s; peak memory {peak / 2**30:.2f} GiB; "
@@ -2517,6 +2536,432 @@ def hpo_main_path(rows, device: str = "cuda", model: str = "large-v3",
         torch.cuda.empty_cache()
 
 
+# Phase 8, data parallelism and offload (asr_finetune_tpu_torch/parallel/)
+DP_RANKS, DP_STEPS, DP_BATCH = 2, 4, 2          # 8a: 2 ranks x 2 rows = global batch 4
+OFFLOAD_STEPS = 3                               # 8b, 8c
+DP_TIMEOUT = 900                                # s, each rank process of 8a
+# 8a, two ranks against one process at the global batch: the largest reading
+# over the steps of |a - b| / |b| for the loss and grad_norm, and for the
+# adapters after 4 steps RMS(a - b) / RMS(b - initial), over every adapter
+# element: the gap against the update itself. The two runs compute each row
+# alike; only sums across rows run in another order (a product of 2 x 1500
+# rows against 4 x 1500 may take another cuBLAS split of its fp32 sums, the
+# loss and gradients add two ranks' partial sums) and reach bf16 operands,
+# where one rounding flip moves a value 2^-8. Adam then moves an element by
+# ~lr whatever its gradient's size, so an element whose gradient is near 0
+# may step the other way: the largest element gap is up to 2 lr a step (it
+# is printed, not limited), while a fault (a rank's own gradients, the mean
+# of the ranks' means) moves the RMS of the gap towards that of the update.
+# The first reading on an H100 (PERF.md): loss 9.6e-5, grad_norm 9.2e-5,
+# adapters 1.39e-2 (the largest element gap 1.33 x the largest update);
+# limits ~10x the first two (the attention backward's dq also varies run to
+# run) and ~4x the third.
+DP_LIMITS = {"loss": 1e-3, "grad_norm": 1e-3, "adapters": 6e-2}
+# 8c: device memory allocated after an offloaded step beyond its value before it
+OFFLOAD_MEM_MARGIN = 8 * 2 ** 20
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _dp_argv(data, out, batch, device, model, *extra):
+    """largev3_peft_debug.config with --int8_matmul on the 20 wavs of phase
+    6: `batch` rows a rank, eval batch 4 (a rank's share: 4 / world) with the
+    greedy WER at steps 2 and 4, a checkpoint at step 4."""
+    return ["-c", PEFT_CONFIG, "--model_type", model, "--device", device, "--no-debug",
+            "--int8_matmul", "--data_mode", "folder", "--dataset_name", data,
+            "--val_split", "0.2", "--per_device_train_batch_size", str(batch),
+            "--per_device_eval_batch_size", str(B), "--max_steps", str(DP_STEPS),
+            "--eval_steps", "2", "--save_steps", str(DP_STEPS), "--logging_steps", "2",
+            "--eval_sample_fraction", "1.0", "--generation_max_length", str(TRAIN_GEN_LEN),
+            "--wer_weight", "0.7", "--output_dir", out, *extra]
+
+
+def _recorded_run(argv, sampler=None):
+    """cli.train.main(argv) with its steps, sampled batches and evals
+    recorded; `sampler` replaces the train stream's index batches. Returns
+    (result, record): per step loss, grad_norm, tokens and seconds, the
+    index batches the sampler yielded, (step, metrics) of each eval, the
+    state after the last step and (PEFT) the adapters before the first."""
+    import torch
+    from asr_finetune_tpu_torch.cli import train as train_cli
+    from asr_finetune_tpu_torch.data import pipeline as pipe_lib
+    from asr_finetune_tpu_torch.training import trainer as trainer_lib
+    from asr_finetune_tpu_torch.training.optim import leaves
+
+    rec = {"steps": [], "batches": [], "evals": []}
+    orig = (trainer_lib.make_train_step, pipe_lib.IndexSampler.batches_from_step,
+            trainer_lib.Trainer.evaluate)
+
+    def make_train_step(*a, **k):
+        inner = orig[0](*a, **k)
+
+        def step(state, batch):
+            if "state" not in rec and state.get("adapters") is not None:
+                rec["initial"] = {k: v.detach().float().cpu().clone()
+                                  for k, v in leaves(state["adapters"])}
+            rec["state"] = state
+            torch.cuda.synchronize() if torch.cuda.is_available() else None
+            t0 = time.perf_counter()
+            m = inner(state, batch)
+            rec["steps"].append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                                 "tokens": int(m["tokens"]), "s": time.perf_counter() - t0})
+            return m
+        return step
+
+    def batches_from_step(self, start_step):
+        it = orig[1](self, start_step) if sampler is None else iter(sampler[start_step:])
+        for b in it:
+            rec["batches"].append([int(i) for i in b])
+            yield b
+
+    def evaluate(self, step):
+        out = orig[2](self, step)
+        rec["evals"].append((step, out))
+        return out
+
+    (trainer_lib.make_train_step, pipe_lib.IndexSampler.batches_from_step,
+     trainer_lib.Trainer.evaluate) = (make_train_step, batches_from_step, evaluate)
+    try:
+        result = train_cli.main(argv)
+    finally:
+        (trainer_lib.make_train_step, pipe_lib.IndexSampler.batches_from_step,
+         trainer_lib.Trainer.evaluate) = orig
+    return result, rec
+
+
+def _tree_digest(state) -> str:
+    import hashlib
+    from asr_finetune_tpu_torch.training.optim import leaves
+    h = hashlib.sha256()
+    for t in ("adapters", "rank_mask"):
+        for _, v in leaves(state[t]):
+            h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_rank(spec_path: str) -> int:
+    """Phase 8a's rank process (`chip_smoke.py --dp-rank <spec>`, started by
+    dp_main_path with torchrun's variables): cli.train over its rows, then
+    rank<r>.json with its steps, index batches, evals, launches and the
+    digest of its adapters and rank masks."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    reset_all_launches()
+    result, rec = _recorded_run(spec["argv"])
+    out = {"result": result, "steps": rec["steps"], "batches": rec["batches"][:DP_STEPS],
+           "evals": rec["evals"], "launches": all_launches(),
+           "digest": _tree_digest(rec["state"])}
+    with open(os.path.join(spec["dir"], f"rank{os.environ['RANK']}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def dp_main_path(rows, device: str = "cuda", model: str = "large-v3"):
+    """Phase 8a: two ranks of cli.train on the one card (so the group is
+    gloo, through the host), large-v3 PEFT over the int8 base with
+    --int8_matmul and AdaLoRA (lora dropout 0.05), 2 rows a rank, 4 steps,
+    an eval with the greedy WER at steps 2 and 4, a checkpoint at step 4.
+    Then one process at batch 4 over the same four global batches (rank 0's
+    rows, then rank 1's): per step the loss and grad_norm, and the adapters
+    after four steps, within DP_LIMITS. Asserts the eval metrics are the
+    same on both ranks, so are the adapters and rank masks (bit for bit),
+    and each rank launched W8A8, the attention forward and backward and the
+    int8 decoder kernels; then one process resumes the two ranks'
+    checkpoint for 2 more steps. `device` and `model` let it run a small
+    model on the CPU."""
+    import torch
+    from asr_finetune_tpu_torch.training.optim import leaves
+
+    on_card = device == "cuda"
+    label = "DP main path (8a)"
+    tag = next(line.split("=", 1)[1].strip() for line in open(PEFT_CONFIG)
+               if line.startswith("output_tag"))
+    with tempfile.TemporaryDirectory() as tmp:
+        data, two, one = f"{tmp}/data", f"{tmp}/two", f"{tmp}/one"
+        os.makedirs(data)
+        write_audiofolder(data, TRAIN_UTTS)
+        spec = f"{tmp}/spec.json"
+        with open(spec, "w") as f:
+            json.dump({"dir": tmp, "argv": _dp_argv(data, two, DP_BATCH, device, model)}, f)
+        port = _free_port()
+        procs, logs = [], []
+        t0 = time.perf_counter()
+        try:
+            for r in range(DP_RANKS):
+                env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(DP_RANKS),
+                       "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": str(DP_RANKS),
+                       "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+                logs.append(open(f"{tmp}/rank{r}.log", "w"))
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--dp-rank", spec],
+                    env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+            for p in procs:
+                p.wait(timeout=DP_TIMEOUT)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        wall = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                with open(f"{tmp}/rank{r}.log") as f:
+                    tail = f.read()[-8000:]
+                raise AssertionError(f"{label}: rank {r} exited {p.returncode}:\n{tail}")
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(f"{tmp}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+        with open(f"{tmp}/rank0.log") as f:
+            group_line = next((line.strip() for line in f if "process group" in line), "")
+
+        # one process over the same global batches: rank 0's rows, then rank 1's
+        global_batches = [np.concatenate([np.asarray(rk["batches"][i]) for rk in ranks])
+                          for i in range(DP_STEPS)]
+        _, ref = _recorded_run(_dp_argv(data, one, DP_BATCH * DP_RANKS, device, model),
+                               sampler=global_batches)
+        ref_state = {t: {k: v.detach().float().cpu() for k, v in leaves(ref["state"][t])}
+                     for t in ("adapters", "rank_mask")}
+        initial = ref["initial"]
+        del ref["state"]
+        saved = torch.load(f"{two}/{tag}/checkpoints/step_{DP_STEPS:08d}/state.pt",
+                           map_location="cpu", weights_only=True)
+
+        # the two ranks' checkpoint, resumed in one process for 2 more steps
+        resumed, res = _recorded_run(_dp_argv(data, two, DP_BATCH * DP_RANKS, device, model,
+                                              "--resume_training", "--max_steps",
+                                              str(DP_STEPS + 2)))
+        del res["state"]
+
+    loss_err = max(_rel(a["loss"], b["loss"]) for a, b in zip(ranks[0]["steps"], ref["steps"]))
+    norm_err = max(_rel(a["grad_norm"], b["grad_norm"])
+                   for a, b in zip(ranks[0]["steps"], ref["steps"]))
+    gap = torch.cat([(saved["adapters"][k].float() - v).flatten()
+                     for k, v in ref_state["adapters"].items()])
+    update = torch.cat([(v - initial[k]).flatten() for k, v in ref_state["adapters"].items()])
+    ad_err = float(gap.norm() / update.norm().clamp(min=1e-30))
+    ad_max = float(gap.abs().max() / update.abs().max().clamp(min=1e-30))
+    mask_flips = sum(int((saved["rank_mask"][k].float() != v).sum())
+                     for k, v in ref_state["rank_mask"].items())
+    reading = {"phase": "8a", "ranks": DP_RANKS, "rows_per_rank": DP_BATCH, "wall_s": wall,
+               "group": group_line[-160:],
+               "steps": [[{k: s[k] for k in ("loss", "grad_norm", "tokens")} for s in rk["steps"]]
+                         for rk in ranks],
+               "one_process": [{k: s[k] for k in ("loss", "grad_norm", "tokens")}
+                               for s in ref["steps"]],
+               "ms_per_step": [1e3 * float(np.mean([s["s"] for s in rk["steps"][1:]]))
+                               for rk in ranks],
+               "one_process_ms_per_step": 1e3 * float(np.mean([s["s"] for s in ref["steps"][1:]])),
+               "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err,
+               "adapters_rms_gap_over_update": ad_err,
+               "adapters_max_gap_over_max_update": ad_max, "rank_mask_flips": mask_flips,
+               "evals": [rk["evals"] for rk in ranks], "one_process_evals": ref["evals"],
+               "resumed": {"result": resumed, "steps": [s["loss"] for s in res["steps"]]},
+               "launches": [{k: v for k, v in rk["launches"].items() if v} for rk in ranks]}
+    print(json.dumps(reading))
+    if any(len(rk["steps"]) != DP_STEPS or len(rk["batches"]) != DP_STEPS for rk in ranks) \
+            or len(ref["steps"]) != DP_STEPS:
+        raise AssertionError(f"{label}: steps or batches missing")
+    if any(not np.isfinite(s["loss"]) for rk in ranks for s in rk["steps"]):
+        raise AssertionError(f"{label}: a loss is not finite")
+    if reading["steps"][0] != reading["steps"][1]:
+        raise AssertionError(f"{label}: the ranks' step metrics differ")
+    if [s["tokens"] for s in ranks[0]["steps"]] != [s["tokens"] for s in ref["steps"]]:
+        raise AssertionError(f"{label}: the global token counts differ from one process's")
+    if sorted(set(ranks[0]["batches"][0]) | set(ranks[1]["batches"][0])) != sorted(
+            ranks[0]["batches"][0] + ranks[1]["batches"][0]):
+        raise AssertionError(f"{label}: the ranks' rows overlap: {ranks[0]['batches'][0]}, "
+                             f"{ranks[1]['batches'][0]}")
+    if loss_err > DP_LIMITS["loss"] or norm_err > DP_LIMITS["grad_norm"] \
+            or ad_err > DP_LIMITS["adapters"]:
+        raise AssertionError(f"{label}: 2 ranks against one process: loss {loss_err:.3g}, "
+                             f"grad_norm {norm_err:.3g}, adapters {ad_err:.3g} > {DP_LIMITS}")
+    evals = [rk["evals"] for rk in ranks]
+    if evals[0] != evals[1] or [s for s, _ in evals[0]] != [2, DP_STEPS] \
+            or ranks[0]["result"] != ranks[1]["result"]:
+        raise AssertionError(f"{label}: the ranks' evals differ: {evals}")
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        raise AssertionError(f"{label}: the ranks hold different adapters or rank masks")
+    if resumed["final_step"] != DP_STEPS + 2 or len(res["steps"]) != 2 or not all(
+            np.isfinite(s["loss"]) for s in res["steps"]):
+        raise AssertionError(f"{label}: one-process resume: {resumed}, {res['steps']}")
+    if on_card:
+        for r, rk in enumerate(ranks):
+            silent = [k for k in HPO_KERNELS if rk["launches"][k] == 0]
+            if silent:
+                raise AssertionError(f"{label}: rank {r} launched no {silent}")
+            record_launches(rows, f"dp_rank{r}", rk["launches"])
+    print(f"{label}: {DP_RANKS} ranks x {DP_BATCH} rows, {DP_STEPS} steps, wall {wall:.3f} s; "
+          f"against one process at batch {DP_BATCH * DP_RANKS}: loss {loss_err:.3g}, grad_norm "
+          f"{norm_err:.3g}, adapters {ad_err:.3g} (max {ad_max:.3g}; limits {DP_LIMITS}), "
+          f"{mask_flips} rank-mask "
+          f"flips; evals equal on both ranks; resumed in one process to step "
+          f"{resumed['final_step']}")
+
+
+def offload_path(rows, peft: bool, device: str = "cuda", model: str = "large-v3"):
+    """Phase 8b (full fine-tuning, --offload_optimizer, 3 steps) or 8c (PEFT
+    over the int8 base with --int8_matmul, --offload_param
+    --offload_optimizer, 3 steps and an eval): cli.train in one rank of a
+    process group (WORLD_SIZE=1: NCCL on the card) on phase 6's 20 wavs.
+
+    Offload moves where the state lives, never the arithmetic. But the bf16
+    attention backward adds dq by TMA reduce-add, in an order that varies
+    run to run (csrc/encoder_attention.cu), and CUDA's index backward of the token embedding is
+    not deterministic either; so the bit-for-bit check takes a resident and
+    an offloaded run that both use plain attention (ASR_TPU_ATTN_IMPL=xla)
+    and torch's deterministic algorithms, and asserts their losses and grad
+    norms (8c: also the eval metrics and the adapters) equal. A third run,
+    offloaded on the kernels, is the path itself: its launches, peak memory
+    and ms/step, printed against phase 6's (8c: phase 7's). In every
+    offloaded run AdamW's m and v (8c: every leaf of the base too) are
+    pinned host tensors before each step, and (8c) the device memory
+    allocated after each step but the first is within OFFLOAD_MEM_MARGIN of
+    its value before it."""
+    import torch
+    from asr_finetune_tpu_torch.training import checkpoint as ckpt_lib
+    from asr_finetune_tpu_torch.training import trainer as trainer_lib
+    from asr_finetune_tpu_torch.training.optim import leaves
+
+    on_card = device == "cuda"
+    phase = "8c" if peft else "8b"
+    label = f"offload main path ({phase})"
+    flags = ("--offload_param", "--offload_optimizer") if peft else ("--offload_optimizer",)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = f"{tmp}/data"
+        os.makedirs(data)
+        write_audiofolder(data, TRAIN_UTTS)
+        for name, more, exact in (("resident", (), True), ("offload", flags, True),
+                                  ("offload, kernels", flags, False)):
+            argv = ["-c", PEFT_CONFIG if peft else TRAIN_CONFIG, "--model_type", model,
+                    "--device", device, "--no-debug", "--data_mode", "folder",
+                    "--dataset_name", data, "--val_split", "0.2",
+                    "--max_steps", str(OFFLOAD_STEPS), "--eval_steps", str(OFFLOAD_STEPS),
+                    "--save_steps", str(OFFLOAD_STEPS), "--logging_steps", str(OFFLOAD_STEPS),
+                    "--eval_sample_fraction", "1.0", "--generation_max_length",
+                    str(TRAIN_GEN_LEN), "--wer_weight", "0.7",
+                    "--output_dir", f"{tmp}/{len(runs)}",
+                    *(("--int8_matmul",) if peft else ("--eval_delay", str(OFFLOAD_STEPS + 1))),
+                    *more]
+            st = {"placement": [], "memory": []}
+            orig = (trainer_lib.make_train_step, ckpt_lib.CheckpointManager.save)
+
+            def make_train_step(*a, _st=st, _more=more, **k):
+                inner = orig[0](*a, **k)
+
+                def step(state, batch):
+                    if _more:
+                        opt = state["opt_state"]
+                        held = opt["mu"] + opt["nu"] + (
+                            [t for _, t in leaves(state["params"])] if peft else [])
+                        _st["placement"].append(all(t.device.type == "cpu" and t.is_pinned()
+                                                    for t in held) if on_card else True)
+                    before = torch.cuda.memory_allocated() if on_card else 0
+                    m = inner(state, batch)
+                    if on_card:
+                        torch.cuda.synchronize()
+                    _st["memory"].append((torch.cuda.memory_allocated() if on_card else 0)
+                                         - before)
+                    _st["state"] = state
+                    return m
+                return step
+
+            def save(self, step, state, metrics=None):
+                # 8b: phase 6 writes the full checkpoint; this one would be 18.5 GB
+                return False if not peft else orig[1](self, step, state, metrics)
+
+            os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+                              MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+            if exact:
+                os.environ["ASR_TPU_ATTN_IMPL"] = "xla"
+                torch.use_deterministic_algorithms(True, warn_only=True)
+            trainer_lib.make_train_step, ckpt_lib.CheckpointManager.save = make_train_step, save
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            reset_all_launches()
+            try:
+                result, rec = _recorded_run(argv)
+            finally:
+                trainer_lib.make_train_step, ckpt_lib.CheckpointManager.save = orig
+                torch.use_deterministic_algorithms(False)
+                for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                          "MASTER_ADDR", "MASTER_PORT", "ASR_TPU_ATTN_IMPL"):
+                    os.environ.pop(k, None)
+            trees = ("adapters", "rank_mask") if peft else ()
+            runs[name] = {
+                "result": result, "steps": rec["steps"], "evals": rec["evals"],
+                "placement": st["placement"], "memory": st["memory"],
+                "launches": all_launches(),
+                "peak": torch.cuda.max_memory_allocated() if on_card else 0,
+                "trees": {t: {k: v.detach().cpu() for k, v in leaves(st["state"][t])}
+                          for t in trees}}
+            del st["state"], rec["state"]
+            if on_card:
+                torch.cuda.empty_cache()
+
+    res, off, kern = runs["resident"], runs["offload"], runs["offload, kernels"]
+    earlier = TRAIN_READINGS.get("PEFT main path" if peft else "train main path", {})
+    ms = {n: 1e3 * float(np.mean([s["s"] for s in r["steps"][1:]])) for n, r in runs.items()}
+    reading = {"phase": phase, "flags": list(flags), "steps": OFFLOAD_STEPS,
+               "losses": {n: [s["loss"] for s in r["steps"]] for n, r in runs.items()},
+               "grad_norms": {n: [s["grad_norm"] for s in r["steps"]] for n, r in runs.items()},
+               "evals": {n: r["evals"] for n, r in runs.items()},
+               "ms_per_step": ms, "peak_gib": {n: r["peak"] / 2**30 for n, r in runs.items()},
+               f"phase_{'7' if peft else '6'}": earlier,
+               "pinned_before_steps": {n: r["placement"] for n, r in runs.items()},
+               "allocated_after_minus_before_mib": {n: [m / 2**20 for m in r["memory"]]
+                                                    for n, r in runs.items()},
+               "launches": {k: v for k, v in kern["launches"].items() if v}}
+    print(json.dumps(reading))
+    if any(len(r["steps"]) != OFFLOAD_STEPS or not all(np.isfinite(s["loss"]) for s in r["steps"])
+           for r in runs.values()):
+        raise AssertionError(f"{label}: expected {OFFLOAD_STEPS} finite steps a run")
+    if [(s["loss"], s["grad_norm"]) for s in off["steps"]] != [
+            (s["loss"], s["grad_norm"]) for s in res["steps"]]:
+        raise AssertionError(f"{label}: losses or grad norms differ from the resident run's")
+    if off["evals"] != res["evals"] or off["result"] != res["result"] \
+            or len(kern["evals"]) != int(peft):
+        raise AssertionError(f"{label}: eval metrics differ from the resident run's")
+    for t, tree in res["trees"].items():
+        if any(not torch.equal(v, off["trees"][t][k]) for k, v in tree.items()):
+            raise AssertionError(f"{label}: {t} differ from the resident run's")
+    if not all(off["placement"] + kern["placement"]) \
+            or len(kern["placement"]) != OFFLOAD_STEPS:
+        raise AssertionError(f"{label}: state not in pinned host memory before each step")
+    if peft and any(m > OFFLOAD_MEM_MARGIN for r in (off, kern) for m in r["memory"][1:]):
+        raise AssertionError(f"{label}: a step left more allocated: {off['memory']}, "
+                             f"{kern['memory']} bytes")
+    if on_card:
+        silent = [k for k in (HPO_KERNELS if peft else ("encoder_attention",
+                                                         "encoder_attention_bwd"))
+                  if kern["launches"][k] == 0]
+        if silent:
+            raise AssertionError(f"{label}: launched no {silent}")
+        record_launches(rows, "offload_peft" if peft else "offload_full", kern["launches"])
+    other = "7" if peft else "6"
+    print(f"{label}: {OFFLOAD_STEPS} steps{' and an eval' if peft else ''} bit-equal to "
+          f"resident (plain attention, deterministic algorithms); on the kernels: peak "
+          f"{kern['peak'] / 2**30:.2f} GiB (phase {other}: "
+          f"{earlier.get('peak_gib', float('nan')):.2f}), {ms['offload, kernels']:.3f} "
+          f"ms/step (phase {other}: {earlier.get('step_ms', float('nan')):.3f}); plain "
+          f"attention: peak {off['peak'] / 2**30:.2f} GiB offloaded, {res['peak'] / 2**30:.2f} "
+          f"resident, {ms['offload']:.3f} and {ms['resident']:.3f} ms/step; allocated after - "
+          f"before each step {[round(m / 2**20, 3) for m in kern['memory']]} MiB")
+
+
 def step_breakdown():
     """One whisper-large-v3 decode step at batch 4 (bf16, cache 128 at pos
     63), greedy and on each beam path (4 x 4 hypothesis rows over cross K/V
@@ -2664,6 +3109,9 @@ def main() -> int:
     train_main_path(rows, config=PEFT_CONFIG, extra=("--int8_matmul",))
     train_main_path(rows, config=PEFT_CONFIG, extra=("--int8_matmul",), fused_qkv=True)
     hpo_main_path(rows)
+    dp_main_path(rows)
+    offload_path(rows, peft=False)
+    offload_path(rows, peft=True)
     step_breakdown()
     print(json.dumps({"step_device_ms": STEP_DEVICE}))
     for k in ("fused_mlp", "fused_mlp_int8", "fused_qkv", "fused_qkv_int8"):   # every row count
@@ -2678,4 +3126,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dp_rank(sys.argv[2]) if sys.argv[1:2] == ["--dp-rank"] else main())

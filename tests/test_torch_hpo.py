@@ -257,12 +257,18 @@ def test_controller_refuses_more_than_one_slot(tmp_path, monkeypatch):
 
 
 def test_train_hyper_refuses_multi_process_and_a_missing_card(tmp_path, monkeypatch):
+    """A multi-process experiment joins its group (tests/test_torch_parallel.py
+    runs one); COORDINATOR_ADDRESS or ip_head with no process count and rank
+    to form a group with raises a clear error before any trial, and so does
+    a missing card."""
     argv = ["--storage_path", str(tmp_path), "--num_samples", "1"]
     monkeypatch.setattr(TCTL.run_lib, "run_trial", lambda *a, **k: pytest.fail("ran"))
+    for name in ("RANK", "WORLD_SIZE", "SLURM_PROCID", "SLURM_NTASKS"):
+        monkeypatch.delenv(name, raising=False)
     for var in ("COORDINATOR_ADDRESS", "ip_head"):
         with monkeypatch.context() as m:
             m.setenv(var, "localhost:1234")
-            with pytest.raises(NotImplementedError, match=var):
+            with pytest.raises(ValueError, match=f"{var} is set but no process count"):
                 train_hyper.main(argv + ["--device", "cpu"])
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

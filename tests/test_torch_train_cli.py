@@ -142,10 +142,12 @@ def test_train_cli_without_device_cpu_raises_here(folder, tmp_path):
         train_cli.main(_argv(folder, tmp_path, device=()))
 
 
-@pytest.mark.parametrize("flag", [("--offload_optimizer",), ("--offload_param",),
-                                  ("--spec_augment",), ("--host_logmel",),
-                                  ("--tp", "2")])
+@pytest.mark.parametrize("flag", [("--spec_augment",), ("--host_logmel",),
+                                  ("--tp", "2"), ("--data_mode", "parquet"),
+                                  ("--data_mode", "val_parquet")])
 def test_options_not_ported_raise(folder, tmp_path, flag):
+    """The options still to port raise (the offload flags run:
+    tests/test_torch_parallel.py)."""
     with pytest.raises(NotImplementedError):
         train_cli.main(_argv(folder, tmp_path, *flag))
 
