@@ -7,8 +7,8 @@ A copy of asr_finetune_tpu/data/collator.py for the port:
   (the shifted decoder inputs re-add it);
 - decoder inputs: sot, then the labels shifted right, pad-filled;
 - raw audio out, padded or trimmed to the 30 s window (log-mel runs on the
-  device); `features="host"` is not ported (it needs the host float64
-  log-mel).
+  device), or with `features="host"` (--host_logmel) the host's float64
+  log-mel of that window as "mel" (ops/logmel.log_mel_np) and no "audio".
 
 The JAX package's optional C++ batch assembly (utils/native_ext) is not
 carried over: audio goes through the numpy `pad_or_trim`.
@@ -29,7 +29,7 @@ LABEL_BUCKETS = (48, 96, 192, 448)
 
 @dataclasses.dataclass
 class CollatorConfig:
-    features: str = "audio"        # "audio" only (on-device mel)
+    features: str = "audio"        # "audio" (on-device mel) | "host" (host mel)
     n_mels: int = 80
     language: str = "de"
     task: str = "transcribe"
@@ -38,10 +38,8 @@ class CollatorConfig:
     strip_leading_sot: bool = True
 
     def __post_init__(self):
-        if self.features != "audio":
-            raise NotImplementedError(
-                f"collator features {self.features!r}: host log-mel is not "
-                "ported (the port computes log-mel on the device)")
+        if self.features not in ("audio", "host"):
+            raise ValueError(f"collator features {self.features!r}: have 'audio', 'host'")
 
 
 class Collator:
@@ -82,10 +80,14 @@ class Collator:
             labels[i, : len(l)] = l
             dec_in[i, 1 : min(len(l), L - 1) + 1] = l[: L - 1]
 
-        return {
+        batch = {
             "decoder_input_ids": dec_in,
             "labels": labels,
             "idx": np.asarray([i for i, _, _ in rows], np.int32),
-            "audio": audio,
-            "text": np.asarray([t for _, _, t in rows], dtype=object),
         }
+        if cfg.features == "audio":
+            batch["audio"] = audio
+        else:
+            batch["mel"] = np.stack([logmel_ops.log_mel_np(a, cfg.n_mels) for a in audio])
+        batch["text"] = np.asarray([t for _, _, t in rows], dtype=object)
+        return batch

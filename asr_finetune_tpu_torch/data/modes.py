@@ -2,9 +2,10 @@
 
 Mode name → train/val source types: `h5`, `parquet`, `parquet_h5`
 (parquet train + h5 val), `train_parquet`, `val_parquet`, `val_h5`, and
-`folder` (directories of .wav + metadata.csv). The port reads "h5" and
-"folder" sources; a mode with a "parquet" source raises when the data is
-built (run.build_data): pyarrow is not on the card's machine.
+`folder` (directories of .wav + metadata.csv). A "parquet" source is a
+directory of feature shards (data/parquet.py), which needs pyarrow: where
+it is missing (the card's machine) such a mode raises ImportError when the
+data is built (run.build_data).
 """
 from __future__ import annotations
 

@@ -12,8 +12,9 @@ Counterpart of asr_finetune_tpu/data/pipeline.py:
   uninterrupted one would;
 - `DataPipeline`: reader + collator + sampler → numpy batches, bad rows
   replaced by repeats of good ones so every batch has its configured size;
-- `device_prefetch`: a background thread turns batches into pinned host
-  tensors and the consumer copies them to the device with
+- `device_prefetch`: a background thread runs the reader and collator (so
+  the host log-mel of --host_logmel too) and turns batches into pinned host
+  tensors, and the consumer copies them to the device with
   non_blocking=True; a producer exception is re-raised on the consumer
   side instead of ending the stream silently.
 

@@ -17,12 +17,37 @@ them once for serving; training keeps fp32 masters and casts at every use,
 as the JAX train step does), layer-norm statistics in fp32, the conv stem in
 fp32, exact-erf GELU, logits in fp32 from compute-dtype operands.
 
-Rematerialisation (`remat=True`) is `torch.utils.checkpoint` (non-reentrant)
-per half-block: the saved points are each layer's input and the residual
-stream between its half-blocks, the JAX `blk_mid` points
-(ASR_TPU_REMAT_SAVE=mid). The JAX package's extra named save points
-(`enc_qkv`, `enc_mlp_h`, `dec_*`) are not ported; they change memory and
-time, never numbers.
+Rematerialisation (`remat=True`, in training) keeps the JAX package's named
+save points, chosen by ASR_TPU_REMAT_SAVE (`remat_save`, read at every
+forward; default "enc+dec", as in JAX; any other value than the three
+raises, where JAX takes it for "mid"). It is `torch.utils.checkpoint`
+(non-reentrant), which recomputes in the backward what a checkpointed
+function saved, so a save point is a checkpoint's boundary: a tensor kept
+between two checkpointed pieces.
+- "mid": each half-block is one checkpoint. Kept: each layer's input and
+  the residual stream between its half-blocks (the JAX `blk_mid` points).
+  The backward recomputes the whole half-block: layer norm, the q/k/v (or
+  fc1) products, the attention forward, the GELU.
+- "enc": in the encoder, also the q, k and v products (`enc_qkv`; the one
+  (B, T, 3d) product on the fused-qkv path) and fc1's (`enc_mlp_h`). Each
+  half-block's products then run outside any checkpoint, so they are
+  kept, and so is the layer norm's output they read; the rest of the half
+  (the adapters' low-rank deltas and the biases, the attention with its
+  output projection, or GELU and fc2) runs in one checkpoint together
+  with the next half's layer norm (`_run_halves`), so there are no more
+  checkpoints than under "mid". The backward recomputes the layer norms,
+  the deltas, the attention forward (its logsumexp and the output
+  projection's input) and the GELU, and no q/k/v or fc1 product. JAX
+  keeps the same named tensors but recomputes what the products' backward
+  reads, which the port keeps: the layer norms' outputs (two (B, T, d) a
+  layer) and, in full fine-tuning, the weights cast to the compute dtype.
+- "enc+dec": the decoder's too: the self-attention's q/k/v (`dec_qkv`),
+  the cross-attention's q and its k/v of the encoder output (`dec_xkv`),
+  fc1's output (`dec_mlp_h`).
+The autograd graph is the same in every mode (a non-reentrant checkpoint
+adds no node), and each recomputed value is the value of the forward, so
+the mode changes memory, time and launch counts, never a loss or a
+gradient bit (tests/test_torch_remat.py).
 
 PEFT (training/lora.py): `adapters`, a tree beside the frozen base, adds a
 low-rank delta to every adapted q/v projection (`dense`); lora dropout on
@@ -33,16 +58,17 @@ computes the product as W8A8 through the kernel (ops/quant.int8_matmul).
 
 The fused-qkv encoder path (opt-in, ASR_TPU_FUSED_QKV; `_fused_qkv_ok`)
 runs each encoder layer's q/k/v as one wide (d, 3d) product whose (B, T,
-3d) output feeds the attention kernel directly (`_mha_fused_qkv`,
+3d) output feeds the attention kernel directly (`_attn_core_qkv`,
 ops/encoder_attention.dense_attention_qkv), as the JAX `encode` does.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import math
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -172,13 +198,74 @@ def _unbind_layers(tree: Params, n: int) -> list:
     return out
 
 
-def _maybe_remat(fn, remat: bool, *args):
-    """fn(*args), under non-reentrant activation checkpointing when remat is
-    on and autograd is recording: only args are kept for the backward, which
-    runs fn again to rebuild what it needs."""
+def _maybe_remat(fn, remat: bool, *args, **kwargs):
+    """fn(*args, **kwargs), under non-reentrant activation checkpointing when
+    remat is on and autograd is recording: only the arguments are kept for
+    the backward, which runs fn again to rebuild what it needs."""
     if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return fn(*args, **kwargs)
+
+
+REMAT_SAVES = ("mid", "enc", "enc+dec")
+
+
+def remat_save() -> str:
+    """ASR_TPU_REMAT_SAVE (default "enc+dec"), read at every call: which
+    named activations remat keeps (module docstring). Another value raises."""
+    mode = os.environ.get("ASR_TPU_REMAT_SAVE", "enc+dec")
+    if mode not in REMAT_SAVES:
+        raise ValueError(f"ASR_TPU_REMAT_SAVE={mode!r}: have {', '.join(REMAT_SAVES)}")
+    return mode
+
+
+def _kept_points(remat: bool) -> Tuple[bool, bool]:
+    """(encoder, decoder): whether remat keeps that stack's named save
+    points in this forward (remat on and autograd recording)."""
+    if not (remat and torch.is_grad_enabled()):
+        return False, False
+    mode = remat_save()
+    return mode in ("enc", "enc+dec"), mode == "enc+dec"
+
+
+@dataclasses.dataclass(frozen=True)
+class _Half:
+    """One half-block as three parts: x + finish(h, products(h)), h = LN(x).
+    `products` are the half's q/k/v (or fc1) products, the tensors the save
+    points keep; `finish` completes them (adapter deltas, biases) and runs
+    the rest (the attention and its output projection, or GELU and fc2)."""
+    ln: Params
+    products: Callable
+    finish: Callable
+
+
+def _run_half(half: _Half, x: torch.Tensor) -> torch.Tensor:
+    h = layer_norm(x, half.ln)
+    return x + half.finish(h, half.products(h))
+
+
+def _kept_piece(half: _Half, x, h, prods, ln_next):
+    """A half's finish and the next half's layer norm, one checkpoint."""
+    x = x + half.finish(h, prods)
+    return x, None if ln_next is None else layer_norm(x, ln_next)
+
+
+def _run_halves(halves: list, x: torch.Tensor, remat: bool, keep: bool) -> torch.Tensor:
+    """The halves in order. Without keep, each half is one checkpoint when
+    remat is on (the "mid" save points). With keep, the products of each
+    half run outside any checkpoint, so they and the layer norm's output
+    they read are kept, and a half's finish runs in one checkpoint with the
+    next half's layer norm: as many checkpoints as halves (one more for the
+    first layer norm), each kept tensor a checkpoint's input."""
+    if not keep:
+        for half in halves:
+            x = _maybe_remat(_run_half, remat, half, x)
+        return x
+    h = _maybe_remat(layer_norm, True, x, halves[0].ln)
+    for i, half in enumerate(halves):
+        ln_next = halves[i + 1].ln if i + 1 < len(halves) else None
+        x, h = _maybe_remat(_kept_piece, True, half, x, h, half.products(h), ln_next)
+    return x
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -195,6 +282,16 @@ def layer_norm(x: torch.Tensor, ln: Params, eps: float = 1e-5) -> torch.Tensor:
     y = (x32 - mean) * torch.rsqrt(var + eps)
     y = y * ln["scale"].to(acc) + ln["bias"].to(acc)
     return y.to(x.dtype)
+
+
+def site_generator(seed: int, step: int, site: str, device) -> torch.Generator:
+    """A torch.Generator on `device` seeded by (seed, step, site): the same
+    stream for the same three, another for any other (a blake2b digest of
+    them). Seeding sets the generator's state on the host: no device sync."""
+    digest = hashlib.blake2b(f"{seed}/{step}/{site}".encode(), digest_size=8).digest()
+    g = torch.Generator(device=device)
+    g.manual_seed(int.from_bytes(digest, "little") >> 1)
+    return g
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,10 +317,7 @@ class LoraDropout:
     def __call__(self, x: torch.Tensor, site: str) -> torch.Tensor:
         if self.rate <= 0.0:
             return x
-        digest = hashlib.blake2b(f"{self.seed}/{self.step}/{site}".encode(),
-                                 digest_size=8).digest()
-        g = torch.Generator(device=x.device)
-        g.manual_seed(int.from_bytes(digest, "little") >> 1)
+        g = site_generator(self.seed, self.step, site, x.device)
         if self.rows:
             u = torch.rand((self.rows,) + tuple(x.shape[1:]), generator=g,
                            device=x.device)[self.row0: self.row0 + x.shape[0]]
@@ -257,17 +351,24 @@ def _base_matmul(x: torch.Tensor, p: Params,
     return torch.matmul(x, p["w"].to(x.dtype))
 
 
-def dense(x: torch.Tensor, p: Params, lora: Optional[Params] = None,
-          dropout: Optional[LoraDropout] = None, site: str = "",
-          quant: Optional[Q.QuantConfig] = None) -> torch.Tensor:
-    """x @ W (+ adapter delta) (+ b), the weight and bias cast to x's dtype at
-    use (`_base_matmul`)."""
-    y = _base_matmul(x, p, quant)
+def _complete(y: torch.Tensor, x: torch.Tensor, p: Params,
+              lora: Optional[Params] = None, dropout: Optional[LoraDropout] = None,
+              site: str = "") -> torch.Tensor:
+    """The product y = x @ W of projection p completed: + the adapter delta
+    of x, + the bias cast to x's dtype."""
     if lora is not None:
         y = y + _lora_delta(x, lora, dropout, site)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def dense(x: torch.Tensor, p: Params, lora: Optional[Params] = None,
+          dropout: Optional[LoraDropout] = None, site: str = "",
+          quant: Optional[Q.QuantConfig] = None) -> torch.Tensor:
+    """x @ W (+ adapter delta) (+ b), the weight and bias cast to x's dtype at
+    use (`_base_matmul`)."""
+    return _complete(_base_matmul(x, p, quant), x, p, lora, dropout, site)
 
 
 def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -280,30 +381,63 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, t, h * hd)
 
 
-def mha(x: torch.Tensor, kv_src: torch.Tensor, p: Params, heads: int,
-        mask: Optional[torch.Tensor] = None,
-        causal: bool = False, impl: str = "auto",
-        lora: Optional[Params] = None, dropout: Optional[LoraDropout] = None,
-        site: str = "", quant: Optional[Q.QuantConfig] = None) -> torch.Tensor:
-    """Full (non-incremental) multi-head attention; with impl "auto",
-    non-causal unmasked calls run the encoder-attention kernel
-    (ops/attention.attention). lora: this layer's {"q", "v"} adapters."""
-    lq = lora.get("q") if lora else None
-    lv = lora.get("v") if lora else None
-    q = _split_heads(dense(x, p["q"], lq, dropout, site + "/q", quant), heads)
-    k = _split_heads(dense(kv_src, p["k"], quant=quant), heads)
-    v = _split_heads(dense(kv_src, p["v"], lv, dropout, site + "/v", quant), heads)
-    out = _attention_dispatch(q, k, v, mask, causal=causal, impl=impl)
-    return dense(_merge_heads(out), p["o"], quant=quant)
+def _qkv_products(h, p, fused=None, kv_src=None, quant=None) -> tuple:
+    """The q (of h) and k, v (of kv_src, default h) products, (B, T, d)
+    each, or with `fused` the one (B, T, 3d) product of the wide q|k|v
+    projection."""
+    if fused is not None:
+        return (_base_matmul(h, fused, quant),)
+    src = h if kv_src is None else kv_src
+    return tuple(_base_matmul(h if n == "q" else src, p[n], quant) for n in "qkv")
+
+
+def _attn_finish(h, prods, p, heads: int, fused=None, kv_src=None,
+                 causal: bool = False, impl: str = "auto", lora=None, dropout=None,
+                 site: str = "", quant=None) -> torch.Tensor:
+    """An attention half after its products: each projection completed
+    (the q/v adapters' deltas, the biases), the attention, the output
+    projection. lora: this layer's {"q", "v"} adapters."""
+    if fused is not None:
+        y = prods[0]
+        if lora and ("q" in lora or "v" in lora):
+            y = y + _lora_delta_qkv(h, lora, h.shape[-1], dropout, site)
+        if "b" in fused:
+            y = y + fused["b"].to(h.dtype)
+        return _attn_core_qkv(y, p["o"], heads, quant)
+    src = h if kv_src is None else kv_src
+    q, k, v = (_complete(y, h if n == "q" else src, p[n], lora.get(n) if lora else None,
+                         dropout, f"{site}/{n}") for n, y in zip("qkv", prods))
+    return _attn_core(q, k, v, p["o"], heads, None, causal, impl, quant)
+
+
+def _attn_core(q, k, v, po, heads: int, mask=None, causal: bool = False,
+               impl: str = "auto", quant=None) -> torch.Tensor:
+    """Attention over projected (B, T, d) q/k/v, then the output projection."""
+    out = _attention_dispatch(_split_heads(q, heads), _split_heads(k, heads),
+                              _split_heads(v, heads), mask, causal=causal, impl=impl)
+    return dense(_merge_heads(out), po, quant=quant)
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)   # exact erf form, as jax.nn.gelu(approximate=False)
 
 
+def _gelu_fc2(h: torch.Tensor, fc2: Params,
+              quant: Optional[Q.QuantConfig] = None) -> torch.Tensor:
+    return dense(_gelu(h), fc2, quant=quant)
+
+
 def mlp_block(x: torch.Tensor, p: Params,
               quant: Optional[Q.QuantConfig] = None) -> torch.Tensor:
-    return dense(_gelu(dense(x, p["fc1"], quant=quant)), p["fc2"], quant=quant)
+    return _gelu_fc2(dense(x, p["fc1"], quant=quant), p["fc2"], quant)
+
+
+def _mlp_products(h, mlp, quant=None) -> tuple:
+    return (_base_matmul(h, mlp["fc1"], quant),)
+
+
+def _mlp_finish(h, prods, mlp, quant=None) -> torch.Tensor:
+    return _gelu_fc2(_complete(prods[0], h, mlp["fc1"]), mlp["fc2"], quant)
 
 
 # ---------------------------------------------------------------------------
@@ -378,23 +512,11 @@ def _lora_delta_qkv(x: torch.Tensor, lora: Params, d: int,
     return torch.matmul(torch.cat(xs, dim=-1), torch.cat(bs, dim=0))
 
 
-def _mha_fused_qkv(x: torch.Tensor, p: Params, fw: Params, heads: int,
-                   lora: Optional[Params] = None,
-                   dropout: Optional[LoraDropout] = None, site: str = "",
-                   quant: Optional[Q.QuantConfig] = None) -> torch.Tensor:
-    """Encoder self-attention with q/k/v as one wide product (the JAX
-    function of the same name, :434): x @ W_qkv (float, dequantized int8 or
-    W8A8), the q/v adapter deltas in the same layout, the fused bias, then
-    the attention kernel straight on the (B, T, 3d) buffer
-    (ops/encoder_attention.dense_attention_qkv) and the output projection."""
-    d = x.shape[-1]
-    y = _base_matmul(x, fw, quant)
-    if lora and ("q" in lora or "v" in lora):
-        y = y + _lora_delta_qkv(x, lora, d, dropout, site)
-    if "b" in fw:
-        y = y + fw["b"].to(x.dtype)
-    out = EA.dense_attention_qkv(y, d // heads)
-    return dense(out, p["o"], quant=quant)
+def _attn_core_qkv(y, po, heads: int, quant=None) -> torch.Tensor:
+    """The fused-qkv attention kernel on the (B, T, 3d) buffer, then the
+    output projection."""
+    out = EA.dense_attention_qkv(y, y.shape[-1] // 3 // heads)
+    return dense(out, po, quant=quant)
 
 
 def _fused_qkv_ok(cfg: WhisperConfig, T: int, impl: str,
@@ -420,19 +542,18 @@ def _fused_qkv_ok(cfg: WhisperConfig, T: int, impl: str,
     return torch.device(device).type == "cuda" and not xla_forced()
 
 
-def _enc_attn_half(x, lp, la, heads: int, impl: str, dropout, site: str, quant):
-    h = layer_norm(x, lp["ln1"])
-    if "attn_qkv" in lp:
-        a = _mha_fused_qkv(h, lp["attn"], lp["attn_qkv"], heads, la, dropout,
-                           site, quant)
-    else:
-        a = mha(h, h, lp["attn"], heads, impl=impl, lora=la, dropout=dropout,
-                site=site, quant=quant)
-    return x + a                                                    # blk_mid
+def _attn_half_parts(ln, p, heads: int, **finish) -> _Half:
+    """An attention half (encoder self, decoder self or cross) as a _Half;
+    `finish`: _attn_finish's keywords (fused, kv_src, causal, impl, lora,
+    dropout, site, quant)."""
+    return _Half(ln, functools.partial(_qkv_products, p=p, fused=finish.get("fused"),
+                                       kv_src=finish.get("kv_src"), quant=finish.get("quant")),
+                 functools.partial(_attn_finish, p=p, heads=heads, **finish))
 
 
-def _mlp_half(x, ln, mlp, quant):
-    return x + mlp_block(layer_norm(x, ln), mlp, quant)
+def _mlp_half_parts(ln, mlp, quant) -> _Half:
+    return _Half(ln, functools.partial(_mlp_products, mlp=mlp, quant=quant),
+                 functools.partial(_mlp_finish, mlp=mlp, quant=quant))
 
 
 def _layer_adapters(adapters: Optional[Params], part: str, n: int) -> list:
@@ -449,8 +570,8 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
            quant: Optional[Q.QuantConfig] = None,
            fused_qkv: bool = True) -> torch.Tensor:
     """mel (B, frames, n_mels) → encoder states (B, frames//2, d_model).
-    remat: recompute each half-block in the backward (see the module
-    docstring); attn_impl: "auto" (the attention kernel) or "xla";
+    remat: recompute in the backward what the save points do not keep (see
+    the module docstring); attn_impl: "auto" (the attention kernel) or "xla";
     adapters["encoder"]: q/v adapters of the self-attention.
 
     Where `_fused_qkv_ok` engages (ASR_TPU_FUSED_QKV) and fused_qkv allows
@@ -463,7 +584,10 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
     enc = params["encoder"]
     x = _gelu(_conv1d(mel, enc["conv1"]["w"], enc["conv1"]["b"], 1))
     x = _gelu(_conv1d(x, enc["conv2"]["w"], enc["conv2"]["b"], 2))
-    x = x.to(compute_dtype)
+    # the stem's output is (B, d, T) in memory (a transposed conv output):
+    # the residual stream is made row-major once here, else every product
+    # of a layer norm's output would copy its input to fold it
+    x = x.to(compute_dtype).contiguous()
     x = x + params["encoder_pos"][: x.shape[1]].to(compute_dtype)[None]
     L = cfg.encoder_layers
     las = _layer_adapters(adapters, "encoder", L)
@@ -472,31 +596,19 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
             and _fused_qkv_ok(cfg, x.shape[1], attn_impl, x.device):
         layers = dict(layers, attn_qkv=_fuse_qkv_weights(layers["attn"]),
                       attn={"o": layers["attn"]["o"]})
+    halves = []
     for l, lp in enumerate(_unbind_layers(layers, L)):
-        x = _maybe_remat(_enc_attn_half, remat, x, lp, las[l], cfg.encoder_heads,
-                         attn_impl, dropout, f"enc/{l}", quant)
-        x = _maybe_remat(_mlp_half, remat, x, lp["ln2"], lp["mlp"], quant)
+        halves += [_attn_half_parts(lp["ln1"], lp["attn"], cfg.encoder_heads,
+                                    fused=lp.get("attn_qkv"), impl=attn_impl, lora=las[l],
+                                    dropout=dropout, site=f"enc/{l}", quant=quant),
+                   _mlp_half_parts(lp["ln2"], lp["mlp"], quant)]
+    x = _run_halves(halves, x, remat, _kept_points(remat)[0])
     return layer_norm(x, enc["ln_post"])
 
 
 # ---------------------------------------------------------------------------
 # decoder (teacher-forced / full sequence)
 # ---------------------------------------------------------------------------
-
-def _dec_self_half(x, lp, la, heads: int, impl: str, dropout, site: str, quant):
-    h = layer_norm(x, lp["ln1"])
-    return x + mha(h, h, lp["self_attn"], heads, causal=True, impl=impl,
-                   lora=la.get("self_attn") if la else None, dropout=dropout,
-                   site=site + "/self", quant=quant)
-
-
-def _dec_cross_half(x, enc_out, lp, la, heads: int, impl: str, dropout,
-                    site: str, quant):
-    h = layer_norm(x, lp["ln2"])
-    return x + mha(h, enc_out, lp["cross_attn"], heads, impl=impl,
-                   lora=la.get("cross_attn") if la else None, dropout=dropout,
-                   site=site + "/cross", quant=quant)
-
 
 def decode_train(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
                  cfg: WhisperConfig,
@@ -520,13 +632,17 @@ def decode_train(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
     cross_impl = "auto" if attn_impl == "xla" else attn_impl
     H, L = cfg.decoder_heads, cfg.decoder_layers
     las = _layer_adapters(adapters, "decoder", L)
-    for l, lp in enumerate(_unbind_layers(dec["layers"], L)):
-        site = f"dec/{l}"
-        x = _maybe_remat(_dec_self_half, remat, x, lp, las[l], H, attn_impl,
-                         dropout, site, quant)
-        x = _maybe_remat(_dec_cross_half, remat, x, enc_out, lp, las[l], H,
-                         cross_impl, dropout, site, quant)
-        x = _maybe_remat(_mlp_half, remat, x, lp["ln3"], lp["mlp"], quant)
+    halves = []
+    for l, (lp, la) in enumerate(zip(_unbind_layers(dec["layers"], L), las)):
+        halves += [_attn_half_parts(lp["ln1"], lp["self_attn"], H, causal=True,
+                                    impl=attn_impl, lora=la.get("self_attn") if la else None,
+                                    dropout=dropout, site=f"dec/{l}/self", quant=quant),
+                   _attn_half_parts(lp["ln2"], lp["cross_attn"], H, kv_src=enc_out,
+                                    impl=cross_impl,
+                                    lora=la.get("cross_attn") if la else None,
+                                    dropout=dropout, site=f"dec/{l}/cross", quant=quant),
+                   _mlp_half_parts(lp["ln3"], lp["mlp"], quant)]
+    x = _run_halves(halves, x, remat, _kept_points(remat)[1])
     x = layer_norm(x, dec["ln_post"])
     if return_hidden:
         return x

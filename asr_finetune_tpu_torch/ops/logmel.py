@@ -7,6 +7,8 @@ audio with a (400, 402) cos|sin matrix, power, slaney mel projection,
 log10(max(., 1e-10)), the global (max - 8) floor and (x + 4) / 4. Output is
 time-major (B, 3000, n_mels), the layout the encoder consumes. On the card
 fp32 products stay fp32 (device.resolve_device turns TF32 off).
+`log_mel_np` is the host's float64 form of the same features (one
+utterance, numpy).
 """
 from __future__ import annotations
 
@@ -108,6 +110,24 @@ def log_mel_spectrogram(audio: torch.Tensor, n_mels: int = 80,
         m = log_spec.amax(dim=(1, 2), keepdim=True)
         log_spec = torch.maximum(log_spec, m - 8.0)
     return (log_spec + 4.0) / 4.0
+
+
+def log_mel_np(audio: np.ndarray, n_mels: int = 80) -> np.ndarray:
+    """Host-side float64 log-mel, (samples,) → (3000, n_mels) float32: a copy
+    of the JAX `log_mel_np` (asr_finetune_tpu/ops/logmel.py:144-160), which
+    computes as WhisperFeatureExtractor does. The collator's
+    features="host" (--host_logmel) and the parquet materializer use it."""
+    audio = np.asarray(audio, np.float64)
+    pad = N_FFT // 2
+    padded = np.pad(audio, (pad, pad), mode="reflect")
+    idx = (np.arange(NUM_FRAMES) * HOP)[:, None] + np.arange(N_FFT)[None, :]
+    frames = padded[idx] * hann_window(N_FFT).astype(np.float64)
+    spec = np.fft.rfft(frames, n=N_FFT, axis=-1)
+    power = np.abs(spec) ** 2
+    mel = power @ mel_filter_bank(n_mels=n_mels).astype(np.float64)
+    log_spec = np.log10(np.maximum(mel, 1e-10))
+    log_spec = np.maximum(log_spec, log_spec.max() - 8.0)
+    return (((log_spec + 4.0) / 4.0)).astype(np.float32)
 
 
 def pad_or_trim(audio: np.ndarray, length: int = CHUNK_SAMPLES) -> np.ndarray:

@@ -26,9 +26,11 @@ batch rows each; the optimizer state is ZeRO-split over the ranks and,
 with --offload_optimizer, kept in pinned host memory, as is a PEFT run's
 frozen base with --offload_param (parallel/sharding.py); every rank runs
 the outlier calibration on the same full batch and installs rank 0's sets;
-rank 0 writes the config dump. Not ported, and raising
-NotImplementedError: --spec_augment, --tp > 1, --host_logmel and parquet
-data.
+rank 0 writes the config dump. The features come as raw audio (log-mel
+on the device), as the host's float64 log-mel (--host_logmel), or
+precomputed from parquet shards (the parquet data modes, data/parquet.py;
+they need pyarrow); --spec_augment masks them in training. Not ported,
+and raising NotImplementedError: --tp > 1.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ import torch
 
 from .data.collator import Collator, CollatorConfig
 from .data.modes import get_data_mode
+from .data.parquet import ParquetCollator, ParquetFeatureReader
 from .data.pipeline import DataPipeline, IndexSampler, device_prefetch
 from .device import resolve_device
 from .models import native_io
@@ -157,14 +160,10 @@ def build_model(args, train: bool = False,
 
 
 def _check_pending_training(args) -> None:
-    pending = [flag for flag, on in (
-        ("--spec_augment", args.spec_augment),
-        ("--tp > 1", args.tp > 1),
-        ("--host_logmel", args.host_logmel)) if on]
-    if pending:
+    if args.tp > 1:
         raise NotImplementedError(
-            f"{', '.join(pending)}: not ported yet (the port trains data-parallel, "
-            "one card a process, with log-mel on the device)")
+            "--tp > 1: not ported yet (the port trains data-parallel, one card a "
+            "process)")
 
 
 def _resolve_path(args, name: str) -> str:
@@ -178,14 +177,14 @@ def build_data(args, tokenizer, model_cfg: WhisperConfig, device: torch.device):
     train_iter_factory(start_step) → device batches from that step on;
     eval_batches_fn(shard_id) → the numpy batches of one validation shard."""
     mode = get_data_mode(args.data_mode)
-    if "parquet" in (mode["train"], mode["val"]):
-        raise NotImplementedError(
-            f"--data_mode {args.data_mode}: parquet data is not ported yet")
-    ccfg = CollatorConfig(n_mels=model_cfg.num_mel_bins,
+    ccfg = CollatorConfig(features="host" if args.host_logmel else "audio",
+                          n_mels=model_cfg.num_mel_bins,
                           language=args.target_language, task=args.task)
 
     def make_reader(kind: str, name: str):
         path = _resolve_path(args, name)
+        if kind == "parquet":
+            return ParquetFeatureReader(path)
         if kind == "folder":
             from .data.audiofolder import AudioFolderReader
             return AudioFolderReader(path.split(","))
@@ -206,7 +205,13 @@ def build_data(args, tokenizer, model_cfg: WhisperConfig, device: torch.device):
         n_val = max(int(n_total * args.val_split), 1)
         val_indices, train_indices = perm[:n_val], perm[n_val:]
         val_reader = train_reader
-    collator = Collator(tokenizer, ccfg)
+
+    def make_collator(reader):
+        """Parquet rows carry their features: the reader's collator, which
+        the pipeline also takes as its (pass-through) reader."""
+        if isinstance(reader, ParquetFeatureReader):
+            return ParquetCollator(reader, tokenizer.special.sot, tokenizer.special.pad)
+        return Collator(tokenizer, ccfg)
 
     # eval shards: the validation set in ~eval_sample_fraction chunks
     frac = max(min(args.eval_sample_fraction, 1.0), 1e-6)
@@ -223,9 +228,12 @@ def build_data(args, tokenizer, model_cfg: WhisperConfig, device: torch.device):
                            seed=args.random_seed, lengths=lengths,
                            process_index=mesh.rank(), process_count=mesh.world())
 
+    collator = make_collator(train_reader)
+    rows_of = collator if isinstance(collator, ParquetCollator) else train_reader
+
     class _RemapReader:
         def read(self, idx):
-            return train_reader.read(train_indices[np.asarray(idx, int)])
+            return rows_of.read(train_indices[np.asarray(idx, int)])
 
     pipe = DataPipeline(_RemapReader(), collator, sampler)
 
@@ -239,15 +247,21 @@ def build_data(args, tokenizer, model_cfg: WhisperConfig, device: torch.device):
         -100) and cut from the WER lists by 'n_valid'."""
         idx = np.asarray(shards[shard_id % len(shards)])
         B = args.per_device_eval_batch_size
+        val_collator = make_collator(val_reader)
         out = []
         for i in range(0, len(idx), B):
-            rows = val_reader.read(idx[i: i + B])
-            if not rows:
-                continue
-            n_valid = len(rows)
-            if n_valid < B:
-                rows = [rows[j % n_valid] for j in range(B)]
-            batch = collator(rows)
+            sel = idx[i: i + B]
+            if isinstance(val_collator, ParquetCollator):
+                n_valid = len(sel)
+                rows = np.resize(sel, B)     # the tail repeats the shard's rows
+            else:
+                rows = val_reader.read(sel)
+                if not rows:
+                    continue
+                n_valid = len(rows)
+                if n_valid < B:
+                    rows = [rows[j % n_valid] for j in range(B)]
+            batch = val_collator(rows)
             batch["labels"][n_valid:] = -100
             batch["n_valid"] = n_valid
             out.append(batch)
@@ -279,8 +293,11 @@ def calibrate_outliers(args, built: BuiltModel, step_cfg: TrainStepConfig,
     run.py:380-396) and installs rank 0's sets, so all run one program."""
     from .data.pipeline import to_device
     batch = eval_batches_fn(0)[0]
-    rows = {k: np.asarray(batch[k])[:4] for k in ("audio", "decoder_input_ids", "labels")
-            if k in batch}
+    # "mel" too: a batch of host features (--host_logmel, parquet) has no
+    # "audio" (the JAX filter, run.py:399-400, drops it and its forward
+    # raises KeyError)
+    rows = {k: np.asarray(batch[k])[:4] for k in ("audio", "mel", "decoder_input_ids",
+                                                   "labels") if k in batch}
     estep = make_eval_loss_step(built.cfg, dataclasses.replace(
         step_cfg, remat=False, fused_qkv=False))
     cstate = {"params": state["params"], "adapters": state.get("adapters")}
@@ -327,16 +344,19 @@ def setup_trial(args, hp: Optional[Dict[str, Any]] = None,
         weight_decay=float(hp.get("weight_decay", args.weight_decay)),
         max_grad_norm=args.max_grad_norm, trainable_mask=freeze)
     int8_base = peft and args.load_in_8bit
+    # parquet train data carries precomputed features (JAX run.py:321-332)
+    precomputed = get_data_mode(args.data_mode)["train"] == "parquet"
     step_cfg = TrainStepConfig(
         mode="peft" if peft else "full",
         accum_steps=args.gradient_accumulation_steps,
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
         remat=args.gradient_checkpointing,
         label_smoothing=args.label_smoothing,
-        on_device_logmel=True, n_mels=cfg.num_mel_bins,
+        on_device_logmel=not args.host_logmel and not precomputed,
+        n_mels=cfg.num_mel_bins, spec_augment=args.spec_augment,
         max_steps=args.max_steps, lora=built.lora,
-        # each trial its own lora-dropout stream (JAX run.py:336-339); 7919
-        # (a prime) keeps the trials' streams apart
+        # each trial its own SpecAugment and lora-dropout streams (JAX
+        # run.py:336-339); 7919 (a prime) keeps the trials' streams apart
         seed=args.random_seed + 7919 * trial_index,
         quant=(quant_lib.QuantConfig(matmul=args.int8_matmul,
                                      outlier_cols=args.int8_outlier_cols)

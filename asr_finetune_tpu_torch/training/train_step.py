@@ -5,7 +5,10 @@ Counterpart of asr_finetune_tpu/training/train_step.py (`make_train_state`
 :245):
 
 - the loss: log-mel on the device from raw audio (when the batch carries
-  "audio"), the teacher-forced forward in the compute dtype, then the fused
+  "audio"; a batch of host features, --host_logmel or parquet, carries
+  "mel"), in training SpecAugment on those features (`spec_augment`,
+  ops/spec_augment.py; the eval loss never masks, as the JAX eval passes
+  no rng), the teacher-forced forward in the compute dtype, then the fused
   chunked cross-entropy (ops/fused_ce.py) or `cross_entropy` of the full
   logits;
 - mode "full": fp32 master weights cast at use; gradients land on the
@@ -35,8 +38,9 @@ sum their microbatch token counts first, each back-propagates its share
 local_sum / global_tokens, and the gradients are summed over the ranks,
 so `grad_norm`, the clip and AdaLoRA's mask update see the reduced
 gradients on every rank. AdaLoRA's orth_reg enters the gradients once
-(rank 0's). Lora dropout draws the global batch's masks by row
-(models/whisper.LoraDropout). The metrics are the global batch's.
+(rank 0's). Lora dropout and SpecAugment draw the global batch's masks
+and keep the rank's rows (models/whisper.LoraDropout), so two ranks mask
+as one process does. The metrics are the global batch's.
 
 ZeRO and offload (parallel/sharding.py, `Placement`): each rank holds the
 AdamW moments of its slice of every split leaf (`opt_state["shards"]`),
@@ -45,14 +49,19 @@ the same parameters (or adapters); the moments may live in pinned host
 memory between steps, and a PEFT run's frozen base too, copied to the card
 for the step.
 
+Random streams: each micro-batch i of step s draws from its own
+generators, seeded by (seed, s * accum_steps + i, site), as the JAX step
+folds the step into its key and splits it over micro-batches: SpecAugment
+at site "spec_augment", lora dropout at each projection's site.
+
 Metrics stay on the device: the trainer fetches a whole logging window at
-once. Not ported (their flags raise NotImplementedError in run.py):
-SpecAugment and tensor parallelism.
+once. Not ported (its flag raises NotImplementedError in run.py): tensor
+parallelism.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -61,6 +70,7 @@ from ..models.configs import WhisperConfig
 from ..ops import logmel as logmel_ops
 from ..ops.fused_ce import fused_cross_entropy
 from ..ops.quant import QuantConfig
+from ..ops.spec_augment import spec_augment
 from ..parallel import mesh
 from ..parallel.sharding import Placement
 from . import lora as lora_lib
@@ -75,7 +85,8 @@ class TrainStepConfig:
     compute_dtype: torch.dtype = torch.bfloat16
     remat: bool = True
     label_smoothing: float = 0.0
-    on_device_logmel: bool = False      # batch carries "audio" not "mel"
+    on_device_logmel: bool = False      # train batches carry "audio", not "mel"
+    spec_augment: bool = False          # mask the training features (not eval)
     n_mels: int = 80
     attn_impl: str = "auto"             # encoder: the attention kernel
     decoder_attn_impl: str = "xla"      # causal self-attention stays plain;
@@ -83,7 +94,7 @@ class TrainStepConfig:
     fused_ce: bool = True               # chunked CE; (B, T, V) logits never exist
     max_steps: int = 10000              # AdaLoRA's budget schedule
     lora: Optional[lora_lib.LoraConfig] = None
-    seed: int = 0                       # base of the lora dropout stream
+    seed: int = 0                       # base of the SpecAugment and dropout streams
     quant: Optional[QuantConfig] = None  # how int8 base weights are multiplied
     fused_qkv: bool = True              # the encoder may take the fused-qkv path
                                         # where ASR_TPU_FUSED_QKV engages it
@@ -123,23 +134,43 @@ def make_train_state(params: Params, opt: AdamW, adapters: Optional[Params] = No
 
 
 def _get_mel(batch: Dict[str, torch.Tensor], cfg: TrainStepConfig) -> torch.Tensor:
-    if cfg.on_device_logmel:
+    """The JAX `_get_mel`: the device log-mel of "audio" under
+    on_device_logmel, else the batch's "mel". A batch that carries only the
+    other kind, the validation set of a mixed data mode (val_parquet,
+    parquet_h5, val_h5: the JAX eval raises KeyError there), is read as it
+    comes."""
+    if "audio" in batch and (cfg.on_device_logmel or "mel" not in batch):
         with torch.no_grad():
             return logmel_ops.log_mel_spectrogram(batch["audio"], n_mels=cfg.n_mels)
     return batch["mel"]
 
 
+def spec_augment_stream(seed: int, stream: int, row0: int = 0,
+                        rows: int = 0) -> Callable[[torch.Tensor], torch.Tensor]:
+    """mel → SpecAugment'ed mel, the masks drawn on mel's device from the
+    generator of (seed, stream, "spec_augment"); with rows > 0 those of
+    rows [row0, row0 + B) of a global batch of `rows`."""
+    def augment(mel: torch.Tensor) -> torch.Tensor:
+        g = W.site_generator(seed, stream, "spec_augment", mel.device)
+        return spec_augment(g, mel, rows=rows, row0=row0)
+    return augment
+
+
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             model_cfg: WhisperConfig, cfg: TrainStepConfig,
             adapters: Optional[Params] = None, rank_mask: Optional[Params] = None,
-            dropout: Optional[W.LoraDropout] = None
+            dropout: Optional[W.LoraDropout] = None,
+            augment: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """(mean token loss, num_tokens, orth_reg or None) of one (micro)batch.
-    PEFT: `adapters` with `rank_mask` applied to e in the forward."""
+    PEFT: `adapters` with `rank_mask` applied to e in the forward. augment:
+    SpecAugment of the features (`spec_augment_stream`), in training."""
     peft = cfg.mode == "peft"
     if peft:
         adapters = lora_lib.apply_rank_mask(adapters, rank_mask)
     mel = _get_mel(batch, cfg)
+    if augment is not None:
+        mel = augment(mel)
     out = W.forward(params, mel, batch["decoder_input_ids"].long(), model_cfg,
                     compute_dtype=cfg.compute_dtype, remat=cfg.remat,
                     attn_impl=cfg.attn_impl,
@@ -167,8 +198,9 @@ def compute_grads(params: Params, batch: Dict[str, torch.Tensor],
                   ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
     """Gradients of the loss (plus orth_reg) on every leaf of the params
     (full) or of the adapters (PEFT), in `leaves` order and averaged over
-    microbatches, and the step's metrics. With `step` and a lora dropout
-    rate, PEFT draws dropout masks (one stream per microbatch). In a
+    microbatches, and the step's metrics. With `step`, SpecAugment (when
+    the config asks for it) and PEFT's lora dropout (at a rate above 0)
+    draw their masks, one stream per microbatch. In a
     process group, `batch` is this rank's rows of the global batch and the
     gradients and metrics are the global batch's (module docstring)."""
     peft = cfg.mode == "peft"
@@ -188,13 +220,16 @@ def compute_grads(params: Params, batch: Dict[str, torch.Tensor],
     tok_sum = torch.zeros((), dtype=torch.long)
     reg_sum = None
     for i, mb in enumerate(micro):
-        dropout = None
-        if peft and step is not None and cfg.lora is not None and cfg.lora.dropout > 0:
-            rows = mb["labels"].shape[0]
-            dropout = W.LoraDropout(cfg.lora.dropout, cfg.seed, step * n_micro + i,
-                                    **(dict(row0=rank * rows, rows=world * rows)
-                                       if dp else {}))
-        loss, n, reg = loss_fn(params, mb, model_cfg, cfg, adapters, rank_mask, dropout)
+        dropout = augment = None
+        if step is not None:
+            stream, rows = step * n_micro + i, mb["labels"].shape[0]
+            by_row = dict(row0=rank * rows, rows=world * rows) if dp else {}
+            if peft and cfg.lora is not None and cfg.lora.dropout > 0:
+                dropout = W.LoraDropout(cfg.lora.dropout, cfg.seed, stream, **by_row)
+            if cfg.spec_augment:
+                augment = spec_augment_stream(cfg.seed, stream, **by_row)
+        loss, n, reg = loss_fn(params, mb, model_cfg, cfg, adapters, rank_mask, dropout,
+                               augment)
         if dp:
             loss = loss * share[i]      # this rank's part of the global mean
             n = global_n[i]
@@ -248,7 +283,7 @@ def make_train_step(model_cfg: WhisperConfig, opt: AdamW, cfg: TrainStepConfig,
 
     def full_step(state, batch):
         params = state["params"]
-        grads, metrics = compute_grads(params, batch, model_cfg, cfg)
+        grads, metrics = compute_grads(params, batch, model_cfg, cfg, step=state["step"])
         metrics["grad_norm"] = _update(opt, [p for _, p in leaves(params)], grads,
                                        state["opt_state"])
         for _, p in leaves(params):
@@ -286,8 +321,8 @@ def make_train_step(model_cfg: WhisperConfig, opt: AdamW, cfg: TrainStepConfig,
 
 def make_eval_loss_step(model_cfg: WhisperConfig, cfg: TrainStepConfig):
     """batch → {"loss", "tokens"} without gradients (PEFT: the state's
-    adapters, rank-masked, no dropout), on this process's batch alone: the
-    trainer reduces an evaluation over the ranks."""
+    adapters, rank-masked, no dropout; no SpecAugment), on this process's
+    batch alone: the trainer reduces an evaluation over the ranks."""
     def step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]
              ) -> Dict[str, torch.Tensor]:
         with torch.no_grad():

@@ -106,7 +106,18 @@
    steps and an eval, the same way against phase 7, the base pinned on the
    host and the device memory back after each step; each one JSON line of
    its readings;
-9. one decode step's device time by CUDA kernel, greedy and on each beam
+9. the training options: 9a, `cli.train` at whisper-small,
+   full fine-tuning with --spec_augment at batch 8 (bench.py's full_ft
+   cell), 4 steps, an eval and a checkpoint, after checking the draws on
+   the card (a stream repeats, another differs, widths and starts within
+   the JAX law, no sync and no device-to-host copy in a masking call); 9b,
+   phase 7 with --host_logmel (the collator's float64 log-mel in the
+   prefetch thread, timed; the calibration on a mel batch), its step-1 loss
+   and calibrated columns against phase 7's; 9c, large-v3 full fine-tuning
+   under ASR_TPU_REMAT_SAVE=mid, enc, enc+dec and without remat: bit-equal
+   losses and grad norms on plain attention, then on the kernels ms/step,
+   peak memory and the attention launches of each mode;
+10. one decode step's device time by CUDA kernel, greedy and on each beam
    path, with the launches per step asserted; then the card line again,
    one JSON line `{"kernels": [...]}`, and last `{"ok": true, "device": {...}}`.
 
@@ -1908,8 +1919,24 @@ def kernel_category(name: str) -> str:
     return "elementwise, reductions, copies"
 
 
+def train_w8a8_launches(n_enc: int, n_dec: int, fused_qkv: bool, save: str) -> tuple:
+    """(forward, recompute): the W8A8 launches of a train step's forward
+    and of its backward's recompute, under remat save mode `save`. A forward
+    runs each frozen product once: q, k, v (or the wide q|k|v), o, fc1, fc2
+    of an encoder layer, the self- and cross-attention's q, k, v, o and
+    fc1, fc2 of a decoder layer. "mid" recomputes them all; where a stack's
+    save points are kept ("enc": the encoder, "enc+dec": both) the backward
+    recomputes only the output projections and fc2 (the q/k/v and fc1
+    outputs are kept)."""
+    enc = (4 if fused_qkv else 6) * n_enc
+    dec = 10 * n_dec
+    return enc + dec, ((2 * n_enc if save != "mid" else enc)
+                       + (3 * n_dec if save == "enc+dec" else dec))
+
+
 def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
-                    extra=(), config: str = TRAIN_CONFIG, fused_qkv: bool = False):
+                    extra=(), config: str = TRAIN_CONFIG, fused_qkv: bool = False,
+                    batch: int = B, path: str = "", label: str = ""):
     """Phase 6, the training main path: `asr_finetune_tpu_torch.cli.train`
     with the repo's largev3_debug.config (whisper-large-v3, full fine-tuning,
     batch 4, AdamW b2 0.98, bf16 compute over fp32 master weights, per-layer
@@ -1934,21 +1961,35 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
     calibration stays on the three projections, as the JAX trial's does, so
     it records no (d, 3d) class and the wide product takes the dynamic top-k
     outlier form, which is asserted product by product; the eval decode's
-    merged base is mixed int8/float and keeps the three projections."""
+    merged base is mixed int8/float and keeps the three projections.
+
+    Phases 9a and 9b are the same function with more flags (`batch` the
+    rows a step, `path` the launch column, `label` the printed name): it
+    also counts the SpecAugment draws (one a step with --spec_augment, none
+    in the eval), times the collator's batches in the prefetch thread (with
+    --host_logmel the host log-mel) and the trainer's wait for each batch,
+    and keeps the step-1 loss and the calibrated columns for comparison.
+    Every run keeps the remat save mode of ASR_TPU_REMAT_SAVE (default
+    enc+dec), which the W8A8 count follows (`train_w8a8_launches`)."""
     import os
     import shutil
     import torch
     from torch.profiler import ProfilerActivity, profile
     from asr_finetune_tpu_torch import run as run_lib
     from asr_finetune_tpu_torch.cli import train as train_cli
+    from asr_finetune_tpu_torch.data import collator as collator_lib
     from asr_finetune_tpu_torch.models import whisper as W
     from asr_finetune_tpu_torch.ops import quant as Q
     from asr_finetune_tpu_torch.training import checkpoint as ckpt_lib
+    from asr_finetune_tpu_torch.training import train_step as TS
     from asr_finetune_tpu_torch.training import trainer as trainer_lib
 
     on_card = device == "cuda"
     peft = config == PEFT_CONFIG
     int8_matmul = "--int8_matmul" in extra
+    spec_augment = "--spec_augment" in extra
+    host_logmel = "--host_logmel" in extra
+    remat_mode = W.remat_save()
     tag = next(line.split("=", 1)[1].strip() for line in open(config)
                if line.startswith("output_tag"))
 
@@ -1957,10 +1998,37 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
             torch.cuda.synchronize()
 
     st = {"steps": [], "evals": 0, "dec_steps": 0, "saves": [], "eval_s": 0.0,
-          "calib": None, "outliers": {}}
+          "calib": None, "outliers": {}, "draws": 0, "collate": [], "waits": []}
     orig = (trainer_lib.make_train_step, trainer_lib.make_eval_loss_step,
             W.decode_step_fused, ckpt_lib.CheckpointManager.save,
-            trainer_lib.Trainer.evaluate, run_lib.calibrate_outliers, Q._outlier_split)
+            trainer_lib.Trainer.evaluate, run_lib.calibrate_outliers, Q._outlier_split,
+            TS.spec_augment_stream, collator_lib.Collator.__call__, run_lib.device_prefetch)
+
+    def spec_augment_stream(*a, **k):
+        st["draws"] += 1
+        return orig[7](*a, **k)
+
+    def collate(self, rows_):
+        t0 = time.perf_counter()
+        out = orig[8](self, rows_)
+        st["collate"].append((time.perf_counter() - t0, len(rows_), "mel" in out))
+        return out
+
+    def device_prefetch(*a, **k):
+        """The trainer's wait for each batch: ~0 while the prefetch thread
+        keeps ahead of the steps."""
+        it = orig[9](*a, **k)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    b = next(it)
+                except StopIteration:
+                    return
+                st["waits"].append(time.perf_counter() - t0)
+                yield b
+        finally:
+            it.close()
 
     def outlier_split(x, w_q8, w_scale, cfg):
         """Counts the W8A8 products by (d_in, d_out) class and outlier form."""
@@ -2050,9 +2118,10 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
                 "--output_dir", out_dir, *extra]
         (trainer_lib.make_train_step, trainer_lib.make_eval_loss_step,
          W.decode_step_fused, ckpt_lib.CheckpointManager.save,
-         trainer_lib.Trainer.evaluate, run_lib.calibrate_outliers, Q._outlier_split) = (
+         trainer_lib.Trainer.evaluate, run_lib.calibrate_outliers, Q._outlier_split,
+         TS.spec_augment_stream, collator_lib.Collator.__call__, run_lib.device_prefetch) = (
             make_train_step, make_eval_loss_step, decode_step_fused, save, evaluate,
-            calibrate_outliers, outlier_split)
+            calibrate_outliers, outlier_split, spec_augment_stream, collate, device_prefetch)
         if fused_qkv:
             os.environ["ASR_TPU_FUSED_QKV"] = "1"
         reset_all_launches()
@@ -2065,7 +2134,8 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
             (trainer_lib.make_train_step, trainer_lib.make_eval_loss_step,
              W.decode_step_fused, ckpt_lib.CheckpointManager.save,
              trainer_lib.Trainer.evaluate, run_lib.calibrate_outliers,
-             Q._outlier_split) = orig
+             Q._outlier_split, TS.spec_augment_stream, collator_lib.Collator.__call__,
+             run_lib.device_prefetch) = orig
             os.environ.pop("ASR_TPU_FUSED_QKV", None)
         sync()
         wall = time.perf_counter() - t0
@@ -2083,7 +2153,7 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
         del st["state"], st["before"]
 
     steps = st["steps"]
-    label = ("PEFT main path" if peft else "train main path") + (
+    label = label or ("PEFT main path" if peft else "train main path") + (
         " (fused qkv)" if fused_qkv else "")
     print(f"{label}: cli.train -c {config} {' '.join(extra)}, {model}, {len(steps)} steps, "
           f"wall {wall:.3f} s incl. model init, data, eval and checkpoint; result "
@@ -2095,8 +2165,14 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
     if len(steps) != TRAIN_STEPS or not all(
             np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps):
         raise AssertionError(f"expected {TRAIN_STEPS} steps with finite loss and grad norm")
-    if any(s["shape"] != (B, CROSS_TQ) for s in steps):
-        raise AssertionError(f"labels not at batch {B} x the {CROSS_TQ} bucket")
+    if any(s["shape"] != (batch, CROSS_TQ) for s in steps):
+        raise AssertionError(f"labels not at batch {batch} x the {CROSS_TQ} bucket")
+    if st["draws"] != (TRAIN_STEPS if spec_augment else 0):
+        raise AssertionError(f"{st['draws']} SpecAugment draws in {TRAIN_STEPS} steps "
+                             f"(--spec_augment {spec_augment}); the eval draws none")
+    if not st["collate"] or any(f != host_logmel for _, _, f in st["collate"]):
+        raise AssertionError(f"collated batches carry mel {[f for _, _, f in st['collate']]}"
+                             f", expected {host_logmel} (--host_logmel)")
     frozen = {n: v for n, v in changed.items() if n.startswith("base.")}
     trained = {n: v for n, v in changed.items() if not n.startswith("base.")}
     if not all(v > 0 for v in trained.values()) or any(v != 0 for v in frozen.values()):
@@ -2137,8 +2213,12 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
     # one product and the fused-qkv attention kernels (4 W8A8 per encoder
     # layer); the calibration and the eval decode (a merged, mixed base) keep
     # the three projections and the packed kernel.
+    #
+    # Under the save points ("enc", "enc+dec") the backward recomputes the
+    # attention forward (and so launches it again) but not the kept
+    # products: `train_w8a8_launches`.
     mm = 6 * n_enc + 10 * n_dec
-    mm_step = (4 if fused_qkv else 6) * n_enc + 10 * n_dec
+    mm_step, mm_re = train_w8a8_launches(n_enc, n_dec, fused_qkv, remat_mode)
     calibrated = int(st["calib"] is not None)
     dec = {k + ("_int8" if peft else ""): n_dec * st["dec_steps"] for k in DECODER}
     step_fwd = TRAIN_STEPS * 2 + st["evals"]        # training forwards, remat included
@@ -2148,7 +2228,8 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
         encoder_attention=(step_fwd * (0 if fused_qkv else n_enc) + step_fwd * n_dec
                            + calibrated * (n_enc + n_dec) + st["evals"] * n_enc),
         encoder_attention_bwd=TRAIN_STEPS * ((0 if fused_qkv else n_enc) + n_dec),
-        w8a8=(mm_step * step_fwd + mm * calibrated + st["evals"] * (4 * n_enc + n_dec)
+        w8a8=(mm_step * (TRAIN_STEPS + st["evals"]) + mm_re * TRAIN_STEPS
+              + mm * calibrated + st["evals"] * (4 * n_enc + n_dec)
               if int8_matmul and on_card else 0),
         **enc_fwd, **dec)
     if st["evals"] != 1 or st["dec_steps"] == 0 or calibrated != int8_matmul \
@@ -2166,11 +2247,12 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
               + ", ".join(f"{k[0]} {k[1]}: {n}" for k, n in sorted(st["outliers"].items())))
         if st["calib"] is not None and (d_model, 3 * d_model) in st["calib"]:
             raise AssertionError(f"the calibration recorded the wide class: {st['calib']}")
-        if st["outliers"].get(wide, 0) != (step_fwd * n_enc if fused_qkv else 0):
+        n_wide = (TRAIN_STEPS * (2 if remat_mode == "mid" else 1) + st["evals"]) * n_enc
+        if st["outliers"].get(wide, 0) != (n_wide if fused_qkv else 0):
             raise AssertionError(f"wide products in the dynamic form: "
-                                 f"{st['outliers'].get(wide, 0)} != {step_fwd * n_enc}")
-    record_launches(rows, ("peft" if peft else "train") + ("_fused_qkv" if fused_qkv else ""),
-                    launches)
+                                 f"{st['outliers'].get(wide, 0)} != {n_wide}")
+    record_launches(rows, path or ("peft" if peft else "train")
+                    + ("_fused_qkv" if fused_qkv else ""), launches)
     step_s = float(np.mean([s["s"] for s in steps[1:-1]]))
     usage = np.mean([s["usage"] for s in steps[1:-1]], axis=0)
     tokens = float(np.mean([s["tokens"] for s in steps[1:-1]]))
@@ -2178,7 +2260,16 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
     if st["calib"] is not None:
         print(f"{label}: calibrated outlier columns per (d_in, d_out) class: "
               + ", ".join(f"{k}: {len(v)} {list(v)}" for k, v in sorted(st["calib"].items())))
-    TRAIN_READINGS[label] = {"step_ms": 1e3 * step_s, "peak_gib": peak / 2**30}
+    TRAIN_READINGS[label] = {"step_ms": 1e3 * step_s, "peak_gib": peak / 2**30,
+                             "loss1": steps[0]["loss"],
+                             "calib": {f"{k[0]} x {k[1]}": [int(i) for i in v]
+                                       for k, v in (st["calib"] or {}).items()}}
+    coll = [1e3 * t for t, n, _ in st["collate"] if n == batch]
+    print(f"{label}: remat saves {remat_mode}; {st['draws']} SpecAugment draws; collator "
+          f"({'host log-mel' if host_logmel else 'raw audio'}) {np.mean(coll):.1f} ms a "
+          f"batch of {batch} in the prefetch thread (min {min(coll):.1f}, max "
+          f"{max(coll):.1f}, {len(coll)} batches); the trainer waited "
+          f"{', '.join(f'{1e3 * w:.1f}' for w in st['waits'])} ms for its batches")
     print(f"{label}: {1e3 * step_s:.3f} ms/step end to end (steps 2-3; step 1 "
           f"{1e3 * steps[0]['s']:.3f} ms); {B / step_s:.3f} utterances/s; "
           f"{tokens / step_s:.1f} label tokens/s; peak memory {peak / 2**30:.2f} GiB; "
@@ -2962,6 +3053,252 @@ def offload_path(rows, peft: bool, device: str = "cuda", model: str = "large-v3"
           f"before each step {[round(m / 2**20, 3) for m in kern['memory']]} MiB")
 
 
+# Phase 9, the training options: 9a whisper-small full fine-tuning
+# with SpecAugment at bench.py's full_ft batch; 9b large-v3 PEFT-int8 on host
+# log-mel features; 9c the remat save points
+SMALL_BATCH = 8
+# 9b against phase 7 on the same data: the step-1 loss, relative. Host
+# float64 features differ from the device's fp32 product form by ~1e-5.
+HOST_LOSS_RTOL = 1e-3
+# 9c: steps a run on plain attention (bit equality) and on the kernels
+# (ms/step over the steps after the first), and the kernel runs' step-2
+# loss and grad norms against "mid", relative: the bf16 attention backward
+# adds dq in an order that varies run to run, so on the kernels the
+# modes agree only to that variation (step 1's loss is bit-equal)
+REMAT_STEPS_PLAIN, REMAT_STEPS = 2, 3
+REMAT_KERNEL_RTOL = 1e-3
+
+
+def check_spec_augment_draws(device: str = "cuda"):
+    """9a's draws on the card: one (seed, stream) masks a batch the same way
+    twice and another stream otherwise; widths and starts keep the JAX law
+    over 100,000 rows of each axis; and a masking call at 9a's shape (8 x
+    3000 x 80) makes no synchronising call (torch.cuda's sync debug mode set
+    to raise) and no device-to-host copy (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from asr_finetune_tpu_torch.models import whisper as W
+    from asr_finetune_tpu_torch.ops import spec_augment as SA
+    from asr_finetune_tpu_torch.training import train_step as TS
+
+    dev = torch.device(device)
+    mel = torch.randn((SMALL_BATCH, 3000, 80), generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    a, again, other = (TS.spec_augment_stream(0, s)(mel) for s in (5, 5, 6))
+    if not torch.equal(a, again) or torch.equal(a, other):
+        raise AssertionError("SpecAugment: the same stream drew other masks, or another "
+                             "stream the same")
+    checks = []
+    for length, param in ((80, 27), (3000, 100)):
+        max_w = min(param, length)
+        w, st = SA.draw_spans(W.site_generator(0, 1, f"law{length}", dev), 100_000,
+                              length, max_w, 2)
+        checks += [w.min() == 0, w.max() == max_w,
+                   torch.bincount(w.flatten(), minlength=max_w + 1).gt(0).all(),
+                   (st >= 0).all(), (st < (length - w).clamp(min=1)).all()]
+    ok = torch.stack(checks).cpu()
+    if not bool(ok.all()):
+        raise AssertionError(f"SpecAugment draws break the law: {ok.tolist()}")
+    fn = TS.spec_augment_stream(0, 7)
+    fn(mel)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn(mel)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()})
+    host = [n for n in names if "DtoH" in n or n in ("aten::item", "aten::_local_scalar_dense")]
+    if host:
+        raise AssertionError(f"SpecAugment masking copies to the host: {host}")
+    kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    masked = float((out != mel).float().mean())
+    print(f"SpecAugment on the card: a stream repeats, another differs; widths and starts "
+          f"within the law over 100,000 rows (every width drawn); one masking call of "
+          f"{SMALL_BATCH} x 3000 x 80: {kernels} device events, no sync, no device-to-host "
+          f"copy; {100 * masked:.1f}% of the features masked")
+
+
+def spec_augment_path(rows, device: str = "cuda"):
+    """Phase 9a: `cli.train` with largev3_debug.config at whisper-small
+    (12+12 layers, d 768), full fine-tuning with --spec_augment at batch 8
+    (bench.py's full_ft cell, BASELINE.json's capability config 2), 4 steps,
+    an eval and a checkpoint at step 4, after the draws' own checks on the
+    card (`check_spec_augment_draws`)."""
+    if device == "cuda":
+        check_spec_augment_draws(device)
+    train_main_path(rows, device=device, model="small",
+                    extra=("--spec_augment", "--per_device_train_batch_size", str(SMALL_BATCH),
+                           "--per_device_eval_batch_size", str(SMALL_BATCH)),
+                    batch=SMALL_BATCH, path="spec_augment_small",
+                    label="SpecAugment main path (9a, whisper-small)")
+
+
+def host_logmel_path(rows, device: str = "cuda", model: str = "large-v3"):
+    """Phase 9b: phase 7 (large-v3 PEFT over the int8 base, --int8_matmul)
+    with --host_logmel: the collator makes the float64 log-mel in the
+    prefetch thread and the steps, the calibration and the eval read "mel".
+    Against phase 7 on the same data: the calibrated classes with as many
+    columns each, and the step-1 loss within HOST_LOSS_RTOL."""
+    label = "host log-mel PEFT main path (9b)"
+    train_main_path(rows, device=device, model=model, config=PEFT_CONFIG,
+                    extra=("--int8_matmul", "--host_logmel"), path="host_logmel_peft",
+                    label=label)
+    ours, p7 = TRAIN_READINGS[label], TRAIN_READINGS["PEFT main path"]
+    rel = _rel(ours["loss1"], p7["loss1"])
+    cols = {k: len(v) for k, v in ours["calib"].items()}
+    cols7 = {k: len(v) for k, v in p7["calib"].items()}
+    same = {k: sorted(set(v) & set(p7["calib"].get(k, ()))) == sorted(v)
+            for k, v in ours["calib"].items()}
+    print(f"{label}: step-1 loss {ours['loss1']:.6f} against phase 7's {p7['loss1']:.6f} "
+          f"(relative {rel:.3e}, limit {HOST_LOSS_RTOL}); calibrated columns per class "
+          f"{cols} (phase 7: {cols7}; the same columns: {same}); ms/step "
+          f"{ours['step_ms']:.3f} (phase 7: {p7['step_ms']:.3f}), peak "
+          f"{ours['peak_gib']:.2f} GiB ({p7['peak_gib']:.2f})")
+    if rel > HOST_LOSS_RTOL or cols != cols7:
+        raise AssertionError(f"{label}: step-1 loss or calibration differ from phase 7's")
+
+
+def remat_path(rows, device: str = "cuda", model: str = "large-v3"):
+    """Phase 9c: large-v3 full fine-tuning (largev3_debug.config, batch 4)
+    under ASR_TPU_REMAT_SAVE=mid, enc and enc+dec and with
+    --no-gradient_checkpointing, on phase 6's 20 wavs, no eval, no
+    checkpoint. First on plain attention with deterministic algorithms (as
+    8b; without remat plain attention's probabilities would not fit), 2
+    steps a mode: the losses and grad norms bit-equal across the modes.
+    Then on the kernels, 3 steps a mode: ms/step (steps 2-3), peak device
+    memory, the device memory a training forward leaves allocated for its
+    backward (ordered mid < enc < enc+dec < none), the attention kernels'
+    launches (the forward again in the backward under every remat mode);
+    step 1's loss bit-equal across the modes, step 2's and the grad norms
+    within REMAT_KERNEL_RTOL of "mid"."""
+    import torch
+    from asr_finetune_tpu_torch.models import whisper as W
+    from asr_finetune_tpu_torch.models.configs import get_config
+    from asr_finetune_tpu_torch.training import checkpoint as ckpt_lib
+
+    on_card = device == "cuda"
+    label = "remat save points (9c)"
+    kept: list = []
+
+    def forward(*a, **k):
+        """Device memory a training forward leaves allocated: what the
+        backward will read (its kept tensors) and the output."""
+        before = torch.cuda.memory_allocated() if on_card else 0
+        out = orig_forward(*a, **k)
+        if torch.is_grad_enabled():
+            kept.append((torch.cuda.memory_allocated() if on_card else 0) - before)
+        return out
+
+    cfg = get_config(model)
+    n_attn = cfg.encoder_layers + cfg.decoder_layers
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = f"{tmp}/data"
+        os.makedirs(data)
+        write_audiofolder(data, TRAIN_UTTS)
+        plans = [(m, True) for m in ("mid", "enc", "enc+dec")] + [
+            (m, False) for m in ("mid", "enc", "enc+dec", "none")]
+        for mode, exact in plans:
+            steps = REMAT_STEPS_PLAIN if exact else REMAT_STEPS
+            argv = ["-c", TRAIN_CONFIG, "--model_type", model, "--device", device,
+                    "--no-debug", "--data_mode", "folder", "--dataset_name", data,
+                    "--val_split", "0.2", "--max_steps", str(steps), "--eval_steps", str(steps),
+                    "--save_steps", str(steps), "--logging_steps", str(steps),
+                    "--eval_delay", str(steps + 1), "--output_dir", f"{tmp}/{len(runs)}",
+                    *(("--no-gradient_checkpointing",) if mode == "none" else ())]
+            orig_save, orig_forward = ckpt_lib.CheckpointManager.save, W.forward
+            ckpt_lib.CheckpointManager.save = lambda *a, **k: False   # phase 6 writes one
+            W.forward = forward
+            kept.clear()
+            if mode != "none":
+                os.environ["ASR_TPU_REMAT_SAVE"] = mode
+            if exact:
+                os.environ["ASR_TPU_ATTN_IMPL"] = "xla"
+                torch.use_deterministic_algorithms(True, warn_only=True)
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            reset_all_launches()
+            try:
+                _, rec = _recorded_run(argv)
+            finally:
+                ckpt_lib.CheckpointManager.save, W.forward = orig_save, orig_forward
+                torch.use_deterministic_algorithms(False)
+                for k in ("ASR_TPU_REMAT_SAVE", "ASR_TPU_ATTN_IMPL"):
+                    os.environ.pop(k, None)
+            runs[(mode, exact)] = {
+                "losses": [s["loss"] for s in rec["steps"]],
+                "grad_norms": [s["grad_norm"] for s in rec["steps"]],
+                "ms": 1e3 * float(np.mean([s["s"] for s in rec["steps"][1:]])),
+                "peak": torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0,
+                "kept": max(kept) / 2**30, "launches": all_launches()}
+            del rec["state"], rec
+            if on_card:
+                torch.cuda.empty_cache()
+
+    plain = {m: r for (m, e), r in runs.items() if e}
+    kern = {m: r for (m, e), r in runs.items() if not e}
+    reading = {"phase": "9c", "model": model, "steps": {"plain": REMAT_STEPS_PLAIN,
+                                                        "kernels": REMAT_STEPS},
+               "plain": {m: {"losses": r["losses"], "grad_norms": r["grad_norms"],
+                             "ms_per_step": r["ms"], "peak_gib": r["peak"]}
+                         for m, r in plain.items()},
+               "kernels": {m: {"losses": r["losses"], "grad_norms": r["grad_norms"],
+                               "ms_per_step": r["ms"], "peak_gib": r["peak"],
+                               "forward_kept_gib": r["kept"],
+                               "launches": {k: v for k, v in r["launches"].items() if v}}
+                           for m, r in kern.items()}}
+    print(json.dumps(reading))
+    for m, r in kern.items():
+        print(f"{label}, {m}: {r['ms']:.3f} ms/step (steps 2-{REMAT_STEPS}), peak "
+              f"{r['peak']:.2f} GiB, a forward leaves {r['kept']:.2f} GiB for the "
+              f"backward, attention forward {r['launches']['encoder_attention']} "
+              f"and backward {r['launches']['encoder_attention_bwd']} launches; losses "
+              f"{r['losses']}; plain attention: "
+              + (f"{plain[m]['ms']:.3f} ms/step, peak {plain[m]['peak']:.2f} GiB"
+                 if m in plain else "not run (plain attention without remat would not fit)"))
+    if on_card:
+        for what in ("kept", "peak"):
+            print(f"{label}: {what} over mid, " + ", ".join(
+                f"{m} {kern[m][what] - kern['mid'][what]:+.2f} GiB"
+                for m in ("enc", "enc+dec", "none")))
+    if any(len(r["losses"]) != (REMAT_STEPS_PLAIN if e else REMAT_STEPS)
+           or not all(np.isfinite(r["losses"] + r["grad_norms"])) for (_, e), r in runs.items()):
+        raise AssertionError(f"{label}: a run has missing or non-finite steps")
+    ref = plain["mid"]
+    if any((r["losses"], r["grad_norms"]) != (ref["losses"], ref["grad_norms"])
+           for r in plain.values()):
+        raise AssertionError(f"{label}: on plain attention the modes' losses or grad norms "
+                             "differ")
+    k0 = kern["mid"]
+    for m, r in kern.items():
+        if r["losses"][0] != k0["losses"][0] or any(
+                _rel(a, b) > REMAT_KERNEL_RTOL
+                for a, b in zip(r["losses"] + r["grad_norms"], k0["losses"] + k0["grad_norms"])):
+            raise AssertionError(f"{label}: on the kernels {m} differs from mid beyond "
+                                 f"{REMAT_KERNEL_RTOL}")
+        fwd = REMAT_STEPS * n_attn * (1 if m == "none" else 2)
+        got = (r["launches"]["encoder_attention"], r["launches"]["encoder_attention_bwd"])
+        if on_card and got != (fwd, REMAT_STEPS * n_attn):
+            raise AssertionError(f"{label}: {m} launched the attention {got}, expected "
+                                 f"{(fwd, REMAT_STEPS * n_attn)}")
+        if on_card:
+            record_launches(rows, f"remat_{m}", r["launches"])
+    # what a forward keeps grows with the save points; the peak, reached in
+    # the encoder's backward once the decoder's kept tensors are freed, does
+    # not tell enc from enc+dec
+    if on_card and not (kern["mid"]["kept"] < kern["enc"]["kept"] < kern["enc+dec"]["kept"]
+                        < kern["none"]["kept"]):
+        raise AssertionError(f"{label}: kept memory not ordered mid < enc < enc+dec < none")
+    if on_card and not (kern["mid"]["peak"] < min(kern["enc"]["peak"], kern["enc+dec"]["peak"])
+                        <= max(kern["enc"]["peak"], kern["enc+dec"]["peak"])
+                        < kern["none"]["peak"]):
+        raise AssertionError(f"{label}: peaks not ordered mid < enc, enc+dec < none")
+
+
 def step_breakdown():
     """One whisper-large-v3 decode step at batch 4 (bf16, cache 128 at pos
     63), greedy and on each beam path (4 x 4 hypothesis rows over cross K/V
@@ -3112,6 +3449,9 @@ def main() -> int:
     dp_main_path(rows)
     offload_path(rows, peft=False)
     offload_path(rows, peft=True)
+    spec_augment_path(rows)
+    host_logmel_path(rows)
+    remat_path(rows)
     step_breakdown()
     print(json.dumps({"step_device_ms": STEP_DEVICE}))
     for k in ("fused_mlp", "fused_mlp_int8", "fused_qkv", "fused_qkv_int8"):   # every row count

@@ -5,7 +5,8 @@
 
 Joins the group from the JAX names (parallel/mesh.py), then, on this rank's
 rows of the test's global batches (<work>/inputs.npz, <work>/spec.json):
-full fine-tuning and PEFT AdaLoRA steps (lora dropout off and on); a
+full fine-tuning steps (SpecAugment off and on) and PEFT AdaLoRA steps
+(lora dropout off and on); a
 two-trial `cli.train_hyper`; and `cli.train --resume_training` from a
 one-process checkpoint, checking that each rank restored its slice of the
 saved moments. Writes <work>/rank<r>.json and rank<r>.npz. Imports no JAX:
@@ -42,12 +43,13 @@ def tree(arrays, prefix: str):
 
 
 def run_steps(arrays, small: dict, kind: str, n_steps: int, rows=None):
-    """`n_steps` train steps of `kind` ("full", "peft" or "peft_dropout")
+    """`n_steps` train steps of `kind` ("full", "full_spec_augment", "peft"
+    or "peft_dropout")
     on the global batches batch<i> of the npz, or on their rows [lo, hi)
     (`rows`: this rank's in a group). Returns (metrics per step, the
     trained trees as numpy, the optimizer moments' shapes)."""
     cfg = WhisperConfig(**small)
-    peft = kind != "full"
+    peft = kind.startswith("peft")
     if peft:
         lcfg = TL.LoraConfig(rank=4, alpha=8.0, dropout=0.1 if kind == "peft_dropout" else 0.0,
                              adalora=True, delta_t=1)
@@ -60,7 +62,8 @@ def run_steps(arrays, small: dict, kind: str, n_steps: int, rows=None):
     else:
         opt = TO.make_optimizer(LR, 10, **OPT_KW)
         state = TTS.make_train_state(tree(arrays, "full"), opt)
-        step_cfg = TTS.TrainStepConfig(compute_dtype=torch.float32, remat=False)
+        step_cfg = TTS.TrainStepConfig(compute_dtype=torch.float32, remat=False,
+                                       spec_augment=kind == "full_spec_augment", seed=5)
     step = TTS.make_train_step(cfg, opt, step_cfg)
     metrics = []
     for i in range(n_steps):
@@ -107,7 +110,7 @@ def main(work: str) -> None:
     B = arrays["batch0/labels"].shape[0]
     rows = (r * B // w, (r + 1) * B // w)
     saved = {}
-    for kind in ("full", "peft", "peft_dropout"):
+    for kind in ("full", "full_spec_augment", "peft", "peft_dropout"):
         metrics, trees, shapes = run_steps(arrays, spec["small"], kind, spec["n_steps"], rows)
         out[kind] = {"metrics": metrics, "moment_shapes": shapes}
         for t, flat in trees.items():

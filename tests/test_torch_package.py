@@ -81,18 +81,15 @@ def test_build_plan():
 
 
 def test_pending_model_options_raise():
-    """The options of paths not ported yet raise before a run starts
-    (--peft and --load_in_8bit are ported and build: tests/test_torch_peft.py;
-    beams and --decode_kv_int8 are served: tests/test_torch_evaluate.py;
-    --offload_param and --offload_optimizer run:
-    tests/test_torch_parallel.py)."""
+    """The one option of a path not ported yet, --tp > 1, raises before a
+    run starts; --spec_augment and --host_logmel pass the check and train
+    (tests/test_torch_train_cli.py::test_options_not_ported_raise), as do
+    --peft and --load_in_8bit (tests/test_torch_peft.py), --offload_param
+    and --offload_optimizer (tests/test_torch_parallel.py)."""
     from asr_finetune_tpu_torch import config, run
-    for flag, named in (("--tp=2", "--tp > 1"), ("--spec_augment", "--spec_augment"),
-                        ("--host_logmel", "--host_logmel")):
-        args = config.parse_args(["--model_type", "test-nano", "--device", "cpu",
-                                  "--peft", "--load_in_8bit", flag])
-        with pytest.raises(NotImplementedError, match=named):
-            run._check_pending_training(args)
-    args = config.parse_args(["--model_type", "test-nano", "--device", "cpu", "--peft",
-                              "--load_in_8bit", "--offload_param", "--offload_optimizer"])
-    run._check_pending_training(args)
+    base = ["--model_type", "test-nano", "--device", "cpu", "--peft", "--load_in_8bit"]
+    with pytest.raises(NotImplementedError, match="--tp > 1"):
+        run._check_pending_training(config.parse_args(base + ["--tp=2"]))
+    for flags in (["--spec_augment"], ["--host_logmel"],
+                  ["--offload_param", "--offload_optimizer"]):
+        run._check_pending_training(config.parse_args(base + flags))

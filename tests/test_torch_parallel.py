@@ -238,7 +238,7 @@ def dp(tmp_path_factory):
                                 lora=lcfg, max_steps=worker.MAX_STEPS), batches)
         npz = np.load(root / "inputs.npz")
         out["one_process"] = {kind: worker.run_steps(npz, SMALL, kind, N_STEPS)
-                              for kind in ("peft", "peft_dropout")}
+                              for kind in ("full_spec_augment", "peft", "peft_dropout")}
     finally:
         logs = _communicate(workers, "worker") + _communicate([torchrun], "torchrun")
     out["ranks"] = [json.loads((root / f"rank{r}.json").read_text()) for r in range(2)]
@@ -312,6 +312,25 @@ def test_two_rank_peft_adalora_step_equals_jax_data_parallel(dp):
 
 
 # ------------------------------------------------------------------ (b)
+
+def test_spec_augment_two_ranks_equal_one_process(dp):
+    """Full fine-tuning with SpecAugment: each rank draws the global batch's
+    masks and keeps its rows, so two ranks of 2 rows mask as one process of
+    4 does: loss rtol 1e-6, grad_norm rtol 1e-5 and parameters atol 2e-6 as
+    the PEFT comparisons below; and the masks moved the loss."""
+    metrics, trees, _ = dp["one_process"]["full_spec_augment"]
+    for r, rank in enumerate(dp["ranks"]):
+        for i, (ours, ref) in enumerate(zip(rank["full_spec_augment"]["metrics"], metrics)):
+            _close(ours["loss"], ref["loss"], f"rank {r} step {i} loss", rtol=1e-6)
+            _close(ours["grad_norm"], ref["grad_norm"], f"rank {r} step {i}", rtol=1e-5)
+            assert ours["tokens"] == ref["tokens"]
+        assert rank["full_spec_augment"]["metrics"][0]["loss"] != \
+            rank["full"]["metrics"][0]["loss"]
+    for r, arrays in enumerate(dp["rank_arrays"]):
+        for k, v in trees["params"].items():
+            _close(arrays[f"full_spec_augment/params/{k}"], v, f"rank {r} {k}", rtol=0,
+                   atol=2e-6)
+
 
 @pytest.mark.parametrize("kind", ["peft", "peft_dropout"])
 def test_two_ranks_equal_one_process_on_the_global_batch(dp, kind):

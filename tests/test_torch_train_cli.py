@@ -3,8 +3,9 @@ against the JAX package.
 
 `python -m asr_finetune_tpu_torch.cli.train --device cpu` on a tiny
 synthetic audiofolder (test-nano, byte-fallback labels, batch 2): steps,
-an eval with WER, checkpoints, step-exact resume; the options that are not
-ported raise (PEFT and the int8 base are ported:
+an eval with WER, checkpoints, step-exact resume; SpecAugment, host
+log-mel and the parquet data modes train, --tp > 1 raises (PEFT and the
+int8 base are ported:
 tests/test_torch_peft_cli.py; beam-search eval and int8 cross-KV:
 tests/test_torch_evaluate.py); without --device cpu the entry point raises
 on a machine with no card; with --bf16 the trained weights stay fp32
@@ -142,14 +143,47 @@ def test_train_cli_without_device_cpu_raises_here(folder, tmp_path):
         train_cli.main(_argv(folder, tmp_path, device=()))
 
 
+@pytest.fixture(scope="module")
+def features(folder, tmp_path_factory):
+    """The audiofolder's rows as an HDF5 file (the JAX writer) and as parquet
+    feature shards materialized from it by the port."""
+    from asr_finetune_tpu.data.hdf5 import write_hdf5_dataset
+    from asr_finetune_tpu_torch.data.audiofolder import AudioFolderReader
+    from asr_finetune_tpu_torch.data.hdf5 import Hdf5AudioReader
+    from asr_finetune_tpu_torch.data.parquet import materialize_hdf5_to_parquet
+    d = tmp_path_factory.mktemp("features")
+    reader = AudioFolderReader([folder])
+    rows = reader.read(range(len(reader)))
+    write_hdf5_dataset(str(d / "data.h5"), [a for _, a, _ in rows], [t for _, _, t in rows])
+    h5 = Hdf5AudioReader(str(d / "data.h5"))
+    materialize_hdf5_to_parquet(h5, TT.load_tokenizer(), str(d / "pq"), n_mels=80,
+                                shard_size=4)
+    h5.close()
+    return {"h5": str(d / "data.h5"), "pq": str(d / "pq")}
+
+
 @pytest.mark.parametrize("flag", [("--spec_augment",), ("--host_logmel",),
                                   ("--tp", "2"), ("--data_mode", "parquet"),
                                   ("--data_mode", "val_parquet")])
-def test_options_not_ported_raise(folder, tmp_path, flag):
-    """The options still to port raise (the offload flags run:
+def test_options_not_ported_raise(folder, features, tmp_path, flag):
+    """The options that were still to port: of them only --tp > 1 raises
+    now. --spec_augment, --host_logmel and the parquet modes (parquet:
+    train and validation from the shards; val_parquet: HDF5 train, parquet
+    validation) each train two steps and evaluate (the offload flags run:
     tests/test_torch_parallel.py)."""
-    with pytest.raises(NotImplementedError):
-        train_cli.main(_argv(folder, tmp_path, *flag))
+    if flag[0] == "--tp":
+        with pytest.raises(NotImplementedError, match="--tp"):
+            train_cli.main(_argv(folder, tmp_path, *flag))
+        return
+    data = {"parquet": ("--dataset_name", features["pq"]),
+            "val_parquet": ("--dataset_name", features["h5"],
+                            "--val_dataset_name", features["pq"])}.get(flag[-1], ())
+    result = train_cli.main(_argv(folder, tmp_path, *flag, *data))
+    assert result["final_step"] == 2
+    recs = _records(tmp_path)
+    assert all(np.isfinite(r["loss"]) for r in recs if "grad_norm" in r)
+    (ev,) = [r for r in recs if "eval_loss_wer" in r]
+    assert np.isfinite(ev["eval_loss"]) and ev["eval_wer"] >= 0.0
 
 
 def test_bf16_training_keeps_fp32_masters(folder, tmp_path):
@@ -170,14 +204,21 @@ def test_bf16_training_keeps_fp32_masters(folder, tmp_path):
     assert served["encoder"]["layers"]["ln1"]["scale"].dtype == torch.float32
 
 
-def test_collator_matches_jax():
+@pytest.mark.parametrize("features", ["audio", "host"])
+def test_collator_matches_jax(features):
+    """Raw audio, or the host float64 log-mel (--host_logmel) as "mel" and
+    no "audio": bit-equal to the JAX collator's batch."""
     rng = np.random.default_rng(1)
     rows = [(i, rng.standard_normal(int(16000 * s)).astype(np.float32), t)
             for i, (s, t) in enumerate(zip((0.7, 31.0, 2.5), TEXTS[:2] + ["x" * 60]))]
-    ours = TC.Collator(TT.load_tokenizer(), TC.CollatorConfig(n_mels=80))(rows)
-    ref = JC.Collator(JT.load_tokenizer(), JC.CollatorConfig(n_mels=80))(rows)
+    ours = TC.Collator(TT.load_tokenizer(), TC.CollatorConfig(features=features,
+                                                              n_mels=80))(rows)
+    ref = JC.Collator(JT.load_tokenizer(), JC.CollatorConfig(features=features,
+                                                             n_mels=80))(rows)
     assert ours["labels"].shape == (3, 96)               # 60 bytes + prefix → bucket 96
-    for k in ("decoder_input_ids", "labels", "idx", "audio"):
+    feat = "audio" if features == "audio" else "mel"
+    assert sorted(ours) == sorted(ref) and feat in ours
+    for k in ("decoder_input_ids", "labels", "idx", feat):
         np.testing.assert_array_equal(ours[k], np.asarray(ref[k]), err_msg=k)
     assert list(ours["text"]) == list(ref["text"])
 

@@ -2,7 +2,8 @@
 train steps (AdamW, clipping, fused CE) of asr_finetune_tpu_torch against
 the JAX package's jitted `make_train_step`, from the same weights (carried
 by params_from_numpy) and the same numpy batch, at fp32 on the CPU; and the
-port's own invariants: remat changes no gradient, gradient accumulation
+port's own invariants: remat changes no gradient under any save-point
+mode (full and PEFT), gradient accumulation
 equals the full batch, attention through the kernel path equals plain
 attention."""
 import dataclasses
@@ -127,12 +128,41 @@ def _grads(tcfg, flat, batch, **cfg):
     return [g.clone() for g in grads], m
 
 
-def test_remat_changes_no_gradient(small):
+def _peft_grads(tcfg, flat, batch, **cfg):
+    """Adapter gradients of one PEFT step over the int8 base, every frozen
+    product W8A8 (its plain version), lora dropout 0.1 at step 3; b drawn
+    nonzero so that every adapter leaf has a gradient."""
+    from asr_finetune_tpu_torch.ops import quant as TQ
+    from asr_finetune_tpu_torch.training import lora as TL
+    base = TQ.quantize_tree_int8(_tparams(flat))
+    lcfg = TL.LoraConfig(rank=4, alpha=8.0, dropout=0.1)
+    g = torch.Generator()
+    g.manual_seed(5)
+    ad = TL.init_adapters(g, tcfg, lcfg, encoder=True)
+    for _, t in TO.leaves(ad):
+        if t.dim() == 3 and not t.any():
+            t.normal_(0.0, 0.02, generator=g)
+    TTS.make_train_state(base, TO.make_optimizer(LR, 10), ad)
+    grads, m = TTS.compute_grads(base, batch, tcfg, TTS.TrainStepConfig(
+        mode="peft", compute_dtype=torch.float32, lora=lcfg,
+        quant=TQ.QuantConfig(matmul=True), **cfg), ad, step=3)
+    return [g.clone() for g in grads], m
+
+
+@pytest.mark.parametrize("mode", ["mid", "enc", "enc+dec"])
+@pytest.mark.parametrize("kind", ["full", "peft"])
+def test_remat_changes_no_gradient(small, monkeypatch, kind, mode):
+    """Remat under each ASR_TPU_REMAT_SAVE against no remat: the same loss
+    and the same gradient bits (the autograd graph is the same; only what
+    the backward recomputes differs)."""
     *_, tcfg, _, flat = small
     b = _torch_batch(_batch(20))
-    g0, m0 = _grads(tcfg, flat, b, remat=False)
-    g1, m1 = _grads(tcfg, flat, b, remat=True)
+    grads = _grads if kind == "full" else _peft_grads
+    g0, m0 = grads(tcfg, flat, b, remat=False)
+    monkeypatch.setenv("ASR_TPU_REMAT_SAVE", mode)
+    g1, m1 = grads(tcfg, flat, b, remat=True)
     assert float(m0["loss"]) == float(m1["loss"])
+    assert any(bool(g.any()) for g in g1)
     for a, c in zip(g0, g1):
         torch.testing.assert_close(a, c, rtol=0, atol=0)
 
