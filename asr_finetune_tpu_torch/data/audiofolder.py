@@ -103,3 +103,18 @@ class AudioFolderReader:
             except Exception as e:  # noqa: BLE001 — drop bad rows like hdf5.py
                 logger.warning("dropping bad wav %s: %s", path, e)
         return out
+
+
+def train_val_test_split(n: int, seed: int, test_split: float = 0.2,
+                         val_split: float = 0.1
+                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The reference's split scheme (JAX data/audiofolder.py): test_split
+    off the top of a seeded permutation of range(n), then val_split of the
+    rest; returns (train, val, test) indices."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)
+    n_test = int(n * test_split)
+    test = perm[:n_test]
+    rest = perm[n_test:]
+    n_val = int(len(rest) * val_split)
+    return rest[n_val:], rest[:n_val], test

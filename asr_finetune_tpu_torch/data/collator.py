@@ -6,12 +6,10 @@ A copy of asr_finetune_tpu/data/collator.py for the port:
 - the leading <|startoftranscript|> stripped when every row begins with it
   (the shifted decoder inputs re-add it);
 - decoder inputs: sot, then the labels shifted right, pad-filled;
-- raw audio out, padded or trimmed to the 30 s window (log-mel runs on the
-  device), or with `features="host"` (--host_logmel) the host's float64
-  log-mel of that window as "mel" (ops/logmel.log_mel_np) and no "audio".
-
-The JAX package's optional C++ batch assembly (utils/native_ext) is not
-carried over: audio goes through the numpy `pad_or_trim`.
+- raw audio out, padded or trimmed to the 30 s window by the host C++ path
+  (utils/native_ext.assemble_batch; log-mel runs on the device), or with
+  `features="host"` (--host_logmel) the host's float64 log-mel of that
+  window as "mel" (ops/logmel.log_mel_np) and no "audio".
 """
 from __future__ import annotations
 
@@ -22,6 +20,7 @@ import numpy as np
 
 from ..models.tokenizer import WhisperTokenizerBase
 from ..ops import logmel as logmel_ops
+from ..utils import native_ext
 
 IGNORE_ID = -100
 LABEL_BUCKETS = (48, 96, 192, 448)
@@ -60,8 +59,7 @@ class Collator:
         cfg = self.cfg
         sp = self.tokenizer.special
         B = len(rows)
-        audio = np.stack([logmel_ops.pad_or_trim(np.asarray(a, np.float32))
-                          for _, a, _ in rows])
+        audio = native_ext.assemble_batch([a for _, a, _ in rows], logmel_ops.CHUNK_SAMPLES)
         label_lists: List[List[int]] = [
             self.tokenizer.build_labels(t, cfg.language, cfg.task)[: cfg.max_label_len]
             for _, _, t in rows

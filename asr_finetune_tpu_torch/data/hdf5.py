@@ -73,3 +73,41 @@ class Hdf5AudioReader:
         if self._file is not None:
             self._file.close()
             self._file = None
+
+
+def write_hdf5_dataset(path: str, audios: Sequence[np.ndarray],
+                       transcripts: Sequence[str]) -> None:
+    """Write rows in the layout Hdf5AudioReader (and the JAX package's
+    reader) reads: `audio` as variable-length float32, `transcription` as
+    UTF-8 strings."""
+    import h5py
+    if len(audios) != len(transcripts):
+        raise ValueError(f"{len(audios)} audios vs {len(transcripts)} transcripts")
+    with h5py.File(path, "w") as f:
+        vlen_f32 = h5py.special_dtype(vlen=np.dtype("float32"))
+        ds = f.create_dataset("audio", (len(audios),), dtype=vlen_f32)
+        for i, a in enumerate(audios):
+            ds[i] = np.asarray(a, np.float32)
+        text_dt = h5py.string_dtype(encoding="utf-8")
+        f.create_dataset("transcription", data=list(transcripts), dtype=text_dt)
+
+
+def make_synthetic_dataset(path: str, n: int = 32, seed: int = 0,
+                           min_sec: float = 1.0, max_sec: float = 8.0,
+                           sample_rate: int = 16000) -> None:
+    """n seeded utterances (a mixture of three sines and a little noise)
+    with pseudo-German transcripts; the same rows as the JAX package's
+    make_synthetic_dataset for the same arguments."""
+    rng = np.random.default_rng(seed)
+    words = ["der", "die", "das", "und", "haus", "hund", "katze", "läuft",
+             "springt", "heute", "morgen", "zeit", "geschichte", "erinnerung"]
+    audios, texts = [], []
+    for _ in range(n):
+        dur = rng.uniform(min_sec, max_sec)
+        t = np.arange(int(dur * sample_rate)) / sample_rate
+        freqs = rng.uniform(80, 2000, size=3)
+        sig = sum(np.sin(2 * np.pi * f * t) * rng.uniform(0.05, 0.3) for f in freqs)
+        sig += rng.standard_normal(t.shape) * 0.01
+        audios.append(sig.astype(np.float32))
+        texts.append(" ".join(rng.choice(words, rng.integers(2, 9))))
+    write_hdf5_dataset(path, audios, texts)

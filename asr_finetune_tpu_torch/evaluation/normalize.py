@@ -6,6 +6,8 @@ so WER numbers are comparable.
 """
 from __future__ import annotations
 
+from typing import Iterable, List
+
 _REMOVE = "!?.,;"
 _TABLE = str.maketrans("", "", _REMOVE)
 
@@ -13,3 +15,6 @@ _TABLE = str.maketrans("", "", _REMOVE)
 def normalize(text: str) -> str:
     return text.strip().lower().translate(_TABLE)
 
+
+def normalize_batch(texts: Iterable[str]) -> List[str]:
+    return [normalize(t) for t in texts]

@@ -1,14 +1,17 @@
 """Word error rate (a copy of asr_finetune_tpu/evaluation/wer.py).
 
 Corpus WER = (S + D + I) / N over whitespace-tokenized words, by word-level
-Levenshtein alignment (two-row dynamic programming). The JAX package's
-optional C++ fast path (utils/native_ext) is not carried over.
+Levenshtein alignment (two-row dynamic programming) in the host C++ path
+(utils/native_ext, built with g++ at first use; no Python fallback).
+`_edit_distance` is the plain Python version the tests hold it to.
 """
 from __future__ import annotations
 
-from typing import Iterable, Sequence
+from typing import Iterable, Sequence, Tuple
 
 import numpy as np
+
+from ..utils import native_ext
 
 
 def _edit_distance(ref: Sequence[str], hyp: Sequence[str]) -> int:
@@ -30,6 +33,12 @@ def _edit_distance(ref: Sequence[str], hyp: Sequence[str]) -> int:
     return int(prev[n])
 
 
+def _pair_counts(reference: str, hypothesis: str) -> Tuple[int, int]:
+    """(errors, reference words) of one pair."""
+    ref_words = reference.split()
+    return native_ext.edit_distance_words(ref_words, hypothesis.split()), len(ref_words)
+
+
 def wer(references: Iterable[str], hypotheses: Iterable[str]) -> float:
     """Corpus WER: sum of errors over sum of reference words (jiwer's
     corpus aggregation)."""
@@ -37,11 +46,7 @@ def wer(references: Iterable[str], hypotheses: Iterable[str]) -> float:
     hyps = list(hypotheses)
     if len(refs) != len(hyps):
         raise ValueError(f"length mismatch: {len(refs)} refs vs {len(hyps)} hyps")
-    errors = total = 0
-    for r, h in zip(refs, hyps):
-        rw = r.split()
-        errors += _edit_distance(rw, h.split())
-        total += len(rw)
+    errors, total = native_ext.corpus_wer(refs, hyps)
     if total == 0:
         raise ValueError("no reference words; WER undefined")
     return errors / total

@@ -43,7 +43,9 @@ def params_from_numpy(flat: Dict[str, np.ndarray], device,
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        t = torch.from_numpy(np.array(a))    # a copy: the source may be read-only
+        # a row-major copy: the source may be read-only, and HF's converted
+        # weights are transposed views that the kernels refuse
+        t = torch.from_numpy(np.array(a, order="C"))
         if t.is_floating_point():
             t = t.to(dtype)
         node[parts[-1]] = t.to(device)

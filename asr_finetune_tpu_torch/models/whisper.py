@@ -646,9 +646,10 @@ def decode_train(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
     x = layer_norm(x, dec["ln_post"])
     if return_hidden:
         return x
-    # tied output projection; logits in fp32 for a stable softmax/loss
-    return torch.matmul(x.float(),
-                        tied_logits_weight(dec["embed"], compute_dtype).t())
+    # tied output projection; logits in fp32 (fp64 under fp64 compute) for
+    # a stable softmax/loss
+    w = tied_logits_weight(dec["embed"], compute_dtype)
+    return torch.matmul(x.to(w.dtype), w.t())
 
 
 def forward(params: Params, mel: torch.Tensor, tokens: torch.Tensor,
@@ -740,11 +741,12 @@ def _cross_kv_layer(cross_kv: Params, l: int, dtype: torch.dtype
 
 def tied_logits_weight(embed: torch.Tensor,
                        compute_dtype: torch.dtype) -> torch.Tensor:
-    """The tied output projection (V, d) as fp32 values of the embedding
-    rounded to the compute dtype: an fp32 product with it is the JAX einsum
-    of compute-dtype operands with fp32 accumulation and output (rounding
-    the logits to bf16 would change argmax ties)."""
-    return embed.to(compute_dtype).float()
+    """The tied output projection (V, d) as fp32 values (fp64 under fp64
+    compute) of the embedding rounded to the compute dtype: an fp32 product
+    with it is the JAX einsum of compute-dtype operands with fp32
+    accumulation and output (rounding the logits to bf16 would change
+    argmax ties)."""
+    return embed.to(compute_dtype).to(_acc(compute_dtype))
 
 
 def _embed(dec: Params, token: torch.Tensor, pos: int,

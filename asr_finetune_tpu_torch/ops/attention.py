@@ -61,10 +61,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = False, impl: str = "auto") -> torch.Tensor:
     """(B, T, H, hd) attention: with impl "auto" the encoder-attention
     kernel for non-causal unmasked calls (the encoder's self-attention, the
-    teacher-forced cross-attention), plain softmax otherwise; impl "xla"
-    or ASR_TPU_ATTN_IMPL=xla always plain softmax."""
+    teacher-forced cross-attention) in fp32 or bf16, plain softmax
+    otherwise (a float64 forward, as cli.verify_parity's, takes it as the
+    JAX package does on the CPU); impl "xla" or ASR_TPU_ATTN_IMPL=xla always
+    plain softmax."""
     if impl not in IMPLS:
         raise ValueError(f"attention impl {impl!r}: have {IMPLS}")
-    if impl == "auto" and mask is None and not causal and not xla_forced():
+    if impl == "auto" and mask is None and not causal and not xla_forced() \
+            and q.dtype != torch.float64:
         return encoder_attention(q, k, v)
     return xla_attention(q, k, v, mask, causal)

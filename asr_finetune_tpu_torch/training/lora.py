@@ -23,6 +23,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .optim import leaves
+
 Params = Dict[str, Any]
 
 # which projections get adapters, per attention block (reference:
@@ -90,6 +92,11 @@ def _adapter_stacks(tree: Params, prefix: str = "") -> List[Tuple[str, Params]]:
     for k in sorted(tree):
         out.extend(_adapter_stacks(tree[k], f"{prefix}/{k}" if prefix else k))
     return out
+
+
+def num_adapter_params(adapters: Params) -> int:
+    """Elements over every tensor of an adapter tree."""
+    return sum(t.numel() for _, t in leaves(adapters))
 
 
 def _map(fn, *trees):

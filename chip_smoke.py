@@ -4,7 +4,8 @@
     python3 chip_smoke.py        # from the root of a checkout; one CUDA card, nvcc
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the CUDA kernels from csrc/ (one nvcc per source, in parallel);
+2. builds the CUDA kernels from csrc/ (one nvcc per source, in parallel)
+   and the host C++ library (csrc/asr_native.cpp, g++);
 3. holds every kernel against its plain PyTorch version at whisper-large-v3
    shapes (B=4, and the decoder kernels also at 12 rows, fused_qkv and
    fused_mlp at 16, fused_mlp with int8 fc1 at 32) in bf16 and fp32, within
@@ -117,7 +118,19 @@
    under ASR_TPU_REMAT_SAVE=mid, enc, enc+dec and without remat: bit-equal
    losses and grad norms on plain attention, then on the kernels ms/step,
    peak memory and the attention launches of each mode;
-10. one decode step's device time by CUDA kernel, greedy and on each beam
+10. the last modules of the JAX package: 10a, the host C++ path
+   (utils/native_ext, built with g++ in step 2) equal to its Python
+   versions on seeded inputs (200 edit distances, corpus_wer over 2,000
+   pairs, the collator's audio batch bit for bit at B 8 below and above
+   the 30 s window), its host times against Python's, and the evaluator's
+   corpus WER equal to the Python WER of its transcripts; 10b,
+   `cli.classify` on the evaluator's eval_final.json, rule-based, and with
+   transformers the LLM judge on the card over a tiny random GPT-2; 10c,
+   `cli.verify_parity` at whisper-small's widths on the card (a random HF
+   checkpoint written with save_pretrained): every stage must pass, the
+   decodes through the fused decoder kernels; without transformers the
+   CLI must raise ImportError naming it, and the run says so;
+11. one decode step's device time by CUDA kernel, greedy and on each beam
    path, with the launches per step asserted; then the card line again,
    one JSON line `{"kernels": [...]}`, and last `{"ok": true, "device": {...}}`.
 
@@ -126,7 +139,9 @@ result line. It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -1500,7 +1515,8 @@ def evaluator_path(rows):
     with German-looking references, in two batches of 2, checkpointing
     progress every batch: a first run stops after batch 1, a second resumes
     at batch 2. Asserts the progress files, eval_final.json (4 transcripts,
-    a finite WER) and that the resumed run decoded only the second batch."""
+    a finite WER) and that the resumed run decoded only the second batch.
+    Returns eval_final.json's content (phase 10 reads it)."""
     import torch
     from asr_finetune_tpu_torch import config as config_lib
     from asr_finetune_tpu_torch import run as run_lib
@@ -1557,6 +1573,7 @@ def evaluator_path(rows):
     print(f"offline evaluator, beam-{BEAMS}, large-v3 32+32 bf16: 4 utterances in 2 batches "
           f"(run stopped after batch 1, resumed at batch 2), corpus WER {final['wer']:.2f}%, "
           f"{wall:.3f} s for both runs; launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    return on_disk
 
 
 def check_decoder_cuda_kernels(label: str, counts: dict) -> None:
@@ -3299,6 +3316,305 @@ def remat_path(rows, device: str = "cuda", model: str = "large-v3"):
         raise AssertionError(f"{label}: peaks not ordered mid < enc, enc+dec < none")
 
 
+# Phase 10, the last modules of the JAX package: the host C++ path under the
+# WER and the collator (10a), cli.classify (10b), cli.verify_parity (10c)
+
+HOST_EDIT_PAIRS = 200       # word pairs for the edit distance
+HOST_CORPUS_PAIRS = 2000    # the corpus of corpus_wer
+# the collator batch's waveforms: below, at and above the 480,000-sample window
+HOST_AUDIO_LENS = (1, 48_000, 160_000, 479_999, 480_000, 480_001, 464_000, 560_000)
+HOST_REPS = 21              # timed calls (the median is printed)
+HOST_UTT_BATCH = 8          # transcripts of one eval batch (per-utterance WER)
+JUDGE_TYPES = 2             # error types the judge scores per transcript
+# whisper-small's published widths (models/configs.py): the full-width gauntlet
+SMALL_HF = {"vocab_size": 51865, "num_mel_bins": 80, "d_model": 768,
+            "encoder_layers": 12, "decoder_layers": 12, "encoder_attention_heads": 12,
+            "decoder_attention_heads": 12, "encoder_ffn_dim": 3072,
+            "decoder_ffn_dim": 3072, "max_source_positions": 1500,
+            "max_target_positions": 448}
+
+
+def transformers_present() -> bool:
+    try:
+        import transformers  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _median_ms(fn, reps: int = HOST_REPS) -> float:
+    """Median host wall time of fn() over reps calls after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(times))
+
+
+def host_native_path(eval_final: dict) -> None:
+    """Phase 10a: the host C++ path (utils/native_ext, built with g++ at
+    first use; build() timed it) against its plain Python versions on seeded
+    inputs, exactly: the edit distance over HOST_EDIT_PAIRS word pairs,
+    corpus_wer over HOST_CORPUS_PAIRS pairs, the collator's audio batch
+    (assemble_batch) bit for bit at B 8 with lengths below and above the
+    30 s window. Prints the host times (this machine's CPU, not the card)
+    of corpus_wer and of one collator audio batch at B 4 and 8, C++ against
+    Python, and of the evaluator's per-utterance WER over a batch of
+    HOST_UTT_BATCH transcripts, and asserts that the evaluator phase's corpus
+    WER equals the Python WER of its own transcripts."""
+    from asr_finetune_tpu_torch.evaluation import wer as wer_lib
+    from asr_finetune_tpu_torch.evaluation.normalize import normalize
+    from asr_finetune_tpu_torch.ops import logmel
+    from asr_finetune_tpu_torch.utils import native_ext
+
+    rng = np.random.default_rng(17)
+
+    def words(lo, hi):
+        n = int(rng.integers(lo, hi))
+        return [GERMAN_WORDS[int(i)] for i in rng.integers(len(GERMAN_WORDS), size=n)]
+
+    pairs = [(words(0, 16), words(0, 16)) for _ in range(HOST_EDIT_PAIRS)]
+    wrong = [(a, b) for a, b in pairs
+             if native_ext.edit_distance_words(a, b) != wer_lib._edit_distance(a, b)]
+    if wrong:
+        raise AssertionError(f"edit distance: C++ != Python on {len(wrong)} pairs, "
+                             f"first {wrong[0]}")
+    refs = [" ".join(words(1, 31)) for _ in range(HOST_CORPUS_PAIRS)]
+    hyps = [" ".join(words(1, 31)) for _ in range(HOST_CORPUS_PAIRS)]
+
+    def corpus_py():
+        errors = total = 0
+        for r, h in zip(refs, hyps):
+            errors += wer_lib._edit_distance(r.split(), h.split())
+            total += len(r.split())
+        return errors, total
+
+    got, want = native_ext.corpus_wer(refs, hyps), corpus_py()
+    if got != want:
+        raise AssertionError(f"corpus_wer: C++ {got} != Python {want}")
+    audios = [rng.standard_normal(n).astype(np.float32) for n in HOST_AUDIO_LENS]
+
+    def batch_py(a):
+        return np.stack([logmel.pad_or_trim(np.asarray(x, np.float32)) for x in a])
+
+    out, ref = native_ext.assemble_batch(audios, logmel.CHUNK_SAMPLES), batch_py(audios)
+    if out.dtype != ref.dtype or out.shape != ref.shape \
+            or not np.array_equal(out.view(np.uint32), ref.view(np.uint32)):
+        raise AssertionError(f"assemble_batch: not bit-equal to pad_or_trim "
+                             f"({out.dtype} {out.shape} vs {ref.dtype} {ref.shape})")
+    times = {"corpus_wer": (_median_ms(lambda: native_ext.corpus_wer(refs, hyps)),
+                            _median_ms(corpus_py))}
+    for b in (4, 8):
+        times[f"collator audio B{b}"] = (
+            _median_ms(lambda: native_ext.assemble_batch(audios[:b], logmel.CHUNK_SAMPLES)),
+            _median_ms(lambda: batch_py(audios[:b])))
+    refs_e = [normalize(r["original"]) for r in eval_final["results"]]
+    hyps_e = [normalize(r["predicted"]) for r in eval_final["results"]]
+
+    def eval_wer_py():
+        errors = sum(wer_lib._edit_distance(r.split(), h.split()) for r, h in zip(refs_e, hyps_e))
+        return 100.0 * (errors / sum(len(r.split()) for r in refs_e))
+
+    py_wer = eval_wer_py()
+    # the WER an evaluation computes over its transcripts, as the evaluator
+    # and the trainer's eval call it
+    times["evaluator WER"] = (_median_ms(lambda: wer_lib.wer_percent(refs_e, hyps_e)),
+                              _median_ms(eval_wer_py))
+    # the evaluator's per-utterance WER (evaluation/evaluate.py): one call a
+    # transcript, over a batch of HOST_UTT_BATCH seeded pairs with words
+    utt = list(zip(refs, hyps))[:HOST_UTT_BATCH]
+
+    def utt_wer_cpp():
+        for r, h in utt:
+            wer_lib.wer_percent([r], [h])
+
+    def utt_wer_py():
+        for r, h in utt:
+            100.0 * wer_lib._edit_distance(r.split(), h.split()) / len(r.split())
+
+    times[f"per-utterance WER B{HOST_UTT_BATCH}"] = (_median_ms(utt_wer_cpp),
+                                                     _median_ms(utt_wer_py))
+    if eval_final["wer"] != py_wer:
+        raise AssertionError(f"eval_final.json WER {eval_final['wer']!r} != the Python "
+                             f"WER of its transcripts {py_wer!r}")
+    print(f"host C++ path (phase 10a): {HOST_EDIT_PAIRS} edit distances, corpus_wer over "
+          f"{HOST_CORPUS_PAIRS} pairs and assemble_batch at B {len(audios)} (lengths "
+          f"{list(HOST_AUDIO_LENS)}) equal to Python, bit for bit; the evaluator's WER "
+          f"{eval_final['wer']!r} equals the Python WER of its transcripts")
+    print(f"host C++ path, host times on this machine's CPU (median of {HOST_REPS}; "
+          f"corpus_wer over {HOST_CORPUS_PAIRS} pairs on "
+          f"{native_ext._wer_threads(0, HOST_CORPUS_PAIRS)} threads, smaller calls and "
+          f"the collator inline): " + "; ".join(
+              f"{k} C++ {c:.3f} ms, Python {py:.3f} ms" for k, (c, py) in times.items()))
+    print(json.dumps({"phase": "10a", "host_ms": {k: {"cpp": c, "python": py}
+                                                  for k, (c, py) in times.items()}}))
+
+
+def write_tiny_judge(path) -> None:
+    """A tiny random GPT-2 with a character-level tokenizer, written with
+    save_pretrained (transformers and tokenizers): a judge that runs the
+    LLM classifier's pipeline end to end (it emits no valid JSON, so every
+    score takes the 'unparsbar' form)."""
+    import torch
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import GPT2Config, GPT2LMHeadModel, PreTrainedTokenizerFast
+
+    vocab = {"[UNK]": 0, "[PAD]": 1, "<|end|>": 2}
+    for ch in [chr(i) for i in range(32, 127)] + list("äöüÄÖÜß"):
+        vocab.setdefault(ch, len(vocab))
+    tok = Tokenizer(models.WordLevel(vocab=vocab, unk_token="[UNK]"))
+    tok.pre_tokenizer = pre_tokenizers.Split("", "isolated")
+    PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="[UNK]", pad_token="[PAD]",
+                            eos_token="<|end|>").save_pretrained(str(path))
+    torch.manual_seed(0)
+    cfg = GPT2Config(vocab_size=len(vocab), n_positions=1024, n_embd=32, n_layer=1,
+                     n_head=2, eos_token_id=2, pad_token_id=1)
+    GPT2LMHeadModel(cfg).save_pretrained(str(path))
+
+
+def classify_path(eval_final: dict, have_hf: bool) -> None:
+    """Phase 10b: cli.classify, rule-based, on the evaluator phase's
+    eval_final.json: one CSV row per transcript and error type, the profile
+    over every type. With transformers, the LLM judge too, on the card
+    (--device cuda) over a tiny GPT-2, JUDGE_TYPES types per transcript."""
+    import csv
+    import torch
+    from asr_finetune_tpu_torch.classify.error_types import (DEFAULT_ERROR_TYPES,
+                                                             LLMClassifier)
+    from asr_finetune_tpu_torch.cli import classify
+
+    n = len(eval_final["results"])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/eval_final.json"
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(eval_final, f, ensure_ascii=False)
+
+        def run(types, *extra):
+            out = f"{tmp}/errors_{len(types)}.csv"
+            t0 = time.perf_counter()
+            profile = classify.main(["--eval_json", path, "--output_csv", out, *extra])
+            wall = time.perf_counter() - t0
+            with open(out, newline="", encoding="utf-8") as f:
+                rows_csv = list(csv.DictReader(f))
+            names = [t.name for t in types]
+            want = [(str(i), t) for i in range(n) for t in names]
+            if [(r["idx"], r["error_type"]) for r in rows_csv] != want \
+                    or sorted(profile) != sorted(names) \
+                    or any(r["original"] != eval_final["results"][int(r["idx"])]["original"]
+                           for r in rows_csv):
+                raise AssertionError(f"cli.classify {list(extra)}: rows "
+                                     f"{[(r['idx'], r['error_type']) for r in rows_csv]}, "
+                                     f"profile {sorted(profile)}")
+            return rows_csv, wall
+
+        rows_csv, wall = run(DEFAULT_ERROR_TYPES)
+        print(f"cli.classify (phase 10b), rule-based: {n} transcripts x "
+              f"{len(DEFAULT_ERROR_TYPES)} types = {len(rows_csv)} CSV rows, "
+              f"{wall:.3f} s (host)")
+        if not have_hf:
+            print("cli.classify: transformers is absent on this machine; the LLM judge "
+                  "did not run")
+            return
+        write_tiny_judge(f"{tmp}/judge")
+        types = DEFAULT_ERROR_TYPES[:JUDGE_TYPES]
+        with open(f"{tmp}/types.csv", "w", newline="", encoding="utf-8") as f:
+            w = csv.writer(f)
+            w.writerow(["name", "description"])
+            w.writerows([(t.name, t.description) for t in types])
+        rows_csv, wall = run(types, "--llm_model_path", f"{tmp}/judge", "--device", "cuda",
+                             "--error_types_csv", f"{tmp}/types.csv")
+        judge = LLMClassifier(f"{tmp}/judge", max_new_tokens=8, device="cuda")
+        where = next(judge.pipe.model.parameters()).device
+        if where.type != "cuda":
+            raise AssertionError(f"the judge's pipeline runs on {where}")
+        del judge
+        torch.cuda.empty_cache()
+        print(f"cli.classify, LLM judge on {where} (tiny random GPT-2): {n} transcripts x "
+              f"{len(types)} types = {len(rows_csv)} CSV rows, {wall:.3f} s")
+
+
+def write_small_hf_dir(path, seed: int = 0) -> None:
+    """A random-init HF Whisper checkpoint at whisper-small's widths
+    (SMALL_HF), written with save_pretrained, with a feature extractor; a
+    generation config that forces nothing (as tests/test_cli_verify_parity.py
+    writes its tiny one) and, as whisper's own, suppresses the special ids
+    past <|endoftext|> and, at the first step, " " and <|endoftext|>; and a
+    made-up byte-level vocabulary of the 50257 text tokens (the 256 bytes,
+    then " a", " b", ... as words) with no merges, so the port's tokenizer
+    prompts with the 51865-token layout's special ids and decodes the random
+    tokens to words the WER stage can count."""
+    import torch
+    from transformers import (WhisperConfig, WhisperFeatureExtractor,
+                              WhisperForConditionalGeneration)
+
+    from asr_finetune_tpu_torch.models.tokenizer import SpecialTokens, _bytes_to_unicode
+    special = SpecialTokens.for_vocab(SMALL_HF["vocab_size"])
+    torch.manual_seed(seed)
+    m = WhisperForConditionalGeneration(WhisperConfig(**SMALL_HF)).eval()
+    m.generation_config.suppress_tokens = list(range(special.eot + 1, SMALL_HF["vocab_size"]))
+    m.generation_config.begin_suppress_tokens = [220, special.eot]
+    m.generation_config.forced_decoder_ids = None
+    m.generation_config.no_timestamps_token_id = special.no_timestamps
+    m.save_pretrained(str(path))
+    WhisperFeatureExtractor(feature_size=SMALL_HF["num_mel_bins"]).save_pretrained(str(path))
+    byte = _bytes_to_unicode()
+    vocab = {byte[b]: b for b in range(256)}
+    for i in range(special.eot - 256):
+        word = ""
+        while True:
+            i, r = divmod(i, 26)
+            word += chr(ord("a") + r)
+            if i == 0:
+                break
+        vocab[byte[ord(" ")] + word] = len(vocab)
+    with open(f"{path}/vocab.json", "w", encoding="utf-8") as f:
+        json.dump(vocab, f)
+    with open(f"{path}/merges.txt", "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n")
+
+
+def verify_parity_path(have_hf: bool) -> None:
+    """Phase 10c: cli.verify_parity at whisper-small's widths on the card
+    (--device cuda --rows 2 --max_length 24 --beams 4): every stage must
+    pass and the decodes must have run the fused decoder kernels. Without
+    transformers, the CLI must raise ImportError naming it."""
+    from asr_finetune_tpu_torch.cli import verify_parity
+
+    argv = ["--device", "cuda", "--rows", "2", "--max_length", "24", "--beams", "4"]
+    if not have_hf:
+        try:
+            verify_parity.main(["--hf_dir", "absent", *argv])
+        except ImportError as e:
+            if "transformers" not in str(e):
+                raise
+            print(f"cli.verify_parity (phase 10c): transformers is absent on this machine, "
+                  f"the gauntlet did not run (ImportError: {e})")
+            return
+        raise AssertionError("cli.verify_parity ran without transformers")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_small_hf_dir(f"{tmp}/hf")
+        written = time.perf_counter() - t0
+        reset_all_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = verify_parity.main(["--hf_dir", f"{tmp}/hf", *argv])
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+    print(out.getvalue(), end="")
+    if rc != 0:
+        raise AssertionError(f"cli.verify_parity at whisper-small widths: exit {rc}")
+    used = ("encoder_attention", "fused_qkv", "fused_attn_self", "fused_attn_beam", "fused_mlp")
+    if not all(launches[k] > 0 for k in used):
+        raise AssertionError(f"cli.verify_parity: kernels not launched {launches}")
+    print(f"cli.verify_parity (phase 10c), whisper-small widths (d 768, 12+12 layers, vocab "
+          f"51865), random init: every stage passed, {wall:.1f} s (checkpoint written in "
+          f"{written:.1f} s); launches {json.dumps({k: v for k, v in launches.items() if v})}")
+
+
 def step_breakdown():
     """One whisper-large-v3 decode step at batch 4 (bf16, cache 128 at pos
     63), greedy and on each beam path (4 x 4 hypothesis rows over cross K/V
@@ -3406,10 +3722,17 @@ def step_breakdown():
 
 def build():
     from asr_finetune_tpu_torch.ops import _build
+    from asr_finetune_tpu_torch.utils import native_ext
     t0 = time.perf_counter()
     _build.build_all()
     print(f"kernels built from {_build.CSRC} in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(_build.sources())})")
+    built = not native_ext._target().exists()
+    t0 = time.perf_counter()
+    native_ext.load()
+    print(f"host C++ library {native_ext.SOURCE.name} "
+          f"{'built with g++' if built else 'found built'} in "
+          f"{time.perf_counter() - t0:.2f} s ({native_ext._target().name})")
 
 
 def main() -> int:
@@ -3441,7 +3764,7 @@ def main() -> int:
     main_path(rows, beams=BEAMS, kv_int8=True)
     main_path(rows, beams=BEAMS, reorder=True)
     main_path(rows, fused_qkv=True)
-    evaluator_path(rows)
+    eval_final = evaluator_path(rows)
     train_main_path(rows)
     train_main_path(rows, config=PEFT_CONFIG, extra=("--int8_matmul",))
     train_main_path(rows, config=PEFT_CONFIG, extra=("--int8_matmul",), fused_qkv=True)
@@ -3452,6 +3775,10 @@ def main() -> int:
     spec_augment_path(rows)
     host_logmel_path(rows)
     remat_path(rows)
+    have_hf = transformers_present()
+    host_native_path(eval_final)
+    classify_path(eval_final, have_hf)
+    verify_parity_path(have_hf)
     step_breakdown()
     print(json.dumps({"step_device_ms": STEP_DEVICE}))
     for k in ("fused_mlp", "fused_mlp_int8", "fused_qkv", "fused_qkv_int8"):   # every row count

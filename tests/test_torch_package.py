@@ -38,6 +38,28 @@ def test_imports_without_jax_or_the_jax_package():
     assert int(r.stdout.strip().splitlines()[-1]) >= 20
 
 
+def test_imports_without_the_optional_packages():
+    """transformers (cli.verify_parity, the classify judge), matplotlib
+    (classify.plots) and h5py (data.hdf5) are imported only in the calls
+    that need them: every port module imports with all three unimportable."""
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        for name in ("transformers", "matplotlib", "h5py"):
+            sys.modules[name] = None
+        import asr_finetune_tpu_torch as pkg
+        names = [pkg.__name__] + [m.name for m in pkgutil.walk_packages(
+            pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        print(len(names))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip().splitlines()[-1]) >= 30
+
+
 def test_chip_smoke_imports_nothing_of_jax():
     src = (REPO / "chip_smoke.py").read_text()
     assert "import jax" not in src and "asr_finetune_tpu." not in src.replace(
