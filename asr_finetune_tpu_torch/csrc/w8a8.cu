@@ -13,10 +13,13 @@
 // constant 127; XLA compiles that to a multiply by f32(1/127), in the jitted
 // step and the Pallas kernel alike, and so does this kernel.) keep (K,) fp32 0/1 is the
 // outlier path's column keep-mask and addend (m, N) fp32 its side product;
-// both are optional. The weight arrives as w_nk (N, K), the K-major copy of
-// w_q8 (K, N) that the int8 base holds beside it (ops/quant.py): 8-bit wgmma
-// reads only K-major operands, and the copy is made once, when the base is
-// quantized, never per call.
+// both are optional. So is row_amax (m,) fp32: given, it stands for each
+// row's amax|x_row * keep| (under tensor parallelism x holds K / tp columns
+// and the scale is the whole row's, reduced over the ranks beforehand).
+// The weight arrives as w_nk (N, K), the K-major copy of w_q8 (K, N) that
+// the int8 base holds beside it (ops/quant.py): 8-bit wgmma reads only
+// K-major operands, and the copy is made once, when the base is quantized,
+// never per call.
 //
 // Bound on the card: operations at the encoder's m (2 m K N int8 ops against
 // (m K + K N + m N) elements: ~9.9 us for 6000 x 1280 x 1280 at 1,979 TOPS),
@@ -94,11 +97,13 @@ __device__ __forceinline__ int quantize(float v, float s) {
 
 // x (m, K) → xs (m,) and x8 (m, K), K % 8 == 0, K <= 8 CH QTHREADS. One
 // block per row; a thread holds CH chunks of 8 in registers, all loaded
-// before any is used.
+// before any is used. row_amax (m,), when given, is the row's amax: no
+// reduction.
 template <typename T, int CH>
 __global__ void __launch_bounds__(QTHREADS)
 quantize_rows_kernel(const T* __restrict__ x, const float* __restrict__ keep,
-                     float* __restrict__ xs, int8_t* __restrict__ x8, int K) {
+                     const float* __restrict__ row_amax, float* __restrict__ xs,
+                     int8_t* __restrict__ x8, int K) {
   __shared__ float red[QTHREADS / 32];
   griddep_launch();
   const int row = blockIdx.x;
@@ -121,7 +126,8 @@ quantize_rows_kernel(const T* __restrict__ x, const float* __restrict__ keep,
       }
     }
   }
-  amax = block_reduce<true>(amax, red);
+  // a uniform branch: the block takes it whole, so the reduction's barriers hold
+  amax = row_amax != nullptr ? row_amax[row] : block_reduce<true>(amax, red);
   const float s = __fmul_rn(fmaxf(amax, 1e-8f), 1.f / 127.f);
   if (threadIdx.x == 0) xs[row] = s;
   int8_t* dst = x8 + (long long)row * K;
@@ -139,17 +145,17 @@ quantize_rows_kernel(const T* __restrict__ x, const float* __restrict__ keep,
 }
 
 template <typename T>
-cudaError_t quantize_rows(const T* x, const float* keep, float* xs, int8_t* x8, int m, int K,
-                          cudaStream_t st) {
+cudaError_t quantize_rows(const T* x, const float* keep, const float* row_amax, float* xs,
+                          int8_t* x8, int m, int K, cudaStream_t st) {
   const int chunks = (K / 8 + QTHREADS - 1) / QTHREADS;
   if (chunks <= 2)
-    quantize_rows_kernel<T, 2><<<m, QTHREADS, 0, st>>>(x, keep, xs, x8, K);
+    quantize_rows_kernel<T, 2><<<m, QTHREADS, 0, st>>>(x, keep, row_amax, xs, x8, K);
   else if (chunks <= 4)
-    quantize_rows_kernel<T, 4><<<m, QTHREADS, 0, st>>>(x, keep, xs, x8, K);
+    quantize_rows_kernel<T, 4><<<m, QTHREADS, 0, st>>>(x, keep, row_amax, xs, x8, K);
   else if (chunks <= 5)
-    quantize_rows_kernel<T, 5><<<m, QTHREADS, 0, st>>>(x, keep, xs, x8, K);
+    quantize_rows_kernel<T, 5><<<m, QTHREADS, 0, st>>>(x, keep, row_amax, xs, x8, K);
   else
-    quantize_rows_kernel<T, 8><<<m, QTHREADS, 0, st>>>(x, keep, xs, x8, K);
+    quantize_rows_kernel<T, 8><<<m, QTHREADS, 0, st>>>(x, keep, row_amax, xs, x8, K);
   return cudaGetLastError();
 }
 
@@ -320,12 +326,13 @@ cudaError_t gemm(const int8_t* x8, const int8_t* w_nk, const float* xs, const fl
 // wide: the 128 x 256 tile, else 64 x 128
 template <typename T>
 cudaError_t w8a8(const void* x, const int8_t* w_nk, const float* w_scale, const float* keep,
-                 const float* addend, float* xs, int8_t* x8, void* y, int m, int K, int N,
-                 int wide, cudaStream_t st) {
+                 const float* addend, const float* row_amax, float* xs, int8_t* x8, void* y,
+                 int m, int K, int N, int wide, cudaStream_t st) {
   if (m < 1 || K < 1 || N < 1 || K % 16 != 0 || N % 8 != 0 || K > MAX_K ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return cudaErrorInvalidValue;
-  const cudaError_t e = quantize_rows(static_cast<const T*>(x), keep, xs, x8, m, K, st);
+  const cudaError_t e =
+      quantize_rows(static_cast<const T*>(x), keep, row_amax, xs, x8, m, K, st);
   if (e != cudaSuccess) return e;
   return wide ? gemm<T, 2, 256>(x8, w_nk, xs, w_scale, addend, y, m, K, N, st)
               : gemm<T, 1, 128>(x8, w_nk, xs, w_scale, addend, y, m, K, N, st);
@@ -335,16 +342,18 @@ cudaError_t w8a8(const void* x, const int8_t* w_nk, const float* w_scale, const 
 
 // C entry. dtype: 0 = float32, 1 = bfloat16 (x and y). w_nk (N, K) int8
 // row-major (the K-major copy of w_q8), w_scale (N,) fp32, keep (K,) fp32 or
-// null, addend (m, N) fp32 or null; x, y, addend contiguous, 16-byte
-// aligned, K % 16 == 0, N % 8 == 0 (TMA's rule for a row pitch and a base),
-// K <= 8192. Scratch: xs (m,) fp32, x8 (m, K) int8. wide: the 128 x 256
-// tile, else 64 x 128.
+// null, addend (m, N) fp32 or null, row_amax (m,) fp32 or null; x, y, addend
+// contiguous, 16-byte aligned, K % 16 == 0, N % 8 == 0 (TMA's rule for a row
+// pitch and a base), K <= 8192. Scratch: xs (m,) fp32, x8 (m, K) int8.
+// wide: the 128 x 256 tile, else 64 x 128.
 extern "C" int w8a8_fwd(int dtype, const void* x, const int8_t* w_nk, const float* w_scale,
-                        const float* keep, const float* addend, float* xs, int8_t* x8, void* y,
-                        int m, int K, int N, int wide, void* stream) {
+                        const float* keep, const float* addend, const float* row_amax,
+                        float* xs, int8_t* x8, void* y, int m, int K, int N, int wide,
+                        void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      dtype == 0 ? w8a8<float>(x, w_nk, w_scale, keep, addend, xs, x8, y, m, K, N, wide, st)
-                 : w8a8<__nv_bfloat16>(x, w_nk, w_scale, keep, addend, xs, x8, y, m, K, N,
-                                       wide, st));
+      dtype == 0 ? w8a8<float>(x, w_nk, w_scale, keep, addend, row_amax, xs, x8, y, m, K, N,
+                               wide, st)
+                 : w8a8<__nv_bfloat16>(x, w_nk, w_scale, keep, addend, row_amax, xs, x8, y,
+                                       m, K, N, wide, st));
 }

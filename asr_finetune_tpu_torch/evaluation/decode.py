@@ -18,6 +18,13 @@ caller passes fused=False; it takes the adapters unmerged. `quant`
 multiply int8 weights. kv_int8 quantizes the cross K/V to int8
 (W.quantize_cross_kv), w_int8 the decoder's float weights, both for the
 token loop only.
+
+Under tensor parallelism (--tp > 1, the eval decode of a training run)
+each rank holds its slice of the model: the decode takes the plain step
+over the rank's heads, o and fc2 summed over the model group, with the
+rank's columns of each adapter's b. This is the JAX rule (decode.py
+:628-659, `_use_fused_multichip`): with a model axis it keeps the
+auto-sharded XLA decode. A fused decode asked for under tp raises.
 """
 from __future__ import annotations
 
@@ -30,7 +37,8 @@ from ..models import whisper as W
 from ..models.configs import WhisperConfig
 from ..ops import decoder_fused
 from ..ops import quant as Q
-from ..training.lora import merge_adapters
+from ..parallel import mesh
+from ..training.lora import merge_adapters, tp_local
 
 Params = dict
 
@@ -65,15 +73,27 @@ def _fused_default(cfg: WhisperConfig, device: torch.device) -> bool:
     way quietly); else fused kernels on a CUDA device with 64-dim heads. The
     JAX rule also asks for a single device, because a Pallas call cannot be
     partitioned over a mesh; a decode here runs on mel's one device however
-    many cards the host has, so the device count does not enter."""
+    many cards the host has, so the device count does not enter, but under
+    tensor parallelism (the rank holds a slice of the model) the decode is
+    plain and =1 raises."""
     env = _fused_env()
     if env is not None:
         if env and not _fused_head_dim_ok(cfg):
             raise ValueError(
                 f"ASR_TPU_FUSED_DECODE=1 but the fused decode requires 64-dim heads, "
                 f"got {cfg.d_model // cfg.decoder_heads}")
+        if env:
+            _check_not_split("ASR_TPU_FUSED_DECODE=1")
         return env
-    return device.type == "cuda" and _fused_head_dim_ok(cfg)
+    return device.type == "cuda" and _fused_head_dim_ok(cfg) and mesh.model_world() == 1
+
+
+def _check_not_split(what: str) -> None:
+    """Raise under tp > 1: the fused kernels read whole weights."""
+    if mesh.model_world() > 1:
+        raise ValueError(f"{what}: the fused decode reads whole weights, and under "
+                         f"--tp {mesh.model_world()} this rank holds a slice (the plain "
+                         "step decodes tensor-parallel, as the JAX decode does)")
 
 
 def _round_up(n: int, m: int) -> int:
@@ -202,7 +222,8 @@ def _quantize_decoder_weights(params: Params) -> Params:
     encode and the cross K/V precompute, so the one-time full-sequence math
     stays in full precision; the fused kernels and the plain step both read
     the int8 form."""
-    dec = dict(params["decoder"], layers=Q.quantize_tree_int8(params["decoder"]["layers"]))
+    dec = dict(params["decoder"], layers=Q.quantize_tree_int8(params["decoder"]["layers"],
+                                                              split=True))
     return {**params, "decoder": dec}
 
 
@@ -212,7 +233,7 @@ def _resolve_fused(fused: Optional[bool], cfg: WhisperConfig,
     when set; else fused by default on a CUDA device with 64-dim heads, at
     any beam width (the JAX package routes more than 8 beams to
     its plain step; the CUDA kernels have no such bound); fused=True with a
-    model it cannot serve raises."""
+    model it cannot serve, or under tp > 1, raises."""
     if fused is None:
         return _fused_default(cfg, device)
     if fused and not _fused_head_dim_ok(cfg):
@@ -220,6 +241,8 @@ def _resolve_fused(fused: Optional[bool], cfg: WhisperConfig,
             f"fused decode requires 64-dim heads, got "
             f"{cfg.d_model // cfg.decoder_heads} "
             f"(d_model={cfg.d_model}, heads={cfg.decoder_heads})")
+    if fused:
+        _check_not_split("fused=True")
     return fused
 
 
@@ -235,6 +258,7 @@ def _prepare_decode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
     (step(token, t, cache, ancestry=None) → (logits, cache), cache)."""
     if fused and adapters is not None:
         params, adapters = merge_adapters(params, adapters), None
+    adapters = tp_local(adapters)
     enc_out = W.encode(params, mel, cfg, compute_dtype, adapters=adapters,
                        quant=quant)
     cross_kv = W.precompute_cross_kv(params, enc_out, cfg, adapters, quant)

@@ -27,7 +27,8 @@ NotImplementedError rather than run its trials one after another.
 
 In a process group (parallel/mesh.py) every rank runs this controller and
 takes part in every trial, one after another over the whole group, as the
-JAX controller does over hosts (:131-133). The searcher, scheduler and
+JAX controller does over hosts (:131-133); under --tp a trial spans the
+whole data x tp group too, each rank holding its slice of the model. The searcher, scheduler and
 PBT decisions agree on every rank because the metrics do; rank 0 alone
 writes the experiment's files (experiment, scheduler and searcher state,
 best_result, error.txt). A trial that raises on a rank ends the
@@ -96,7 +97,8 @@ def _metric_cfg(args):
 def count_slots(args) -> int:
     """The number of trials the JAX controller would run at once on this
     host's cards (controller.py:123-140). The port runs one: more raises.
-    In a process group every trial spans the group: one slot."""
+    In a process group every trial spans the group (data and --tp ranks):
+    one slot."""
     resolve_device(args.device)       # no card and no --device cpu: raise here
     if mesh.world() > 1:
         return 1
@@ -116,7 +118,7 @@ def count_slots(args) -> int:
 def run_experiment(args) -> Dict[str, Any]:
     setup_logging(logging.DEBUG if args.debug else logging.INFO)
     count_slots(args)
-    run_lib._check_pending_training(args)
+    run_lib.check_parallel_layout(args)
     exp_dir = os.path.join(args.storage_path, args.output_tag)
     os.makedirs(exp_dir, exist_ok=True)
     state = ExperimentState(os.path.join(exp_dir, "experiment_state.json"))

@@ -60,6 +60,21 @@ The fused-qkv encoder path (opt-in, ASR_TPU_FUSED_QKV; `_fused_qkv_ok`)
 runs each encoder layer's q/k/v as one wide (d, 3d) product whose (B, T,
 3d) output feeds the attention kernel directly (`_attn_core_qkv`,
 ops/encoder_attention.dense_attention_qkv), as the JAX `encode` does.
+
+Tensor parallelism (--tp, parallel/mesh.py `set_tensor_parallel`): each
+rank holds its parallel/sharding.split_tree slice of the weights, q/k/v
+and fc1 by output columns, o and fc2 by input rows, and runs its heads /
+tp heads and its d_ff / tp share of the MLP, as GSPMD splits the JAX
+model over its "model" axis, with the collectives written out. The
+residual stream and the layer norms are whole on every rank. A
+column-split region starts at `copy_to_tp` (the identity, its backward a
+sum over the model group: each rank's input gradient is a part) and ends
+at `reduce_from_tp` after o and fc2 (the sum of the ranks' partial
+products, its backward the identity), and then the whole bias is added,
+once (`_row_dense`). The fused-qkv wide weight is then [q | k | v] of the
+rank's columns. Remat replays the forward's collectives in the backward
+in the same order on every rank. At tp 1 neither collective is in the
+graph.
 """
 from __future__ import annotations
 
@@ -81,6 +96,7 @@ from ..ops import encoder_attention as EA
 from ..ops import quant as Q
 from ..ops.attention import attention as _attention_dispatch
 from ..ops.attention import xla_attention, xla_forced
+from ..parallel import mesh
 
 Params = Dict[str, Any]
 
@@ -239,15 +255,20 @@ class _Half:
     finish: Callable
 
 
+def _half_input(x: torch.Tensor, ln: Params) -> torch.Tensor:
+    """A half's layer norm, the input of its column-split region."""
+    return copy_to_tp(layer_norm(x, ln))
+
+
 def _run_half(half: _Half, x: torch.Tensor) -> torch.Tensor:
-    h = layer_norm(x, half.ln)
+    h = _half_input(x, half.ln)
     return x + half.finish(h, half.products(h))
 
 
 def _kept_piece(half: _Half, x, h, prods, ln_next):
     """A half's finish and the next half's layer norm, one checkpoint."""
     x = x + half.finish(h, prods)
-    return x, None if ln_next is None else layer_norm(x, ln_next)
+    return x, None if ln_next is None else _half_input(x, ln_next)
 
 
 def _run_halves(halves: list, x: torch.Tensor, remat: bool, keep: bool) -> torch.Tensor:
@@ -261,7 +282,7 @@ def _run_halves(halves: list, x: torch.Tensor, remat: bool, keep: bool) -> torch
         for half in halves:
             x = _maybe_remat(_run_half, remat, half, x)
         return x
-    h = _maybe_remat(layer_norm, True, x, halves[0].ln)
+    h = _maybe_remat(_half_input, True, x, halves[0].ln)
     for i, half in enumerate(halves):
         ln_next = halves[i + 1].ln if i + 1 < len(halves) else None
         x, h = _maybe_remat(_kept_piece, True, half, x, h, half.products(h), ln_next)
@@ -271,6 +292,52 @@ def _run_halves(halves: list, x: torch.Tensor, remat: bool, keep: bool) -> torch
 def _acc(dtype: torch.dtype) -> torch.dtype:
     """Accumulation dtype: fp32, unless already wider."""
     return torch.promote_types(dtype, torch.float32)
+
+
+class _CopyToTP(torch.autograd.Function):
+    """The identity; its backward sums the gradient over the model group."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over_model(g)
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """The sum over the model group; its backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return _sum_over_model(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def _sum_over_model(t: torch.Tensor) -> torch.Tensor:
+    """A new tensor: t summed over the model group, in fp32 (or wider),
+    rounded once to t's dtype. Every rank receives the same bits."""
+    out = t.to(_acc(t.dtype), copy=True)
+    return mesh.all_reduce_sum_(out, over="model").to(t.dtype)
+
+
+def copy_to_tp(x: torch.Tensor) -> torch.Tensor:
+    """The input of a column-split region (module docstring); x at tp 1."""
+    return _CopyToTP.apply(x) if mesh.model_world() > 1 else x
+
+
+def reduce_from_tp(y: torch.Tensor) -> torch.Tensor:
+    """The ranks' partial products summed (module docstring); y at tp 1."""
+    return _ReduceFromTP.apply(y) if mesh.model_world() > 1 else y
+
+
+def local_heads(heads: int) -> int:
+    """The heads each rank of the model group runs."""
+    return heads // mesh.model_world()
 
 
 def layer_norm(x: torch.Tensor, ln: Params, eps: float = 1e-5) -> torch.Tensor:
@@ -338,15 +405,17 @@ def _lora_delta(x: torch.Tensor, lora: Params, dropout: Optional[LoraDropout],
 
 
 def _base_matmul(x: torch.Tensor, p: Params,
-                 quant: Optional[Q.QuantConfig] = None) -> torch.Tensor:
+                 quant: Optional[Q.QuantConfig] = None,
+                 row_split: bool = False) -> torch.Tensor:
     """x @ W of one projection, the weight cast to x's dtype at use; an int8
     weight dequantized into x's dtype, or with quant.matmul multiplied as
-    W8A8 (ops/quant.int8_matmul). The JAX `_base_matmul_multi` (:204) over
-    one (possibly fused) projection."""
+    W8A8 (ops/quant.int8_matmul; row_split: the weight is this rank's rows
+    of a projection split by input rows). The JAX `_base_matmul_multi`
+    (:204) over one (possibly fused) projection."""
     if Q.QUANT_KEY in p:
         if quant is not None and quant.matmul:
             return Q.int8_matmul(x, p[Q.QUANT_KEY], p[Q.SCALE_KEY], quant,
-                                 p.get(Q.KMAJOR_KEY))
+                                 p.get(Q.KMAJOR_KEY), row_split=row_split)
         return torch.matmul(x, Q.dequantize_weight(p, x.dtype))
     return torch.matmul(x, p["w"].to(x.dtype))
 
@@ -369,6 +438,17 @@ def dense(x: torch.Tensor, p: Params, lora: Optional[Params] = None,
     """x @ W (+ adapter delta) (+ b), the weight and bias cast to x's dtype at
     use (`_base_matmul`)."""
     return _complete(_base_matmul(x, p, quant), x, p, lora, dropout, site)
+
+
+def _row_dense(x: torch.Tensor, p: Params,
+               quant: Optional[Q.QuantConfig] = None) -> torch.Tensor:
+    """The o or fc2 projection: x @ W, under tp this rank's rows' partial
+    product summed over the model group, then + b, once."""
+    tp = mesh.model_world() > 1
+    y = reduce_from_tp(_base_matmul(x, p, quant, row_split=tp))
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
 
 
 def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -400,7 +480,7 @@ def _attn_finish(h, prods, p, heads: int, fused=None, kv_src=None,
     if fused is not None:
         y = prods[0]
         if lora and ("q" in lora or "v" in lora):
-            y = y + _lora_delta_qkv(h, lora, h.shape[-1], dropout, site)
+            y = y + _lora_delta_qkv(h, lora, y.shape[-1] // 3, dropout, site)
         if "b" in fused:
             y = y + fused["b"].to(h.dtype)
         return _attn_core_qkv(y, p["o"], heads, quant)
@@ -412,10 +492,11 @@ def _attn_finish(h, prods, p, heads: int, fused=None, kv_src=None,
 
 def _attn_core(q, k, v, po, heads: int, mask=None, causal: bool = False,
                impl: str = "auto", quant=None) -> torch.Tensor:
-    """Attention over projected (B, T, d) q/k/v, then the output projection."""
+    """Attention over projected (B, T, d) q/k/v (heads: this rank's), then
+    the output projection."""
     out = _attention_dispatch(_split_heads(q, heads), _split_heads(k, heads),
                               _split_heads(v, heads), mask, causal=causal, impl=impl)
-    return dense(_merge_heads(out), po, quant=quant)
+    return _row_dense(_merge_heads(out), po, quant)
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -424,7 +505,7 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 def _gelu_fc2(h: torch.Tensor, fc2: Params,
               quant: Optional[Q.QuantConfig] = None) -> torch.Tensor:
-    return dense(_gelu(h), fc2, quant=quant)
+    return _row_dense(_gelu(h), fc2, quant)
 
 
 def mlp_block(x: torch.Tensor, p: Params,
@@ -513,10 +594,10 @@ def _lora_delta_qkv(x: torch.Tensor, lora: Params, d: int,
 
 
 def _attn_core_qkv(y, po, heads: int, quant=None) -> torch.Tensor:
-    """The fused-qkv attention kernel on the (B, T, 3d) buffer, then the
-    output projection."""
+    """The fused-qkv attention kernel on the (B, T, 3d) buffer (heads: this
+    rank's), then the output projection."""
     out = EA.dense_attention_qkv(y, y.shape[-1] // 3 // heads)
-    return dense(out, po, quant=quant)
+    return _row_dense(out, po, quant)
 
 
 def _fused_qkv_ok(cfg: WhisperConfig, T: int, impl: str,
@@ -598,7 +679,7 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
                       attn={"o": layers["attn"]["o"]})
     halves = []
     for l, lp in enumerate(_unbind_layers(layers, L)):
-        halves += [_attn_half_parts(lp["ln1"], lp["attn"], cfg.encoder_heads,
+        halves += [_attn_half_parts(lp["ln1"], lp["attn"], local_heads(cfg.encoder_heads),
                                     fused=lp.get("attn_qkv"), impl=attn_impl, lora=las[l],
                                     dropout=dropout, site=f"enc/{l}", quant=quant),
                    _mlp_half_parts(lp["ln2"], lp["mlp"], quant)]
@@ -630,7 +711,8 @@ def decode_train(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
     x = dec["embed"].to(compute_dtype)[tokens]
     x = x + dec["pos"][:T].to(compute_dtype)[None]
     cross_impl = "auto" if attn_impl == "xla" else attn_impl
-    H, L = cfg.decoder_heads, cfg.decoder_layers
+    H, L = local_heads(cfg.decoder_heads), cfg.decoder_layers
+    enc_out = copy_to_tp(enc_out)       # every cross-attention's k/v input
     las = _layer_adapters(adapters, "decoder", L)
     halves = []
     for l, (lp, la) in enumerate(zip(_unbind_layers(dec["layers"], L), las)):
@@ -679,9 +761,9 @@ def init_cache(cfg: WhisperConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, dense: bool = False,
                device="cpu") -> Params:
     """Zeroed self-attention cache: (L, B, T, d) for decode_step_fused
-    (dense=True), (L, B, T, H, hd) for decode_step."""
-    L, H = cfg.decoder_layers, cfg.decoder_heads
-    hd = cfg.d_model // H
+    (dense=True), (L, B, T, H, hd) for decode_step (H: this rank's heads)."""
+    L, H = cfg.decoder_layers, local_heads(cfg.decoder_heads)
+    hd = cfg.d_model // cfg.decoder_heads
     shape = (L, batch, max_len, H * hd) if dense else (L, batch, max_len, H, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -691,10 +773,11 @@ def precompute_cross_kv(params: Params, enc_out: torch.Tensor,
                         cfg: WhisperConfig, adapters: Optional[Params] = None,
                         quant: Optional[Q.QuantConfig] = None) -> Params:
     """Cross-attention K/V once per utterance: (L, B, S, H, hd) each (the
-    v projection with its cross-attention adapter, when given)."""
+    v projection with its cross-attention adapter, when given; H: this
+    rank's heads)."""
     ca = params["decoder"]["layers"]["cross_attn"]
     ad = adapters.get("decoder") if adapters else None
-    H = cfg.decoder_heads
+    H = local_heads(cfg.decoder_heads)
     ks, vs = [], []
     for l in range(cfg.decoder_layers):
         lv = _layer(ad["cross_attn"]["v"], l) if ad else None
@@ -777,10 +860,11 @@ def decode_step(params: Params, token: torch.Tensor, pos: int,
     adapters: unmerged decoder adapters. cross_kv may be int8
     (quantize_cross_kv), dequantized per layer. cross_group K > 1 (beam
     search): cross_kv has B / K rows, shared by each K consecutive token
-    rows, whose queries fold into the query axis of one attention."""
+    rows, whose queries fold into the query axis of one attention. Under
+    tp, this rank's heads, o and fc2 summed over the model group."""
     dec = params["decoder"]
     x = _embed(dec, token, pos, compute_dtype)[:, None, :]        # (B, 1, d)
-    H = cfg.decoder_heads
+    H = local_heads(cfg.decoder_heads)
     ck, cv = cache["k"], cache["v"]
     valid = (torch.arange(ck.shape[2], device=x.device) <= pos)[None, None, None, :]
     ad = adapters.get("decoder") if adapters else None
@@ -795,13 +879,13 @@ def decode_step(params: Params, token: torch.Tensor, pos: int,
         cv[l, :, pos] = _split_heads(dense(h, sa["v"], sl.get("v"), quant=quant),
                                      H)[:, 0].to(cv.dtype)
         a = xla_attention(q, ck[l].to(x.dtype), cv[l].to(x.dtype), valid)
-        x = x + dense(_merge_heads(a), sa["o"], quant=quant)
+        x = x + _row_dense(_merge_heads(a), sa["o"], quant)
 
         h = layer_norm(x, lp["ln2"])
         q2 = _split_heads(dense(h, ca["q"], cl.get("q"), quant=quant), H)
         xk, xv = _cross_kv_layer(cross_kv, l, x.dtype)
         a2 = xla_attention(q2.reshape((-1, cross_group) + q2.shape[2:]), xk, xv)
-        x = x + dense(_merge_heads(a2.reshape(q2.shape)), ca["o"], quant=quant)
+        x = x + _row_dense(_merge_heads(a2.reshape(q2.shape)), ca["o"], quant)
 
         h = layer_norm(x, lp["ln3"])
         x = x + mlp_block(h, lp["mlp"], quant)

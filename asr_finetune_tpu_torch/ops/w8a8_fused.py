@@ -10,6 +10,10 @@ W8A8 product of ops/quant.py `_w8a8_impl` (:324-332). Per row of x (m, K):
 
 in fp32, rounded once to x's dtype. `keep` (K,) 0/1 and `addend` (m, N)
 fp32 are the outlier path's column mask and side product (ops/quant.py).
+`row_amax` (m,) fp32, when given, replaces each row's amax|x_row * keep|:
+under tensor parallelism x holds K / tp columns of the whole K, and the
+scale is the whole row's (ops/quant.whole_row_amax), as in the JAX
+product GSPMD splits over K.
 The JAX source divides amax by the constant 127; XLA compiles that, in a
 jitted step and in the Pallas kernel alike, to a multiply by f32(1/127),
 which moves xs by one ulp on some rows (and then whole int8 steps), so the
@@ -54,13 +58,15 @@ def reset_launches() -> None:
 
 def w8a8_plain(x: torch.Tensor, w_q8: torch.Tensor, w_scale: torch.Tensor,
                keep: Optional[torch.Tensor] = None,
-               addend: Optional[torch.Tensor] = None) -> torch.Tensor:
+               addend: Optional[torch.Tensor] = None,
+               row_amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: x (m, K) float, w_q8 (K, N)
     int8, w_scale (N,) or (1, N) fp32 → (m, N) in x's dtype."""
     x32 = x.float()
     if keep is not None:
         x32 = x32 * keep.float()
-    amax = x32.abs().amax(dim=-1, keepdim=True)
+    amax = (x32.abs().amax(dim=-1, keepdim=True) if row_amax is None
+            else row_amax.float().reshape(-1, 1))
     xs = torch.clamp(amax, min=1e-8) * INV_127
     x8 = torch.clamp(torch.round(x32 / xs), -127, 127)
     y32 = torch.matmul(x8.double(), w_q8.double())       # exact integers
@@ -73,13 +79,15 @@ def w8a8_plain(x: torch.Tensor, w_q8: torch.Tensor, w_scale: torch.Tensor,
 def w8a8(x: torch.Tensor, w_q8: torch.Tensor, w_scale: torch.Tensor,
          keep: Optional[torch.Tensor] = None,
          addend: Optional[torch.Tensor] = None,
-         w_nk: Optional[torch.Tensor] = None) -> torch.Tensor:
+         w_nk: Optional[torch.Tensor] = None,
+         row_amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The W8A8 product of x (m, K) with w_q8 (K, N) int8 and its per-column
-    scales. CUDA tensors launch the kernel, which reads the weight from its
-    K-major copy w_nk (N, K) (or raise); CPU tensors take w8a8_plain."""
+    scales (row_amax: the rows' amax over the whole K, module docstring).
+    CUDA tensors launch the kernel, which reads the weight from its K-major
+    copy w_nk (N, K) (or raise); CPU tensors take w8a8_plain."""
     if x.device.type == "cpu":
-        return w8a8_plain(x, w_q8, w_scale, keep, addend)
-    return _w8a8_cuda(x, w_q8, w_scale, keep, addend, w_nk)
+        return w8a8_plain(x, w_q8, w_scale, keep, addend, row_amax)
+    return _w8a8_cuda(x, w_q8, w_scale, keep, addend, w_nk, row_amax)
 
 
 def _operand(t: Optional[torch.Tensor], dtype, shape, device, what: str):
@@ -106,7 +114,7 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _w8a8_cuda(x, w_q8, w_scale, keep, addend, w_nk):
+def _w8a8_cuda(x, w_q8, w_scale, keep, addend, w_nk, row_amax):
     if x.dim() != 2 or w_q8.dim() != 2:
         raise ValueError("w8a8: x (m, K) and w_q8 (K, N) must be 2-D")
     m, K = x.shape
@@ -128,13 +136,14 @@ def _w8a8_cuda(x, w_q8, w_scale, keep, addend, w_nk):
     s_p = _operand(w_scale.reshape(-1), torch.float32, (N,), dev, "w_scale")
     k_p = _operand(keep, torch.float32, (K,), dev, "keep")
     a_p = _operand(addend, torch.float32, (m, N), dev, "addend")
+    r_p = _operand(row_amax, torch.float32, (m,), dev, "row_amax")
     wide = wide_for(m, N, _sm_count(dev.index if dev.index is not None
                                     else torch.cuda.current_device()))
     xs = torch.empty((m,), dtype=torch.float32, device=dev)
     x8 = torch.empty((m, K), dtype=torch.int8, device=dev)
     y = torch.empty((m, N), dtype=x.dtype, device=dev)
     lib = _lib()
-    err = lib.w8a8_fwd(_build.dtype_code(x), x_p, w_p, s_p, k_p, a_p, xs.data_ptr(),
+    err = lib.w8a8_fwd(_build.dtype_code(x), x_p, w_p, s_p, k_p, a_p, r_p, xs.data_ptr(),
                        x8.data_ptr(), y.data_ptr(), m, K, N, int(wide), _build.stream_ptr(x))
     _build.check(lib, err, "w8a8")
     LAUNCHES["w8a8"] += 1
@@ -149,7 +158,7 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("w8a8")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.w8a8_fwd.argtypes = [I] + [P] * 8 + [I] * 4 + [P]
+        lib.w8a8_fwd.argtypes = [I] + [P] * 9 + [I] * 4 + [P]
         lib.w8a8_fwd.restype = I
         _LIB = lib
     return _LIB

@@ -1,6 +1,6 @@
-"""The process group of data-parallel training (counterpart of
-asr_finetune_tpu/parallel/mesh.py `initialize_distributed` :31-42 and
-`create_mesh`'s data axis :46-61).
+"""The process group of data- and tensor-parallel training (counterpart
+of asr_finetune_tpu/parallel/mesh.py `initialize_distributed` :31-42 and
+`create_mesh` :46-61).
 
 One process per card, PyTorch's way; the JAX package instead runs one
 process per host over all its chips. A process learns its place from its
@@ -13,13 +13,22 @@ environment (`launch_from_env`):
 - none of these: one process, no group, and every collective below is the
   identity.
 
-The data-parallel size is the world size. `initialize` joins the group
-(NCCL when each rank of a host has a card of its own, gloo on the CPU and
-when ranks share a card) and pins the rank's card, `cuda:<local_rank %
-device_count>`. There is no fallback: a rank that cannot reach its card,
-a group that fails to form and a failed collective all raise.
+`initialize` joins the group (NCCL when each rank of a host has a card
+of its own, gloo on the CPU and when ranks share a card) and pins the
+rank's card, `cuda:<local_rank % device_count>`. There is no fallback: a
+rank that cannot reach its card, a group that fails to form and a failed
+collective all raise.
 
-Gloo reduces CPU tensors only on every build: `all_reduce_sum_` stages a
+The layout (`set_tensor_parallel`, --tp): world = data x tp, rank r at
+data index r // tp and model index r % tp, JAX's row-major
+`create_device_mesh((data, model))`. A tensor-parallel ("model") group is
+tp consecutive ranks, which read the same batch rows; a data group is the
+ranks of one model index. Without --tp > 1 the data group is the world
+and the model group is this rank alone. The collectives take the group
+they run over by name, `over` "world", "data" or "model"; over a group of
+one rank they do nothing.
+
+Gloo reduces CPU tensors only on every build: the collectives stage a
 CUDA tensor through the host under gloo.
 """
 from __future__ import annotations
@@ -28,7 +37,7 @@ import contextlib
 import dataclasses
 import logging
 import os
-from typing import Any, Iterator, List, Mapping, Optional
+from typing import Any, Iterator, List, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -143,7 +152,9 @@ def initialize(device: str = "cuda") -> torch.device:
 
 
 def shutdown() -> None:
-    """Leave the group, if in one."""
+    """Leave the group, if in one (its tensor-parallel layout with it)."""
+    global _LAYOUT
+    _LAYOUT = None
     if active():
         dist.destroy_process_group()
 
@@ -184,6 +195,73 @@ def barrier() -> None:
         dist.barrier()
 
 
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """This rank's place in the data x tp layout and its two groups."""
+    tp: int
+    data_rank: int
+    data_world: int
+    model_rank: int
+    data_group: Any
+    model_group: Any
+
+
+_LAYOUT: Optional[Layout] = None
+
+
+def set_tensor_parallel(tp: int) -> None:
+    """Split the world into data x tp (module docstring). Every rank calls
+    it with the same tp: each makes every model group and every data group,
+    in one order. A world that does not divide by tp raises, as JAX's
+    `create_mesh` does (one process with tp > 1 included); so does a group
+    that does not form. Calling it again with the same tp keeps the groups."""
+    global _LAYOUT
+    tp = max(int(tp), 1)
+    w, r = world(), rank()
+    if w % tp:
+        raise ValueError(f"--tp {tp}: the {w} process(es) of this run do not divide "
+                         f"into tensor-parallel groups of {tp} (world = data x tp)")
+    if tp == 1:
+        _LAYOUT = None
+        return
+    if _LAYOUT is not None and _LAYOUT.tp == tp:
+        return
+    data = w // tp
+    model_groups = [dist.new_group(list(range(d * tp, (d + 1) * tp))) for d in range(data)]
+    data_groups = [dist.new_group(list(range(m, w, tp))) for m in range(tp)]
+    _LAYOUT = Layout(tp, r // tp, data, r % tp, data_groups[r % tp], model_groups[r // tp])
+    logger.info("tensor parallel: rank %d = data %d of %d x model %d of %d", r,
+                _LAYOUT.data_rank, data, _LAYOUT.model_rank, tp)
+
+
+def data_rank() -> int:
+    return rank() if _LAYOUT is None else _LAYOUT.data_rank
+
+
+def data_world() -> int:
+    return world() if _LAYOUT is None else _LAYOUT.data_world
+
+
+def model_rank() -> int:
+    return 0 if _LAYOUT is None else _LAYOUT.model_rank
+
+
+def model_world() -> int:
+    return 1 if _LAYOUT is None else _LAYOUT.tp
+
+
+def _group(over: str) -> Tuple[Any, int]:
+    """(process group, None for the world; its size) of `over`."""
+    if over == "world":
+        return None, world()
+    if over == "data":
+        return (None, world()) if _LAYOUT is None else (_LAYOUT.data_group,
+                                                        _LAYOUT.data_world)
+    if over == "model":
+        return (None, 1) if _LAYOUT is None else (_LAYOUT.model_group, _LAYOUT.tp)
+    raise ValueError(f"over={over!r}: world, data or model")
+
+
 def _gloo() -> bool:
     return dist.get_backend() == "gloo"
 
@@ -196,19 +274,48 @@ def comm_device(t: torch.Tensor) -> torch.device:
     return t.device
 
 
-def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
-    """Sum `t` over the ranks, in place (gloo: a CUDA tensor through the
-    host); returns t. Every rank receives the same bits."""
-    if not active():
+def _all_reduce_(t: torch.Tensor, op, over: str) -> torch.Tensor:
+    group, size = _group(over)
+    if not active() or size == 1:
         return t
     data = t.detach()
     if _gloo() and data.device.type != "cpu":
         host = data.cpu()
-        dist.all_reduce(host)
+        dist.all_reduce(host, op=op, group=group)
         data.copy_(host)
     else:
-        dist.all_reduce(data)
+        dist.all_reduce(data, op=op, group=group)
     return t
+
+
+def all_reduce_sum_(t: torch.Tensor, over: str = "world") -> torch.Tensor:
+    """Sum `t` over the ranks of `over`, in place (gloo: a CUDA tensor
+    through the host); returns t. Every rank receives the same bits."""
+    return _all_reduce_(t, dist.ReduceOp.SUM, over)
+
+
+def all_reduce_max_(t: torch.Tensor, over: str = "world") -> torch.Tensor:
+    """The elementwise max of `t` over the ranks of `over`, in place;
+    returns t."""
+    return _all_reduce_(t, dist.ReduceOp.MAX, over)
+
+
+def all_gather(t: torch.Tensor, over: str = "model", dim: int = -1,
+               host: bool = False) -> torch.Tensor:
+    """Every rank's `t` of the group, in rank order, concatenated along
+    `dim`: a new tensor on t's device, or with `host` in host memory (`t`
+    itself over a group of one)."""
+    group, size = _group(over)
+    if not active() or size == 1:
+        return t
+    src = t.detach().contiguous()
+    staged = _gloo() and src.device.type != "cpu"
+    if staged:
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(size)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim)
+    return out.cpu() if host else out.to(t.device)
 
 
 def broadcast_object(obj: Any, src: int = 0) -> Any:

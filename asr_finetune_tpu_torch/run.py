@@ -20,17 +20,21 @@ its eval decode takes --generation_num_beams, --length_penalty,
 also takes the HPO controller's arguments (hpo/controller.py): the trial's
 directory, its early-stop hook, step count, resume and index.
 
-In a process group (parallel/mesh.py; JAX run.py:163-245, :341-396) each
-rank trains on its card and its shard of the train stream, per-device
-batch rows each; the optimizer state is ZeRO-split over the ranks and,
-with --offload_optimizer, kept in pinned host memory, as is a PEFT run's
-frozen base with --offload_param (parallel/sharding.py); every rank runs
-the outlier calibration on the same full batch and installs rank 0's sets;
-rank 0 writes the config dump. The features come as raw audio (log-mel
-on the device), as the host's float64 log-mel (--host_logmel), or
-precomputed from parquet shards (the parquet data modes, data/parquet.py;
-they need pyarrow); --spec_augment masks them in training. Not ported,
-and raising NotImplementedError: --tp > 1.
+In a process group (parallel/mesh.py; JAX run.py:163-245, :292-296,
+:341-396) laid out as data x --tp, each rank trains on its card; each
+data rank reads its shard of the train stream, per-device batch rows each
+(the global batch is per-device rows x data), and the ranks of one model
+group read the same rows. With --tp > 1 each rank holds its slice of the
+model (parallel/sharding.split_tree, after the int8 quantization and
+before the K-major copies). The optimizer state is ZeRO-split over the
+data group and, with --offload_optimizer, kept in pinned host memory, as
+is a PEFT run's frozen base with --offload_param (parallel/sharding.py);
+every rank runs the outlier calibration on the same full batch and
+installs rank 0's sets; rank 0 writes the config dump. The features come
+as raw audio (log-mel on the device), as the host's float64 log-mel
+(--host_logmel), or precomputed from parquet shards (the parquet data
+modes, data/parquet.py; they need pyarrow); --spec_augment masks them in
+training.
 """
 from __future__ import annotations
 
@@ -58,6 +62,7 @@ from .models.convert_hf import load_pretrained
 from .models.tokenizer import load_tokenizer
 from .ops import quant as quant_lib
 from .parallel import mesh
+from .parallel import sharding as sharding_lib
 from .parallel.sharding import Placement
 from .training import lora as lora_lib
 from .training import optim as optim_lib
@@ -97,7 +102,11 @@ def build_model(args, train: bool = False,
     """The model for serving (train=False: --bf16 casts the matmul weights
     once), for full fine-tuning (fp32 master weights whatever --bf16 says)
     or, with --peft, a frozen base and fresh adapters. hp: the trial's
-    overrides of rank and alpha."""
+    overrides of rank and alpha. In training under tp (the layout set by
+    `check_parallel_layout`) the weights are this rank's slice: every rank
+    builds the whole model from the same seed and keeps its part; an int8
+    base is quantized whole (the row-split o/fc2 keep their whole-column
+    scales) and its K-major copies made from the slices."""
     hp = hp or {}
     device = resolve_device(args.device)
     if args.model_path:
@@ -130,13 +139,16 @@ def build_model(args, train: bool = False,
                                           encoder=args.lora_targets == "all",
                                           device=device)
         if args.load_in_8bit:
-            params = quant_lib.quantize_tree_int8(params)
+            params = _tp_split(quant_lib.quantize_tree_int8(params), cfg, train)
             if args.int8_matmul:
                 # the W8A8 kernel reads each frozen weight K-major: one
                 # (L, d_out, d_in) copy beside every w_q8, made here once
                 params = quant_lib.add_k_major_copies(params)
         else:
+            params = _tp_split(params, cfg, train)
             _cast_tree_(params, torch.bfloat16)
+    elif train:
+        params = _tp_split(params, cfg, train)
     elif args.bf16 and not train:
         # serving computes every product in bf16: cast the weights once
         # rather than at every use
@@ -159,11 +171,21 @@ def build_model(args, train: bool = False,
                       adapters, lcfg)
 
 
-def _check_pending_training(args) -> None:
-    if args.tp > 1:
-        raise NotImplementedError(
-            "--tp > 1: not ported yet (the port trains data-parallel, one card a "
-            "process)")
+def _tp_split(params: Dict[str, Any], cfg: WhisperConfig, train: bool) -> Dict[str, Any]:
+    """This rank's tensor-parallel slice of a training model (the tree
+    itself at tp 1 and for serving)."""
+    tp = mesh.model_world()
+    if not train or tp == 1:
+        return params
+    sharding_lib.check_tensor_parallel(cfg, tp)
+    return sharding_lib.split_tree(params, mesh.model_rank(), tp)
+
+
+def check_parallel_layout(args) -> None:
+    """Lay the group out as data x --tp (parallel/mesh.set_tensor_parallel):
+    a world that does not divide by --tp raises, one process with --tp > 1
+    included."""
+    mesh.set_tensor_parallel(args.tp)
 
 
 def _resolve_path(args, name: str) -> str:
@@ -226,7 +248,7 @@ def build_data(args, tokenizer, model_cfg: WhisperConfig, device: torch.device):
     sampler = IndexSampler(len(train_indices),
                            args.per_device_train_batch_size * accum,
                            seed=args.random_seed, lengths=lengths,
-                           process_index=mesh.rank(), process_count=mesh.world())
+                           process_index=mesh.data_rank(), process_count=mesh.data_world())
 
     collator = make_collator(train_reader)
     rows_of = collator if isinstance(collator, ParquetCollator) else train_reader
@@ -322,7 +344,7 @@ def setup_trial(args, hp: Optional[Dict[str, Any]] = None,
     arguments of the same names say what the others do."""
     hp = dict(hp or {})
     setup_logging(logging.DEBUG if args.debug else logging.INFO)
-    _check_pending_training(args)
+    check_parallel_layout(args)
     out_dir = trial_dir or os.path.join(args.output_dir, args.output_tag)
     os.makedirs(out_dir, exist_ok=True)
     if mesh.is_primary():
@@ -379,7 +401,7 @@ def setup_trial(args, hp: Optional[Dict[str, Any]] = None,
         torch.cuda.empty_cache()
     # an epoch is the train split over the global batch (JAX run.py:428-430)
     max_steps = max_steps_override or args.max_steps or (
-        (n_train // max(args.per_device_train_batch_size * mesh.world(), 1))
+        (n_train // max(args.per_device_train_batch_size * mesh.data_world(), 1))
         * args.num_train_epochs)
     tcfg = TrainerConfig(
         max_steps=max_steps, eval_steps=args.eval_steps,

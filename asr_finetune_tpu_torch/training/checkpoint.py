@@ -26,11 +26,14 @@ not load in the JAX package. Restore copies into the live tensors in place,
 so the parameters keep their identity (and requires_grad).
 
 In a process group (parallel/) a checkpoint is the whole state, whatever
-the world size: every rank takes part in gathering the ZeRO-split moments
-leaf by leaf, rank 0 writes, and a barrier ends the save; on restore every
-rank reads the file and takes its own slice. So a run saved at one world
-size resumes at another. The ranks share the checkpoint directory (one
-host, or a shared filesystem); what a rank finds there is rank 0's answer.
+the world size and --tp: every rank takes part in gathering the
+ZeRO-split moments over the data group and the tensor-parallel slices of
+the parameters and their moments over the model group, leaf by leaf;
+rank 0 writes, and a barrier ends the save; on restore every rank reads
+the file and takes its own slices. So the files are those of one process,
+and a run saved at one world size or tp resumes at another. The ranks
+share the checkpoint directory (one host, or a shared filesystem); what a
+rank finds there is rank 0's answer.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from ..parallel import mesh
+from ..parallel import mesh, sharding
 from .optim import leaves
 
 STATE_FILE = "state.pt"
@@ -58,18 +61,48 @@ def _shards(opt: Dict[str, Any]) -> list:
     return opt.get("shards") or [None] * len(opt["names"])
 
 
+def _splits(opt: Dict[str, Any]) -> list:
+    """Whether each moment is a tensor-parallel slice (False where the state
+    does not say)."""
+    return opt.get("tp_split") or [False] * len(opt["names"])
+
+
 def _whole(opt: Dict[str, Any], key: str) -> Dict[str, torch.Tensor]:
     """Moment `key` of every leaf, whole: a split leaf gathered over the
-    ranks one at a time and kept on the host by rank 0 only."""
+    data group, then over the model group, one at a time, and kept on the
+    host by rank 0 only."""
     out = {}
-    for k, s, m in zip(opt["names"], _shards(opt), opt[key]):
-        if s is None or s.axis is None:
+    for k, s, split, m in zip(opt["names"], _shards(opt), _splits(opt), opt[key]):
+        zero = s is not None and s.axis is not None
+        if not (zero or split):
             out[k] = m
-        else:
-            full = s.gather(m)
-            if mesh.is_primary():
-                out[k] = full.cpu()
+            continue
+        full = s.gather(m) if zero else m
+        full = sharding.gathered(k, full, host=True) if split else full
+        if mesh.is_primary():
+            out[k] = full.cpu()
     return out
+
+
+def _whole_tree(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Every leaf of a model tree by path, whole: under tp the split leaves
+    gathered over the model group (rank 0 keeps them, on the host)."""
+    out = {}
+    for k, p in leaves(tree):
+        p = p.detach()
+        full = sharding.gathered(k, p, host=True)
+        if full is p:
+            out[k] = p
+        elif mesh.is_primary():
+            out[k] = full
+    return out
+
+
+def _local(path: str, t: torch.Tensor, split: bool = True) -> torch.Tensor:
+    """This rank's tensor-parallel slice of a whole saved leaf, or t."""
+    if not split:
+        return t
+    return sharding.local_slice(path, t, mesh.model_rank(), mesh.model_world())
 
 
 class CheckpointManager:
@@ -134,6 +167,7 @@ class CheckpointManager:
             torch.cuda.synchronize()   # offloaded moments: their copies landed
         opt = state["opt_state"]
         whole = {key: _whole(opt, key) for key in ("mu", "nu")}
+        trees = {t: _whole_tree(state[t]) for t in self._trees(state)}
         if mesh.is_primary():
             final = _step_dir(self.directory, step)
             tmp = final + ".tmp"
@@ -143,8 +177,7 @@ class CheckpointManager:
                 "step": int(state["step"]),
                 "opt_count": int(opt["count"]),
                 **whole,
-                **{t: {k: p.detach() for k, p in leaves(state[t])}
-                   for t in self._trees(state)},
+                **trees,
             }
             torch.save(payload, os.path.join(tmp, STATE_FILE))
             with open(os.path.join(tmp, METRICS_FILE), "w") as f:
@@ -188,10 +221,13 @@ class CheckpointManager:
         with torch.no_grad():
             for t in self._trees(state_like):
                 for k, p in leaves(state_like[t]):
-                    p.copy_(saved[t][k])
-            for k, s, m, v in zip(opt["names"], _shards(opt), opt["mu"], opt["nu"]):
-                m.copy_(saved["mu"][k] if s is None else s.of(saved["mu"][k]))
-                v.copy_(saved["nu"][k] if s is None else s.of(saved["nu"][k]))
+                    # under tp only the parameters are split
+                    p.copy_(_local(k, saved[t][k], t == "params"))
+            for k, s, split, m, v in zip(opt["names"], _shards(opt), _splits(opt),
+                                         opt["mu"], opt["nu"]):
+                for held, key in ((m, "mu"), (v, "nu")):
+                    part = _local(k, saved[key][k], split)
+                    held.copy_(part if s is None else s.of(part))
         opt["count"] = saved["opt_count"]
         state_like["step"] = saved["step"]
         return state_like

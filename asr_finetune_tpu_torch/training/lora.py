@@ -14,6 +14,12 @@ masking (fixed shapes), never by resizing.
 Every tree walk here visits keys in sorted order, so the importance rows of
 `adalora_update_mask` and the mask it builds pair up whatever order a tree's
 dicts were built in.
+
+Under tensor parallelism (--tp) the adapters stay whole on every rank (JAX
+`adapter_shardings`): the ranking, the rank masks, the orthogonality
+penalty and the checkpoints are those of one process. Only the forward
+reads a part: each q/v delta is made for the rank's output columns of the
+projection, from the columns of b the rank holds (`tp_local`).
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from .optim import leaves
 
 Params = Dict[str, Any]
@@ -82,6 +89,24 @@ def init_adapters(g: torch.Generator, model_cfg, cfg: LoraConfig,
 
 def _is_adapter(node) -> bool:
     return isinstance(node, dict) and "a" in node and "e" in node
+
+
+def tp_local(adapters: Optional[Params]) -> Optional[Params]:
+    """The adapters as this rank's forward reads them under tp: every b
+    (L, r, d_out) narrowed to the rank's d_out / tp columns of its (column
+    split) projection, a view, so the gradient lands in those columns of
+    the whole b; the adapters themselves at tp 1."""
+    tp = mesh.model_world()
+    if adapters is None or tp == 1:
+        return adapters
+    r = mesh.model_rank()
+
+    def walk(ad):
+        if _is_adapter(ad):
+            n = ad["b"].shape[-1] // tp
+            return {**ad, "b": ad["b"].narrow(-1, r * n, n)}
+        return {k: walk(v) for k, v in ad.items()}
+    return walk(adapters)
 
 
 def _adapter_stacks(tree: Params, prefix: str = "") -> List[Tuple[str, Params]]:

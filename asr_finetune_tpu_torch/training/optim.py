@@ -37,6 +37,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..parallel import mesh
+
 Schedule = Callable[[int], float]
 
 
@@ -109,10 +111,19 @@ def make_lr_schedule(learning_rate: float, max_steps: int,
                           else decay(count - warmup_steps))
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over all gradients, fp32 (optax.global_norm)."""
+def global_norm(grads: List[torch.Tensor],
+                split: Optional[List[bool]] = None) -> torch.Tensor:
+    """sqrt of the sum of squares over all gradients, fp32 (optax.global_norm).
+    split (tensor parallelism): per gradient, whether it is this rank's
+    slice of a leaf split over the model group. Their squares are summed
+    over the group and the whole leaves' counted once, so every rank gets
+    the norm of the whole gradients."""
     norms = torch._foreach_norm([g.float() for g in grads])
-    return torch.sqrt(sum(n * n for n in norms))
+    if not split or not any(split):
+        return torch.sqrt(sum(n * n for n in norms))
+    parts = torch.stack([n * n for n, s in zip(norms, split) if s]).sum()
+    whole = sum(n * n for n, s in zip(norms, split) if not s)
+    return torch.sqrt(whole + mesh.all_reduce_sum_(parts, over="model"))
 
 
 class AdamW:

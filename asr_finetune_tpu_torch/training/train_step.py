@@ -31,16 +31,27 @@ Counterpart of asr_finetune_tpu/training/train_step.py (`make_train_state`
 - AdamW (training/optim.py) updates the trained leaves in place; the
   state's step counter drives the schedule.
 
-Data parallelism (parallel/, one process per card in a group): each rank
-runs its rows of the global batch. The loss is the token mean over the
-global (micro)batch, as the JAX loss over a sharded batch is: the ranks
-sum their microbatch token counts first, each back-propagates its share
-local_sum / global_tokens, and the gradients are summed over the ranks,
-so `grad_norm`, the clip and AdaLoRA's mask update see the reduced
-gradients on every rank. AdaLoRA's orth_reg enters the gradients once
-(rank 0's). Lora dropout and SpecAugment draw the global batch's masks
-and keep the rank's rows (models/whisper.LoraDropout), so two ranks mask
-as one process does. The metrics are the global batch's.
+Data parallelism (parallel/, one process per card in a group): each data
+rank runs its rows of the global batch. The loss is the token mean over
+the global (micro)batch, as the JAX loss over a sharded batch is: the data
+ranks sum their microbatch token counts first, each back-propagates its
+share local_sum / global_tokens, and the gradients are summed over the
+data group, so `grad_norm`, the clip and AdaLoRA's mask update see the
+reduced gradients on every rank. AdaLoRA's orth_reg enters the gradients
+once (global rank 0's). Lora dropout and SpecAugment draw the global
+batch's masks and keep the data rank's rows (models/whisper.LoraDropout),
+so two ranks mask as one process does. W8A8's dynamic outlier form ranks
+its columns over the global batch too (`split_rows`). The metrics are the
+global batch's.
+
+Tensor parallelism (--tp; parallel/mesh.py, models/whisper.py): the ranks
+of a model group read the same rows and each computes the same loss over
+its slice of the model. In full fine-tuning a split leaf's gradient is
+whole on its rank, and a whole leaf's comes out the same on every rank of
+the group: neither is summed over it, and `grad_norm` counts each split
+leaf's slices once each (optim.global_norm). In PEFT each rank's adapter
+gradients are its part (its columns of b, its share of a's and e's), so
+they are summed over the model group as well as the data group.
 
 ZeRO and offload (parallel/sharding.py, `Placement`): each rank holds the
 AdamW moments of its slice of every split leaf (`opt_state["shards"]`),
@@ -55,8 +66,7 @@ folds the step into its key and splits it over micro-batches: SpecAugment
 at site "spec_augment", lora dropout at each projection's site.
 
 Metrics stay on the device: the trainer fetches a whole logging window at
-once. Not ported (its flag raises NotImplementedError in run.py): tensor
-parallelism.
+once.
 """
 from __future__ import annotations
 
@@ -72,7 +82,7 @@ from ..ops.fused_ce import fused_cross_entropy
 from ..ops.quant import QuantConfig
 from ..ops.spec_augment import spec_augment
 from ..parallel import mesh
-from ..parallel.sharding import Placement
+from ..parallel.sharding import Placement, is_split
 from . import lora as lora_lib
 from .optim import AdamW, global_norm, leaves
 
@@ -109,7 +119,8 @@ def make_train_state(params: Params, opt: AdamW, adapters: Optional[Params] = No
     left as it is) and under AdaLoRA "sensitivity" and "rank_mask". The
     optimizer state holds moments for this rank's part ("shards") of the
     leaves `opt.trainable` picks, where `placement` keeps them (default:
-    beside the leaves), and their paths under "names"."""
+    beside the leaves), their paths under "names" and under "tp_split"
+    whether each is a tensor-parallel slice (full fine-tuning under tp)."""
     placement = placement or Placement()
     tree = params if adapters is None else adapters
     what = "full fine-tuning keeps fp32 master weights" if adapters is None \
@@ -124,6 +135,7 @@ def make_train_state(params: Params, opt: AdamW, adapters: Optional[Params] = No
                          zeros=placement.moment_zeros)
     opt_state["names"] = [k for k, _ in trained]
     opt_state["shards"] = shards
+    opt_state["tp_split"] = [adapters is None and is_split(k, p.dim()) for k, p in trained]
     state = {"step": 0, "params": params, "opt_state": opt_state}
     if adapters is not None:
         state["adapters"] = adapters
@@ -176,7 +188,9 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
                     attn_impl=cfg.attn_impl,
                     decoder_attn_impl=cfg.decoder_attn_impl,
                     return_hidden=cfg.fused_ce,
-                    adapters=adapters if peft else None, dropout=dropout,
+                    # under tp, this rank's columns of each b
+                    adapters=lora_lib.tp_local(adapters) if peft else None,
+                    dropout=dropout,
                     quant=cfg.quant, fused_qkv=cfg.fused_qkv)
     if cfg.fused_ce:
         loss, n = fused_cross_entropy(out, params["decoder"]["embed"],
@@ -191,6 +205,16 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     return loss, n, reg
 
 
+def split_rows(cfg: TrainStepConfig) -> TrainStepConfig:
+    """cfg for a forward over this data rank's rows of a batch split over
+    the data group: its W8A8 products rank their dynamic outlier columns
+    over the whole batch (ops/quant.QuantConfig.rows_split). cfg itself in
+    one process or without an int8 base."""
+    if cfg.quant is None or mesh.data_world() == 1:
+        return cfg
+    return dataclasses.replace(cfg, quant=dataclasses.replace(cfg.quant, rows_split=True))
+
+
 def compute_grads(params: Params, batch: Dict[str, torch.Tensor],
                   model_cfg: WhisperConfig, cfg: TrainStepConfig,
                   adapters: Optional[Params] = None,
@@ -201,9 +225,10 @@ def compute_grads(params: Params, batch: Dict[str, torch.Tensor],
     microbatches, and the step's metrics. With `step`, SpecAugment (when
     the config asks for it) and PEFT's lora dropout (at a rate above 0)
     draw their masks, one stream per microbatch. In a
-    process group, `batch` is this rank's rows of the global batch and the
-    gradients and metrics are the global batch's (module docstring)."""
+    process group, `batch` is this data rank's rows of the global batch and
+    the gradients and metrics are the global batch's (module docstring)."""
     peft = cfg.mode == "peft"
+    cfg = split_rows(cfg)
     ps = [p for _, p in leaves(adapters if peft else params)]
     for p in ps:
         p.grad = None
@@ -212,9 +237,9 @@ def compute_grads(params: Params, batch: Dict[str, torch.Tensor],
              [{k: v[i] for k, v in batch.items()} for i in range(n_micro)])
     dp = mesh.active()
     if dp:
-        rank, world = mesh.rank(), mesh.world()
+        rank, world = mesh.data_rank(), mesh.data_world()
         local_n = torch.stack([(mb["labels"] != W.IGNORE_ID).sum() for mb in micro])
-        global_n = mesh.all_reduce_sum_(local_n.clone())
+        global_n = mesh.all_reduce_sum_(local_n.clone(), over="data")
         share = local_n / global_n.clamp(min=1)
     loss_sum = torch.zeros((), dtype=torch.float32)
     tok_sum = torch.zeros((), dtype=torch.long)
@@ -234,7 +259,7 @@ def compute_grads(params: Params, batch: Dict[str, torch.Tensor],
             loss = loss * share[i]      # this rank's part of the global mean
             n = global_n[i]
         # orth_reg enters the gradients summed over the ranks once: rank 0's
-        with_reg = reg is not None and not (dp and rank)
+        with_reg = reg is not None and not (dp and mesh.rank())
         (loss + reg if with_reg else loss).backward()
         loss_sum = loss_sum.to(loss.device) + loss.detach()
         tok_sum = tok_sum.to(n.device) + n
@@ -242,9 +267,11 @@ def compute_grads(params: Params, batch: Dict[str, torch.Tensor],
             reg_sum = reg.detach() if reg_sum is None else reg_sum + reg.detach()
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in ps]
     if dp:
+        # PEFT: each rank of a model group holds a part of each gradient
+        over = "world" if peft else "data"
         for g in grads:
-            mesh.all_reduce_sum_(g)
-        mesh.all_reduce_sum_(loss_sum)
+            mesh.all_reduce_sum_(g, over=over)
+        mesh.all_reduce_sum_(loss_sum, over="data")
     if n_micro > 1:
         torch._foreach_mul_(grads, 1.0 / n_micro)
     metrics = {"loss": loss_sum / n_micro, "tokens": tok_sum}
@@ -266,7 +293,7 @@ def _update(opt: AdamW, params: List[torch.Tensor], grads: List[torch.Tensor],
     unsplit), clipped by the norm of the whole gradients, then each split
     leaf gathered whole on every rank. Returns that norm."""
     shards = opt_state["shards"]
-    norm = global_norm(grads)
+    norm = global_norm(grads, opt_state.get("tp_split"))
     opt.step([s.of(p) for s, p in zip(shards, params)],
              [s.of(g) for s, g in zip(shards, grads)], opt_state, norm=norm)
     for s, p in zip(shards, params):
@@ -319,14 +346,18 @@ def make_train_step(model_cfg: WhisperConfig, opt: AdamW, cfg: TrainStepConfig,
     return step
 
 
-def make_eval_loss_step(model_cfg: WhisperConfig, cfg: TrainStepConfig):
+def make_eval_loss_step(model_cfg: WhisperConfig, cfg: TrainStepConfig,
+                        rows_of_batch: bool = False):
     """batch → {"loss", "tokens"} without gradients (PEFT: the state's
     adapters, rank-masked, no dropout; no SpecAugment), on this process's
-    batch alone: the trainer reduces an evaluation over the ranks."""
+    batch alone: the trainer reduces an evaluation over the ranks.
+    rows_of_batch: the batch is this data rank's rows of one split over the
+    data group (`split_rows`), as the trainer's evaluation is."""
     def step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]
              ) -> Dict[str, torch.Tensor]:
         with torch.no_grad():
-            loss, n, _ = loss_fn(state["params"], batch, model_cfg, cfg,
+            loss, n, _ = loss_fn(state["params"], batch, model_cfg,
+                                 split_rows(cfg) if rows_of_batch else cfg,
                                  state.get("adapters"), state.get("rank_mask"))
         return {"loss": loss, "tokens": n}
     return step

@@ -21,15 +21,17 @@ Counterpart of asr_finetune_tpu/training/trainer.py (`Trainer.train` /
   metrics; False stops the trial once that step's periodic checkpoint is
   saved, and the final save still follows, labelled max_steps as in JAX.
 
-Data parallelism (parallel/; JAX :111-144, :185-215, :296-325): each rank
-trains on its rows of the global batch (training/train_step.py). Every
-rank builds the same full eval batches and takes its contiguous slice;
-the loss sums and token counts are summed over the ranks, each rank
-decodes its slice and the texts are gathered in row order, so every rank
-computes the same eval metrics. The early-stop verdict is rank 0's,
-broadcast, or the ranks would part at the next collective. Rank 0 writes
-metrics.jsonl and every rank its metrics_host<r>.jsonl; each logging
-window rank 0's record carries every rank's host<r>_rss_gb,
+Data parallelism (parallel/; JAX :111-144, :185-215, :296-325): each data
+rank trains on its rows of the global batch (training/train_step.py).
+Every rank builds the same full eval batches and takes its data rank's
+contiguous slice; the loss sums and token counts are summed over the data
+group, each data rank decodes its slice and the texts are gathered in row
+order (from each model group's rank 0: under --tp the ranks of a model
+group decode the same rows together, the plain step over their heads), so
+every rank computes the same eval metrics. The early-stop verdict is rank
+0's, broadcast, or the ranks would part at the next collective. Rank 0
+writes metrics.jsonl and every rank its metrics_host<r>.jsonl; each
+logging window rank 0's record carries every rank's host<r>_rss_gb,
 host<r>_hbm_in_use_gb and host<r>_hbm_peak_gb (one all-gather). An
 offloaded frozen base (parallel/sharding.Placement) is copied to the card
 once per evaluate().
@@ -130,7 +132,7 @@ class Trainer:
         self.on_evaluate = on_evaluate
         self.placement = placement or Placement(device)
         self._train_step = make_train_step(model_cfg, opt, step_cfg, self.placement)
-        self._eval_loss_step = make_eval_loss_step(model_cfg, step_cfg)
+        self._eval_loss_step = make_eval_loss_step(model_cfg, step_cfg, rows_of_batch=True)
         forced = tokenizer.prefix_tokens(cfg.language, cfg.task,
                                          predict_timestamps=cfg.return_timestamps)
         sp = tokenizer.special
@@ -156,7 +158,7 @@ class Trainer:
         rng = np.random.default_rng(self.cfg.seed + step)
         shard_id = int(rng.integers(self.cfg.eval_num_shards))
         batches = self.eval_batches_fn(shard_id)
-        rank, world = mesh.rank(), mesh.world()
+        rank, world = mesh.data_rank(), mesh.data_world()
         # an offloaded base: one copy to the card for the whole evaluation
         state = dict(self.state, params=self.placement.base_on_device(self.state["params"]))
         adapters = state.get("adapters")
@@ -180,7 +182,7 @@ class Trainer:
             if world > 1:
                 # the global batch's mean: the ranks' loss sums over their tokens
                 n = (dev_batch["labels"] != IGNORE_ID).sum().float()
-                total = mesh.all_reduce_sum_(torch.stack([m["loss"] * n, n]))
+                total = mesh.all_reduce_sum_(torch.stack([m["loss"] * n, n]), over="data")
                 losses.append(float(total[0] / total[1].clamp(min=1)))
                 counts.append(max(int(total[1]), 1))
             else:
@@ -193,7 +195,9 @@ class Trainer:
                         dev_batch["audio"], n_mels=self.step_cfg.n_mels)
                 tokens, _ = self._decode(state["params"], mel, adapters)
                 texts = self.tokenizer.batch_decode(tokens.cpu().tolist())
-                texts = [t for part in mesh.all_gather_object(texts) for t in part]
+                # every data rank's texts, as its model group's rank 0 decoded them
+                parts = mesh.all_gather_object(texts)[::mesh.model_world()]
+                texts = [t for part in parts for t in part]
                 hyps.extend(normalize(t) for t in texts[:n_valid])
                 refs.extend(normalize(str(t)) for t in batch["text"][:n_valid])
 
@@ -241,8 +245,8 @@ class Trainer:
                 m = self._train_step(self.state, dev_batch)
                 step += 1
                 window.append(m)
-                # the global batch's utterances: every rank's rows
-                utts_since += int(np.prod(dev_batch["labels"].shape[:-1])) * mesh.world()
+                # the global batch's utterances: every data rank's rows
+                utts_since += int(np.prod(dev_batch["labels"].shape[:-1])) * mesh.data_world()
 
                 if step % self.cfg.logging_steps == 0:
                     win = [{k: v.item() for k, v in w_.items()} for w_ in window]

@@ -35,7 +35,11 @@
    at B 4, 80 and 128 mels, two calls bit-equal, its two CUDA launches a
    call asserted, the production conv form (ops/logmel.log_mel_spectrogram,
    tables resident) and a torch.stft form as its yardsticks, and its and the
-   plain version's error against float64 on a tonal input;
+   plain version's error against float64 on a tonal input; 3g, the kernels
+   at the shapes a rank of --tp 2 gives them: W8A8 with the row amax
+   supplied, bit for bit, at the eight split products (and four of --tp 4,
+   N or K 320), timed; the encoder-attention kernels at 10 heads, packed
+   and fused-qkv, forward and backward, within the 20-head limits;
 4. runs an fp32 greedy decode at large-v3 width and 2+2 layers through the
    fused kernels and through the plain decode step: the tokens must be equal,
    over a float base and over a merged int8 base; a beam-4 decode the same
@@ -105,8 +109,16 @@
    between steps, then on the kernels, peak memory and ms/step against
    phase 6; 8c, PEFT-int8 with --offload_param --offload_optimizer, 3
    steps and an eval, the same way against phase 7, the base pinned on the
-   host and the device memory back after each step; each one JSON line of
-   its readings;
+   host and the device memory back after each step; 8d, tensor
+   parallelism: two rank processes of `cli.train --tp 2` sharing the card
+   (gloo), large-v3 (i) full fine-tuning and (ii) PEFT over the int8 base
+   with --int8_matmul, AdaLoRA and calibrated outliers, 4 steps of batch 4,
+   an eval and a checkpoint at step 4, each against one process at tp 1
+   over the same batches (loss, grad_norm, the trained weights within
+   TP_LIMITS; the calibrated sets equal, the rank masks equal on both
+   ranks), the kernels launched on each rank (W8A8 at the split shapes),
+   the checkpoint resumed in one process, ms/step, peak memory a rank and
+   the collectives' share of a step; each one JSON line of its readings;
 9. the training options: 9a, `cli.train` at whisper-small,
    full fine-tuning with --spec_augment at batch 8 (bench.py's full_ft
    cell), 4 steps, an eval and a checkpoint, after checking the draws on
@@ -1196,6 +1208,166 @@ def check_attention_layouts(rows):
         torch.cuda.empty_cache()
 
 
+# Phase 3g and 8d, tensor parallelism at --tp 2: each rank runs 10 of the 20
+# heads and 1/2 of the MLP; the eight W8A8 products a rank runs, split by
+# output columns (q/k/v, fc1: N / 2) or by input rows (o, fc2: K / 2, the row
+# scale from the whole row's amax); and at --tp 4 the tile edges of N 320
+# and K 320
+TP, TP_H = 2, H // 2
+TP_W8A8_SHAPES = tuple(
+    (f"{part} {proj}", m, K, N)
+    for part, m in (("encoder", B * T_ENC), ("decoder", B * CROSS_TQ))
+    for proj, K, N in (("q/k/v", D, D // TP), ("o", D // TP, D), ("fc1", D, FF // TP),
+                       ("fc2", FF // TP, D)))
+TP4_W8A8_SHAPES = tuple((f"{part} {proj} (tp 4)", m, K, N)
+                        for part, m in (("encoder", B * T_ENC), ("decoder", B * CROSS_TQ))
+                        for proj, K, N in (("q/k/v", D, D // 4), ("o", D // 4, D)))
+
+
+def check_tp_kernels(rows):
+    """Phase 3g: the kernels at the shapes a rank of --tp 2 gives them.
+    W8A8 with the row amax supplied (the whole row's, over the rank's K
+    columns and the other rank's) against w8a8_plain with the same operand,
+    bit for bit, bf16 and fp32, pure and with an outlier keep-mask and
+    addend, at the eight split shapes and at four of --tp 4 (N or K 320:
+    the tiles' ragged edges); the supplied amax must change the result (the
+    kernel reads it). bf16 timed per tp 2 shape beside torch._int_mm and
+    the bf16 product with the dequantized weight (rows["w8a8"]["tp2_by_shape"]).
+    Then the encoder-attention kernels at 10 heads: packed (4, 1500, 640),
+    self and cross (Tq 192), forward and backward, and the fused-qkv
+    (4, 1500, 1920) buffer, forward and backward, against their plain
+    versions at the 20-head limits; bf16 self timed beside SDPA
+    (rows["encoder_attention"...]["h10_*"])."""
+    import torch
+    import torch.nn.functional as F
+    from asr_finetune_tpu_torch.ops import encoder_attention as EA
+    from asr_finetune_tpu_torch.ops import quant as Q
+    from asr_finetune_tpu_torch.ops import w8a8_fused as WF
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    timed = []
+    for name, m, K, N in TP_W8A8_SHAPES + TP4_W8A8_SHAPES:
+        q = Q.quantize_weight(torch.randn((K, N), generator=g, device=dev) * K ** -0.5)
+        w8, ws = q["w_q8"], q["w_scale"]
+        w_nk = w8.t().contiguous()
+        for dt in (torch.bfloat16, torch.float32):
+            dn = str(dt).split(".")[-1]
+            whole = torch.randn((m, 2 * K), generator=g, device=dev)
+            whole[:, 5::K // 3] *= 12.0             # emergent outliers in both halves
+            whole = whole.to(dt)
+            x, other = whole[:, :K].contiguous(), whole[:, K:]
+            for form in ("pure", "outliers"):
+                keep = addend = None
+                if form == "outliers":
+                    keep, addend = Q._outlier_split(
+                        x, w8, ws, Q.QuantConfig(matmul=True, outlier_cols=8))
+                own = x.float() if keep is None else x.float() * keep
+                amax = torch.maximum(own.abs().amax(-1), other.float().abs().amax(-1))
+                out = WF.w8a8(x, w8, ws, keep, addend, w_nk, amax)
+                ref = WF.w8a8_plain(x, w8, ws, keep, addend, amax)
+                if not torch.equal(out, ref):
+                    raise AssertionError(
+                        f"w8a8 row amax [{dn}] {name} {form}: {int((out != ref).sum())} "
+                        f"elements differ, max abs "
+                        f"{float((out.float() - ref.float()).abs().max()):.3e}")
+                if torch.equal(out, WF.w8a8(x, w8, ws, keep, addend, w_nk)):
+                    raise AssertionError(f"w8a8 row amax [{dn}] {name}: the supplied "
+                                         "amax changed nothing")
+            print(f"w8a8 row amax [{dn}] {name} m {m} K {K} N {N}: kernel == plain bit "
+                  "for bit (pure, outliers)")
+            if dt is not torch.bfloat16 or "(tp 4)" in name:
+                continue
+            x32 = x.float()
+            xs = torch.clamp(amax[:, None], min=1e-8) * WF.INV_127
+            x8 = torch.clamp(torch.round(x32 / xs), -127, 127).to(torch.int8)
+            w8_cm = w8.t().contiguous().t()
+            w_deq = Q.dequantize_weight(q, dt)
+            b_ms, b_by = bound(m * K * 2 + m * 4 + K * N + N * 4 + m * N * 2,
+                               2 * m * K * N, "int8")
+            t = {"shape": name, "m": m, "K": K, "N": N,
+                 "ms": device_ms(lambda: WF.w8a8(x, w8, ws, None, None, w_nk, amax), 16),
+                 "plain_ms": device_ms(lambda: WF.w8a8_plain(x, w8, ws, None, None, amax), 2),
+                 "int_mm_ms": device_ms(lambda: torch._int_mm(x8, w8_cm), 16),
+                 "bf16_matmul_ms": device_ms(lambda: torch.matmul(x, w_deq), 16),
+                 "bound_ms": b_ms, "bound_by": b_by}
+            timed.append(t)
+            print(f"  w8a8 row amax [bfloat16] {name}: kernel {t['ms']:.4f} ms (device)  "
+                  f"plain {t['plain_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
+                  f"torch._int_mm {t['int_mm_ms']:.4f} ms  bf16 matmul (dequantized) "
+                  f"{t['bf16_matmul_ms']:.4f} ms")
+            del w_deq, x8
+        torch.cuda.empty_cache()
+    rows["w8a8"]["tp2_by_shape"] = timed
+
+    Dh = TP_H * 64
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).split(".")[-1]
+        qe, ke, ve, do = (torch.randn((B, T_ENC, Dh), generator=g, device=dev).to(dt)
+                          for _ in range(4))
+        qc, doc = (torch.randn((B, CROSS_TQ, Dh), generator=g, device=dev).to(dt)
+                   for _ in range(2))
+        for shape, q, dout in (("self", qe, do), ("cross", qc, doc)):
+            print(f"encoder_attention [{dn}] {TP_H} heads, {shape} Tq {q.shape[1]} Tk {T_ENC}:")
+            compare("encoder_attention", EA.dense_attention_packed(q, ke, ve, 64, T_ENC),
+                    EA.dense_attention_packed_plain(q, ke, ve, 64, T_ENC), dn)
+            _, lse = EA._dense_attention_packed_cuda(q, ke, ve, 64, T_ENC, with_lse=True)
+            compare("encoder_attention_bwd",
+                    EA._dense_attention_packed_bwd_cuda(q, ke, ve, dout, lse, 64, T_ENC),
+                    EA.dense_attention_packed_bwd_plain(q, ke, ve, dout, 64, T_ENC), dn)
+        if dt is torch.bfloat16:
+            hq, hk, hv = (a.view(B, T_ENC, TP_H, 64).transpose(1, 2) for a in (qe, ke, ve))
+            _, lse = EA._dense_attention_packed_cuda(qe, ke, ve, 64, T_ENC, with_lse=True)
+            hg = [a.detach().requires_grad_() for a in (hq, hk, hv)]
+            oh = F.scaled_dot_product_attention(*hg)
+            doh = do.view(B, T_ENC, TP_H, 64).transpose(1, 2)
+            fwd_b = bound(4 * B * T_ENC * Dh * dt.itemsize, 4 * B * TP_H * T_ENC * T_ENC * 64, dn)
+            bwd_b = bound(B * TP_H * 7 * T_ENC * 64 * dt.itemsize + B * TP_H * T_ENC * 4,
+                          5 * 2 * B * TP_H * T_ENC * T_ENC * 64, dn)
+            fwd = {"ms": device_ms(lambda: EA.dense_attention_packed(qe, ke, ve, 64, T_ENC), 8),
+                   "plain_ms": device_ms(
+                       lambda: EA.dense_attention_packed_plain(qe, ke, ve, 64, T_ENC), 2),
+                   "library_ms": device_ms(lambda: F.scaled_dot_product_attention(hq, hk, hv), 8),
+                   "bound_ms": fwd_b[0], "bound_by": fwd_b[1]}
+            bwd = {"ms": device_ms(lambda: EA._dense_attention_packed_bwd_cuda(
+                       qe, ke, ve, do, lse, 64, T_ENC), 8),
+                   "plain_ms": device_ms(lambda: EA.dense_attention_packed_bwd_plain(
+                       qe, ke, ve, do, 64, T_ENC), 2),
+                   "library_ms": profiled_ms(lambda: torch.autograd.grad(
+                       oh, hg, doh, retain_graph=True)),
+                   "bound_ms": bwd_b[0], "bound_by": bwd_b[1]}
+            rows["encoder_attention"].update({f"h10_{k}": v for k, v in fwd.items()})
+            rows["encoder_attention_bwd"].update({f"h10_{k}": v for k, v in bwd.items()})
+            for what, t in (("forward", fwd), ("backward", bwd)):
+                print(f"  encoder_attention {what} [{dn}] {TP_H} heads self: kernel "
+                      f"{t['ms']:.4f} ms (device)  plain {t['plain_ms']:.4f} ms  bound "
+                      f"{t['bound_ms']:.4f} ms ({t['bound_by']})  SDPA {t['library_ms']:.4f} ms")
+            del hg, oh, lse
+        del qe, ke, ve, do, qc, doc
+        qkv = torch.randn((B, T_ENC, 3 * Dh), generator=g, device=dev).to(dt)
+        do = torch.randn((B, T_ENC, Dh), generator=g, device=dev).to(dt)
+        print(f"encoder_attention_qkv [{dn}] {TP_H} heads, qkv ({B}, {T_ENC}, {3 * Dh}):")
+        compare("encoder_attention_qkv", EA.dense_attention_qkv(qkv, 64),
+                EA.dense_attention_qkv_plain(qkv, 64), dn)
+        xg = qkv.detach().requires_grad_()
+        (grad,) = torch.autograd.grad(EA.dense_attention_qkv(xg, 64), (xg,), do)
+        compare("encoder_attention_qkv_bwd", grad,
+                EA.dense_attention_qkv_bwd_plain(qkv, do, 64), dn)
+        if dt is torch.bfloat16:
+            heads = [t_.view(B, T_ENC, TP_H, 64).transpose(1, 2) for t_ in EA._qkv_views(qkv, 64)]
+            t = {"ms": device_ms(lambda: EA.dense_attention_qkv(qkv, 64), 8),
+                 "plain_ms": device_ms(lambda: EA.dense_attention_qkv_plain(qkv, 64), 2),
+                 "library_ms": device_ms(lambda: F.scaled_dot_product_attention(*heads), 8),
+                 "bound_ms": fwd_b[0], "bound_by": fwd_b[1]}
+            rows["encoder_attention_qkv"].update({f"h10_{k}": v for k, v in t.items()})
+            print(f"  encoder_attention_qkv [{dn}] {TP_H} heads: kernel {t['ms']:.4f} ms "
+                  f"(device)  plain {t['plain_ms']:.4f} ms  bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']})  SDPA {t['library_ms']:.4f} ms")
+            del heads
+        del qkv, do, xg, grad
+        torch.cuda.empty_cache()
+
+
 def cuda_events(fn, calls: int = 4) -> dict:
     """Launches per call of every CUDA kernel, copy and memset of fn(), by
     name (torch.profiler)."""
@@ -1761,8 +1933,8 @@ def check_peft_grads(device: str = "cuda", model: str = "large-v3"):
     g_k, loss_k, n_k = grads(True)
     g_d, loss_d, n_d = grads(False)
     orig_w8a8, orig_attn = Q.w8a8, A.encoder_attention
-    Q.w8a8 = lambda x, w, sc, keep=None, addend=None, w_nk=None: WF.w8a8_plain(
-        x, w, sc, keep, addend)
+    Q.w8a8 = lambda x, w, sc, keep=None, addend=None, w_nk=None, row_amax=None: \
+        WF.w8a8_plain(x, w, sc, keep, addend, row_amax)
     try:
         g_w, loss_w, n_w = grads(True)
         A.encoder_attention = lambda q, k, v: A.xla_attention(q, k, v)
@@ -2047,13 +2219,13 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
         finally:
             it.close()
 
-    def outlier_split(x, w_q8, w_scale, cfg):
+    def outlier_split(x, w_q8, w_scale, cfg, row_split=False):
         """Counts the W8A8 products by (d_in, d_out) class and outlier form."""
-        klass = (x.shape[-1], w_q8.shape[-1])
+        klass = Q.logical_class(x.shape[-1], w_q8.shape[-1], row_split)
         static = cfg.static_idx is not None and klass in cfg.static_idx
         key = (klass, "calibrated" if static else "dynamic top-k")
         st["outliers"][key] = st["outliers"].get(key, 0) + 1
-        return orig[6](x, w_q8, w_scale, cfg)
+        return orig[6](x, w_q8, w_scale, cfg, row_split)
 
     def calibrate_outliers(*a, **k):
         st["calib"] = orig[5](*a, **k)
@@ -2755,7 +2927,7 @@ def _tree_digest(state) -> str:
 def dp_rank(spec_path: str) -> int:
     """Phase 8a's rank process (`chip_smoke.py --dp-rank <spec>`, started by
     dp_main_path with torchrun's variables): cli.train over its rows, then
-    rank<r>.json with its steps, index batches, evals, launches and the
+    dp_rank<r>.json with its steps, index batches, evals, launches and the
     digest of its adapters and rank masks."""
     with open(spec_path) as f:
         spec = json.load(f)
@@ -2764,7 +2936,7 @@ def dp_rank(spec_path: str) -> int:
     out = {"result": result, "steps": rec["steps"], "batches": rec["batches"][:DP_STEPS],
            "evals": rec["evals"], "launches": all_launches(),
            "digest": _tree_digest(rec["state"])}
-    with open(os.path.join(spec["dir"], f"rank{os.environ['RANK']}.json"), "w") as f:
+    with open(os.path.join(spec["dir"], f"dp_rank{os.environ['RANK']}.json"), "w") as f:
         json.dump(out, f)
     return 0
 
@@ -2797,42 +2969,10 @@ def dp_main_path(rows, device: str = "cuda", model: str = "large-v3"):
         data, two, one = f"{tmp}/data", f"{tmp}/two", f"{tmp}/one"
         os.makedirs(data)
         write_audiofolder(data, TRAIN_UTTS)
-        spec = f"{tmp}/spec.json"
-        with open(spec, "w") as f:
-            json.dump({"dir": tmp, "argv": _dp_argv(data, two, DP_BATCH, device, model)}, f)
-        port = _free_port()
-        procs, logs = [], []
-        t0 = time.perf_counter()
-        try:
-            for r in range(DP_RANKS):
-                env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(DP_RANKS),
-                       "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": str(DP_RANKS),
-                       "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
-                logs.append(open(f"{tmp}/rank{r}.log", "w"))
-                procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__), "--dp-rank", spec],
-                    env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
-            for p in procs:
-                p.wait(timeout=DP_TIMEOUT)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-            for f in logs:
-                f.close()
-        wall = time.perf_counter() - t0
-        for r, p in enumerate(procs):
-            if p.returncode != 0:
-                with open(f"{tmp}/rank{r}.log") as f:
-                    tail = f.read()[-8000:]
-                raise AssertionError(f"{label}: rank {r} exited {p.returncode}:\n{tail}")
-        ranks = []
-        for r in range(DP_RANKS):
-            with open(f"{tmp}/rank{r}.json") as f:
-                ranks.append(json.load(f))
-        with open(f"{tmp}/rank0.log") as f:
-            group_line = next((line.strip() for line in f if "process group" in line), "")
+        ranks, wall, group = _rank_processes(
+            tmp, "dp", _dp_argv(data, two, DP_BATCH, device, model), DP_RANKS, DP_TIMEOUT,
+            label)
+        group_line = group[0] if group else ""
 
         # one process over the same global batches: rank 0's rows, then rank 1's
         global_batches = [np.concatenate([np.asarray(rk["batches"][i]) for rk in ranks])
@@ -2916,6 +3056,319 @@ def dp_main_path(rows, device: str = "cuda", model: str = "large-v3"):
           f"{mask_flips} rank-mask "
           f"flips; evals equal on both ranks; resumed in one process to step "
           f"{resumed['final_step']}")
+
+
+# 8d, --tp 2: two rank processes sharing the card (gloo), each run against one
+# process at tp 1 over the same batches: the largest reading over the steps of
+# |a - b| / |b| for the loss and grad_norm, and after 4 steps RMS(a - b) /
+# RMS(b - initial) over every trained element (full fine-tuning: the
+# parameters; PEFT: the adapters), as DP_LIMITS reads them. The ranks' sums
+# run in another order than one process's (a rank's o and fc2 products are
+# partial sums, rounded to bf16 before the two are added), and in PEFT a
+# flipped int8 rounding of an activation moves a product by 1/127 of its
+# row's amax. The first reading on an H100 (PERF.md): full fine-tuning loss
+# 5.9e-5, grad_norm 1.6e-3 (growing over the steps, 1.1e-4 at step 1, as
+# the weights drift apart), parameters 2.35e-2; PEFT loss 1.6e-4, grad_norm
+# 1.3e-4, adapters 5.35e-2. Limits ~10x the larger reading of the first two
+# and ~4x of the third, as DP_LIMITS.
+TP_LIMITS = {"loss": 1.5e-3, "grad_norm": 1.6e-2, "weights": 0.2}
+TP_STEPS, TP_TIMEOUT = 4, 900                   # steps; s, each rank process of 8d
+
+
+def _tp_argv(data, out, device, model, peft, *extra):
+    """8d's run of cli.train: largev3_debug.config (full fine-tuning) or
+    largev3_peft_debug.config with --int8_matmul (PEFT, AdaLoRA, calibrated
+    outliers) on the 20 wavs of phase 6, batch 4, 4 steps, an eval with the
+    greedy WER and a checkpoint at step 4."""
+    cfg = ["-c", PEFT_CONFIG, "--int8_matmul"] if peft else ["-c", TRAIN_CONFIG]
+    return [*cfg, "--model_type", model, "--device", device, "--no-debug",
+            "--data_mode", "folder", "--dataset_name", data, "--val_split", "0.2",
+            "--per_device_train_batch_size", str(B), "--per_device_eval_batch_size", str(B),
+            "--max_steps", str(TP_STEPS), "--eval_steps", str(TP_STEPS),
+            "--save_steps", str(TP_STEPS), "--logging_steps", "2",
+            "--eval_sample_fraction", "1.0", "--generation_max_length", str(TRAIN_GEN_LEN),
+            "--wer_weight", "0.7", "--output_dir", out, *extra]
+
+
+def tp_rank(spec_path: str) -> int:
+    """Phase 8d's rank process (`chip_smoke.py --tp-rank <spec>`, started by
+    tp_main_path with torchrun's variables): cli.train --tp 2, with its
+    steps, index batches, evals, launches, the W8A8 products' shapes (and
+    whether each was given the whole rows' amax), the time spent in the
+    collectives a step (each timed from a synchronised device, so the wait
+    for earlier kernels is not in it), peak device memory, the calibrated
+    sets and the digest of its adapters and rank masks; then
+    tp_rank<r>.json."""
+    import torch
+    from asr_finetune_tpu_torch import run as run_lib
+    from asr_finetune_tpu_torch.ops import quant as Q
+    from asr_finetune_tpu_torch.parallel import mesh
+    from asr_finetune_tpu_torch.training import trainer as trainer_lib
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    on_card = torch.cuda.is_available() and "cuda" in spec["argv"]
+    st = {"comm_s": 0.0, "step_comm_s": [], "shapes": set(), "calibrated": None}
+    orig = (mesh._all_reduce_, mesh.all_gather, Q.w8a8, run_lib.calibrate_outliers,
+            trainer_lib.make_train_step)
+
+    def timed(fn):
+        def call(*a, **k):
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            st["comm_s"] += time.perf_counter() - t0
+            return out
+        return call
+
+    def w8a8(x, w_q8, *a, **k):
+        st["shapes"].add((x.shape[0], x.shape[1], w_q8.shape[1], "row_amax" in k))
+        return orig[2](x, w_q8, *a, **k)
+
+    def calibrate_outliers(*a, **k):
+        st["calibrated"] = orig[3](*a, **k)
+        return st["calibrated"]
+
+    def make_train_step(*a, **k):
+        inner = orig[4](*a, **k)
+
+        def step(state, batch):
+            c0 = st["comm_s"]
+            m = inner(state, batch)
+            st["step_comm_s"].append(st["comm_s"] - c0)
+            return m
+        return step
+
+    mesh._all_reduce_, mesh.all_gather = timed(orig[0]), timed(orig[1])
+    Q.w8a8, run_lib.calibrate_outliers, trainer_lib.make_train_step = (
+        w8a8, calibrate_outliers, make_train_step)
+    reset_all_launches()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        result, rec = _recorded_run(spec["argv"])
+    finally:
+        (mesh._all_reduce_, mesh.all_gather, Q.w8a8, run_lib.calibrate_outliers,
+         trainer_lib.make_train_step) = orig
+    peft = rec["state"].get("adapters") is not None
+    out = {"result": result, "steps": rec["steps"], "batches": rec["batches"][:TP_STEPS],
+           "evals": rec["evals"], "launches": all_launches(),
+           "step_comm_s": st["step_comm_s"][:TP_STEPS],
+           "w8a8_shapes": sorted(st["shapes"]),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0,
+           "calibrated": None if st["calibrated"] is None else sorted(
+               [list(k), list(v)] for k, v in st["calibrated"].items()),
+           "digest": _tree_digest(rec["state"]) if peft else None}
+    with open(os.path.join(spec["dir"], f"tp_rank{os.environ['RANK']}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _rank_processes(tmp, kind: str, argv, n: int, timeout: float, label: str):
+    """n rank processes of `chip_smoke.py --<kind>-rank` (dp_rank or
+    tp_rank) over cli.train's `argv`, with torchrun's variables; returns
+    their records (<kind>_rank<r>.json), the wall time and rank 0's lines
+    about its group."""
+    spec = f"{tmp}/{kind}_spec.json"
+    with open(spec, "w") as f:
+        json.dump({"dir": tmp, "argv": argv}, f)
+    port = _free_port()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(n):
+            env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(n),
+                   "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": str(n),
+                   "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+            logs.append(open(f"{tmp}/{kind}_rank{r}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), f"--{kind}-rank", spec],
+                env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(f"{tmp}/{kind}_rank{r}.log") as f:
+                tail = f.read()[-8000:]
+            raise AssertionError(f"{label}: rank {r} exited {p.returncode}:\n{tail}")
+    ranks = []
+    for r in range(n):
+        with open(f"{tmp}/{kind}_rank{r}.json") as f:
+            ranks.append(json.load(f))
+    with open(f"{tmp}/{kind}_rank0.log") as f:
+        group = [line.strip() for line in f if "process group" in line
+                 or "tensor parallel" in line]
+    return ranks, wall, group
+
+
+def tp_main_path(rows, peft: bool, device: str = "cuda", model: str = "large-v3"):
+    """Phase 8d, tensor parallelism: two rank processes of `cli.train --tp 2`
+    share the card (a gloo group), whisper-large-v3 at full width and depth,
+    (i) full fine-tuning (largev3_debug.config) or (ii) PEFT over the int8
+    base with --int8_matmul, AdaLoRA and calibrated outliers: batch 4 (both
+    ranks read the same rows, each runs 10 heads and half the MLP), 4 steps,
+    an eval with the greedy WER (the plain decode step over each rank's
+    heads) and a checkpoint at step 4. Then one process at tp 1 over the
+    same batches: per step the loss and grad_norm, and the trained weights
+    after 4 steps (the ranks' checkpoint, gathered whole) against it within
+    TP_LIMITS; (ii) the calibrated sets equal to one process's and the
+    rank masks equal on both ranks. Each rank must have launched the
+    encoder-attention forward and backward and, in (ii), W8A8 at the split
+    shapes (the row-split ones with the whole rows' amax). Then one process
+    resumes the ranks' checkpoint for 2 steps. Prints ms/step, peak memory
+    a rank and the collectives' share of a step; gloo stages every
+    collective through the host, so no time here is a target."""
+    import torch
+    from asr_finetune_tpu_torch import run as run_lib
+    from asr_finetune_tpu_torch.models import whisper as W
+    from asr_finetune_tpu_torch.models.configs import get_config
+    from asr_finetune_tpu_torch.training import checkpoint as ckpt_lib
+    from asr_finetune_tpu_torch.training.optim import leaves
+
+    on_card = device == "cuda"
+    kind = "PEFT" if peft else "full FT"
+    label = f"TP main path (8d, {kind})"
+    config = PEFT_CONFIG if peft else TRAIN_CONFIG
+    tag = next(line.split("=", 1)[1].strip() for line in open(config)
+               if line.startswith("output_tag"))
+    tree = "adapters" if peft else "params"
+    with tempfile.TemporaryDirectory() as tmp:
+        data, two, one = f"{tmp}/data", f"{tmp}/two", f"{tmp}/one"
+        os.makedirs(data)
+        write_audiofolder(data, TRAIN_UTTS)
+        ranks, wall, group = _rank_processes(
+            tmp, "tp", _tp_argv(data, two, device, model, peft, "--tp", str(TP)), TP,
+            TP_TIMEOUT, label)
+        batches = [np.asarray(b) for b in ranks[0]["batches"]]
+        # one process over the same batches; its checkpoint is not written
+        calib = {}
+        orig = (ckpt_lib.CheckpointManager.save, run_lib.calibrate_outliers)
+
+        def calibrate_outliers(*a, **k):
+            calib["sets"] = orig[1](*a, **k)
+            return calib["sets"]
+        ckpt_lib.CheckpointManager.save = lambda *a, **k: False
+        run_lib.calibrate_outliers = calibrate_outliers
+        try:
+            _, ref = _recorded_run(_tp_argv(data, one, device, model, peft), sampler=batches)
+        finally:
+            ckpt_lib.CheckpointManager.save, run_lib.calibrate_outliers = orig
+        state = ref.pop("state")
+        final = dict(leaves(state[tree]))
+        ref_masks = dict(leaves(state["rank_mask"])) if peft else {}
+        del state
+        saved = torch.load(f"{two}/{tag}/checkpoints/step_{TP_STEPS:08d}/state.pt",
+                           map_location="cpu", weights_only=True, mmap=True)
+        initial = ref["initial"] if peft else dict(leaves(W.init_params(
+            get_config(model), seed=1337, device=device)))
+        gap2 = upd2 = 0.0
+        for k, v in final.items():
+            v = v.detach().float()
+            gap2 += float((saved[tree][k].to(v.device).float() - v).square().sum())
+            upd2 += float((v - initial[k].to(v.device).float()).square().sum())
+        w_err = (gap2 / max(upd2, 1e-30)) ** 0.5
+        mask_flips = sum(int((saved["rank_mask"][k].to(v.device) != v).sum())
+                         for k, v in ref_masks.items())
+        held_whole = all(tuple(saved[tree][k].shape) == tuple(v.shape)
+                         for k, v in final.items())
+        del final, initial, ref_masks, saved
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # the ranks' checkpoint resumed in one process for 2 steps (not saved again)
+        ckpt_lib.CheckpointManager.save = lambda *a, **k: False
+        try:
+            resumed, res = _recorded_run(_tp_argv(data, two, device, model, peft,
+                                                  "--resume_training", "--max_steps",
+                                                  str(TP_STEPS + 2)))
+        finally:
+            ckpt_lib.CheckpointManager.save = orig[0]
+        del res["state"]
+        if on_card:
+            torch.cuda.empty_cache()
+
+    loss_err = max(_rel(a["loss"], b["loss"]) for a, b in zip(ranks[0]["steps"], ref["steps"]))
+    norm_err = max(_rel(a["grad_norm"], b["grad_norm"])
+                   for a, b in zip(ranks[0]["steps"], ref["steps"]))
+    ms = [1e3 * float(np.mean([s_["s"] for s_ in rk["steps"][1:]])) for rk in ranks]
+    comm = [float(np.sum(rk["step_comm_s"][1:]) / np.sum([s_["s"] for s_ in rk["steps"][1:]]))
+            for rk in ranks]
+    calibrated = None if not peft else sorted(
+        [list(k), list(v)] for k, v in calib["sets"].items())
+    reading = {"phase": "8d", "kind": kind, "tp": TP, "wall_s": wall, "group": group,
+               "steps": [[{k: s_[k] for k in ("loss", "grad_norm", "tokens")}
+                          for s_ in rk["steps"]] for rk in ranks],
+               "one_process": [{k: s_[k] for k in ("loss", "grad_norm", "tokens")}
+                               for s_ in ref["steps"]],
+               "ms_per_step": ms,
+               "one_process_ms_per_step": 1e3 * float(np.mean([s_["s"] for s_ in ref["steps"][1:]])),
+               "collectives_share_of_step": comm, "peak_gib": [rk["peak_gib"] for rk in ranks],
+               "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err,
+               "weights_rms_gap_over_update": w_err, "rank_mask_flips": mask_flips,
+               "calibrated_equal": None if not peft else ranks[0]["calibrated"] == calibrated,
+               "evals": [rk["evals"] for rk in ranks], "one_process_evals": ref["evals"],
+               "w8a8_shapes": ranks[0]["w8a8_shapes"],
+               "resumed": {"result": resumed, "steps": [s_["loss"] for s_ in res["steps"]]},
+               "launches": [{k: v for k, v in rk["launches"].items() if v} for rk in ranks]}
+    print(json.dumps(reading))
+    if any(len(rk["steps"]) != TP_STEPS for rk in ranks) or len(ref["steps"]) != TP_STEPS:
+        raise AssertionError(f"{label}: steps missing")
+    if any(not np.isfinite(s_["loss"]) for rk in ranks for s_ in rk["steps"]):
+        raise AssertionError(f"{label}: a loss is not finite")
+    if reading["steps"][0] != reading["steps"][1] or ranks[0]["result"] != ranks[1]["result"]:
+        raise AssertionError(f"{label}: the ranks' step metrics or results differ")
+    if [s_["tokens"] for s_ in ranks[0]["steps"]] != [s_["tokens"] for s_ in ref["steps"]]:
+        raise AssertionError(f"{label}: the token counts differ from one process's")
+    if ranks[0]["batches"] != ranks[1]["batches"]:
+        raise AssertionError(f"{label}: the ranks of a model group read different rows")
+    evals = [rk["evals"] for rk in ranks]
+    if evals[0] != evals[1] or [st for st, _ in evals[0]] != [TP_STEPS] \
+            or not np.isfinite(evals[0][0][1]["eval_wer"]):
+        raise AssertionError(f"{label}: the ranks' evals: {evals}")
+    if not held_whole:
+        raise AssertionError(f"{label}: the checkpoint does not hold the whole {tree}")
+    if peft and (not reading["calibrated_equal"] or ranks[0]["calibrated"] != ranks[1]["calibrated"]
+                 or ranks[0]["digest"] != ranks[1]["digest"]):
+        raise AssertionError(f"{label}: calibrated sets {ranks[0]['calibrated']} / "
+                             f"{ranks[1]['calibrated']} (one process {calibrated}) or the "
+                             "ranks' adapters and rank masks differ")
+    if loss_err > TP_LIMITS["loss"] or norm_err > TP_LIMITS["grad_norm"] \
+            or w_err > TP_LIMITS["weights"]:
+        raise AssertionError(f"{label}: tp {TP} against one process: loss {loss_err:.3g}, "
+                             f"grad_norm {norm_err:.3g}, weights {w_err:.3g} > {TP_LIMITS}")
+    if resumed["final_step"] != TP_STEPS + 2 or len(res["steps"]) != 2 or not all(
+            np.isfinite(s_["loss"]) for s_ in res["steps"]):
+        raise AssertionError(f"{label}: one-process resume: {resumed}, {res['steps']}")
+    if on_card:
+        want = ("encoder_attention", "encoder_attention_bwd") + (("w8a8",) if peft else ())
+        split = {(K, N) for _, _, K, N in TP_W8A8_SHAPES}
+        for r, rk in enumerate(ranks):
+            silent = [k for k in want if rk["launches"][k] == 0]
+            if silent:
+                raise AssertionError(f"{label}: rank {r} launched no {silent}")
+            record_launches(rows, f"tp_{'peft' if peft else 'full'}_rank{r}", rk["launches"])
+            if peft:
+                seen = {(K, N) for _, K, N, _ in rk["w8a8_shapes"]}
+                row_split = {(K, N) for _, K, N, amax in rk["w8a8_shapes"] if amax}
+                if not seen <= split or row_split != {(D // TP, D), (FF // TP, D)}:
+                    raise AssertionError(f"{label}: rank {r} W8A8 shapes {sorted(seen)} "
+                                         f"(given the row amax: {sorted(row_split)})")
+    print(f"{label}: {TP} ranks x {B} rows, {TP_STEPS} steps, wall {wall:.3f} s; ms/step "
+          f"{ms[0]:.3f} / {ms[1]:.3f} (one process {reading['one_process_ms_per_step']:.3f}); "
+          f"collectives {100 * comm[0]:.1f}% / {100 * comm[1]:.1f}% of a step; peak "
+          f"{reading['peak_gib'][0]:.2f} / {reading['peak_gib'][1]:.2f} GiB a rank; against "
+          f"one process: loss {loss_err:.3g}, grad_norm {norm_err:.3g}, {tree} {w_err:.3g} "
+          f"(limits {TP_LIMITS}), {mask_flips} rank-mask flips; evals equal on both ranks; "
+          f"resumed in one process to step {resumed['final_step']}")
 
 
 def offload_path(rows, peft: bool, device: str = "cuda", model: str = "large-v3"):
@@ -3752,6 +4205,7 @@ def main() -> int:
     check_attention_bwd(rows)
     check_w8a8(rows)
     check_attention_layouts(rows)
+    check_tp_kernels(rows)
     check_log_mel(rows)
     check_decode()
     check_int8_decode()
@@ -3770,6 +4224,8 @@ def main() -> int:
     train_main_path(rows, config=PEFT_CONFIG, extra=("--int8_matmul",), fused_qkv=True)
     hpo_main_path(rows)
     dp_main_path(rows)
+    tp_main_path(rows, peft=False)
+    tp_main_path(rows, peft=True)
     offload_path(rows, peft=False)
     offload_path(rows, peft=True)
     spec_augment_path(rows)
@@ -3793,4 +4249,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(dp_rank(sys.argv[2]) if sys.argv[1:2] == ["--dp-rank"] else main())
+    sys.exit(dp_rank(sys.argv[2]) if sys.argv[1:2] == ["--dp-rank"]
+             else tp_rank(sys.argv[2]) if sys.argv[1:2] == ["--tp-rank"] else main())

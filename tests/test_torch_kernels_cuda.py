@@ -19,7 +19,8 @@ rounding boundary may land one bf16 step, at most 2^-7 of its value, apart),
 as chip_smoke.py. The decoder kernels run with int8 weights too (all-int8
 and a merged-LoRA mix). The W8A8 kernel is held to bit equality with its
 plain version, pure and with the outlier keep-mask and addend, at ragged m,
-K and N, on both tiles; it reads its weight from the K-major copy and raises
+K and N, on both tiles, also with the row amax supplied (tensor
+parallelism); it reads its weight from the K-major copy and raises
 without one. The beam self-attention kernel runs at 2, 3, 8 and 10 beams
 over a random ancestry map (bf16: the attention core gathering each key row
 through it, then wo, once per pass of up to 32 rows, bit-equal twice, no
@@ -781,6 +782,35 @@ def test_w8a8_matches_plain_bitwise(dev, dtype, shape, outliers):
     assert WF.LAUNCHES["w8a8"] == 1 and out.dtype == dtype and out.shape == (m, N)
     ref = WF.w8a8_plain(x, w8, ws, keep, addend)
     assert torch.equal(out, ref), float((out.float() - ref.float()).abs().max())
+
+
+@pytest.mark.parametrize("outliers", [False, True])
+@pytest.mark.parametrize("shape", list(W8A8_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8a8_with_the_row_amax_supplied_matches_plain_bitwise(dev, dtype, shape, outliers):
+    """With the row amax supplied (tensor parallelism: x holds K / tp
+    columns and the scale is the whole row's), the kernel equals w8a8_plain
+    given the same amax, bit for bit, at every shape above: an amax above
+    each row's own, the other half's loud column, pure and with the
+    outlier keep-mask and addend; and it reads the operand (the result
+    differs from the call without it)."""
+    m, K, N, _ = W8A8_CASES[shape]
+    g = torch.Generator(device=dev).manual_seed(m + 1)
+    x = _rn(g, dev, m, K, dtype=dtype)
+    x[:, 7] *= 50.0
+    w8, ws = _int8(_rn(g, dev, K, N, scale=0.05))
+    keep = addend = None
+    if outliers:
+        keep, addend = Q._outlier_split(x, w8, ws, Q.QuantConfig(matmul=True,
+                                                                 outlier_cols=4))
+    own = (x.float() if keep is None else x.float() * keep).abs().amax(-1)
+    amax = torch.maximum(own, 60.0 * _rn(g, dev, m, 1).abs()[:, 0])
+    WF.reset_launches()
+    out = WF.w8a8(x, w8, ws, keep, addend, w8.t().contiguous(), amax)
+    assert WF.LAUNCHES["w8a8"] == 1 and out.dtype == dtype and out.shape == (m, N)
+    ref = WF.w8a8_plain(x, w8, ws, keep, addend, amax)
+    assert torch.equal(out, ref), float((out.float() - ref.float()).abs().max())
+    assert not torch.equal(out, WF.w8a8(x, w8, ws, keep, addend, w8.t().contiguous()))
 
 
 def test_w8a8_rejects_a_missing_or_mismatched_copy(dev):

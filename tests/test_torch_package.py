@@ -103,15 +103,17 @@ def test_build_plan():
 
 
 def test_pending_model_options_raise():
-    """The one option of a path not ported yet, --tp > 1, raises before a
-    run starts; --spec_augment and --host_logmel pass the check and train
+    """--tp > 1 in one process raises before a run starts (the world does
+    not divide into tensor-parallel groups, as JAX's create_mesh raises;
+    two ranks train: tests/test_torch_tp.py); --spec_augment and
+    --host_logmel pass the check and train
     (tests/test_torch_train_cli.py::test_options_not_ported_raise), as do
     --peft and --load_in_8bit (tests/test_torch_peft.py), --offload_param
     and --offload_optimizer (tests/test_torch_parallel.py)."""
     from asr_finetune_tpu_torch import config, run
     base = ["--model_type", "test-nano", "--device", "cpu", "--peft", "--load_in_8bit"]
-    with pytest.raises(NotImplementedError, match="--tp > 1"):
-        run._check_pending_training(config.parse_args(base + ["--tp=2"]))
+    with pytest.raises(ValueError, match="tensor-parallel groups of 2"):
+        run.check_parallel_layout(config.parse_args(base + ["--tp=2"]))
     for flags in (["--spec_augment"], ["--host_logmel"],
                   ["--offload_param", "--offload_optimizer"]):
-        run._check_pending_training(config.parse_args(base + flags))
+        run.check_parallel_layout(config.parse_args(base + flags))

@@ -166,13 +166,15 @@ def features(folder, tmp_path_factory):
                                   ("--tp", "2"), ("--data_mode", "parquet"),
                                   ("--data_mode", "val_parquet")])
 def test_options_not_ported_raise(folder, features, tmp_path, flag):
-    """The options that were still to port: of them only --tp > 1 raises
-    now. --spec_augment, --host_logmel and the parquet modes (parquet:
-    train and validation from the shards; val_parquet: HDF5 train, parquet
+    """The options that were still to port: each runs now. --tp 2 in one
+    process raises, as JAX's create_mesh does when the devices do not
+    divide into the model axis (two ranks train: tests/test_torch_tp.py).
+    --spec_augment, --host_logmel and the parquet modes (parquet: train and
+    validation from the shards; val_parquet: HDF5 train, parquet
     validation) each train two steps and evaluate (the offload flags run:
     tests/test_torch_parallel.py)."""
     if flag[0] == "--tp":
-        with pytest.raises(NotImplementedError, match="--tp"):
+        with pytest.raises(ValueError, match="tensor-parallel groups of 2"):
             train_cli.main(_argv(folder, tmp_path, *flag))
         return
     data = {"parquet": ("--dataset_name", features["pq"]),
