@@ -11,9 +11,23 @@ experiment (completed trials skipped, errored and unfinished ones re-run).
 
 Data-parallel trials: under torchrun, or with COORDINATOR_ADDRESS (or the
 reference's `ip_head`) set under Slurm, every process joins the group
-(parallel/mesh.py), runs the controller and takes part in every trial, the
-trials one after another over the whole group; rank 0 writes the
-experiment's files. --run_on_local_machine stays one process, as in JAX.
+(parallel/mesh.py) and runs the controller; rank 0 writes the experiment's
+summary. --run_on_local_machine stays one process, as in JAX.
+
+Trial packing, the reference's fractional gpus_per_trial: one process per
+card, and `--chips_per_trial k --max_concurrent_trials m` over the N ranks
+of one host runs min(N // k, m) trials at once, each data-parallel over
+its slot of k ranks (--tp inside the slot):
+
+    torchrun --nproc_per_node 8 -m asr_finetune_tpu_torch.cli.train_hyper \
+        -c <config> --chips_per_trial 2 --max_concurrent_trials 4
+
+Without packing (k 0, or k >= N) every trial spans every rank, one trial
+after another, and so it does over more than one host. One process with
+several cards and a plan of more than one slot raises, naming the torchrun
+launch. On the CPU, ranks of the gloo group pack alike (--device cpu, RANK,
+WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE and COORDINATOR_ADDRESS per
+process).
 """
 from __future__ import annotations
 

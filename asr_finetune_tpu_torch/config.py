@@ -11,10 +11,7 @@ Warts deliberately NOT replicated (SURVEY.md §5.6): no post-parse overrides
 of user flags; no per-key dict deletions before splatting.
 
 The PyTorch port keeps its own copy of the flags (the port imports nothing
-of asr_finetune_tpu) and adds --device. Flags of paths not ported yet
-(SpecAugment, tensor parallelism, host log-mel, trial packing, parquet
-data) parse as before; the code that reads them raises
-NotImplementedError where it meets one that is set.
+of asr_finetune_tpu) and adds --device; every flag is read by the port.
 """
 from __future__ import annotations
 
@@ -226,8 +223,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="processes (hosts) in the jax.distributed job")
     p.add_argument("--cpus_per_trial", type=int, default=1)
     p.add_argument("--chips_per_trial", type=float, default=0,
-                   help="TPU chips per HPO trial (0 = all local chips); "
-                        "replaces the reference's fractional gpus_per_trial")
+                   help="ranks (one card each) per HPO trial, packing trials over "
+                        "the ranks of one host with --max_concurrent_trials > 1 "
+                        "(0 = every rank); replaces the reference's fractional "
+                        "gpus_per_trial")
     p.add_argument("--tp", type=int, default=1, help="tensor-parallel size")
     p.add_argument("--run_on_local_machine", action=argparse.BooleanOptionalAction, default=False)
     p.add_argument("--output_dir", type=str, default="./output")

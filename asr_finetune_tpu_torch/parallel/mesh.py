@@ -28,6 +28,20 @@ and the model group is this rank alone. The collectives take the group
 they run over by name, `over` "world", "data" or "model"; over a group of
 one rank they do nothing.
 
+Trial packing (`trial_groups`, the HPO controller's --chips_per_trial;
+JAX hpo/controller.py:119-146): the ranks of one host are split into
+slots of chips_per_trial consecutive ranks, at most max_concurrent_trials
+of them (`slot_plan`, JAX's rule over the host's ranks where JAX counts
+the host's chips), and each slot runs its own trials. Inside the block
+the functions below are relative to the rank's slot, its trial group:
+`rank`, `world`, `is_primary`, `barrier`, `broadcast_object`,
+`all_gather_object` and the groups "world", "data" and "model" (the slot
+laid out as data x tp). The experiment has its own calls: `global_rank`,
+`is_experiment_primary`, `global_barrier` and `final_wait`. Every group is
+made up front, by every rank in one order: `dist.new_group` is collective
+over the whole job, and the slots run out of step. A launch over more
+than one host keeps one slot over the whole group, as JAX does.
+
 Gloo reduces CPU tensors only on every build: the collectives stage a
 CUDA tensor through the host under gloo.
 """
@@ -35,9 +49,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import logging
 import os
-from typing import Any, Iterator, List, Mapping, Optional, Tuple
+from typing import Any, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -152,9 +167,10 @@ def initialize(device: str = "cuda") -> torch.device:
 
 
 def shutdown() -> None:
-    """Leave the group, if in one (its tensor-parallel layout with it)."""
-    global _LAYOUT
-    _LAYOUT = None
+    """Leave the group, if in one (its tensor-parallel layout and trial
+    groups with it)."""
+    global _LAYOUT, _TRIAL
+    _LAYOUT = _TRIAL = None
     if active():
         dist.destroy_process_group()
 
@@ -172,15 +188,32 @@ def joined(device: str = "cuda") -> Iterator[torch.device]:
             shutdown()
 
 
-def rank() -> int:
+def global_rank() -> int:
+    """This process's rank in the whole job."""
     return dist.get_rank() if active() else 0
 
 
-def world() -> int:
+def global_world() -> int:
     return dist.get_world_size() if active() else 1
 
 
+def is_experiment_primary() -> bool:
+    """Rank 0 of the whole job: it writes an experiment's summary."""
+    return global_rank() == 0
+
+
+def rank() -> int:
+    """This rank's place in its trial group (the job outside `trial_groups`)."""
+    return global_rank() if _TRIAL is None else _TRIAL.rank
+
+
+def world() -> int:
+    """The ranks of this rank's trial group (the job outside `trial_groups`)."""
+    return global_world() if _TRIAL is None else len(_TRIAL.ranks)
+
+
 def is_primary() -> bool:
+    """The leader of this rank's trial group: it writes the trial's files."""
     return rank() == 0
 
 
@@ -191,6 +224,13 @@ def local_device(device: str) -> str:
 
 
 def barrier() -> None:
+    """Every rank of this rank's trial group."""
+    if world() > 1:
+        dist.barrier(group=_group("world")[0])
+
+
+def global_barrier() -> None:
+    """Every rank of the job."""
     if active():
         dist.barrier()
 
@@ -209,29 +249,152 @@ class Layout:
 _LAYOUT: Optional[Layout] = None
 
 
+def _check_divides(w: int, tp: int) -> None:
+    if w % tp:
+        raise ValueError(f"--tp {tp}: the {w} process(es) of this run do not divide "
+                         f"into tensor-parallel groups of {tp} (world = data x tp)")
+
+
+def _layout(ranks: Sequence[int], tp: int) -> Optional[Layout]:
+    """Make the data x tp groups over `ranks` (a slot, or the job), every
+    model group and then every data group; the Layout of this rank when it
+    is one of them."""
+    w = len(ranks)
+    data = w // tp
+    model_groups = [dist.new_group([ranks[i] for i in range(d * tp, (d + 1) * tp)])
+                    for d in range(data)]
+    data_groups = [dist.new_group([ranks[i] for i in range(m, w, tp)]) for m in range(tp)]
+    if global_rank() not in ranks:
+        return None
+    r = list(ranks).index(global_rank())
+    return Layout(tp, r // tp, data, r % tp, data_groups[r % tp], model_groups[r // tp])
+
+
 def set_tensor_parallel(tp: int) -> None:
     """Split the world into data x tp (module docstring). Every rank calls
     it with the same tp: each makes every model group and every data group,
     in one order. A world that does not divide by tp raises, as JAX's
     `create_mesh` does (one process with tp > 1 included); so does a group
-    that does not form. Calling it again with the same tp keeps the groups."""
+    that does not form. Calling it again with the same tp keeps the groups.
+    Inside `trial_groups` the slot's layout was made up front: it makes no
+    group, and another tp than that layout's raises."""
     global _LAYOUT
     tp = max(int(tp), 1)
     w, r = world(), rank()
-    if w % tp:
-        raise ValueError(f"--tp {tp}: the {w} process(es) of this run do not divide "
-                         f"into tensor-parallel groups of {tp} (world = data x tp)")
+    _check_divides(w, tp)
+    if (_LAYOUT.tp if _LAYOUT is not None else 1) == tp:
+        return
+    if _TRIAL is not None:
+        raise RuntimeError(f"--tp {tp} inside a trial group laid out at --tp "
+                           f"{model_world()}: a trial makes no process group")
     if tp == 1:
         _LAYOUT = None
         return
-    if _LAYOUT is not None and _LAYOUT.tp == tp:
-        return
-    data = w // tp
-    model_groups = [dist.new_group(list(range(d * tp, (d + 1) * tp))) for d in range(data)]
-    data_groups = [dist.new_group(list(range(m, w, tp))) for m in range(tp)]
-    _LAYOUT = Layout(tp, r // tp, data, r % tp, data_groups[r % tp], model_groups[r // tp])
+    _LAYOUT = _layout(range(w), tp)
     logger.info("tensor parallel: rank %d = data %d of %d x model %d of %d", r,
-                _LAYOUT.data_rank, data, _LAYOUT.model_rank, tp)
+                _LAYOUT.data_rank, _LAYOUT.data_world, _LAYOUT.model_rank, tp)
+
+
+@dataclasses.dataclass(frozen=True)
+class Trial:
+    """This rank's trial group: its slot (None: the rank runs no trial),
+    the slot's global ranks and the group over them."""
+    slot: Optional[int]
+    ranks: Tuple[int, ...]
+    group: Any
+    rank: int
+    final_group: Any      # every rank of the job, gloo, with FINAL_WAIT
+
+
+_TRIAL: Optional[Trial] = None
+# How long a rank whose slot has finished waits for the others (the
+# longest trial); a rank that dies closes its sockets and ends the wait.
+FINAL_WAIT = datetime.timedelta(days=30)
+
+
+def slot_plan(units: int, chips_per_trial: float, max_concurrent: int,
+              hosts: int = 1) -> List[List[int]]:
+    """JAX's trial slots (hpo/controller.py:125-140) over `units` (a host's
+    chips there, its ranks here): chips_per_trial truncated to an int (0.5:
+    0, all units); 0 < chips < units gives min(units // chips,
+    max(max_concurrent, 1)) slots of chips consecutive units, anything else
+    one slot over all units, as does more than one host."""
+    chips = int(chips_per_trial) if chips_per_trial else 0
+    if hosts > 1:
+        chips = 0
+    if chips and chips < units:
+        n_slots = min(units // chips, max(max_concurrent, 1))
+    else:
+        n_slots, chips = 1, units
+    return [list(range(s * chips, (s + 1) * chips)) for s in range(n_slots)]
+
+
+def trial_slots(chips_per_trial: float, max_concurrent: int) -> List[Tuple[int, ...]]:
+    """The slots of this job as global ranks: `slot_plan` over the ranks of
+    this host, and a plan of one slot is every rank of the job (JAX then
+    gives the trial no device subset), as when the job spans hosts (world >
+    local_world); outside a group, this process."""
+    if not active():
+        return [(0,)]
+    launch, w = launch_from_env(), global_world()
+    plan = slot_plan(w, chips_per_trial, max_concurrent,
+                     hosts=2 if w > launch.local_world else 1)
+    return [tuple(range(w))] if len(plan) == 1 else [tuple(s) for s in plan]
+
+
+@contextlib.contextmanager
+def trial_groups(chips_per_trial: float, max_concurrent: int, tp: int = 1
+                 ) -> Iterator[List[Tuple[int, ...]]]:
+    """Within the block, this rank's trial group is its slot of
+    `trial_slots` (module docstring), laid out as data x tp; yields the
+    slots. Every rank makes every slot's group, then every slot's model and
+    data groups, in one order, and a gloo group of the whole job to wait
+    in (`final_wait`). A slot that does not divide by tp raises before any
+    group is made, as does a group that does not form. One slot over the
+    whole job makes no trial group: the job is the trial group, laid out by
+    `set_tensor_parallel` as before."""
+    global _TRIAL, _LAYOUT
+    tp = max(int(tp), 1)
+    slots = trial_slots(chips_per_trial, max_concurrent)
+    if len(slots) == 1:
+        set_tensor_parallel(tp)
+        yield slots
+        return
+    for s in slots:
+        _check_divides(len(s), tp)
+    me = global_rank()
+    groups = [dist.new_group(list(s)) for s in slots]
+    layouts = [_layout(s, tp) if tp > 1 else None for s in slots]
+    final = dist.new_group(backend="gloo", timeout=FINAL_WAIT)
+    mine = next((i for i, s in enumerate(slots) if me in s), None)
+    if mine is None:
+        trial = Trial(None, (me,), None, 0, final)
+    else:
+        trial = Trial(mine, slots[mine], groups[mine], slots[mine].index(me), final)
+    saved = _LAYOUT
+    _TRIAL, _LAYOUT = trial, (layouts[mine] if mine is not None else None)
+    logger.info("trial packing: %d slots of %d ranks, rank %d in %s", len(slots),
+                len(slots[0]), me, "no slot" if mine is None else f"slot {mine}")
+    try:
+        yield slots
+    finally:
+        _TRIAL, _LAYOUT = None, saved
+
+
+def trial_slot() -> Optional[int]:
+    """This rank's slot inside `trial_groups` (None: no slot, it runs no
+    trial); 0 outside it."""
+    return 0 if _TRIAL is None else _TRIAL.slot
+
+
+def final_wait() -> None:
+    """Wait for every rank of the job once this rank's slot is done: inside
+    `trial_groups` over its gloo group, whose timeout (FINAL_WAIT) outlasts
+    the longest trial; else the job's barrier."""
+    if _TRIAL is not None:
+        dist.barrier(group=_TRIAL.final_group)
+    else:
+        global_barrier()
 
 
 def data_rank() -> int:
@@ -251,11 +414,12 @@ def model_world() -> int:
 
 
 def _group(over: str) -> Tuple[Any, int]:
-    """(process group, None for the world; its size) of `over`."""
+    """(process group, None for the job; its size) of `over`: "world" is
+    this rank's trial group."""
     if over == "world":
-        return None, world()
+        return (None if _TRIAL is None else _TRIAL.group), world()
     if over == "data":
-        return (None, world()) if _LAYOUT is None else (_LAYOUT.data_group,
+        return _group("world") if _LAYOUT is None else (_LAYOUT.data_group,
                                                         _LAYOUT.data_world)
     if over == "model":
         return (None, 1) if _LAYOUT is None else (_LAYOUT.model_group, _LAYOUT.tp)
@@ -319,18 +483,21 @@ def all_gather(t: torch.Tensor, over: str = "model", dim: int = -1,
 
 
 def broadcast_object(obj: Any, src: int = 0) -> Any:
-    """Rank src's `obj` on every rank (picklable objects)."""
-    if not active():
+    """Rank src's `obj` (src: a rank of the trial group) on every rank of
+    the trial group (picklable objects)."""
+    if world() == 1:
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=src)
+    group = _group("world")[0]
+    dist.broadcast_object_list(box, src=src if _TRIAL is None else _TRIAL.ranks[src],
+                               group=group)
     return box[0]
 
 
 def all_gather_object(obj: Any) -> List[Any]:
-    """Every rank's `obj`, in rank order."""
-    if not active():
+    """Every rank's `obj` of the trial group, in rank order."""
+    if world() == 1:
         return [obj]
     out: List[Any] = [None] * world()
-    dist.all_gather_object(out, obj)
+    dist.all_gather_object(out, obj, group=_group("world")[0])
     return out

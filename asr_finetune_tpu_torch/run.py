@@ -18,7 +18,9 @@ outlier calibration, checkpoints (adapters only in PEFT) and the Trainer;
 its eval decode takes --generation_num_beams, --length_penalty,
 --decode_kv_int8 and --decode_w_int8 as transcription does. `run_trial`
 also takes the HPO controller's arguments (hpo/controller.py): the trial's
-directory, its early-stop hook, step count, resume and index.
+directory, its early-stop hook, step count, resume and index. In a packed
+experiment (--chips_per_trial) the group below is the trial's slot
+(parallel/mesh.trial_groups): every call here reads the slot's ranks.
 
 In a process group (parallel/mesh.py; JAX run.py:163-245, :292-296,
 :341-396) laid out as data x --tp, each rank trains on its card; each
@@ -184,7 +186,8 @@ def _tp_split(params: Dict[str, Any], cfg: WhisperConfig, train: bool) -> Dict[s
 def check_parallel_layout(args) -> None:
     """Lay the group out as data x --tp (parallel/mesh.set_tensor_parallel):
     a world that does not divide by --tp raises, one process with --tp > 1
-    included."""
+    included. In a packed HPO run the trial's group is its slot, laid out
+    when the experiment started: this finds its groups and makes none."""
     mesh.set_tensor_parallel(args.tp)
 
 
@@ -429,17 +432,20 @@ def setup_trial(args, hp: Optional[Dict[str, Any]] = None,
 
 
 def _trial_device(args, devices) -> str:
-    """The device a trial runs on: the rank's (--device, in a group on cards
-    the rank's card), or the one device the HPO controller gives it."""
+    """The device a trial runs on: its rank's (--device; in a group on
+    cards, the rank's card). `devices`, the JAX signature's device list,
+    is either None or one device per rank of the trial group, in rank
+    order (parallel/mesh.trial_groups makes the group): the rank takes its
+    own."""
     if devices is None:
         return mesh.local_device(args.device)
-    if isinstance(devices, (list, tuple)):
-        if len(devices) != 1:
-            raise NotImplementedError(
-                f"a trial over {len(devices)} devices: packing trials over cards "
-                "is not ported yet (a trial spans one card, or every rank of the group)")
-        devices = devices[0]
-    return str(devices)
+    if not isinstance(devices, (list, tuple)):
+        devices = [devices]
+    if len(devices) != mesh.world():
+        raise ValueError(f"a trial over {len(devices)} devices in a trial group of "
+                         f"{mesh.world()} rank(s): a trial runs one rank per card, so "
+                         "name one device per rank of its group")
+    return str(devices[mesh.rank()])
 
 
 def run_trial(args, hp: Optional[Dict[str, Any]] = None,
@@ -454,9 +460,9 @@ def run_trial(args, hp: Optional[Dict[str, Any]] = None,
     on_evaluate(step, metrics) → False stops the run after that eval (the
     HPO scheduler's hook); max_steps_override: the trainer's max_steps (the
     optimizer's schedule keeps args.max_steps, as in JAX);
-    resume_override: replaces --resume_training; devices: None, or the one
-    device to train on; trial_index: the trial's number, which sets its
-    lora-dropout stream.
+    resume_override: replaces --resume_training; devices: None, or one
+    device per rank of the trial group (`_trial_device`); trial_index: the
+    trial's number, which sets its lora-dropout stream.
 
     When it returns or raises, the trial holds no device memory: the
     trainer is dropped, and an exception's traceback keeps no frame's

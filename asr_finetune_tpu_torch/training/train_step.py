@@ -225,7 +225,7 @@ def compute_grads(params: Params, batch: Dict[str, torch.Tensor],
     microbatches, and the step's metrics. With `step`, SpecAugment (when
     the config asks for it) and PEFT's lora dropout (at a rate above 0)
     draw their masks, one stream per microbatch. In a
-    process group, `batch` is this data rank's rows of the global batch and
+    group of more than one rank, `batch` is this data rank's rows of the global batch and
     the gradients and metrics are the global batch's (module docstring)."""
     peft = cfg.mode == "peft"
     cfg = split_rows(cfg)
@@ -235,7 +235,7 @@ def compute_grads(params: Params, batch: Dict[str, torch.Tensor],
     n_micro = cfg.accum_steps
     micro = ([batch] if n_micro == 1 else
              [{k: v[i] for k, v in batch.items()} for i in range(n_micro)])
-    dp = mesh.active()
+    dp = mesh.world() > 1
     if dp:
         rank, world = mesh.data_rank(), mesh.data_world()
         local_n = torch.stack([(mb["labels"] != W.IGNORE_ID).sum() for mb in micro])

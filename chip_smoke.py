@@ -95,6 +95,14 @@
    (no K-major copy), `cli.transcribe --model_path` serves it through the
    decoder kernels with tokens equal to the plain decode's, and
    `cli.prepare_model --verify` converts an HF directory it writes;
+   7d. trial packing: `cli.train_hyper --chips_per_trial k
+   --max_concurrent_trials 2` over rank processes sharing the card (gloo),
+   7c's flags with random search and 2 steps a trial: (i) two ranks, k 1,
+   4 trials, against one process running them one after another (every
+   trial once, two at once, hp equal, step losses within DP_LIMITS, the
+   kernels launched and the memory back after each trial, a resume that
+   runs nothing); (ii) four ranks, k 2, 2 trials of two data ranks each,
+   against one process at the global batch; one JSON line each;
 8. data parallelism and offload (asr_finetune_tpu_torch/parallel/): 8a, two
    rank processes of `cli.train` sharing the card (a gloo group),
    large-v3 PEFT over the int8 base with --int8_matmul and AdaLoRA, 2 rows
@@ -3165,14 +3173,14 @@ def tp_rank(spec_path: str) -> int:
     return 0
 
 
-def _rank_processes(tmp, kind: str, argv, n: int, timeout: float, label: str):
-    """n rank processes of `chip_smoke.py --<kind>-rank` (dp_rank or
-    tp_rank) over cli.train's `argv`, with torchrun's variables; returns
-    their records (<kind>_rank<r>.json), the wall time and rank 0's lines
-    about its group."""
+def _rank_processes(tmp, kind: str, argv, n: int, timeout: float, label: str, **extra):
+    """n rank processes of `chip_smoke.py --<kind>-rank` (dp_rank, tp_rank
+    or hpo_rank) over the entry point's `argv` (and `extra` in their spec),
+    with torchrun's variables; returns their records (<kind>_rank<r>.json),
+    the wall time and rank 0's lines about its group."""
     spec = f"{tmp}/{kind}_spec.json"
     with open(spec, "w") as f:
-        json.dump({"dir": tmp, "argv": argv}, f)
+        json.dump({"dir": tmp, "argv": argv, **extra}, f)
     port = _free_port()
     procs, logs = [], []
     t0 = time.perf_counter()
@@ -3206,7 +3214,7 @@ def _rank_processes(tmp, kind: str, argv, n: int, timeout: float, label: str):
             ranks.append(json.load(f))
     with open(f"{tmp}/{kind}_rank0.log") as f:
         group = [line.strip() for line in f if "process group" in line
-                 or "tensor parallel" in line]
+                 or "tensor parallel" in line or "trial packing" in line]
     return ranks, wall, group
 
 
@@ -3369,6 +3377,261 @@ def tp_main_path(rows, peft: bool, device: str = "cuda", model: str = "large-v3"
           f"one process: loss {loss_err:.3g}, grad_norm {norm_err:.3g}, {tree} {w_err:.3g} "
           f"(limits {TP_LIMITS}), {mask_flips} rank-mask flips; evals equal on both ranks; "
           f"resumed in one process to step {resumed['final_step']}")
+
+
+# Phase 7d, trial packing (hpo/controller.py over parallel/mesh.trial_groups):
+# 7c's flags, random search, 2 steps a trial with an eval at step 2. (i) two
+# rank processes share the card (gloo), --chips_per_trial 1
+# --max_concurrent_trials 2: two slots of one rank, 4 trials, against one
+# process running the same 4 trials one after another; (ii) four rank
+# processes, --chips_per_trial 2: two slots of two data ranks (2 rows a rank),
+# 2 trials, against one process at the global batch of 4. Losses within
+# DP_LIMITS["loss"], as 8a reads its two ranks against one process.
+PACK_STEPS, PACK_TRIALS, PACK_TIMEOUT = 2, 4, 600   # steps, trials of (i); s a rank
+
+
+def _recorded_hpo(argv, resume: bool = False) -> dict:
+    """cli.train_hyper.main(argv) with each trial recorded: its slot, rank
+    and group size, wall interval (the host's clock, comparable across
+    processes), step losses, launches, peak device memory and the memory
+    allocated after it; with `resume`, then once more with
+    --resume_training, recording what that ran and launched."""
+    import torch
+    from asr_finetune_tpu_torch import run as run_lib
+    from asr_finetune_tpu_torch.cli import train_hyper
+    from asr_finetune_tpu_torch.parallel import mesh
+    from asr_finetune_tpu_torch.training import trainer as trainer_lib
+
+    on_card = torch.cuda.is_available() and "cpu" not in argv
+    trials, losses = [], []
+    orig = (run_lib.run_trial, trainer_lib.make_train_step)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def make_train_step(*a, **k):
+        inner = orig[1](*a, **k)
+
+        def step(state, batch):
+            m = inner(state, batch)
+            losses.append(float(m["loss"]))
+            return m
+        return step
+
+    def run_trial(args, hp=None, trial_dir=None, **k):
+        sync()
+        before, n = all_launches(), len(losses)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        rec = {"trial": os.path.basename(trial_dir), "hp": hp, "slot": mesh.trial_slot(),
+               "rank": mesh.rank(), "world": mesh.world(), "start": time.time()}
+        try:
+            return orig[0](args, hp, trial_dir, **k)
+        finally:
+            sync()
+            after = all_launches()
+            rec.update(end=time.time(), losses=losses[n:],
+                       launches={c: after[c] - before[c] for c in after},
+                       peak=torch.cuda.max_memory_allocated() if on_card else 0,
+                       allocated=torch.cuda.memory_allocated() if on_card else 0)
+            trials.append(rec)
+
+    run_lib.run_trial, trainer_lib.make_train_step = run_trial, make_train_step
+    try:
+        sync()
+        out = {"base": torch.cuda.memory_allocated() if on_card else 0}
+        t0 = time.perf_counter()
+        out["summary"] = train_hyper.main(argv)
+        out["wall"] = time.perf_counter() - t0
+        out["trials"] = list(trials)
+        if resume:
+            reset_all_launches()
+            out["resumed"] = train_hyper.main(argv + ["--resume_training"])
+            out["resume_trials"] = trials[len(out["trials"]):]
+            out["resume_launches"] = {k: v for k, v in all_launches().items() if v}
+    finally:
+        run_lib.run_trial, trainer_lib.make_train_step = orig
+    return out
+
+
+def hpo_rank(spec_path: str) -> int:
+    """Phase 7d's rank process (`chip_smoke.py --hpo-rank <spec>`, started by
+    hpo_packed_path with torchrun's variables): `_recorded_hpo` over the
+    spec's argv in one group for the run and its resume, then
+    hpo_rank<r>.json."""
+    from asr_finetune_tpu_torch.parallel import mesh
+    with open(spec_path) as f:
+        spec = json.load(f)
+    reset_all_launches()
+    with mesh.joined("cpu" if "cpu" in spec["argv"] else "cuda"):
+        out = _recorded_hpo(spec["argv"], resume=spec.get("resume", False))
+    with open(os.path.join(spec["dir"], f"hpo_rank{os.environ['RANK']}.json"), "w") as f:
+        json.dump(out, f, default=str)
+    return 0
+
+
+def hpo_packed_path(rows, device: str = "cuda", model: str = "large-v3"):
+    """Phase 7d, trial packing (comment above PACK_STEPS). (i) asserts every
+    trial completed once, two at once (their wall intervals overlap), each
+    trial's hp equal to the serial run's and its step losses within
+    DP_LIMITS["loss"], each trial on each rank launched W8A8, the
+    encoder-attention forward and backward and the int8 decoder kernels,
+    the device memory came back within HPO_MEM_MARGIN after each, the ranks
+    return one summary, and --resume_training runs nothing, launches
+    nothing and names the same best trial. (ii) asserts each trial ran on
+    the two ranks of one slot, the slots at once, its hp and step losses as
+    one process's at the global batch, and the kernels launched. Prints
+    one JSON line per sub-phase: wall of the packed run against the one
+    process, peak memory a rank, launches. `device` and `model` let it run
+    a small model on the CPU."""
+    import torch
+
+    on_card = device == "cuda"
+    label = "HPO packed (7d)"
+    tag = next(line.split("=", 1)[1].strip() for line in open(PEFT_CONFIG)
+               if line.startswith("output_tag"))
+    if on_card:
+        torch.cuda.empty_cache()     # the rank processes share the card
+
+    def argv(store, trials, batch, *extra):
+        return ["-c", PEFT_CONFIG, "--model_type", model, "--device", device, "--no-debug",
+                "--int8_matmul", "--data_mode", "folder", "--dataset_name", data,
+                "--val_split", "0.2", "--search_schedule_mode", "small_small",
+                "--num_samples", str(trials), "--max_steps", str(PACK_STEPS),
+                "--eval_steps", str(PACK_STEPS), "--save_steps", str(PACK_STEPS),
+                "--grace_period", str(PACK_STEPS), "--logging_steps", str(PACK_STEPS),
+                "--per_device_train_batch_size", str(batch),
+                "--eval_sample_fraction", "1.0", "--generation_max_length",
+                str(TRAIN_GEN_LEN), "--wer_weight", "0.7", "--storage_path", store, *extra]
+
+    def by_trial(recs):
+        out = {}
+        for r in recs:
+            out.setdefault(r["trial"], []).append(r)
+        return out
+
+    def loss_err(packed, ref):
+        return max(_rel(a, b) for a, b in zip(packed["losses"], ref["losses"]))
+
+    def launched(recs, what):
+        for r in recs:
+            silent = [k for k in HPO_KERNELS if r["launches"][k] == 0]
+            if on_card and silent:
+                raise AssertionError(f"{label} {what}: {r['trial']} on rank {r['rank']} of "
+                                     f"slot {r['slot']} launched no {silent}")
+
+    def overlapping(recs):
+        return any(a["start"] < b["end"] and b["start"] < a["end"]
+                   for a in recs for b in recs if a["slot"] != b["slot"])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = f"{tmp}/data"
+        os.makedirs(data)
+        write_audiofolder(data, TRAIN_UTTS)
+        readings = []
+        for sub, n_ranks, chips, trials, batch in (("i", 2, 1, PACK_TRIALS, B),
+                                                   ("ii", 4, 2, 2, B // 2)):
+            what = f"({sub}) {n_ranks} ranks, --chips_per_trial {chips}"
+            d = f"{tmp}/{sub}"
+            os.makedirs(d)
+            t0 = time.perf_counter()
+            ranks, _, group = _rank_processes(
+                d, "hpo", argv(f"{d}/packed", trials, batch, "--chips_per_trial", str(chips),
+                               "--max_concurrent_trials", "2"),
+                n_ranks, PACK_TIMEOUT, label, resume=sub == "i")
+            wall = time.perf_counter() - t0
+            # one process: the same trials one after another (i), at the
+            # global batch (ii)
+            ref = _recorded_hpo(argv(f"{d}/one", trials, batch * chips))
+            with open(f"{d}/packed/{tag}/experiment_state.json") as f:
+                state = json.load(f)["trials"]
+            recs = [t for rk in ranks for t in rk["trials"]]
+            ran, want = by_trial(recs), {t["trial"]: t for t in ref["trials"]}
+            ids = [f"trial_{i:04d}" for i in range(trials)]
+            errs = {t: loss_err(ran[t][0], want[t]) for t in ids if t in ran and t in want}
+            reading = {
+                "phase": "7d", "sub": sub, "ranks": n_ranks, "chips_per_trial": chips,
+                "rows_per_rank": batch, "trials": trials, "group": group[-1][-160:] if group
+                else "", "packed_wall_s": wall,
+                "packed_experiment_wall_s": [rk["wall"] for rk in ranks],
+                "one_process_wall_s": ref["wall"],
+                "peak_gib_by_rank": [max((t["peak"] for t in rk["trials"]), default=0) / 2**30
+                                     for rk in ranks],
+                "allocated_after_mib": [[(t["allocated"] - rk["base"]) / 2**20
+                                         for t in rk["trials"]] for rk in ranks],
+                "by_trial": {t: {"slot": ran[t][0]["slot"], "ranks": len(ran[t]),
+                                 "wall_s": ran[t][0]["end"] - ran[t][0]["start"],
+                                 "losses": ran[t][0]["losses"],
+                                 "one_process_losses": want[t]["losses"],
+                                 "loss_rel_err": errs.get(t)} for t in ids if t in ran},
+                "launches_by_rank": [
+                    {k: v for k, v in _sum_launches(rk["trials"]).items() if v}
+                    for rk in ranks]}
+            if sub == "i":
+                reading["resume"] = [{"trials_run": len(rk["resume_trials"]),
+                                      "launches": rk["resume_launches"],
+                                      "best": rk["resumed"]["best_trial"]} for rk in ranks]
+            readings.append(reading)
+            print(json.dumps(reading))
+
+            if sorted(state) != ids or any(state[t]["status"] != "completed" for t in ids):
+                raise AssertionError(f"{label} {what}: trials "
+                                     f"{ {k: v['status'] for k, v in state.items()} }")
+            if sorted(ran) != ids or any(len(ran[t]) != chips for t in ids) or any(
+                    len({r["slot"] for r in ran[t]}) != 1
+                    or sorted(r["rank"] for r in ran[t]) != list(range(chips))
+                    or any(r["world"] != chips for r in ran[t]) for t in ids):
+                raise AssertionError(f"{label} {what}: trials ran "
+                                     f"{ {t: [(r['slot'], r['rank']) for r in v] for t, v in ran.items()} }")
+            if {r["slot"] for r in recs} != {0, 1} or not overlapping(recs):
+                raise AssertionError(f"{label} {what}: no two trials ran at once")
+            for t in ids:
+                if ran[t][0]["hp"] != want[t]["hp"] or len(ran[t][0]["losses"]) != PACK_STEPS:
+                    raise AssertionError(f"{label} {what}: {t} hp {ran[t][0]['hp']} (one "
+                                         f"process {want[t]['hp']}), losses "
+                                         f"{ran[t][0]['losses']}")
+                if any(r["losses"] != ran[t][0]["losses"] for r in ran[t]):
+                    raise AssertionError(f"{label} {what}: {t}'s ranks differ")
+                if errs[t] > DP_LIMITS["loss"] or not all(np.isfinite(ran[t][0]["losses"])):
+                    raise AssertionError(f"{label} {what}: {t} losses {ran[t][0]['losses']} "
+                                         f"against one process's {want[t]['losses']}")
+            launched(recs, what)
+            for rk in ranks:
+                for t in rk["trials"]:
+                    if t["allocated"] - rk["base"] > HPO_MEM_MARGIN:
+                        raise AssertionError(
+                            f"{label} {what}: {t['trial']} left "
+                            f"{(t['allocated'] - rk['base']) / 2**20:.1f} MiB allocated")
+            summaries = [rk["summary"] for rk in ranks]
+            if any(s != summaries[0] for s in summaries) or summaries[0]["best_trial"] not in ids:
+                raise AssertionError(f"{label} {what}: summaries {summaries}")
+            if sub == "i" and any(rk["resume_trials"] or rk["resume_launches"]
+                                  or rk["resumed"]["best_trial"] != summaries[0]["best_trial"]
+                                  for rk in ranks):
+                raise AssertionError(f"{label} {what}: the resume ran {reading['resume']}")
+            if on_card:
+                record_launches(rows, f"train_hyper_packed_{sub}", {
+                    k: sum(_sum_launches(rk["trials"])[k] for rk in ranks)
+                    for k in all_launches()})
+            print(f"{label} {what}: {trials} trials over 2 slots in {wall:.3f} s (one "
+                  f"process {ref['wall']:.3f} s), largest step-loss gap "
+                  f"{max(errs.values()):.3g} (limit {DP_LIMITS['loss']}), peak "
+                  f"{max(reading['peak_gib_by_rank']):.2f} GiB a rank"
+                  + ("; resumed: no trial run, no launch" if sub == "i" else ""))
+    if on_card:
+        torch.cuda.empty_cache()
+    return readings
+
+
+def _sum_launches(trials) -> dict:
+    """The launch counts of a rank's trials, summed."""
+    total = {k: 0 for k in all_launches()}
+    for t in trials:
+        for k, v in t["launches"].items():
+            total[k] += v
+    return total
+
 
 
 def offload_path(rows, peft: bool, device: str = "cuda", model: str = "large-v3"):
@@ -4223,6 +4486,7 @@ def main() -> int:
     train_main_path(rows, config=PEFT_CONFIG, extra=("--int8_matmul",))
     train_main_path(rows, config=PEFT_CONFIG, extra=("--int8_matmul",), fused_qkv=True)
     hpo_main_path(rows)
+    hpo_packed_path(rows)
     dp_main_path(rows)
     tp_main_path(rows, peft=False)
     tp_main_path(rows, peft=True)
@@ -4250,4 +4514,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(dp_rank(sys.argv[2]) if sys.argv[1:2] == ["--dp-rank"]
-             else tp_rank(sys.argv[2]) if sys.argv[1:2] == ["--tp-rank"] else main())
+             else tp_rank(sys.argv[2]) if sys.argv[1:2] == ["--tp-rank"]
+             else hpo_rank(sys.argv[2]) if sys.argv[1:2] == ["--hpo-rank"] else main())

@@ -234,11 +234,14 @@ def test_controller_writes_the_jax_states(tmp_path, monkeypatch, mode, fail):
 
 
 def test_controller_refuses_more_than_one_slot(tmp_path, monkeypatch):
-    """A --chips_per_trial that would pack two trials onto four cards
-    raises (the port runs one trial at a time on one card) before any
-    trial; on --device cpu one slot; and a trial given two devices
+    """One process with several cards does not pack (the port runs one
+    process per card): a --chips_per_trial that would run two trials at
+    once on four cards raises before any trial, naming the torchrun launch
+    that packs them over ranks (tests/test_torch_trial_packing.py runs
+    one); a plan of one slot passes, and on --device cpu there is one
+    slot. A trial given devices that are not one per rank of its group
     raises."""
-    with pytest.raises(NotImplementedError, match="2 devices"):
+    with pytest.raises(ValueError, match="2 devices in a trial group of 1"):
         run_lib.run_trial(TC.parse_args(["--device", "cpu"]), devices=["cpu", "cpu"])
     flags = ["--storage_path", str(tmp_path), "--num_samples", "2"]
     monkeypatch.setattr(TCTL, "resolve_device", lambda device: torch.device(device))
@@ -247,7 +250,9 @@ def test_controller_refuses_more_than_one_slot(tmp_path, monkeypatch):
     for chips in ("1", "2"):
         args = TC.parse_args(flags + ["--chips_per_trial", chips,
                                       "--max_concurrent_trials", "2"])
-        with pytest.raises(NotImplementedError, match="packing trials over cards"):
+        with pytest.raises(ValueError, match=f"torchrun --nproc_per_node 4 -m asr_finetune_"
+                                             f"tpu_torch.cli.train_hyper --chips_per_trial "
+                                             f"{chips} --max_concurrent_trials 2"):
             TCTL.run_experiment(args)
     assert TCTL.count_slots(TC.parse_args(flags + ["--chips_per_trial", "4"])) == 1
     assert TCTL.count_slots(TC.parse_args(flags + ["--chips_per_trial", "2"])) == 1

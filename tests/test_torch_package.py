@@ -60,6 +60,17 @@ def test_imports_without_the_optional_packages():
     assert int(r.stdout.strip().splitlines()[-1]) >= 30
 
 
+def test_every_jax_module_has_a_port_counterpart():
+    """Every module of asr_finetune_tpu has one of the same name in the
+    port (the two imports tests above then load each), but the Pallas
+    log-mel kernel's module, whose counterpart is ops/logmel_fused.py."""
+    def modules(pkg):
+        return {p.relative_to(REPO / pkg).as_posix() for p in (REPO / pkg).rglob("*.py")}
+    port = modules("asr_finetune_tpu_torch")
+    assert modules("asr_finetune_tpu") - port == {"ops/logmel_pallas.py"}
+    assert {"ops/logmel_fused.py", "paths.py", "utils/misc.py", "utils/profiling.py"} <= port
+
+
 def test_chip_smoke_imports_nothing_of_jax():
     src = (REPO / "chip_smoke.py").read_text()
     assert "import jax" not in src and "asr_finetune_tpu." not in src.replace(
