@@ -25,6 +25,13 @@ over the rank's heads, o and fc2 summed over the model group, with the
 rank's columns of each adapter's b. This is the JAX rule (decode.py
 :628-659, `_use_fused_multichip`): with a model axis it keeps the
 auto-sharded XLA decode. A fused decode asked for under tp raises.
+
+Spans (utils/profiling.py): `decode.prepare` around everything before the
+token loop (the adapter merge, the encoder, the cross K/V), then one
+`decode.position` a step, which ends with the loop's test for the next
+step; the test's read of the finished flags, the host's wait for the
+card, is `decode.sync` (the first test, before position 0, is a
+`decode.sync` of its own). Greedy and beam search alike.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from ..ops import decoder_fused
 from ..ops import quant as Q
 from ..parallel import mesh
 from ..training.lora import merge_adapters, tp_local
+from ..utils import profiling
 
 Params = dict
 
@@ -299,6 +307,16 @@ def _timestamp_prev2(tokens: torch.Tensor, t: int, n_forced: int,
     return tokens[:, max(t - 1, 0)]
 
 
+def _loop_done(t: int, max_length: int, finished: torch.Tensor) -> bool:
+    """A decode loop's test before position t: the length is reached, or
+    every row (utterance) is finished, which the host reads from the device
+    (the span `decode.sync`)."""
+    if t >= max_length - 1:
+        return True
+    with profiling.span("decode.sync"):
+        return bool(finished.all())
+
+
 def greedy_decode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
                   forced_tokens: Sequence[int], max_length: int = 225,
                   compute_dtype: torch.dtype = torch.bfloat16,
@@ -336,38 +354,42 @@ def greedy_decode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
     fused = _resolve_fused(fused, cfg, device)
 
     with torch.no_grad():
-        step, cache = _prepare_decode(params, mel, cfg, max_length, B,
-                                      compute_dtype, kv_int8, w_int8, fused,
-                                      adapters, quant)
+        with profiling.span("decode.prepare"):
+            step, cache = _prepare_decode(params, mel, cfg, max_length, B,
+                                          compute_dtype, kv_int8, w_int8, fused,
+                                          adapters, quant)
         tokens = torch.full((B, max_length), eot, dtype=torch.long, device=device)
         tokens[:, 0] = forced[0]
         finished = torch.zeros((B,), dtype=torch.bool, device=device)
         last_ts = torch.zeros((B,), dtype=torch.long, device=device)
         t = 0
-        while t < max_length - 1 and not bool(finished.all()):
-            cur = tokens[:, t]
-            logits, cache = step(cur, t, cache)
-            if bias is not None:
-                logits = logits + bias
-            is_begin = (t + 1) == n_forced
-            if begin_bias is not None and is_begin:
-                logits = logits + begin_bias
-            if with_ts:
-                logits = _apply_timestamp_rules(
-                    logits, cur, _timestamp_prev2(tokens, t, n_forced, timestamp_begin),
-                    last_ts, is_begin, timestamp_begin, eot, no_ts_id)
-            in_prefix = (t + 1) < n_forced
-            if in_prefix:
-                nxt = torch.full_like(cur, forced[t + 1])
-            else:
-                nxt = torch.argmax(logits, dim=-1)
-            nxt = torch.where(finished, torch.full_like(nxt, eot), nxt)
-            tokens[:, t + 1] = nxt
-            if with_ts:
-                last_ts = torch.where(nxt >= timestamp_begin, nxt, last_ts)
-            if not in_prefix:
-                finished |= nxt == eot
-            t += 1
+        done = _loop_done(t, max_length, finished)
+        while not done:
+            with profiling.span("decode.position"):
+                cur = tokens[:, t]
+                logits, cache = step(cur, t, cache)
+                if bias is not None:
+                    logits = logits + bias
+                is_begin = (t + 1) == n_forced
+                if begin_bias is not None and is_begin:
+                    logits = logits + begin_bias
+                if with_ts:
+                    logits = _apply_timestamp_rules(
+                        logits, cur, _timestamp_prev2(tokens, t, n_forced, timestamp_begin),
+                        last_ts, is_begin, timestamp_begin, eot, no_ts_id)
+                in_prefix = (t + 1) < n_forced
+                if in_prefix:
+                    nxt = torch.full_like(cur, forced[t + 1])
+                else:
+                    nxt = torch.argmax(logits, dim=-1)
+                nxt = torch.where(finished, torch.full_like(nxt, eot), nxt)
+                tokens[:, t + 1] = nxt
+                if with_ts:
+                    last_ts = torch.where(nxt >= timestamp_begin, nxt, last_ts)
+                if not in_prefix:
+                    finished |= nxt == eot
+                t += 1
+                done = _loop_done(t, max_length, finished)
 
     before_eot = torch.cumsum((tokens == eot).long(), dim=1) == 0
     lengths = torch.clamp(before_eot.sum(dim=1) + 1, max=max_length)
@@ -455,90 +477,94 @@ def beam_states(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
     with torch.no_grad():
         # the cross K/V stays at B rows: the K hypotheses of an utterance
         # share it (cross_group), never replicated per beam
-        step, cache = _prepare_decode(params, mel, cfg, max_length, B * K,
-                                      compute_dtype, kv_int8, w_int8, fused,
-                                      adapters, quant, cross_group=K)
+        with profiling.span("decode.prepare"):
+            step, cache = _prepare_decode(params, mel, cfg, max_length, B * K,
+                                          compute_dtype, kv_int8, w_int8, fused,
+                                          adapters, quant, cross_group=K)
         st = BeamState(B, K, max_length, cache["k"].shape[2], forced[0], eot, device)
         own_rows = torch.arange(K, dtype=torch.int32, device=device)[None, :]
         rows = torch.arange(B, device=device)[:, None] * K
         rank_ok = torch.arange(2 * K, device=device)[None, :] < K
         yield st
-        while st.t < max_length - 1 and not bool(st.done.all()):
-            t = st.t
-            flat_tokens = st.tokens.reshape(B * K, max_length)
-            cur = flat_tokens[:, t]
-            if ancestry:
-                st.anc[:, :, t] = own_rows   # this step writes each row's own K/V at t
-                logits, cache = step(cur, t, cache, st.anc)
-            else:
-                logits, cache = step(cur, t, cache)
-            if bias is not None:
-                logits = logits + bias
-            is_begin = (t + 1) == n_forced
-            if begin_bias is not None and is_begin:
-                logits = logits + begin_bias
-            if with_ts:
-                logits = _apply_timestamp_rules(
-                    logits.float(), cur,
-                    _timestamp_prev2(flat_tokens, t, n_forced, timestamp_begin),
-                    st.last_ts.reshape(B * K), is_begin, timestamp_begin, eot, no_ts_id)
-            logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, K, -1)
-            V = logp.shape[-1]
-            in_prefix = (t + 1) < n_forced
-            if in_prefix:   # only the forced token is allowed
-                logp = torch.full_like(logp, BEAM_NEG)
-                logp[:, :, forced[t + 1]] = 0.0
-            # generated length excludes the forced prompt (HF cur_len -
-            # decoder_prompt_len); 0 at the first free position, where x / 0
-            # = -inf keeps an eos-first hypothesis out: an fp32 tensor, as in
-            # JAX (a Python float would raise); a CPU scalar, so no copy to
-            # the device each step
-            gen_len = torch.tensor(t + 1.0 - n_forced, dtype=f32) ** length_penalty
+        done = _loop_done(st.t, max_length, st.done)
+        while not done:
+            with profiling.span("decode.position"):
+                t = st.t
+                flat_tokens = st.tokens.reshape(B * K, max_length)
+                cur = flat_tokens[:, t]
+                if ancestry:
+                    st.anc[:, :, t] = own_rows   # this step writes each row's own K/V at t
+                    logits, cache = step(cur, t, cache, st.anc)
+                else:
+                    logits, cache = step(cur, t, cache)
+                if bias is not None:
+                    logits = logits + bias
+                is_begin = (t + 1) == n_forced
+                if begin_bias is not None and is_begin:
+                    logits = logits + begin_bias
+                if with_ts:
+                    logits = _apply_timestamp_rules(
+                        logits.float(), cur,
+                        _timestamp_prev2(flat_tokens, t, n_forced, timestamp_begin),
+                        st.last_ts.reshape(B * K), is_begin, timestamp_begin, eot, no_ts_id)
+                logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, K, -1)
+                V = logp.shape[-1]
+                in_prefix = (t + 1) < n_forced
+                if in_prefix:   # only the forced token is allowed
+                    logp = torch.full_like(logp, BEAM_NEG)
+                    logp[:, :, forced[t + 1]] = 0.0
+                # generated length excludes the forced prompt (HF cur_len -
+                # decoder_prompt_len); 0 at the first free position, where x / 0
+                # = -inf keeps an eos-first hypothesis out: an fp32 tensor, as in
+                # JAX (a Python float would raise); a CPU scalar, so no copy to
+                # the device each step
+                gen_len = torch.tensor(t + 1.0 - n_forced, dtype=f32) ** length_penalty
 
-            # 2K candidates per step (HF beam_search's top_k(2 * num_beams))
-            top_scores2, top_idx2 = _top_k((st.scores[:, :, None] + logp).reshape(B, K * V),
-                                           2 * K)
-            beam_idx2, tok_idx2 = top_idx2 // V, top_idx2 % V
-            ended2 = (tok_idx2 == eot) & (not in_prefix)
+                # 2K candidates per step (HF beam_search's top_k(2 * num_beams))
+                top_scores2, top_idx2 = _top_k((st.scores[:, :, None] + logp).reshape(B, K * V),
+                                               2 * K)
+                beam_idx2, tok_idx2 = top_idx2 // V, top_idx2 % V
+                ended2 = (tok_idx2 == eot) & (not in_prefix)
 
-            # finished adds: eos candidates at rank < K only (HF skips eos
-            # beyond the top num_beams); frozen once the utterance is done
-            fin_add = ended2 & rank_ok & ~st.done[:, None]
-            cand_fin_scores = torch.where(fin_add, top_scores2 / gen_len, BEAM_NEG)
-            cand_fin_tokens = _gather_beams(st.tokens, beam_idx2)
-            cand_fin_tokens[:, :, t + 1] = tok_idx2
-            keep_scores, keep_idx = _top_k(torch.cat([st.fin_scores, cand_fin_scores], 1), K)
-            st.fin_tokens = _gather_beams(torch.cat([st.fin_tokens, cand_fin_tokens], 1),
-                                          keep_idx)
-            st.fin_lens = torch.cat([st.fin_lens, torch.full_like(tok_idx2, t + 2)],
-                                    1).gather(1, keep_idx)
-            st.fin_scores = keep_scores
+                # finished adds: eos candidates at rank < K only (HF skips eos
+                # beyond the top num_beams); frozen once the utterance is done
+                fin_add = ended2 & rank_ok & ~st.done[:, None]
+                cand_fin_scores = torch.where(fin_add, top_scores2 / gen_len, BEAM_NEG)
+                cand_fin_tokens = _gather_beams(st.tokens, beam_idx2)
+                cand_fin_tokens[:, :, t + 1] = tok_idx2
+                keep_scores, keep_idx = _top_k(torch.cat([st.fin_scores, cand_fin_scores], 1), K)
+                st.fin_tokens = _gather_beams(torch.cat([st.fin_tokens, cand_fin_tokens], 1),
+                                              keep_idx)
+                st.fin_lens = torch.cat([st.fin_lens, torch.full_like(tok_idx2, t + 2)],
+                                        1).gather(1, keep_idx)
+                st.fin_scores = keep_scores
 
-            # running frontier: the best K non-eos candidates of the 2K
-            top_scores, run_rank = _top_k(torch.where(ended2, 2 * BEAM_NEG, top_scores2), K)
-            beam_idx = beam_idx2.gather(1, run_rank)
-            tok_idx = tok_idx2.gather(1, run_rank)
-            st.tokens = _gather_beams(st.tokens, beam_idx)
-            st.tokens[:, :, t + 1] = tok_idx
-            if with_ts:
-                st.last_ts = torch.where(tok_idx >= timestamp_begin, tok_idx,
-                                         st.last_ts.gather(1, beam_idx))
-            if ancestry:
-                # gather the ancestry rows, not the cache
-                st.anc = _gather_beams(st.anc, beam_idx).contiguous()
-            else:
-                # the whole cache reordered on the beam axis, (L, B·K, T, ...)
-                flat_idx = (rows + beam_idx).reshape(-1)
-                cache = {k: v.index_select(1, flat_idx) for k, v in cache.items()}
+                # running frontier: the best K non-eos candidates of the 2K
+                top_scores, run_rank = _top_k(torch.where(ended2, 2 * BEAM_NEG, top_scores2), K)
+                beam_idx = beam_idx2.gather(1, run_rank)
+                tok_idx = tok_idx2.gather(1, run_rank)
+                st.tokens = _gather_beams(st.tokens, beam_idx)
+                st.tokens[:, :, t + 1] = tok_idx
+                if with_ts:
+                    st.last_ts = torch.where(tok_idx >= timestamp_begin, tok_idx,
+                                             st.last_ts.gather(1, beam_idx))
+                if ancestry:
+                    # gather the ancestry rows, not the cache
+                    st.anc = _gather_beams(st.anc, beam_idx).contiguous()
+                else:
+                    # the whole cache reordered on the beam axis, (L, B·K, T, ...)
+                    flat_idx = (rows + beam_idx).reshape(-1)
+                    cache = {k: v.index_select(1, flat_idx) for k, v in cache.items()}
 
-            # per-utterance done (BeamHypotheses.is_done, early_stopping
-            # False): K finished hypotheses and the worst kept beats the best
-            # candidate's attainable normalized score at this length
-            n_fin = (st.fin_scores > BEAM_NEG / 2).sum(dim=1)
-            attainable = top_scores2[:, 0] / gen_len
-            st.done |= (n_fin >= K) & (st.fin_scores.amin(dim=1) >= attainable)
-            st.scores = top_scores
-            st.t = t + 1
+                # per-utterance done (BeamHypotheses.is_done, early_stopping
+                # False): K finished hypotheses and the worst kept beats the best
+                # candidate's attainable normalized score at this length
+                n_fin = (st.fin_scores > BEAM_NEG / 2).sum(dim=1)
+                attainable = top_scores2[:, 0] / gen_len
+                st.done |= (n_fin >= K) & (st.fin_scores.amin(dim=1) >= attainable)
+                st.scores = top_scores
+                st.t = t + 1
+                done = _loop_done(st.t, max_length, st.done)
             yield st
 
 

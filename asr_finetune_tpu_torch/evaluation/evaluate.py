@@ -9,6 +9,11 @@ count done and the results so far) and a versioned `eval_step_N.json`
 every `checkpoint_every` batches, `eval_final.json` at the end. A run that
 finds a progress file skips the batches it records and appends to its
 results.
+
+Spans (utils/profiling.py) of each batch: `eval.mel` (the features on the
+device), the decode's own (evaluation/decode.py), `eval.detok` (the tokens
+to the host and to text) and `eval.wer` (normalisation and per-utterance
+WER).
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 from ..models.configs import WhisperConfig
 from ..models.tokenizer import WhisperTokenizerBase
 from ..ops import logmel
+from ..utils import profiling
 from . import decode as decode_lib
 from . import wer as wer_lib
 from .normalize import normalize
@@ -119,16 +125,20 @@ class OfflineEvaluator:
         for i, batch in enumerate(batches):
             if i < start_count:
                 continue  # skip-ahead on resume
-            tokens, _ = self._decode(self.params, self._mel(batch), self.adapters)
-            preds = self.tokenizer.batch_decode(tokens.cpu().tolist())
-            for orig, pred in zip([str(t) for t in batch["text"]], preds):
-                n_orig, n_pred = normalize(orig), normalize(pred)
-                try:
-                    u_wer = wer_lib.wer_percent([n_orig], [n_pred])
-                except ValueError:
-                    u_wer = None  # empty reference
-                progress["results"].append(
-                    {"original": orig, "predicted": pred, "wer": u_wer})
+            with profiling.span("eval.mel"):
+                mel = self._mel(batch)
+            tokens, _ = self._decode(self.params, mel, self.adapters)
+            with profiling.span("eval.detok"):
+                preds = self.tokenizer.batch_decode(tokens.cpu().tolist())
+            with profiling.span("eval.wer"):
+                for orig, pred in zip([str(t) for t in batch["text"]], preds):
+                    n_orig, n_pred = normalize(orig), normalize(pred)
+                    try:
+                        u_wer = wer_lib.wer_percent([n_orig], [n_pred])
+                    except ValueError:
+                        u_wer = None  # empty reference
+                    progress["results"].append(
+                        {"original": orig, "predicted": pred, "wer": u_wer})
             progress["current_count"] = i + 1
             if (i + 1) % self.cfg.checkpoint_every == 0:
                 self._save_progress(progress)

@@ -67,6 +67,14 @@ at site "spec_augment", lora dropout at each projection's site.
 
 Metrics stay on the device: the trainer fetches a whole logging window at
 once.
+
+Spans (utils/profiling.py, recorded while the recorder is on): `train.fwd`
+and `train.bwd` for each microbatch's loss and its backward (remat's
+recompute included; then the loss and token sums, whose first copy of a
+host scalar to the card waits for the card), `train.update` from the
+gradients to the step's return (the group's reduce, the norm, the clip,
+AdamW, the ZeRO gather, AdaLoRA's mask update inside as `train.adalora`,
+the gradients cleared).
 """
 from __future__ import annotations
 
@@ -83,6 +91,7 @@ from ..ops.quant import QuantConfig
 from ..ops.spec_augment import spec_augment
 from ..parallel import mesh
 from ..parallel.sharding import Placement, is_split
+from ..utils import profiling
 from . import lora as lora_lib
 from .optim import AdamW, global_norm, leaves
 
@@ -227,6 +236,17 @@ def compute_grads(params: Params, batch: Dict[str, torch.Tensor],
     draw their masks, one stream per microbatch. In a
     group of more than one rank, `batch` is this data rank's rows of the global batch and
     the gradients and metrics are the global batch's (module docstring)."""
+    return _reduce_grads(cfg, *_backprop(params, batch, model_cfg, cfg, adapters,
+                                         rank_mask, step))
+
+
+def _backprop(params: Params, batch: Dict[str, torch.Tensor], model_cfg: WhisperConfig,
+              cfg: TrainStepConfig, adapters: Optional[Params] = None,
+              rank_mask: Optional[Params] = None, step: Optional[int] = None):
+    """compute_grads' forward and backward of each microbatch (spans
+    `train.fwd`, `train.bwd`, the latter with the microbatch's sums): the
+    differentiated leaves, holding this rank's gradient sums in `.grad`,
+    and the sums of the loss, the tokens and orth_reg."""
     peft = cfg.mode == "peft"
     cfg = split_rows(cfg)
     ps = [p for _, p in leaves(adapters if peft else params)]
@@ -245,30 +265,41 @@ def compute_grads(params: Params, batch: Dict[str, torch.Tensor],
     tok_sum = torch.zeros((), dtype=torch.long)
     reg_sum = None
     for i, mb in enumerate(micro):
-        dropout = augment = None
-        if step is not None:
-            stream, rows = step * n_micro + i, mb["labels"].shape[0]
-            by_row = dict(row0=rank * rows, rows=world * rows) if dp else {}
-            if peft and cfg.lora is not None and cfg.lora.dropout > 0:
-                dropout = W.LoraDropout(cfg.lora.dropout, cfg.seed, stream, **by_row)
-            if cfg.spec_augment:
-                augment = spec_augment_stream(cfg.seed, stream, **by_row)
-        loss, n, reg = loss_fn(params, mb, model_cfg, cfg, adapters, rank_mask, dropout,
-                               augment)
-        if dp:
-            loss = loss * share[i]      # this rank's part of the global mean
-            n = global_n[i]
+        with profiling.span("train.fwd"):
+            dropout = augment = None
+            if step is not None:
+                stream, rows = step * n_micro + i, mb["labels"].shape[0]
+                by_row = dict(row0=rank * rows, rows=world * rows) if dp else {}
+                if peft and cfg.lora is not None and cfg.lora.dropout > 0:
+                    dropout = W.LoraDropout(cfg.lora.dropout, cfg.seed, stream, **by_row)
+                if cfg.spec_augment:
+                    augment = spec_augment_stream(cfg.seed, stream, **by_row)
+            loss, n, reg = loss_fn(params, mb, model_cfg, cfg, adapters, rank_mask, dropout,
+                                   augment)
+            if dp:
+                loss = loss * share[i]      # this rank's part of the global mean
+                n = global_n[i]
         # orth_reg enters the gradients summed over the ranks once: rank 0's
         with_reg = reg is not None and not (dp and mesh.rank())
-        (loss + reg if with_reg else loss).backward()
-        loss_sum = loss_sum.to(loss.device) + loss.detach()
-        tok_sum = tok_sum.to(n.device) + n
-        if reg is not None:
-            reg_sum = reg.detach() if reg_sum is None else reg_sum + reg.detach()
+        with profiling.span("train.bwd"):
+            (loss + reg if with_reg else loss).backward()
+            loss_sum = loss_sum.to(loss.device) + loss.detach()
+            tok_sum = tok_sum.to(n.device) + n
+            if reg is not None:
+                reg_sum = reg.detach() if reg_sum is None else reg_sum + reg.detach()
+    return ps, loss_sum, tok_sum, reg_sum
+
+
+def _reduce_grads(cfg: TrainStepConfig, ps: List[torch.Tensor], loss_sum: torch.Tensor,
+                  tok_sum: torch.Tensor, reg_sum: Optional[torch.Tensor]
+                  ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
+    """compute_grads' end: the gradients summed over the group and averaged
+    over the microbatches, and the metrics."""
+    n_micro = cfg.accum_steps
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in ps]
-    if dp:
+    if mesh.world() > 1:
         # PEFT: each rank of a model group holds a part of each gradient
-        over = "world" if peft else "data"
+        over = "world" if cfg.mode == "peft" else "data"
         for g in grads:
             mesh.all_reduce_sum_(g, over=over)
         mesh.all_reduce_sum_(loss_sum, over="data")
@@ -310,32 +341,36 @@ def make_train_step(model_cfg: WhisperConfig, opt: AdamW, cfg: TrainStepConfig,
 
     def full_step(state, batch):
         params = state["params"]
-        grads, metrics = compute_grads(params, batch, model_cfg, cfg, step=state["step"])
-        metrics["grad_norm"] = _update(opt, [p for _, p in leaves(params)], grads,
-                                       state["opt_state"])
-        for _, p in leaves(params):
-            p.grad = None
+        sums = _backprop(params, batch, model_cfg, cfg, step=state["step"])
+        with profiling.span("train.update"):
+            grads, metrics = _reduce_grads(cfg, *sums)
+            metrics["grad_norm"] = _update(opt, [p for _, p in leaves(params)], grads,
+                                           state["opt_state"])
+            for _, p in leaves(params):
+                p.grad = None
         return metrics
 
     def peft_step(state, batch):
         adapters, step_no = state["adapters"], state["step"]
-        grads, metrics = compute_grads(placement.base_on_device(state["params"]), batch,
-                                       model_cfg, cfg, adapters, state.get("rank_mask"),
-                                       step_no)
-        named = dict(zip((k for k, _ in leaves(adapters)), grads))
-        metrics["grad_norm"] = global_norm(grads)
-        adalora = cfg.lora is not None and cfg.lora.adalora and "sensitivity" in state
-        trained = opt.trainable(adapters)
-        # the update clips its gradients in place; the mask update reads the
-        # unclipped ones (the adapters are small)
-        tg = [named[k].clone() if adalora else named[k] for k, _ in trained]
-        _update(opt, [p for _, p in trained], tg, state["opt_state"])
-        if adalora:
-            state["rank_mask"], state["sensitivity"] = lora_lib.adalora_update_mask(
-                adapters, _tree_like(adapters, named), state["sensitivity"],
-                state["rank_mask"], step_no, cfg.max_steps, cfg.lora)
-        for _, p in leaves(adapters):
-            p.grad = None
+        sums = _backprop(placement.base_on_device(state["params"]), batch, model_cfg, cfg,
+                         adapters, state.get("rank_mask"), step_no)
+        with profiling.span("train.update"):
+            grads, metrics = _reduce_grads(cfg, *sums)
+            named = dict(zip((k for k, _ in leaves(adapters)), grads))
+            metrics["grad_norm"] = global_norm(grads)
+            adalora = cfg.lora is not None and cfg.lora.adalora and "sensitivity" in state
+            trained = opt.trainable(adapters)
+            # the update clips its gradients in place; the mask update reads the
+            # unclipped ones (the adapters are small)
+            tg = [named[k].clone() if adalora else named[k] for k, _ in trained]
+            _update(opt, [p for _, p in trained], tg, state["opt_state"])
+            if adalora:
+                with profiling.span("train.adalora"):
+                    state["rank_mask"], state["sensitivity"] = lora_lib.adalora_update_mask(
+                        adapters, _tree_like(adapters, named), state["sensitivity"],
+                        state["rank_mask"], step_no, cfg.max_steps, cfg.lora)
+            for _, p in leaves(adapters):
+                p.grad = None
         return metrics
 
     def step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]

@@ -35,6 +35,9 @@ logging window rank 0's record carries every rank's host<r>_rss_gb,
 host<r>_hbm_in_use_gb and host<r>_hbm_peak_gb (one all-gather). An
 offloaded frozen base (parallel/sharding.Placement) is copied to the card
 once per evaluate().
+
+The logging window's fetch and record run in the span `train.log`
+(utils/profiling.py).
 """
 from __future__ import annotations
 
@@ -55,6 +58,7 @@ from ..models.whisper import IGNORE_ID
 from ..ops import logmel as logmel_ops
 from ..parallel import mesh
 from ..parallel.sharding import Placement
+from ..utils import profiling
 from ..utils.logging_utils import MetricsLogger, memory_stats
 from . import lora as lora_lib
 from .checkpoint import CheckpointManager
@@ -249,28 +253,29 @@ class Trainer:
                 utts_since += int(np.prod(dev_batch["labels"].shape[:-1])) * mesh.data_world()
 
                 if step % self.cfg.logging_steps == 0:
-                    win = [{k: v.item() for k, v in w_.items()} for w_ in window]
-                    dt = time.time() - t_log
-                    host = memory_stats(self.device)
-                    self.metrics.log_host(step, host)
-                    rec = {
-                        "loss": float(np.mean([w_["loss"] for w_ in win])),
-                        "grad_norm": float(win[-1]["grad_norm"]),
-                        "utt_per_sec": utts_since / max(dt, 1e-9),
-                        "tokens_per_sec": sum(w_["tokens"] for w_ in win) / max(dt, 1e-9),
-                        **host,
-                    }
-                    if mesh.world() > 1:
-                        every = mesh.all_gather_object([host.get(k, 0.0) for k in (
-                            "host_rss_gb", "cuda_mem_in_use_gb", "cuda_peak_gb")])
-                        for r, (rss, in_use, peak) in enumerate(every):
-                            rec.update({f"host{r}_rss_gb": rss,
-                                        f"host{r}_hbm_in_use_gb": in_use,
-                                        f"host{r}_hbm_peak_gb": peak})
-                    self.metrics.log(step, rec)
-                    window.clear()
-                    utts_since = 0
-                    t_log = time.time()
+                    with profiling.span("train.log"):
+                        win = [{k: v.item() for k, v in w_.items()} for w_ in window]
+                        dt = time.time() - t_log
+                        host = memory_stats(self.device)
+                        self.metrics.log_host(step, host)
+                        rec = {
+                            "loss": float(np.mean([w_["loss"] for w_ in win])),
+                            "grad_norm": float(win[-1]["grad_norm"]),
+                            "utt_per_sec": utts_since / max(dt, 1e-9),
+                            "tokens_per_sec": sum(w_["tokens"] for w_ in win) / max(dt, 1e-9),
+                            **host,
+                        }
+                        if mesh.world() > 1:
+                            every = mesh.all_gather_object([host.get(k, 0.0) for k in (
+                                "host_rss_gb", "cuda_mem_in_use_gb", "cuda_peak_gb")])
+                            for r, (rss, in_use, peak) in enumerate(every):
+                                rec.update({f"host{r}_rss_gb": rss,
+                                            f"host{r}_hbm_in_use_gb": in_use,
+                                            f"host{r}_hbm_peak_gb": peak})
+                        self.metrics.log(step, rec)
+                        window.clear()
+                        utts_since = 0
+                        t_log = time.time()
 
                 stop_early = False
                 if self.cfg.eval_steps and step % self.cfg.eval_steps == 0 \
