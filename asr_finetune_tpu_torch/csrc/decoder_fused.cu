@@ -380,6 +380,7 @@ struct AttnArgs {
   const void* v;
   const float* k_scale;  // int8 KV: (N / G, d) fp32 per-(row, head) scales, else null
   const int* anc;        // beam: (N, T_len) int32 ancestry, else null
+  const long long* pos;  // self mode's position on the card: n_valid = *pos + 1, else null
   float* part;           // (N, d/64, n_split, 66)
   long long kv_bstride;  // elements from one KV row to the next (T_len * d)
   int d, T_len, n_valid, n_split, G, gs, n_sub, beam;
@@ -437,8 +438,10 @@ __global__ void __launch_bounds__(ATT_THREADS) attn_partial_kernel(const AttnArg
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int kg = lane / KEY_LANES, dl = lane % KEY_LANES;
   const int r0 = grp * a.G + sub * a.gs;  // the block's first query row
+  const int n_valid = a.pos != nullptr ? (int)min(max(*a.pos + 1, 1LL), (long long)a.T_len)
+                                       : a.n_valid;
   const int t0 = s * CHUNK;
-  const int t1 = min(t0 + CHUNK, a.n_valid);
+  const int t1 = min(t0 + CHUNK, n_valid);
   auto out_row = [&](int g) {
     return a.part + ((long long)((r0 + g) * H + h) * a.n_split + s) * (HD + 2);
   };
@@ -723,8 +726,9 @@ cudaError_t attn(const void* x, const float* ln_s, const float* ln_b, const void
 
 AttnArgs attn_args(const float* q, const void* k, const void* v, const float* k_scale,
                    const int* anc, float* part, int T_len, int d, int n_valid, int G,
-                   int beam) {
+                   int beam, const long long* pos = nullptr) {
   AttnArgs a{};
+  a.pos = pos;
   a.q = q;
   a.k = k;
   a.v = v;
@@ -839,6 +843,10 @@ struct ProdArgs {
   long long out_ld;             // qkv: elements from one row of out to the next
   int role;                     // qkv: 0 q, 1 k, 2 v
   int x_row0;                   // qkv: the pass's first row of x (its TMA coordinate)
+  // qkv, the position on the card: k and v go to row *pos of out (a self
+  // cache's, out at row 0), and nowhere when *pos lies outside [0, pos_limit)
+  const long long* pos;
+  int pos_limit;
 };
 
 // Timing probe of the MLP kernels, built only with -DMLP_TRACE
@@ -995,6 +1003,12 @@ __device__ __forceinline__ void prod_body(const CUtensorMap* wmap, const ProdArg
 
   float acc[ACC], e_scale[ACC], e_bias[ACC], e_x[ACC];
   auto epilogue = [&]() {
+    long long row_off = 0;   // qkv's k and v at the position on the card
+    if (KIND == P_QKV && a.role != 0 && a.pos != nullptr) {
+      const long long p = *a.pos;
+      if (p < 0 || p >= a.pos_limit) return;
+      row_off = p * a.N;
+    }
 #pragma unroll
     for (int r = 0; r < ACC; ++r) {
       if (mine(r)) {
@@ -1002,7 +1016,7 @@ __device__ __forceinline__ void prod_body(const CUtensorMap* wmap, const ProdArg
         if (a.w_scale != nullptr) v = __fmul_rn(v, e_scale[r]);   // the int8 scale, after the sum
         if (KIND != P_QKV || a.bias != nullptr) v = __fadd_rn(v, e_bias[r]);
         const long long ld = KIND == P_QKV ? a.out_ld : (long long)a.N;
-        const long long o = (long long)item_row(r) * ld + item_col(r);
+        const long long o = (long long)item_row(r) * ld + item_col(r) + row_off;
         if (KIND == P_Q || (KIND == P_QKV && a.role == 0)) {
           static_cast<float*>(a.out)[o] = __fmul_rn(v, 0.125f);   // 64^-0.5
         } else {
@@ -1403,6 +1417,10 @@ struct CoreArgs {
   const __nv_bfloat16* kb;
   const __nv_bfloat16* vb;
   int beam, T_len;
+  // self mode, the position on the card: n_valid = *pos + 1 (held to [1,
+  // T_len]), n_split the cache's ceil(T_len / ACH) chunks, of which those at
+  // or past n_valid only take their ticket
+  const long long* pos;
 };
 
 template <typename KV, int MAXG>
@@ -1453,6 +1471,64 @@ __device__ __forceinline__ void gather_kv(const CoreArgs& a, uint8_t* ks, uint8_
   cp_async_arrive_noinc(&bar[1]);
 }
 
+// The tail of a (rows, head)'s chunks when there are several: each chunk's
+// block takes a ticket once its partials, if it has valid keys, are written;
+// the last to take one combines those of the first ceil(n_valid / ACH)
+// chunks in chunk order (attn_combine_kernel's), o[r, h*64 + j] = A_j [x
+// v_scale] / L cast to bf16, and resets the ticket. scr holds MAXG rows of
+// COMB_SCRATCH floats.
+template <int MAXG>
+__device__ __forceinline__ void combine_chunks(const CoreArgs& a, float* scr, int r0, int G, int h,
+                                               int H, int kvr, int n_valid) {
+  const int tid = threadIdx.x, ns = a.n_split, nv = (n_valid + ACH - 1) / ACH;
+  __shared__ int last;
+  int* counter = a.counters + blockIdx.z * H + h;
+  if (tid == 0) last = ticket(counter) == ns - 1;
+  __syncthreads();
+  if (!last) return;
+  auto rec = [&](int g, int c) {
+    return a.part + ((long long)((r0 + g) * H + h) * ns + c) * PART;
+  };
+  // each row's chunks' (m, l) into shared memory, then their weights
+  // w[g][c] = e^(m_c - M) and L[g]
+  float2* ml = reinterpret_cast<float2*>(scr);   // [G][nv]
+  float* Ls = scr + 2 * MAXG * MAX_SPLIT;        // [G]
+  float* wts = Ls + MAXG;                        // [G][nv]
+  for (int i = tid; i < G * nv; i += CORE_THREADS)
+    ml[i] = __ldcg(reinterpret_cast<const float2*>(rec(i / nv, i % nv) + HD));
+  __syncthreads();
+  if (tid < G) {
+    float M = NEG, L = 0.f;
+    for (int c = 0; c < nv; ++c) M = fmaxf(M, ml[tid * nv + c].x);
+    for (int c = 0; c < nv; ++c) {
+      const float2 v = ml[tid * nv + c];
+      const float wc = expf(v.x - M);
+      L += v.y * wc;
+      wts[tid * nv + c] = wc;
+    }
+    Ls[tid] = L;
+  }
+  __syncthreads();
+  for (int i = tid; i < G * HD; i += CORE_THREADS) {
+    const int g = i / HD, j = i - g * HD;
+    const float* w = wts + g * nv;
+    float A = 0.f;
+#pragma unroll
+    for (int c0 = 0; c0 < MAX_SPLIT; c0 += 8) {   // 8 chunks' loads in flight at once
+      if (c0 >= nv) break;
+      float u[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) u[c] = c0 + c < nv ? __ldcg(rec(g, c0 + c) + j) : 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        if (c0 + c < nv) A += u[c] * w[c0 + c];
+    }
+    if (a.v_scale != nullptr) A *= a.v_scale[(long long)kvr * a.d + h * HD + j];
+    a.o[(long long)(r0 + g) * a.d + h * HD + j] = __float2bfloat16(A / Ls[g]);
+  }
+  if (tid == 0) *counter = 0;
+}
+
 // Chunk-local softmax of the block's query rows (the split-T flash-decoding
 // of the header): (acc[64] = sum_t p_t v_t, m, l = sum_t p_t) over the
 // chunk's keys t < n_valid, p_t = e^(s_t - m) rounded to bf16 for p.v, l
@@ -1487,9 +1563,18 @@ attn_chunk_kernel(const __grid_constant__ CUtensorMap kmap,
   const int G = min(a.gs, a.Gp - sub * a.gs);            // this block's rows
   const int r0 = a.r0 + grp * a.Gp + sub * a.gs;         // its first query row
   const int kvr = (a.r0 + grp * a.Gp) / a.G;             // their KV row
-  const int t0 = s * ACH, nk = min(ACH, a.n_valid - t0); // valid keys of the chunk
+  const int n_valid = a.pos != nullptr ? (int)min(max(*a.pos + 1, 1LL), (long long)a.T_len)
+                                       : a.n_valid;
+  const int t0 = s * ACH, nk = min(ACH, n_valid - t0);   // valid keys of the chunk
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   ATTN_STAMP(1, 0);
+  if (nk <= 0) {   // a chunk past the valid keys: no partial, only its ticket
+    griddep_launch();
+    griddep_wait();
+    combine_chunks<MAXG>(a, scr, r0, G, h, H, kvr, n_valid);
+    ATTN_STAMP(1, 3);
+    return;
+  }
 
   if (tid == 0) {   // a gather's barriers take every thread's arrival
     mbar_init(&bar[0], a.anc != nullptr ? CORE_THREADS : 1);
@@ -1660,53 +1745,8 @@ attn_chunk_kernel(const __grid_constant__ CUtensorMap kmap,
     rec(g, s)[j] = sum;
   }
   if (tid < 2 * G) rec(tid / 2, s)[HD + (tid & 1)] = ml_s[tid];
-  __shared__ int last;
-  int* counter = a.counters + blockIdx.z * H + h;
   __syncthreads();
-  if (tid == 0) last = ticket(counter) == ns - 1;
-  __syncthreads();
-  if (!last) {
-    ATTN_STAMP(1, 3);
-    return;
-  }
-  // each row's chunks' (m, l) into shared memory, then their weights
-  // w[g][c] = e^(m_c - M) and L[g]
-  float2* ml = reinterpret_cast<float2*>(scr);   // [G][ns]
-  float* Ls = scr + 2 * MAXG * MAX_SPLIT;        // [G]
-  float* wts = Ls + MAXG;                        // [G][ns]
-  for (int i = tid; i < G * ns; i += CORE_THREADS)
-    ml[i] = __ldcg(reinterpret_cast<const float2*>(rec(i / ns, i % ns) + HD));
-  __syncthreads();
-  if (tid < G) {
-    float M = NEG, L = 0.f;
-    for (int c = 0; c < ns; ++c) M = fmaxf(M, ml[tid * ns + c].x);
-    for (int c = 0; c < ns; ++c) {
-      const float2 v = ml[tid * ns + c];
-      const float wc = expf(v.x - M);
-      L += v.y * wc;
-      wts[tid * ns + c] = wc;
-    }
-    Ls[tid] = L;
-  }
-  __syncthreads();
-  for (int i = tid; i < G * HD; i += CORE_THREADS) {
-    const int g = i / HD, j = i - g * HD;
-    const float* w = wts + g * ns;
-    float A = 0.f;
-#pragma unroll
-    for (int c0 = 0; c0 < MAX_SPLIT; c0 += 8) {   // 8 chunks' loads in flight at once
-      if (c0 >= ns) break;
-      float u[8];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) u[c] = c0 + c < ns ? __ldcg(rec(g, c0 + c) + j) : 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        if (c0 + c < ns) A += u[c] * w[c0 + c];
-    }
-    if (a.v_scale != nullptr) A *= vs_at(j);
-    *o_at(g, j) = __float2bfloat16(A / Ls[g]);
-  }
-  if (tid == 0) *counter = 0;
+  combine_chunks<MAXG>(a, scr, r0, G, h, H, kvr, n_valid);
   ATTN_STAMP(1, 3);
 }
 
@@ -1919,13 +1959,15 @@ cudaError_t qkv_launch(const QkvArgs& a, const CUtensorMap (&m)[4], int tiles, i
 
 // bf16 fused_qkv: passes of up to MLP_MAX_ROWS rows, one launch each; w[i],
 // the stacked (L[i], d, d) bases of q, k, v, read at layer[i]; out[i] with
-// a row stride of ld[i] elements (k and v: a cache's row pos); sums and
-// counters the kernel's own regions of the workspace.
+// a row stride of ld[i] elements (k and v: a cache's row pos, or its row 0
+// with pos, the position on the card, below pos_limit); sums and counters
+// the kernel's own regions of the workspace.
 cudaError_t qkv_tc(const __nv_bfloat16* x, const float* ln_s, const float* ln_b,
                    const void* const (&w)[3], const __nv_bfloat16* const (&bias)[3],
                    const float* const (&scale)[3], const int (&layer)[3], const int (&L)[3],
-                   void* const (&out)[3], const long long (&ld)[3], float* sums,
-                   long long sums_floats, int* counters, int B, int d, cudaStream_t st) {
+                   void* const (&out)[3], const long long (&ld)[3], const long long* pos,
+                   int pos_limit, float* sums, long long sums_floats, int* counters, int B,
+                   int d, cudaStream_t st) {
   if (B < 1 || d % MLP_TILE != 0 || d > MLP_MAX_D) return cudaErrorInvalidValue;
   const int tiles = d / MLP_TILE, steps = (d + MLP_KS - 1) / MLP_KS;
   if (3 * tiles > MLP_COUNTERS) return cudaErrorInvalidValue;
@@ -1963,6 +2005,8 @@ cudaError_t qkv_tc(const __nv_bfloat16* x, const float* ln_s, const float* ln_b,
       pa.steps = steps;
       pa.out_ld = ld[i];
       pa.role = i;
+      pa.pos = pos;
+      pa.pos_limit = pos_limit;
       if (scale[i] != nullptr) a.w8 |= 1 << i;
     }
     const int act_bytes = steps * (MLP_KS / 64) * np * 128;   // LN(x)'s whole rows
@@ -2010,7 +2054,9 @@ cudaError_t core(const CoreArgs& a, const CUtensorMap& km, const CUtensorMap& vm
 // read at lq / lo; k, v: stacked (Lkv, N / G, T_len, d) bases read at lkv.
 // anc: beam self-attention (q given, G = 1, bf16 K/V, the (N, T_len)
 // ancestry of `beam` hypotheses an utterance), the core gathering each key
-// row through it; passes of 32 rows need not hold whole utterances.
+// row through it; passes of 32 rows need not hold whole utterances. pos:
+// self mode's position on the card (n_valid = *pos + 1, unused here), the
+// core's grid then over the whole cache.
 cudaError_t attn_tc(const __nv_bfloat16* x, const float* q, const float* ln_s,
                     const float* ln_b, const void* wq, const __nv_bfloat16* bq, const float* sq,
                     int lq, int Lq, const void* k, const void* v, const float* k_scale,
@@ -2018,12 +2064,13 @@ cudaError_t attn_tc(const __nv_bfloat16* x, const float* q, const float* ln_s,
                     const void* wo, const __nv_bfloat16* bo, const float* so, int lo, int Lo,
                     float* q_buf, float* part, __nv_bfloat16* o_buf, __nv_bfloat16* out,
                     float* work, long long work_floats, int* counters, int N, int T_len, int d,
-                    int n_valid, int G, cudaStream_t st) {
+                    int n_valid, const long long* pos, int G, cudaStream_t st) {
   const bool cross = q == nullptr;
+  if (pos != nullptr) n_valid = T_len;   // the grid's bound: every chunk of the cache
   const int n_split = (n_valid + ACH - 1) / ACH;
   if (N < 1 || G < 1 || N % G != 0 || d % MLP_TILE != 0 || d > MLP_MAX_D || n_valid < 1 ||
       n_valid > T_len || n_split > MAX_SPLIT || lkv < 0 || lkv >= Lkv || lo < 0 || lo >= Lo ||
-      (cross && (lq < 0 || lq >= Lq)) ||
+      (cross && (lq < 0 || lq >= Lq)) || (pos != nullptr && (cross || anc != nullptr)) ||
       (anc != nullptr && (cross || G != 1 || beam < 1 || N % beam != 0 || k_scale != nullptr)))
     return cudaErrorInvalidValue;
   const bool kv8 = k_scale != nullptr;
@@ -2075,6 +2122,7 @@ cudaError_t attn_tc(const __nv_bfloat16* x, const float* q, const float* ln_s,
     c.vb = static_cast<const __nv_bfloat16*>(v);
     c.beam = beam;
     c.T_len = T_len;
+    c.pos = pos;
     e = kv8 ? core<int8_t>(c, km, vm, n / c.Gp, st) : core<__nv_bfloat16>(c, km, vm, n / c.Gp, st);
     if (e != cudaSuccess) return e;
     ProdArgs ao{};
@@ -2120,15 +2168,18 @@ extern "C" int fused_qkv_fwd(int dtype, const void* x, const float* ln_s, const 
 // bases read at their layer (L = 1 for one layer's), int8 where their scale
 // (sq, sk, sv) is non-null; biases, scales and LN offset to the layer. q_out
 // (B, d) fp32; k_out and v_out bf16 rows k_ld and v_ld elements apart (d,
-// or a self cache's T x d with the pointer at row 0, position pos of the
-// layer). sums (sums_floats fp32) and counters (1024 int32, zero before the
-// first call; each call leaves them zero) are this kernel's own.
+// or a self cache's T x d with the pointer at position pos of the layer;
+// with pos_dev, the position on the card, at row 0 of the layer, k and v
+// going to row *pos_dev when it lies in [0, pos_limit)). sums (sums_floats
+// fp32) and counters (1024 int32, zero before the first call; each call
+// leaves them zero) are this kernel's own.
 extern "C" int fused_qkv_tc_fwd(const void* x, const float* ln_s, const float* ln_b,
                                 const void* wq, const void* bq, const float* sq, int lq, int Lq,
                                 const void* wk, const float* sk, int lk, int Lk, const void* wv,
                                 const void* bv, const float* sv, int lv, int Lv, float* q_out,
                                 void* k_out, long long k_ld, void* v_out, long long v_ld,
-                                float* sums, long long sums_floats, int* counters, int B, int d,
+                                const long long* pos_dev, int pos_limit, float* sums,
+                                long long sums_floats, int* counters, int B, int d,
                                 void* stream) {
   using bf = __nv_bfloat16;
   const void* const w[3] = {wq, wk, wv};
@@ -2138,19 +2189,22 @@ extern "C" int fused_qkv_tc_fwd(const void* x, const float* ln_s, const float* l
   void* const out[3] = {q_out, k_out, v_out};
   const long long ld[3] = {d, k_ld, v_ld};
   return static_cast<int>(qkv_tc(static_cast<const bf*>(x), ln_s, ln_b, w, bias, scale, layer,
-                                 L, out, ld, sums, sums_floats, counters, B, d,
-                                 static_cast<cudaStream_t>(stream)));
+                                 L, out, ld, pos_dev, pos_limit, sums, sums_floats, counters,
+                                 B, d, static_cast<cudaStream_t>(stream)));
 }
 
-// fp32 fused_attn: the GEMVs, the split-T partials and their combine
+// fp32 fused_attn: the GEMVs, the split-T partials and their combine;
+// pos (self mode, or null): the position on the card, n_valid = *pos + 1
 extern "C" int fused_attn_fwd(int dtype, const void* x, const float* q, const float* ln_s,
                               const float* ln_b, const void* wq, const void* bq, const void* k,
                               const void* v, const float* k_scale, const float* v_scale,
                               const void* wo, const void* bo, const float* sq, const float* so,
                               float* q_buf, float* part, void* o_buf, void* out, int N,
-                              int T_len, int d, int n_valid, int G, void* stream) {
+                              int T_len, int d, int n_valid, const long long* pos, int G,
+                              void* stream) {
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);   // bf16: fused_attn_tc_fwd
-  const AttnArgs a = attn_args(q, k, v, k_scale, nullptr, part, T_len, d, n_valid, G, 1);
+  if (pos != nullptr && q == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const AttnArgs a = attn_args(q, k, v, k_scale, nullptr, part, T_len, d, n_valid, G, 1, pos);
   return static_cast<int>(attn<float>(x, ln_s, ln_b, wq, bq, sq, a, v_scale, wo, bo, so, q_buf,
                                       o_buf, out, N, static_cast<cudaStream_t>(stream)));
 }
@@ -2161,7 +2215,9 @@ extern "C" int fused_attn_fwd(int dtype, const void* x, const float* q, const fl
 // the scales are offset to the layer. q given: self mode (q (N, d) fp32);
 // q null: cross mode, q computed into q_buf from LN(x); o_buf (N, d) bf16
 // takes the attention's output. work and counters are fused_mlp_fwd's
-// (counters 5 x 1024: fused_attn takes the last three).
+// (counters 5 x 1024: fused_attn takes the last three). pos (self mode, or
+// null): the position on the card, n_valid = *pos + 1 read there, the
+// core's grid over the whole cache.
 extern "C" int fused_attn_tc_fwd(const void* x, const float* q, const float* ln_s,
                                  const float* ln_b, const void* wq, const void* bq,
                                  const float* sq, int lq, int Lq, const void* k, const void* v,
@@ -2169,14 +2225,14 @@ extern "C" int fused_attn_tc_fwd(const void* x, const float* q, const float* ln_
                                  const void* wo, const void* bo, const float* so, int lo, int Lo,
                                  float* q_buf, float* part, void* o_buf, void* out, float* work,
                                  long long work_floats, int* counters, int N, int T_len, int d,
-                                 int n_valid, int G, void* stream) {
+                                 int n_valid, const long long* pos, int G, void* stream) {
   using bf = __nv_bfloat16;
   return static_cast<int>(attn_tc(
       static_cast<const bf*>(x), q, ln_s, ln_b, wq, static_cast<const bf*>(bq), sq, lq, Lq, k,
       v, k_scale, v_scale, lkv, Lkv, nullptr, 0, wo, static_cast<const bf*>(bo), so, lo, Lo,
       q_buf, part,
       static_cast<bf*>(o_buf), static_cast<bf*>(out), work, work_floats, counters, N, T_len, d,
-      n_valid, G, static_cast<cudaStream_t>(stream)));
+      n_valid, pos, G, static_cast<cudaStream_t>(stream)));
 }
 
 // fp32 beam self-attention over the unpermuted cache, the GEMV route: anc
@@ -2212,7 +2268,7 @@ extern "C" int fused_attn_beam_tc_fwd(const void* x, const float* q, const void*
       static_cast<const bf*>(x), q, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 1, k, v,
       nullptr, nullptr, lkv, Lkv, anc, beam, wo, static_cast<const bf*>(bo), so, lo, Lo, nullptr,
       part, static_cast<bf*>(o_buf), static_cast<bf*>(out), work, work_floats, counters, N,
-      T_len, d, n_valid, 1, static_cast<cudaStream_t>(stream)));
+      T_len, d, n_valid, nullptr, 1, static_cast<cudaStream_t>(stream)));
 }
 
 // fused_mlp: w1 (L1, d, ff) and w2 (L2, ff, d) are the stacked weights' bases

@@ -26,6 +26,26 @@ rank's columns of each adapter's b. This is the JAX rule (decode.py
 :628-659, `_use_fused_multichip`): with a model axis it keeps the
 auto-sharded XLA decode. A fused decode asked for under tp raises.
 
+Greedy on the fused route on a CUDA device (`uses_graph`): one position
+of the token loop is captured once as a CUDA graph and replayed at every
+later position, in place of the ~290 launches a position the host would
+issue. The graph's position lives on the card (a one-element int64 tensor
+the kernels and the token gather read, incremented inside the graph), so
+one capture serves every position. Its buffers, made once per batch shape
+and kept at module level (`GRAPH_SHAPES` shapes, the least recently used
+dropped; `release_graphs`): the self cache, the padded cross K/V, the
+tokens, the finished flags, the position, the last timestamps, the fp32
+tied logits weight and the suppress bias; and the decoder weights a call
+makes anew (cast, merged with adapters, quantized), copied there, while
+the caller's own are read in place. A graph holds the addresses of the
+weights it was captured over: the caller's other weights (another model)
+capture anew. The forced prefix and the first
+free position run eagerly on those buffers, and with the timestamp
+grammar so does the next one (its rule reads t); the loop's test still
+reads the finished flags between replays. Counters (`graph_counters`,
+also in utils/profiling.trace's program_counters.json): captures, replays
+and greedy positions run eagerly.
+
 Spans (utils/profiling.py): `decode.prepare` around everything before the
 token loop (the adapter merge, the encoder, the cross K/V), then one
 `decode.position` a step, which ends with the loop's test for the next
@@ -36,6 +56,7 @@ card, is `decode.sync` (the first test, before position 0, is a
 from __future__ import annotations
 
 import os
+from collections import OrderedDict
 from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
@@ -135,33 +156,35 @@ def _cast_decoder_weights(params: Params, dtype: torch.dtype) -> Params:
 
 
 def _prepare_fused(enc_out: torch.Tensor, cross_kv: Params, max_length: int,
-                   compute_dtype: torch.dtype) -> Tuple[Params, int, int]:
+                   compute_dtype: torch.dtype, out: Optional[Params] = None
+                   ) -> Tuple[Params, int, int]:
     """Once per decode call: pad cross K/V on the source axis to a
     128-multiple (1500 → 1536 at large-v3, so the kernel masks s_valid on
     the main path) and flatten heads to the dense (L, B, S_pad, d) layout,
     int8 K/V as it is with its scales expanded to (L, B, d); pick a
-    128-multiple cache length."""
+    128-multiple cache length. out: buffers of that layout to write into,
+    whose padded tail is zero already (the graph's)."""
     S_real = int(enc_out.shape[1])
     S_pad = _round_up(S_real, 128)
 
-    def pad_dense(a, dtype):
+    def pad_dense(name, dtype):
+        a = cross_kv[name]
         L, B, S, H, hd = a.shape
-        out = torch.zeros((L, B, S_pad, H * hd), dtype=dtype, device=a.device)
-        out[:, :, :S] = a.reshape(L, B, S, H * hd)
-        return out
+        buf = out[name] if out is not None else torch.zeros(
+            (L, B, S_pad, H * hd), dtype=dtype, device=a.device)
+        buf[:, :, :S] = a.reshape(L, B, S, H * hd)
+        return buf
 
-    def expand(scale):   # (L, B, 1, H, 1) → (L, B, d): index j has head j // hd
+    def expand(name):   # (L, B, 1, H, 1) → (L, B, d): index j has head j // hd
         hd = cross_kv["k_q8"].shape[-1]
-        return scale[:, :, 0, :, 0].repeat_interleave(hd, dim=-1).contiguous()
+        e = cross_kv[name[0] + "_scale"][:, :, 0, :, 0].repeat_interleave(hd, dim=-1)
+        return out[name].copy_(e) if out is not None else e.contiguous()
 
     if "k_q8" in cross_kv:
-        ckv = {"k_q8": pad_dense(cross_kv["k_q8"], torch.int8),
-               "v_q8": pad_dense(cross_kv["v_q8"], torch.int8),
-               "k_scale_d": expand(cross_kv["k_scale"]),
-               "v_scale_d": expand(cross_kv["v_scale"])}
+        ckv = {"k_q8": pad_dense("k_q8", torch.int8), "v_q8": pad_dense("v_q8", torch.int8),
+               "k_scale_d": expand("k_scale_d"), "v_scale_d": expand("v_scale_d")}
     else:
-        ckv = {"k": pad_dense(cross_kv["k"], compute_dtype),
-               "v": pad_dense(cross_kv["v"], compute_dtype)}
+        ckv = {"k": pad_dense("k", compute_dtype), "v": pad_dense("v", compute_dtype)}
     return ckv, S_real, _round_up(max_length, 128)
 
 
@@ -254,16 +277,12 @@ def _resolve_fused(fused: Optional[bool], cfg: WhisperConfig,
     return fused
 
 
-def _prepare_decode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
-                    max_length: int, rows: int, compute_dtype: torch.dtype,
-                    kv_int8: bool, w_int8: bool, fused: bool,
-                    adapters: Optional[Params], quant: Optional[Q.QuantConfig],
-                    cross_group: int = 1):
-    """Everything of a decode call before its token loop: adapters merged
-    (fused), the encoder, the cross K/V at mel's B rows (int8 with kv_int8;
-    laid out for the kernels when fused), the decoder weights cast (fused)
-    and quantized (w_int8), a zeroed cache of `rows` rows. Returns
-    (step(token, t, cache, ancestry=None) → (logits, cache), cache)."""
+def _encode_cross(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
+                  compute_dtype: torch.dtype, kv_int8: bool, fused: bool,
+                  adapters: Optional[Params], quant: Optional[Q.QuantConfig]):
+    """A decode call's work on the audio: adapters merged (fused), the
+    encoder, the cross K/V at mel's B rows (int8 with kv_int8). Returns
+    (params, adapters, enc_out, cross_kv)."""
     if fused and adapters is not None:
         params, adapters = merge_adapters(params, adapters), None
     adapters = tp_local(adapters)
@@ -272,16 +291,39 @@ def _prepare_decode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
     cross_kv = W.precompute_cross_kv(params, enc_out, cfg, adapters, quant)
     if kv_int8:
         cross_kv = W.quantize_cross_kv(cross_kv)
-    cache_len = max_length
+    return params, adapters, enc_out, cross_kv
+
+
+def _decoder_weights(params: Params, compute_dtype: torch.dtype, w_int8: bool,
+                     fused: bool, quant: Optional[Q.QuantConfig]) -> Params:
+    """The decoder weights as the token loop reads them: cast (fused) and
+    quantized (w_int8)."""
     if fused:
         params = _cast_decoder_weights(params, compute_dtype)
-        cross_kv, s_real, cache_len = _prepare_fused(
-            enc_out, cross_kv, max_length, compute_dtype)
     if w_int8:
         params = _quantize_decoder_weights(params)
         if quant is not None and quant.matmul and not fused:
             # the plain step multiplies them as W8A8: the kernel's K-major copies
             params = {**params, "decoder": Q.add_k_major_copies(params["decoder"])}
+    return params
+
+
+def _prepare_decode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
+                    max_length: int, rows: int, compute_dtype: torch.dtype,
+                    kv_int8: bool, w_int8: bool, fused: bool,
+                    adapters: Optional[Params], quant: Optional[Q.QuantConfig],
+                    cross_group: int = 1):
+    """Everything of a decode call before its token loop: _encode_cross (the
+    cross K/V laid out for the kernels when fused), _decoder_weights, a
+    zeroed cache of `rows` rows. Returns (step(token, t, cache,
+    ancestry=None) → (logits, cache), cache)."""
+    params, adapters, enc_out, cross_kv = _encode_cross(
+        params, mel, cfg, compute_dtype, kv_int8, fused, adapters, quant)
+    cache_len = max_length
+    if fused:
+        cross_kv, s_real, cache_len = _prepare_fused(
+            enc_out, cross_kv, max_length, compute_dtype)
+    params = _decoder_weights(params, compute_dtype, w_int8, fused, quant)
     cache = W.init_cache(cfg, rows, cache_len, dtype=compute_dtype,
                          dense=fused, device=mel.device)
     logits_w = W.tied_logits_weight(params["decoder"]["embed"], compute_dtype)
@@ -317,6 +359,250 @@ def _loop_done(t: int, max_length: int, finished: torch.Tensor) -> bool:
         return bool(finished.all())
 
 
+class _GreedyRules:
+    """A greedy decode's per-call constants: the forced prefix, eot, the
+    suppress biases and the timestamp grammar's ids."""
+
+    def __init__(self, cfg: WhisperConfig, forced_tokens: Sequence[int],
+                 suppress_tokens, begin_suppress_tokens, timestamp_begin,
+                 no_timestamps_id, device):
+        self.forced = list(forced_tokens)
+        self.n_forced = len(self.forced)
+        if self.n_forced < 1:
+            raise ValueError("forced_tokens must at least contain sot")
+        self.eot = cfg.eos_token_id
+        self.bias = _suppress_bias(cfg.vocab_size, suppress_tokens, device)
+        self.begin_bias = _suppress_bias(cfg.vocab_size, begin_suppress_tokens, device)
+        self.with_ts = timestamp_begin is not None
+        self.ts_begin = timestamp_begin
+        self.no_ts_id = (no_timestamps_id if no_timestamps_id is not None
+                         else (timestamp_begin - 1 if self.with_ts else 0))
+
+    def captured(self, t: int) -> bool:
+        """Position t reads nothing of t but the position on the card: past
+        the forced prefix and the first free position, and with the
+        timestamp grammar past the position after it (HF's rule for the
+        token before the current one reads t there)."""
+        return t + 1 > self.n_forced and (not self.with_ts or t + 1 - self.n_forced >= 2)
+
+
+def _eager_position(step, cache, tokens, finished, last_ts, t: int, g: _GreedyRules):
+    """Greedy position t through the host: the step, the suppress biases,
+    the timestamp grammar, the forced token or the argmax; tokens, finished
+    and last_ts updated in place. Returns the cache."""
+    cur = tokens[:, t]
+    logits, cache = step(cur, t, cache)
+    if g.bias is not None:
+        logits = logits + g.bias
+    is_begin = (t + 1) == g.n_forced
+    if g.begin_bias is not None and is_begin:
+        logits = logits + g.begin_bias
+    if g.with_ts:
+        logits = _apply_timestamp_rules(
+            logits, cur, _timestamp_prev2(tokens, t, g.n_forced, g.ts_begin),
+            last_ts, is_begin, g.ts_begin, g.eot, g.no_ts_id)
+    in_prefix = (t + 1) < g.n_forced
+    if in_prefix:
+        nxt = torch.full_like(cur, g.forced[t + 1])
+    else:
+        nxt = torch.argmax(logits, dim=-1)
+    nxt = torch.where(finished, torch.full_like(nxt, g.eot), nxt)
+    tokens[:, t + 1] = nxt
+    if g.with_ts:
+        last_ts.copy_(torch.where(nxt >= g.ts_begin, nxt, last_ts))
+    if not in_prefix:
+        finished |= nxt == g.eot
+    return cache
+
+
+def _captured_position(step, e: "_GreedyGraph", g: _GreedyRules) -> None:
+    """A position g.captured() admits at the position on the card, e.pos,
+    all on the card and in place (what the graph holds): _eager_position's
+    operations, the token read and written at e.pos and e.pos + 1, then
+    e.pos + 1."""
+    pos = e.pos
+    cur = e.tokens.index_select(1, pos)[:, 0]
+    logits, _ = step(cur, pos, e.cache)
+    if g.bias is not None:
+        logits = logits + g.bias
+    if g.with_ts:
+        logits = _apply_timestamp_rules(
+            logits, cur, e.tokens.index_select(1, pos - 1)[:, 0], e.last_ts, False,
+            g.ts_begin, g.eot, g.no_ts_id)
+    nxt = torch.argmax(logits, dim=-1)
+    nxt = torch.where(e.finished, torch.full_like(nxt, g.eot), nxt)
+    e.tokens.index_copy_(1, pos + 1, nxt[:, None])
+    if g.with_ts:
+        e.last_ts.copy_(torch.where(nxt >= g.ts_begin, nxt, e.last_ts))
+    e.finished |= nxt == g.eot
+    pos += 1
+
+
+def uses_graph(device: torch.device, fused: bool, num_beams: int) -> bool:
+    """The rule for the captured greedy position: the fused kernels, on a
+    CUDA device, greedy. The CPU, the plain step (tp > 1 among its cases)
+    and beam search run every position through the host."""
+    return device.type == "cuda" and fused and num_beams <= 1
+
+
+GRAPH_SHAPES = 2   # batch shapes whose buffers and graph stay (least recently used dropped)
+_GRAPHS: "OrderedDict[tuple, _GreedyGraph]" = OrderedDict()
+_GRAPH_COUNTS = {"captures": 0, "replays": 0, "eager_positions": 0}
+
+
+def graph_counters() -> dict:
+    """Since reset_graph_counters(): greedy positions captured as a CUDA
+    graph, replayed, and run through the host."""
+    return dict(_GRAPH_COUNTS)
+
+
+def reset_graph_counters() -> None:
+    for k in _GRAPH_COUNTS:
+        _GRAPH_COUNTS[k] = 0
+
+
+def release_graphs() -> None:
+    """Drop every batch shape's buffers and graph (the trainer's eval ends
+    so, giving the memory back to training)."""
+    _GRAPHS.clear()
+
+
+profiling.add_counters("decode_graph", graph_counters)
+
+
+def _leaves(tree: Params, path: tuple = ()):
+    """(path, tensor) of every tensor of a tree, in key order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        elif isinstance(v, torch.Tensor):
+            yield path + (k,), v
+
+
+class _Captured:
+    """`body` captured once as a CUDA graph on a side stream, replayed on the
+    current one. The decoder kernels it launches count at each replay
+    (decoder_fused.credit_launches), not at the capture, which runs none."""
+
+    def __init__(self, body, device: torch.device):
+        k0, w0 = decoder_fused.kernel_launches(), dict(decoder_fused.LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                body()
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(device).wait_stream(side)
+        k1 = decoder_fused.kernel_launches()
+        self.kernels = {k: n - k0[k] for k, n in k1.items() if n != k0[k]}
+        self.wrappers = {k: n - w0[k] for k, n in decoder_fused.LAUNCHES.items() if n != w0[k]}
+        decoder_fused.credit_launches(self.kernels, self.wrappers, -1)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        decoder_fused.credit_launches(self.kernels, self.wrappers, 1)
+
+
+class _GreedyGraph:
+    """One batch shape's buffers, made once, and the graph of a position
+    captured over one set of decoder weights (`weights`: their
+    addresses)."""
+
+    def __init__(self, cfg: WhisperConfig, B: int, max_length: int, S_real: int,
+                 compute_dtype: torch.dtype, kv_int8: bool, bias, device):
+        self.derived = {}   # path → the buffer of a decoder weight made anew each call
+        L, d = cfg.decoder_layers, cfg.d_model
+        kw = dict(device=device)
+        self.cache = W.init_cache(cfg, B, _round_up(max_length, 128), dtype=compute_dtype,
+                                  dense=True, device=device)
+        # the cross K/V's tail past S_real stays zero: _prepare_fused writes
+        # the rows before it
+        kv, S_pad = (torch.int8 if kv_int8 else compute_dtype), _round_up(S_real, 128)
+        self.cross = {n: torch.zeros((L, B, S_pad, d), dtype=kv, **kw)
+                      for n in (("k_q8", "v_q8") if kv_int8 else ("k", "v"))}
+        if kv_int8:
+            self.cross.update({n: torch.empty((L, B, d), dtype=torch.float32, **kw)
+                               for n in ("k_scale_d", "v_scale_d")})
+        self.tokens = torch.empty((B, max_length), dtype=torch.long, **kw)
+        self.finished = torch.empty((B,), dtype=torch.bool, **kw)
+        self.last_ts = torch.empty((B,), dtype=torch.long, **kw)
+        self.pos = torch.zeros((1,), dtype=torch.long, **kw)
+        self.bias = bias
+        self.logits_w = None
+        self.weights = None
+        self.graph = None
+
+    def bind(self, params: Params, own: set) -> Params:
+        """The decoder weights where the graph reads them: the caller's own
+        tensors (addresses in `own`) in place, so that a change made to them
+        in place shows; those this call made (cast, merged with adapters or
+        quantized, anew at every call) copied into the shape's buffers,
+        whose addresses hold from call to call."""
+        def place(t, path):
+            if isinstance(t, dict):
+                return {k: place(v, path + (k,)) for k, v in t.items()}
+            if not isinstance(t, torch.Tensor) or t.data_ptr() in own:
+                return t
+            buf = self.derived.get(path)
+            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                self.derived[path] = t   # this call's tensor becomes the buffer
+                return t
+            return buf.copy_(t)
+        return {**params, "decoder": place(params["decoder"], ())}
+
+    def start(self, params: Params, g: _GreedyRules, compute_dtype: torch.dtype) -> None:
+        """A call's first state, as the host loop's: the cache zeroed, the
+        tokens eot after sot, nothing finished; the tied logits weight of
+        this call's embedding; the graph dropped if the decoder weights
+        (params from bind) lie elsewhere than it read them."""
+        for c in self.cache.values():
+            c.zero_()
+        self.tokens.fill_(g.eot)
+        self.tokens[:, 0] = g.forced[0]
+        self.finished.zero_()
+        self.last_ts.zero_()
+        self.logits_w = W.tied_logits_weight(params["decoder"]["embed"], compute_dtype,
+                                             out=self.logits_w)
+        weights = tuple((path, t.data_ptr(), tuple(t.shape), t.dtype)
+                        for path, t in _leaves(params["decoder"]))
+        if weights != self.weights:
+            self.weights, self.graph = weights, None
+
+
+def _prepare_graphed(params, mel, cfg, g: _GreedyRules, max_length: int,
+                     compute_dtype: torch.dtype, kv_int8: bool, w_int8: bool,
+                     adapters, quant, suppress_tokens):
+    """_prepare_decode for the graph: the same work, into the buffers of
+    mel's batch shape. Returns (step, the shape's _GreedyGraph)."""
+    own = {t.data_ptr() for _, t in _leaves(params["decoder"])}
+    params, _, enc_out, cross_kv = _encode_cross(params, mel, cfg, compute_dtype, kv_int8,
+                                                 True, adapters, quant)
+    B, S_real = int(mel.shape[0]), int(enc_out.shape[1])
+    key = (mel.device, B, max_length, S_real, compute_dtype, kv_int8, w_int8,
+           tuple(suppress_tokens or ()), g.eot, (g.ts_begin, g.no_ts_id) if g.with_ts else None,
+           cfg.decoder_layers, cfg.d_model, cfg.vocab_size)
+    e = _GRAPHS.pop(key, None)
+    if e is None:
+        while len(_GRAPHS) >= GRAPH_SHAPES:
+            _GRAPHS.popitem(last=False)
+        e = _GreedyGraph(cfg, B, max_length, S_real, compute_dtype, kv_int8, g.bias,
+                         mel.device)
+    _GRAPHS[key] = e
+    g.bias = e.bias   # the values of this call's, where the graph reads them
+    _prepare_fused(enc_out, cross_kv, max_length, compute_dtype, out=e.cross)
+    params = e.bind(_decoder_weights(params, compute_dtype, w_int8, True, quant), own)
+    e.start(params, g, compute_dtype)
+
+    def step(token, pos, cache):
+        return W.decode_step_fused(params, token, pos, cache, e.cross, cfg, S_real,
+                                   compute_dtype, e.logits_w)
+    return step, e
+
+
 def greedy_decode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
                   forced_tokens: Sequence[int], max_length: int = 225,
                   compute_dtype: torch.dtype = torch.bfloat16,
@@ -338,60 +624,50 @@ def greedy_decode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
     the first unforced position only; with timestamp_begin set, Whisper's
     timestamp grammar is enforced. fused (default: on a CUDA device with
     64-dim heads) runs each step through the fused kernels, with the
-    adapters merged into the weights first."""
+    adapters merged into the weights first; on a CUDA device as one CUDA
+    graph a position past the first free one (the module docstring)."""
     device = mel.device
     B = mel.shape[0]
-    eot = cfg.eos_token_id
-    forced = list(forced_tokens)
-    n_forced = len(forced)
-    if n_forced < 1:
-        raise ValueError("forced_tokens must at least contain sot")
-    bias = _suppress_bias(cfg.vocab_size, suppress_tokens, device)
-    begin_bias = _suppress_bias(cfg.vocab_size, begin_suppress_tokens, device)
-    with_ts = timestamp_begin is not None
-    no_ts_id = (no_timestamps_id if no_timestamps_id is not None
-                else (timestamp_begin - 1 if with_ts else 0))
+    g = _GreedyRules(cfg, forced_tokens, suppress_tokens, begin_suppress_tokens,
+                     timestamp_begin, no_timestamps_id, device)
     fused = _resolve_fused(fused, cfg, device)
+    graphed = uses_graph(device, fused, 1)
 
     with torch.no_grad():
         with profiling.span("decode.prepare"):
-            step, cache = _prepare_decode(params, mel, cfg, max_length, B,
-                                          compute_dtype, kv_int8, w_int8, fused,
-                                          adapters, quant)
-        tokens = torch.full((B, max_length), eot, dtype=torch.long, device=device)
-        tokens[:, 0] = forced[0]
-        finished = torch.zeros((B,), dtype=torch.bool, device=device)
-        last_ts = torch.zeros((B,), dtype=torch.long, device=device)
+            if graphed:
+                step, e = _prepare_graphed(params, mel, cfg, g, max_length, compute_dtype,
+                                           kv_int8, w_int8, adapters, quant, suppress_tokens)
+                cache, tokens, finished, last_ts = e.cache, e.tokens, e.finished, e.last_ts
+            else:
+                step, cache = _prepare_decode(params, mel, cfg, max_length, B,
+                                              compute_dtype, kv_int8, w_int8, fused,
+                                              adapters, quant)
+                tokens = torch.full((B, max_length), g.eot, dtype=torch.long, device=device)
+                tokens[:, 0] = g.forced[0]
+                finished = torch.zeros((B,), dtype=torch.bool, device=device)
+                last_ts = torch.zeros((B,), dtype=torch.long, device=device)
         t = 0
         done = _loop_done(t, max_length, finished)
         while not done:
             with profiling.span("decode.position"):
-                cur = tokens[:, t]
-                logits, cache = step(cur, t, cache)
-                if bias is not None:
-                    logits = logits + bias
-                is_begin = (t + 1) == n_forced
-                if begin_bias is not None and is_begin:
-                    logits = logits + begin_bias
-                if with_ts:
-                    logits = _apply_timestamp_rules(
-                        logits, cur, _timestamp_prev2(tokens, t, n_forced, timestamp_begin),
-                        last_ts, is_begin, timestamp_begin, eot, no_ts_id)
-                in_prefix = (t + 1) < n_forced
-                if in_prefix:
-                    nxt = torch.full_like(cur, forced[t + 1])
+                if graphed and g.captured(t):
+                    if not g.captured(t - 1):   # the call's first: the position to the card
+                        e.pos.fill_(t)
+                    if e.graph is None:
+                        e.graph = _Captured(lambda: _captured_position(step, e, g), device)
+                        _GRAPH_COUNTS["captures"] += 1
+                    e.graph.replay()
+                    _GRAPH_COUNTS["replays"] += 1
                 else:
-                    nxt = torch.argmax(logits, dim=-1)
-                nxt = torch.where(finished, torch.full_like(nxt, eot), nxt)
-                tokens[:, t + 1] = nxt
-                if with_ts:
-                    last_ts = torch.where(nxt >= timestamp_begin, nxt, last_ts)
-                if not in_prefix:
-                    finished |= nxt == eot
+                    cache = _eager_position(step, cache, tokens, finished, last_ts, t, g)
+                    _GRAPH_COUNTS["eager_positions"] += 1
                 t += 1
                 done = _loop_done(t, max_length, finished)
+        if graphed:   # the buffers serve the next call
+            tokens = tokens.clone()
 
-    before_eot = torch.cumsum((tokens == eot).long(), dim=1) == 0
+    before_eot = torch.cumsum((tokens == g.eot).long(), dim=1) == 0
     lengths = torch.clamp(before_eot.sum(dim=1) + 1, max=max_length)
     return tokens, lengths
 

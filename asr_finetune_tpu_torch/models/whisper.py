@@ -822,13 +822,15 @@ def _cross_kv_layer(cross_kv: Params, l: int, dtype: torch.dtype
     return tuple(_maybe_dequant_kv(cross_kv[n][l], None, dtype) for n in "kv")
 
 
-def tied_logits_weight(embed: torch.Tensor,
-                       compute_dtype: torch.dtype) -> torch.Tensor:
+def tied_logits_weight(embed: torch.Tensor, compute_dtype: torch.dtype,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The tied output projection (V, d) as fp32 values (fp64 under fp64
     compute) of the embedding rounded to the compute dtype: an fp32 product
     with it is the JAX einsum of compute-dtype operands with fp32
     accumulation and output (rounding the logits to bf16 would change
-    argmax ties)."""
+    argmax ties). out: a tensor of that shape and type to write it into."""
+    if out is not None:
+        return out.copy_(embed.to(compute_dtype))
     return embed.to(compute_dtype).to(_acc(compute_dtype))
 
 
@@ -907,6 +909,10 @@ def decode_step_fused(params: Params, token: torch.Tensor, pos: int,
     (fused_attn_beam with an ancestry map), cross-attention fused_attn and
     fused_mlp, each reading layer l of the stacked weights / cache / cross
     K/V in place.
+
+    pos is an int, or the position as a one-element int64 tensor on the
+    card (ops/decoder_fused.py), read there by the embedding's gather and
+    the kernels, so that a CUDA graph of the step serves every position.
 
     Requirements (arranged by evaluation/decode.py `_prepare_fused`): the
     adapters merged, the decoder's float weights cast to the compute dtype

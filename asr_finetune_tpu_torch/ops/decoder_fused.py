@@ -24,6 +24,14 @@ fused_qkv writes k and v straight into a self cache when given one
 (cache_k, cache_v, pos): the decode step's row pos of layer l, with no copy
 after the call.
 
+The position on the card: fused_qkv's cache row and self-mode fused_attn's
+keys 0..pos also take pos as a one-element int64 tensor on x's device,
+which the kernels read where they run, so that one CUDA graph of a decode
+position (evaluation/decode.py) replays at every position. The self
+attention core's grid then spans the whole cache, its chunks past pos only
+taking their ticket; the outputs are the int position's, bit for bit. On
+CPU tensors the plain versions read the value on the host.
+
 Wrappers take unstacked per-layer weights (tests) or the full stacked
 (L, ...) tensors plus `layer_idx` (the decode loop); the kernels read layer
 l through a pointer offset, never through a copied slice. For CUDA tensors
@@ -303,9 +311,18 @@ def fused_qkv(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
     pos: the self cache ((L, B, T, d) read at layer_idx, or (B, T, d)) whose
     row pos takes k and v (in the cache's dtype) in place of new tensors; k
     and v are then views of those rows, equal to what the call without a
-    cache returns."""
+    cache returns. With pos on the card (the module docstring) the rows are
+    written where the kernel reads pos, and (q, None, None) is returned."""
     if (cache_k is None) != (cache_v is None) or (cache_k is None) != (pos is None):
         raise ValueError("fused_qkv: pass cache_k, cache_v and pos together")
+    pos_dev = pos if isinstance(pos, torch.Tensor) else None
+    if pos_dev is not None:
+        _check_pos(pos_dev, x)
+        if x.device.type == "cpu":
+            return fused_qkv(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, wq_scale, wk_scale,
+                             wv_scale, kv_dtype, layer_idx, cache_k, cache_v,
+                             int(pos_dev))[0], None, None
+        pos = 0   # the kernel takes the layer's row 0 and adds the position
     if cache_k is not None:
         kv_dtype = kv_dtype or cache_k.dtype
         rows = tuple(_cache_row(c, layer_idx, pos, x.shape[0], kv_dtype)
@@ -324,8 +341,21 @@ def fused_qkv(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
         rows[0].copy_(k)   # the JAX step's dynamic_update_slice of the cache
         rows[1].copy_(v)
         return (q, *rows)
-    return _fused_qkv_cuda(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, kv_dtype,
-                           layer_idx, wq_scale, wk_scale, wv_scale, rows)
+    if pos_dev is None:
+        return _fused_qkv_cuda(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, kv_dtype,
+                               layer_idx, wq_scale, wk_scale, wv_scale, rows)
+    layers = tuple(_at(c, layer_idx, 3) for c in (cache_k, cache_v))
+    q, _, _ = _fused_qkv_cuda(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, kv_dtype,
+                              layer_idx, wq_scale, wk_scale, wv_scale, rows,
+                              (pos_dev, layers))
+    return q, None, None
+
+
+def _check_pos(pos: torch.Tensor, x: torch.Tensor) -> None:
+    """The position on the card: one int64 on x's device."""
+    if pos.dtype != torch.int64 or pos.numel() != 1 or pos.device != x.device:
+        raise ValueError(f"pos on the card: one int64 on {x.device}, got "
+                         f"{tuple(pos.shape)} {pos.dtype} on {pos.device}")
 
 
 def _cache_row(cache: torch.Tensor, layer_idx, pos, rows: int, dtype) -> torch.Tensor:
@@ -340,8 +370,12 @@ def _cache_row(cache: torch.Tensor, layer_idx, pos, rows: int, dtype) -> torch.T
 
 
 def _fused_qkv_cuda(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, kv_dtype,
-                    layer_idx, wq_scale, wk_scale, wv_scale, rows):
+                    layer_idx, wq_scale, wk_scale, wv_scale, rows, on_card=None):
+    """rows: the cache rows k and v go to, or None. on_card: (pos, the
+    layer's (B, T, d) caches) for the position on the card, rows then the
+    layer's row 0."""
     B, d = _check_x(x, "fused_qkv")
+    pos_dev, layers = on_card or (None, None)
     if (kv_dtype or x.dtype) != x.dtype:
         raise TypeError("the CUDA fused_qkv writes k/v in x's dtype")
     T, f32 = x.dtype, torch.float32
@@ -368,6 +402,8 @@ def _fused_qkv_cuda(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, kv_dtype,
             x.data_ptr(), ln_s, ln_b, wq.data_ptr(), bq_p, sq_p, lq, n_q,
             wk.data_ptr(), sk_p, lk, n_k, wv.data_ptr(), bv_p, sv_p, lv, n_v,
             q.data_ptr(), k.data_ptr(), k.stride(0), v.data_ptr(), v.stride(0),
+            None if pos_dev is None else pos_dev.data_ptr(),
+            0 if layers is None else layers[0].shape[1],
             work.data_ptr() + 4 * _MLP_WORK_FLOATS, _MLP_WORK_FLOATS,
             counters.data_ptr() + 4 * 5 * _MLP_COUNTERS, B, d, _build.stream_ptr(x))
     else:
@@ -379,8 +415,12 @@ def _fused_qkv_cuda(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, kv_dtype,
     _build.check(lib, err, "fused_qkv")
     _count("fused_qkv", sq_p, sk_p, sv_p)
     if rows is not None and T != torch.bfloat16:   # the GEMV route's k/v into the cache
-        rows[0].copy_(k)
-        rows[1].copy_(v)
+        if pos_dev is not None:
+            for c, new in zip(layers, (k, v)):
+                c.index_copy_(1, pos_dev, new[:, None])
+        else:
+            rows[0].copy_(k)
+            rows[1].copy_(v)
         k, v = rows
     return q, k, v
 
@@ -396,7 +436,8 @@ def fused_attn(x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     x (N, d) residual input; k/v (B, T, d), or stacked (L, B, T, d) with
     layer_idx, B = N / kv_group. Self-attention: pass q (N, d) fp32 from
-    fused_qkv and pos — keys at col > pos are masked. Cross-attention: pass
+    fused_qkv and pos — keys at col > pos are masked; pos may be the position
+    on the card (the module docstring). Cross-attention: pass
     ln_scale/ln_bias/wq/bq instead (q computed inside) and s_valid = the
     real source length (the padded tail beyond it is masked). kv_group G:
     consecutive groups of G rows of x share KV row r // G.
@@ -416,7 +457,14 @@ def fused_attn(x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[-3] != x.shape[0] // G:
         raise ValueError(f"fused_attn: k/v batch dim {k.shape[-3]} != x rows "
                          f"{x.shape[0]} / kv_group {G}")
-    n_valid = int(pos) + 1 if self_mode else int(s_valid)
+    pos_dev = pos if isinstance(pos, torch.Tensor) else None
+    if pos_dev is not None:
+        _check_pos(pos_dev, x)
+        if x.device.type == "cpu":
+            pos, pos_dev = int(pos_dev), None
+    # on the card the kernel reads the position and bounds the grid by the cache
+    n_valid = (k.shape[-2] if pos_dev is not None else int(pos) + 1) if self_mode \
+        else int(s_valid)
     if x.device.type == "cpu":
         return fused_attn_plain(
             x, _at(k, layer_idx, 3), _at(v, layer_idx, 3),
@@ -430,7 +478,7 @@ def fused_attn(x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kv_group=G)
     return _fused_attn_cuda(x, k, v, wo, bo, q, n_valid, ln_scale, ln_bias,
                             wq, bq, layer_idx, wq_scale, wo_scale, k_scale,
-                            v_scale, G)
+                            v_scale, G, pos_dev)
 
 
 def _attn_scratch(x, T_len):
@@ -450,7 +498,9 @@ def _stacked(w: torch.Tensor, layer_idx, ndim: int = 2) -> Tuple[int, int]:
 
 
 def _fused_attn_cuda(x, k, v, wo, bo, q, n_valid, ln_scale, ln_bias, wq, bq,
-                     layer_idx, wq_scale, wo_scale, k_scale, v_scale, G):
+                     layer_idx, wq_scale, wo_scale, k_scale, v_scale, G, pos_dev=None):
+    """pos_dev: self mode's position on the card (n_valid then the cache's
+    length)."""
     self_mode = q is not None
     N, d = _check_x(x, "fused_attn")
     T, f32 = x.dtype, torch.float32
@@ -481,6 +531,7 @@ def _fused_attn_cuda(x, k, v, wo, bo, q, n_valid, ln_scale, ln_bias, wq, bq,
     k_p = ptr(k, 3, kv_dtype, (B, T_len, d))
     v_p = ptr(v, 3, kv_dtype, (B, T_len, d))
     q_buf_p = None if q_buf is None else q_buf.data_ptr()
+    pos_p = None if pos_dev is None else pos_dev.data_ptr()
     out = torch.empty_like(x)
     lib = _lib()
     if T == torch.bfloat16:
@@ -497,13 +548,14 @@ def _fused_attn_cuda(x, k, v, wo, bo, q, n_valid, ln_scale, ln_bias, wq, bq,
             sq_p, lq, n_q, k.data_ptr(), v.data_ptr(), ks_p, vs_p, lkv, n_kv,
             wo.data_ptr(), ptr(bo, 1, T, (d,)), so_p, lo, n_o, q_buf_p, part.data_ptr(),
             o_buf.data_ptr(), out.data_ptr(), work.data_ptr(), _MLP_WORK_FLOATS,
-            counters.data_ptr(), N, T_len, d, n_valid, G, _build.stream_ptr(x))
+            counters.data_ptr(), N, T_len, d, n_valid, pos_p, G, _build.stream_ptr(x))
     else:
         part, o_buf, _ = _attn_scratch(x, T_len)
         err = lib.fused_attn_fwd(
             _build.dtype_code(x), x.data_ptr(), q_ptr, ln_s, ln_b, wq_p, bq_p, k_p, v_p,
             ks_p, vs_p, wo_p, ptr(bo, 1, T, (d,)), sq_p, so_p, q_buf_p, part.data_ptr(),
-            o_buf.data_ptr(), out.data_ptr(), N, T_len, d, n_valid, G, _build.stream_ptr(x))
+            o_buf.data_ptr(), out.data_ptr(), N, T_len, d, n_valid, pos_p, G,
+            _build.stream_ptr(x))
     _build.check(lib, err, "fused_attn")
     _count("fused_attn_self" if self_mode else ATTN_CROSS[(G > 1) + 2 * (k_scale is not None)],
            sq_p, so_p)
@@ -654,14 +706,30 @@ def kernel_launches() -> dict:
     combine, the wo GEMV, a GEMV once per group of 8 rows;
     bf16 fused_mlp: mlp_fc1_kernel and mlp_fc2_kernel once per pass of up
     to 32 rows; bf16 fused_qkv: qkv_kernel once per pass of up to 32 rows,
-    fp32 the GEMV once per group of 8)."""
+    fp32 the GEMV once per group of 8). A replayed CUDA graph's launches
+    count at each replay (credit_launches)."""
     counts = (ctypes.c_longlong * len(KERNELS))()
     _lib().kernel_launches(counts)
-    return dict(zip(KERNELS, counts))
+    return {k: n + _CREDIT.get(k, 0) for k, n in zip(KERNELS, counts)}
 
 
 def reset_kernel_launches() -> None:
     _lib().reset_kernel_launches()
+    _CREDIT.clear()
+
+
+_CREDIT = {}   # kernel_launches()' launches made by graph replays, not by the library
+
+
+def credit_launches(kernels: dict, wrappers: dict, times: int) -> None:
+    """Count a CUDA graph's launches `times` times: its kernels in
+    kernel_launches(), its wrapper calls in LAUNCHES. A capture counts its
+    launches where the wrappers make them, and runs none, so it credits
+    them back once (times = -1); each replay credits them once."""
+    for k, n in kernels.items():
+        _CREDIT[k] = _CREDIT.get(k, 0) + n * times
+    for k, n in wrappers.items():
+        LAUNCHES[k] += n * times
 
 
 _LIB = None
@@ -673,16 +741,17 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load("decoder_fused")
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.fused_qkv_fwd.argtypes = [I] + [P] * 14 + [I, I, P]
-        lib.fused_attn_fwd.argtypes = [I] + [P] * 18 + [I] * 5 + [P]
+        lib.fused_attn_fwd.argtypes = [I] + [P] * 18 + [I] * 4 + [P, I, P]
         lib.fused_attn_tc_fwd.argtypes = ([P] * 7 + [I, I] + [P] * 4 + [I, I] + [P] * 3
                                           + [I, I] + [P] * 5 + [ctypes.c_longlong, P]
-                                          + [I] * 5 + [P])
+                                          + [I] * 4 + [P, I, P])
         lib.fused_attn_beam_fwd.argtypes = [I] + [P] * 11 + [I] * 5 + [P]
         LL = ctypes.c_longlong
         lib.fused_attn_beam_tc_fwd.argtypes = ([P] * 4 + [I, I] + [P] * 4 + [I, I] + [P] * 4
                                                + [LL, P] + [I] * 5 + [P])
         lib.fused_qkv_tc_fwd.argtypes = ([P] * 6 + [I, I] + [P] * 2 + [I, I] + [P] * 3
-                                         + [I, I] + [P] * 2 + [LL, P, LL, P, LL, P, I, I, P])
+                                         + [I, I] + [P] * 2
+                                         + [LL, P, LL, P, I, P, LL, P, I, I, P])
         lib.fused_mlp_fwd.argtypes = ([I] + [P] * 12 + [ctypes.c_longlong, P]
                                       + [I] * 7 + [P])
         for fn in (lib.fused_qkv_fwd, lib.fused_qkv_tc_fwd, lib.fused_attn_fwd,

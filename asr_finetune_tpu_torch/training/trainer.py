@@ -204,6 +204,7 @@ class Trainer:
                 texts = [t for part in parts for t in part]
                 hyps.extend(normalize(t) for t in texts[:n_valid])
                 refs.extend(normalize(str(t)) for t in batch["text"][:n_valid])
+        decode_lib.release_graphs()   # the decode's buffers go back to training
 
         total = max(sum(counts), 1)
         eval_loss = float(np.sum([l * c for l, c in zip(losses, counts)]) / total)

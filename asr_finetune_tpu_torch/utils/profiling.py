@@ -26,8 +26,11 @@ operators (counterpart of asr_finetune_tpu/utils/profiling.py).
   logdir (`<host>_<pid>.<time>.pt.trace.json`, for TensorBoard's PyTorch
   profiler view and ui.perfetto.dev) shows the program's ranges above the
   kernels; `program_counters.json` beside it holds the spans' counts and
-  host ms by name and the host syncs by span and site. It takes the place
-  of JAX's XLA profile of jax.profiler.start_trace.
+  host ms by name, the host syncs by span and site, and under "counters"
+  what each source of `add_counters` counted over the block. It takes the
+  place of JAX's XLA profile of jax.profiler.start_trace.
+- `add_counters(name, read)`: a module's own counters (read() → {counter:
+  count}, as evaluation/decode.graph_counters), which trace() reports.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ import sys
 import threading
 import time
 import warnings
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -62,6 +65,7 @@ _lock = threading.Lock()
 _local = threading.local()
 _restore: List[Any] = []
 _kinds: Dict[str, Optional[str]] = {}   # a frame's file → _file_kind
+_sources: Dict[str, Callable[[], Dict[str, int]]] = {}   # add_counters
 
 
 class _Off:
@@ -221,6 +225,12 @@ def _counters(records: Dict[str, Any]) -> Dict[str, Any]:
             "host_syncs_total": sum(n for v in syncs.values() for n in v.values())}
 
 
+def add_counters(name: str, read: Callable[[], Dict[str, int]]) -> None:
+    """Report read()'s counts, as they move over a trace() block, under
+    "counters"/name of its program_counters.json."""
+    _sources[name] = read
+
+
 @contextlib.contextmanager
 def trace(logdir: str, create_perfetto_link: bool = False) -> Iterator[None]:
     """Profile the block into logdir, the recorder on (its ranges in the
@@ -234,6 +244,7 @@ def trace(logdir: str, create_perfetto_link: bool = False) -> Iterator[None]:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
     collect()
+    before = {n: read() for n, read in _sources.items()}
     try:
         with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
             enable()
@@ -243,8 +254,10 @@ def trace(logdir: str, create_perfetto_link: bool = False) -> Iterator[None]:
             finally:
                 disable()
     finally:
+        counters = {n: {k: c - before[n].get(k, 0) for k, c in read().items()}
+                    for n, read in _sources.items() if n in before}
         with open(os.path.join(logdir, "program_counters.json"), "w") as f:
-            json.dump(_counters(collect()), f, indent=1)
+            json.dump({**_counters(collect()), "counters": counters}, f, indent=1)
     logger.info("profile trace written to %s (view: tensorboard --logdir %s, PyTorch "
                 "Profiler tab)", logdir, logdir)
     if create_perfetto_link:

@@ -1594,7 +1594,9 @@ def main_path(rows, beams: int = 1, kv_int8: bool = False, reorder: bool = False
         return orig_encode(*a, **k)
 
     def step(*a, **k):
-        if stats["steps"] == 0 or a[2] == 0:
+        # a[2]: the position, an int through the host, a tensor on the card
+        # inside the greedy graph's capture (no sync there)
+        if stats["steps"] == 0 or (isinstance(a[2], int) and a[2] == 0):
             torch.cuda.synchronize()
             stats["loop_t0"] = time.perf_counter()
         stats["steps"] += 1
@@ -1628,6 +1630,7 @@ def main_path(rows, beams: int = 1, kv_int8: bool = False, reorder: bool = False
         os.environ.update(env)
         reset_all_launches()
         DF.reset_kernel_launches()
+        decode_lib.reset_graph_counters()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
@@ -1645,6 +1648,10 @@ def main_path(rows, beams: int = 1, kv_int8: bool = False, reorder: bool = False
         wall = time.perf_counter() - t0
         launches = all_launches()
         cuda_kernels = DF.kernel_launches()
+        # greedy replays its graph past the first free position: a capture
+        # calls the step once and runs nothing, each replay runs a position
+        graph = decode_lib.graph_counters()
+        stats["steps"] += graph["replays"] - graph["captures"]
         peak = torch.cuda.max_memory_allocated()
         lines = open(f"{tmp}/out.jsonl").read().splitlines()
 
@@ -2175,6 +2182,7 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
     from asr_finetune_tpu_torch import run as run_lib
     from asr_finetune_tpu_torch.cli import train as train_cli
     from asr_finetune_tpu_torch.data import collator as collator_lib
+    from asr_finetune_tpu_torch.evaluation import decode as decode_lib
     from asr_finetune_tpu_torch.models import whisper as W
     from asr_finetune_tpu_torch.ops import quant as Q
     from asr_finetune_tpu_torch.training import checkpoint as ckpt_lib
@@ -2322,6 +2330,7 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
         if fused_qkv:
             os.environ["ASR_TPU_FUSED_QKV"] = "1"
         reset_all_launches()
+        decode_lib.reset_graph_counters()
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2336,6 +2345,10 @@ def train_main_path(rows, device: str = "cuda", model: str = "large-v3",
             os.environ.pop("ASR_TPU_FUSED_QKV", None)
         sync()
         wall = time.perf_counter() - t0
+        # the eval's greedy decode replays its graph: a capture calls the
+        # step once and runs nothing, each replay runs a position
+        graph = decode_lib.graph_counters()
+        st["dec_steps"] += graph["replays"] - graph["captures"]
         launches = all_launches()
         peak = torch.cuda.max_memory_allocated() if on_card else 0
         run_dir = f"{out_dir}/{tag}"
@@ -4436,6 +4449,136 @@ def step_breakdown():
     torch.cuda.empty_cache()
 
 
+def greedy_graph_path(rows):
+    """Phase 5c: greedy decode on the main path, one position replayed as a
+    CUDA graph (evaluation/decode.py), against the host loop:
+    whisper-large-v3 (32+32 layers, bf16, random init, the decoder's
+    position table drawn at std 2 so that the tokens change from position to
+    position), cap 128, at 32 rows and a partial batch of 5, and at 32 rows
+    with int8 cross K/V and decoder weights: tokens and lengths bit-equal,
+    one capture, replays = positions - eager positions, the decoder kernels'
+    launch counts the host loop's; the wall time of a batch both ways. Then
+    kernel-table rows 2 and 3 with the position on the card against the int
+    position (B 4, cache 128, pos 63, the calls cycling through the 32
+    layers, float and mixed weights): the same bits, device time by graph
+    replay."""
+    import torch
+    from asr_finetune_tpu_torch.evaluation import decode as D_
+    from asr_finetune_tpu_torch.models import whisper as W
+    from asr_finetune_tpu_torch.models.configs import get_config
+    from asr_finetune_tpu_torch.ops import decoder_fused as DF
+    from asr_finetune_tpu_torch.ops import quant as Q
+
+    cfg = get_config("large-v3")
+    dev, bf16, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
+    params = W.cast_matmul_weights_(W.init_params(cfg, seed=0, device=dev), bf16)
+    g = torch.Generator(device=dev).manual_seed(5)
+    table = params["decoder"]["pos"]
+    table.copy_((torch.randn(table.shape, generator=g, device=dev) * 2.0).to(bf16))
+    forced = [cfg.sot_token_id, cfg.first_language_token_id, cfg.transcribe_token_id,
+              cfg.no_timestamps_token_id]
+    mels = torch.randn((32, 3000, cfg.num_mel_bins), generator=g, device=dev)
+    graphed = D_.uses_graph
+
+    def run(mel, graph, kw):
+        D_.uses_graph = graphed if graph else (lambda *a: False)
+        try:
+            DF.reset_kernel_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = D_.greedy_decode(params, mel, cfg, forced, 128, bf16, **kw)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0, DF.kernel_launches()
+        finally:
+            D_.uses_graph = graphed
+
+    for n, kw in ((32, {}), (5, {}), (32, dict(kv_int8=True, w_int8=True))):
+        mel = mels[:n]
+        label = f"greedy graph, large-v3 {n} rows" + (" int8 K/V and weights" if kw else "")
+        run(mel, False, kw)   # warm-up
+        ref, eager_s, eager_k = run(mel, False, kw)
+        D_.release_graphs()
+        D_.reset_graph_counters()
+        first, first_s, _ = run(mel, True, kw)
+        again, again_s, again_k = run(mel, True, kw)
+        counts = D_.graph_counters()
+        for out in (first, again):
+            if not (torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])):
+                bad = int((out[0] != ref[0]).any(dim=1).sum())
+                raise AssertionError(f"{label}: replayed tokens differ from the host "
+                                     f"loop's in {bad} rows")
+        toks = ref[0].cpu()
+        last = 0
+        for row in toks.tolist():
+            hits = [i for i, t in enumerate(row[len(forced):]) if t == cfg.eos_token_id]
+            last = max(last, len(forced) + hits[0] if hits else 128)
+        positions = min(127, last)
+        want = {"captures": 1, "replays": 2 * (positions - len(forced)),
+                "eager_positions": 2 * len(forced)}
+        if counts != want or again_k != eager_k:
+            raise AssertionError(f"{label}: counters {counts} (want {want}), kernel launches "
+                                 f"{again_k} (host loop {eager_k})")
+        print(f"{label}: replayed tokens == host loop's ({positions} positions, "
+              f"{len(set(toks[:, len(forced):].reshape(-1).tolist()))} distinct tokens); "
+              f"{json.dumps(counts)}; batch wall: host loop {1e3 * eager_s:.1f} ms, graph "
+              f"{1e3 * again_s:.1f} ms (first call, with its capture, {1e3 * first_s:.1f} ms)")
+    D_.release_graphs()
+    del params, mels
+    torch.cuda.empty_cache()
+
+    # kernel-table rows 2 (self fused_attn) and 3 (fused_qkv, its cache form)
+    def rn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    ln = (1 + rn(L, D, scale=0.1, dtype=f32), rn(L, D, scale=0.1, dtype=f32))
+    w32 = {k: rn(L, D, D, scale=D ** -0.5, dtype=f32) for k in "qkvo"}
+    b = {k: rn(L, D, scale=0.1) for k in "qvo"}
+    x, q = rn(B, D), rn(B, D, scale=0.125, dtype=f32)
+    ck, cv = rn(L, B, SELF_T, D), rn(L, B, SELF_T, D)
+    on_card = torch.full((1,), SELF_POS, dtype=torch.long, device=dev)
+    for kind, int8 in (("float", ()), ("mixed", ("k", "o"))):
+        w = {}
+        for k, t in w32.items():
+            qw = Q.quantize_weight(t) if k in int8 else None
+            w[k] = (t.to(bf16), None) if qw is None else (qw[Q.QUANT_KEY], qw[Q.SCALE_KEY])
+
+        def attn(layer, pos):
+            return DF.fused_attn(x, ck, cv, w["o"][0], b["o"], q=q, pos=pos,
+                                 wo_scale=w["o"][1], layer_idx=layer)
+
+        def qkv(layer, pos):
+            return DF.fused_qkv(x, *ln, w["q"][0], b["q"], w["k"][0], w["v"][0], b["v"],
+                                wq_scale=w["q"][1], wk_scale=w["k"][1], wv_scale=w["v"][1],
+                                layer_idx=layer, cache_k=ck, cache_v=cv, pos=pos)
+
+        for name, fn in (("fused_attn_self", attn), ("fused_qkv", qkv)):
+            int_out = fn(L - 1, SELF_POS)
+            int_out = (tuple(t.clone() for t in int_out) if isinstance(int_out, tuple)
+                       else int_out.clone())
+            if name == "fused_qkv":   # the rows the card form is to write
+                ck[L - 1, :, SELF_POS] = 0
+                cv[L - 1, :, SELF_POS] = 0
+            card_out = fn(L - 1, on_card)
+            same = (torch.equal(card_out, int_out) if name == "fused_attn_self"
+                    else torch.equal(card_out[0], int_out[0])
+                    and torch.equal(ck[L - 1, :, SELF_POS], int_out[1])
+                    and torch.equal(cv[L - 1, :, SELF_POS], int_out[2]))
+            if not same:
+                raise AssertionError(f"{name} ({kind}): the position on the card gives "
+                                     "other bits than the int position")
+            times = {}
+            for form, pos in (("int", SELF_POS), ("card", on_card)):
+                it = iter(range(10 ** 9))
+                times[form] = device_ms(lambda: fn(next(it) % L, pos), 64)
+            row = name + ("_int8" if int8 else "")
+            if row in rows:
+                rows[row]["ms_position_on_card"] = times["card"]
+                rows[row]["ms_int_position"] = times["int"]
+            print(f"  {row} [bfloat16] B {B} cache {SELF_T} pos {SELF_POS}: position on the "
+                  f"card {times['card']:.4f} ms, int position {times['int']:.4f} ms (device, "
+                  f"graph replay; bit-equal)")
+
+
 def build():
     from asr_finetune_tpu_torch.ops import _build
     from asr_finetune_tpu_torch.utils import native_ext
@@ -4481,6 +4624,7 @@ def main() -> int:
     main_path(rows, beams=BEAMS, kv_int8=True)
     main_path(rows, beams=BEAMS, reorder=True)
     main_path(rows, fused_qkv=True)
+    greedy_graph_path(rows)
     eval_final = evaluator_path(rows)
     train_main_path(rows)
     train_main_path(rows, config=PEFT_CONFIG, extra=("--int8_matmul",))
