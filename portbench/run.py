@@ -2,7 +2,8 @@
 
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-The cell names a configuration (its file under portbench/configs/) and a
+The cell names a configuration (its file under portbench/configs/, whose
+"family" picks the module of its model-specific parts, families.py) and a
 traffic mix (portbench/traffic/<traffic>.json, whose "kind" picks the
 module that runs it: train.py or transcribe.py); its correctness limits are in
 portbench/limits/<cell>.json and each per-layer metric's reader in
@@ -141,19 +142,20 @@ def control(cell: dict, seeds, kind: str, device: str) -> list:
     lines = []
     for seed in seeds:
         if cell["traffic"]["kind"] == "train":
-            from portbench import reference as R
+            from portbench import families
             from portbench import traffic as TR
             from portbench import train as T
+            family = families.load(cell["config"])
             tr = cell["traffic"]
             pool = TR.make_pool(tr, seed, tr["pool"])
             calib = TR.make_pool(tr, seed, 4, stream=1)
             B = tr["batch"]
             rows = [list(range(s * B, (s + 1) * B)) for s in range(tr["check_steps"])]
-            opts = T.reference_opts(T.parse_program_args(cell, seed, device), seed)
+            opts = family.reference_opts(T.parse_program_args(cell, seed, device), seed)
             dev = torch.device(device)
-            ref = R.train_steps(cell["config"], opts, seed, pool, rows, calib, dev)
-            alt = R.train_steps(cell["config"], opts, seed, pool, rows, calib, dev,
-                                lower=kind == "lower", half_batch=kind == "half_batch")
+            ref = family.train_steps(cell["config"], opts, seed, pool, rows, calib, dev)
+            alt = family.train_steps(cell["config"], opts, seed, pool, rows, calib, dev,
+                                     lower=kind == "lower", half_batch=kind == "half_batch")
             checks = T.compare(cell["limits"], alt["losses"], alt["first_grad"],
                                alt["change"], alt.get("outlier_sets"), ref)
             out = {"control": kind, "seed": seed, "checks": checks}

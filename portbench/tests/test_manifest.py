@@ -4,8 +4,12 @@ and limits, every name and unit only the allowed characters."""
 import json
 import os
 import re
+import sys
+import types
 
 import pytest
+
+from portbench import families
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BENCH = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
@@ -60,25 +64,46 @@ def test_every_cell_has_its_files_and_metrics(cell):
                for m in BENCH["per_layer"])
 
 
+def _config_file(conf) -> dict:
+    with open(os.path.join(ROOT, conf["file"])) as f:
+        return json.load(f)
+
+
+def _check_whole(conf, c) -> None:
+    """The file is the manifest's configuration, states its own cut, and
+    holds its family's published shape (the family's check_config)."""
+    assert conf["file"].startswith("portbench/")
+    assert c["source"] == conf["source"]
+    assert conf["reduced"] == c["reduced"]
+    assert all(k in c for k in c["reduced"])
+    families.load(c).check_config(c)
+
+
 @pytest.mark.parametrize("conf", BENCH["configs"], ids=lambda c: c["name"])
 def test_every_configuration_is_whole(conf):
-    with open(os.path.join(ROOT, conf["file"])) as f:
-        c = json.load(f)
-    assert conf["file"].startswith("portbench/") and conf["reduced"] == c["reduced"] == []
-    assert c["source"] == conf["source"]
-    assert c["encoder_ffn_dim"] == 4 * c["d_model"]
-    assert c["d_model"] // c["encoder_attention_heads"] == 64
+    _check_whole(conf, _config_file(conf))
+
+
+def _failing(c):
+    raise ValueError("not the published shape")
+
+
+@pytest.mark.parametrize("change,error", [
+    ({"family": "failing_check"}, ValueError),          # the family's check_config fails
+    ({"reduced": ["no_such_key"]}, AssertionError),     # a cut of a key the file lacks
+    ({"encoder_ffn_dim": 4000}, ValueError),            # Whisper's own shape broken
+], ids=["family_check_config", "reduced_key", "whisper_shape"])
+def test_a_configuration_that_is_not_whole_fails(monkeypatch, change, error):
+    monkeypatch.setitem(sys.modules, "portbench.family_failing_check",
+                        types.SimpleNamespace(check_config=_failing))
+    conf = BENCH["configs"][0]
+    c = dict(_config_file(conf), **change)
+    conf = dict(conf, reduced=c["reduced"])
+    with pytest.raises(error):
+        _check_whole(conf, c)
 
 
 @pytest.mark.parametrize("conf", BENCH["configs"], ids=lambda c: c["name"])
 def test_the_port_builds_the_configuration_as_stated(conf):
-    from asr_finetune_tpu_torch.models.configs import get_config
-    with open(os.path.join(ROOT, conf["file"])) as f:
-        c = json.load(f)
-    p = get_config(c["model_type"])
-    assert (p.d_model, p.encoder_layers, p.decoder_layers, p.encoder_heads, p.decoder_heads,
-            p.d_ff, p.num_mel_bins, p.vocab_size, p.max_source_positions,
-            p.max_target_positions) == (
-        c["d_model"], c["encoder_layers"], c["decoder_layers"], c["encoder_attention_heads"],
-        c["decoder_attention_heads"], c["encoder_ffn_dim"], c["num_mel_bins"],
-        c["vocab_size"], c["max_source_positions"], c["max_target_positions"])
+    c = _config_file(conf)
+    assert families.load(c).port_matches(c)

@@ -4,24 +4,24 @@ Set-up builds one trial with run.setup_trial (model, the int8 base and its
 calibration, AdamW, the data pipeline over an audiofolder of the seed's
 utterances, the Trainer) from the program's own options, which the traffic
 file lists, with the benchmark's weights and adapters put in the place of
-the port's random init. Then Trainer.train runs once. Light wrappers of
-its train iterator and its step call record the spans; its first
-`check_steps` steps are the warm-up, and what the correctness check reads
-is taken from them: each step's loss, the first gradient from AdamW's
-first moment after step 1, the change of every trained leaf after the
-last. The window follows in the same call, from that state, with all the
-trainer does between steps (its logging every logging_steps; eval and
+the port's random init (the configuration's family module, families.py,
+gives them and the reference's settings). Then Trainer.train runs once.
+Light wrappers of its train iterator and its step call record the spans;
+its first `check_steps` steps are the warm-up, and what the correctness
+check reads is taken from them: each step's loss, the first gradient from
+AdamW's first moment after step 1, the change of every trained leaf after
+the last. The window follows in the same call, from that state, with all
+the trainer does between steps (its logging every logging_steps; eval and
 checkpoints where the options ask for them inside the window). When the
 window's time is up, and after the traced window with --trace 1, the step
 wrapper ends the call.
 
-After the window the program is freed and the reference (reference.py)
-recomputes the checked steps from the seed, with the settings read from
-the same parsed options.
+After the window the program is freed and the family's reference
+(reference.py for Whisper) recomputes the checked steps from the seed,
+with the settings read from the same parsed options.
 """
 from __future__ import annotations
 
-import contextlib
 import gc
 import math
 import os
@@ -32,28 +32,19 @@ from typing import Any, Dict, List
 
 import numpy as np
 
+from . import families
 from . import harness as H
-from . import reference as R
 from . import traffic as TR
-from . import weights as WT
 
-BYTE_EOT = 256
-BYTE_PREFIX = (257, 258, 261, 262)   # sot, <|de|>, transcribe, notimestamps (byte layout)
 ADAM_B1 = 0.9
-# the program's adapter settings that are no options: the values the
-# reference follows, checked against the program's after its build
-LORA_DROPOUT, ORTH_REG_WEIGHT = 0.05, 0.8
-# options the reference follows at these values only
-ASSUMED = {"lr_scheduler_type": "linear", "warmup_steps": 0, "warmup_ratio": 0.0,
-           "label_smoothing": 0.0, "gradient_accumulation_steps": 1, "tp": 1,
-           "bf16": True, "fp16": False}
 
 
 class Window:
     """What a per-layer reader of a training cell reads."""
     kind = "train"
 
-    def __init__(self, n, batch, label_len, mode):
+    def __init__(self, family, n, batch, label_len, mode):
+        self.family = family          # the configuration's family module
         self.n, self.batch, self.label_len, self.mode = n, batch, label_len, mode
         self.spans = H.Spans()
         self.returns: List[float] = []
@@ -83,67 +74,10 @@ def parse_program_args(cell, seed, device="cuda", dirs=("", "", "")):
     return PC.parse_args(program_argv(cell, seed, *dirs, device))
 
 
-def reference_opts(args, seed) -> Dict[str, Any]:
-    """The reference's settings, read from the program's parsed options;
-    an option the reference does not follow stops the run."""
-    off = {k: getattr(args, k) for k, v in ASSUMED.items() if getattr(args, k) != v}
-    if off:
-        raise ValueError(f"the reference follows none of these options: {off}")
-    peft = bool(args.peft)
-    int8 = peft and bool(args.load_in_8bit)
-    if int8 and not args.int8_matmul:
-        raise ValueError("the reference follows the int8 base only through W8A8 (--int8_matmul)")
-    return {"mode": "peft" if peft else "full", "lora_rank": args.lora_rank,
-            "lora_alpha": args.lora_alpha, "lora_dropout": LORA_DROPOUT,
-            "adalora": bool(args.adalora), "orth_reg_weight": ORTH_REG_WEIGHT,
-            "encoder_adapters": args.lora_targets == "all", "int8": int8,
-            "outlier_cols": args.int8_outlier_cols,
-            "outlier_threshold": args.int8_outlier_threshold,
-            "calibrate": bool(int8 and args.int8_outlier_cols and args.int8_outlier_calibrate),
-            "lr": args.learning_rate, "weight_decay": args.weight_decay,
-            "max_steps": args.max_steps, "max_grad_norm": args.max_grad_norm,
-            "spec_augment": bool(args.spec_augment),
-            "seed": seed, "prefix": BYTE_PREFIX, "eot": BYTE_EOT}
-
-
-def _check_program_settings(trainer, opts, check_steps) -> None:
-    lora = trainer.step_cfg.lora
-    if lora is None:
-        return
-    if (lora.dropout, lora.orth_reg_weight) != (opts["lora_dropout"], opts["orth_reg_weight"]):
-        raise ValueError(f"the program's lora dropout {lora.dropout} and orthogonality "
-                         f"weight {lora.orth_reg_weight} are not the reference's")
-    if lora.adalora and check_steps > lora.tinit_frac * opts["max_steps"]:
-        raise ValueError("the checked steps reach AdaLoRA's rank allocation, which the "
-                         "reference does not follow")
-
-
 def _leaf(tree, path):
     for k in path.split("/"):
         tree = tree[k]
     return tree
-
-
-@contextlib.contextmanager
-def injected(weights: Dict[str, Any], adapters):
-    """The port's random init replaced, for one build, by the benchmark's
-    trees (handed over once, so the port alone holds them)."""
-    from asr_finetune_tpu_torch.models import whisper as PW
-    from asr_finetune_tpu_torch.training import lora as PL
-    held = {"w": weights, "a": adapters}
-    orig_w, orig_a = PW.init_params, PL.init_adapters
-
-    def init_params(cfg, seed=0, device="cpu"):
-        return held.pop("w")
-
-    def init_adapters(g, model_cfg, cfg, encoder=False, device="cpu"):
-        return held.pop("a")
-    PW.init_params, PL.init_adapters = init_params, init_adapters
-    try:
-        yield
-    finally:
-        PW.init_params, PL.init_adapters = orig_w, orig_a
-        held.clear()
 
 
 class WindowClosed(Exception):
@@ -305,6 +239,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, ph: H.Phases,
 
 def _run(cell, seed, seconds, trace, device, ph, out_dir, faults, tmp) -> Dict[str, Any]:
     with ph("import"):
+        family = families.load(cell["config"])
         import torch
         from asr_finetune_tpu_torch import run as PR
     cuda = device.type == "cuda"
@@ -315,37 +250,37 @@ def _run(cell, seed, seconds, trace, device, ph, out_dir, faults, tmp) -> Dict[s
             _build.build_all()
             native_ext.load()
     cfg, tr = cell["config"], cell["traffic"]
-    n = WT.dims(cfg)
+    n = family.dims(cfg)
     with ph("data pool"):
         pool = TR.make_pool(tr, seed, tr["pool"])
         calib = TR.make_pool(tr, seed, 4, stream=1)
         args = parse_program_args(cell, seed, device, (
             pool.write(os.path.join(tmp, "train")), calib.write(os.path.join(tmp, "val")),
             os.path.join(tmp, "out")))
-        opts = reference_opts(args, seed)
+        opts = family.reference_opts(args, seed)
     peft = opts["mode"] == "peft"
 
     def start_tree():
-        return (WT.make_adapters(cfg, opts["lora_rank"], opts["lora_alpha"], seed, device,
-                                 encoder=opts["encoder_adapters"])
-                if peft else WT.make_weights(cfg, seed, device))
+        return (family.make_adapters(cfg, opts["lora_rank"], opts["lora_alpha"], seed, device,
+                                     encoder=opts["encoder_adapters"])
+                if peft else family.make_weights(cfg, seed, device))
     with ph("weights"):
-        weights = WT.make_weights(cfg, seed, device)
+        weights = family.make_weights(cfg, seed, device)
         adapters = start_tree() if peft else None
     for k, v in tr.get("env", {}).items():
         os.environ[k] = str(v)
     with ph("build"):
-        with injected(weights, adapters):
+        with family.injected(weights, adapters):
             trainer = PR.setup_trial(args)
         del weights, adapters
-        _check_program_settings(trainer, opts, tr["check_steps"])
+        family.check_program_settings(trainer, opts, tr["check_steps"])
     step = trainer._train_step
     if "unchanged_state" in faults:
-        step = _fault_unchanged(step)
+        step = _fault_unchanged(step, family.leaves)
     if "half_batch" in faults:
         step = _fault_half_batch(step)
 
-    w = Window(n, tr["batch"], 0, opts["mode"])
+    w = Window(family, n, tr["batch"], 0, opts["mode"])
     drv = Driver(trainer, step, w, seconds, trace, tr["check_steps"], torch, ph, out_dir)
     drv.start_tree = start_tree
     drv.run()
@@ -361,7 +296,7 @@ def _run(cell, seed, seconds, trace, device, ph, out_dir, faults, tmp) -> Dict[s
     if cuda:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    ref = R.train_steps(cfg, opts, seed, pool, rows[: tr["check_steps"]], calib, device)
+    ref = family.train_steps(cfg, opts, seed, pool, rows[: tr["check_steps"]], calib, device)
     checks = compare(cell["limits"], losses, first_grad, change, outlier_sets, ref)
     t_ref = time.perf_counter() - t_ref
     return {"attempted": attempted, "failed": w.failed, "checks": checks,
@@ -369,7 +304,7 @@ def _run(cell, seed, seconds, trace, device, ph, out_dir, faults, tmp) -> Dict[s
             "window": w, "memory_peak_bytes": memory_peak, "reference_s": t_ref}
 
 
-def _fault_unchanged(step):
+def _fault_unchanged(step, leaves):
     """A step that returns the metrics and leaves the state as it was."""
     import copy
 
@@ -377,7 +312,7 @@ def _fault_unchanged(step):
         keep = {k: copy.deepcopy(v) for k, v in state.items() if k in ("params", "adapters")}
         m = step(state, batch)
         for k, v in keep.items():
-            for path, leaf in WT.leaves(v):
+            for path, leaf in leaves(v):
                 _leaf(state[k], path).data.copy_(leaf)
         return m
     return broken

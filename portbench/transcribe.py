@@ -2,12 +2,13 @@
 batches until the window's time is up.
 
 Set-up builds the model as cli.evaluate does (run.build_model, serving:
-the weights cast once to bf16), with the benchmark's weights in the place
-of the port's random init, writes the seed's utterances as an audiofolder,
-and warms up on one batch through an evaluator of its own. The window's
-evaluator reads its batches through the port's audiofolder reader and
-collator, as cli.evaluate reads its test set; the harness keeps the tokens
-each decode call returns, which the check reads after the window.
+the weights cast once to bf16), with the benchmark's weights (from the
+configuration's family module, families.py) in the place of the port's
+random init, writes the seed's utterances as an audiofolder, and warms up
+on one batch through an evaluator of its own. The window's evaluator reads
+its batches through the port's audiofolder reader and collator, as
+cli.evaluate reads its test set; the harness keeps the tokens each decode
+call returns, which the check reads after the window.
 """
 from __future__ import annotations
 
@@ -19,18 +20,17 @@ from typing import Any, Dict, List
 
 import numpy as np
 
+from . import families
 from . import harness as H
-from . import reference as R
 from . import traffic as TR
-from . import weights as WT
-from .train import BYTE_EOT, BYTE_PREFIX, injected
 
 
 class Window:
     """What a per-layer reader of a serving cell reads."""
     kind = "transcribe"
 
-    def __init__(self, n, batch):
+    def __init__(self, family, n, batch):
+        self.family = family          # the configuration's family module
         self.n, self.batch = n, batch
         self.spans = H.Spans()
         self.batches = 0
@@ -64,6 +64,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, ph: H.Phases,
 
 def _run(cell, seed, seconds, trace, device, ph, out_dir, faults, tmp) -> Dict[str, Any]:
     with ph("import"):
+        family = families.load(cell["config"])
         import torch
         from asr_finetune_tpu_torch import config as PC
         from asr_finetune_tpu_torch import run as PR
@@ -79,10 +80,10 @@ def _run(cell, seed, seconds, trace, device, ph, out_dir, faults, tmp) -> Dict[s
             native_ext.load()
     cfg, tr = cell["config"], cell["traffic"]
     s = tr["serve"]
-    n = WT.dims(cfg)
+    n = family.dims(cfg)
     B, max_len = tr["batch"], s["max_length"]
     with ph("weights"):
-        weights = WT.make_weights(cfg, seed, device, tr.get("weights"))
+        weights = family.make_weights(cfg, seed, device, tr.get("weights"))
     with ph("data pool"):
         pool = TR.make_pool(tr, seed, tr["pool"])
         folder = pool.write(os.path.join(tmp, "test"))
@@ -91,7 +92,7 @@ def _run(cell, seed, seconds, trace, device, ph, out_dir, faults, tmp) -> Dict[s
         args = PC.parse_args(["--device", str(device), "--model_type", cfg["model_type"],
                               "--random_seed", str(seed), "--per_device_eval_batch_size",
                               str(B), "--generation_max_length", str(max_len)] + opts)
-        with injected(weights, None):
+        with family.injected(weights, None):
             built = PR.build_model(args)
         del weights
         reader = AudioFolderReader([folder])
@@ -149,7 +150,7 @@ def _run(cell, seed, seconds, trace, device, ph, out_dir, faults, tmp) -> Dict[s
             out = dec(params, mel, adapters)
             if "altered_token" in faults:
                 toks = out[0].clone()
-                toks[:, len(BYTE_PREFIX)] = (toks[:, len(BYTE_PREFIX)] + 1) % n["V"]
+                toks[:, len(family.PREFIX)] = (toks[:, len(family.PREFIX)] + 1) % n["V"]
                 out = (toks, out[1])
             tokens.append(out[0])
             if spans is not None:
@@ -165,7 +166,7 @@ def _run(cell, seed, seconds, trace, device, ph, out_dir, faults, tmp) -> Dict[s
     tokens.clear()
     fed.clear()
 
-    w = Window(n, B)
+    w = Window(family, n, B)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     setup_s = ph.total()
@@ -178,7 +179,8 @@ def _run(cell, seed, seconds, trace, device, ph, out_dir, faults, tmp) -> Dict[s
     w.batches = len(w.spans.by["batch"])
     window_tokens = [t.cpu().numpy() for t in tokens[: w.batches]]
     window_rows = fed[: w.batches]
-    w.positions_window = [positions_run(t, len(BYTE_PREFIX), BYTE_EOT) for t in window_tokens]
+    w.positions_window = [positions_run(t, len(family.PREFIX), family.EOT)
+                          for t in window_tokens]
     if cuda:
         w.peak_bytes = torch.cuda.max_memory_allocated()
     attempted = w.batches * B
@@ -201,7 +203,7 @@ def _run(cell, seed, seconds, trace, device, ph, out_dir, faults, tmp) -> Dict[s
             w.calls.remove()
         w.trace_spans = tspans
         w.traced_batches = len(tspans.by.get("batch", []))
-        w.positions = [positions_run(t.cpu().numpy(), len(BYTE_PREFIX), BYTE_EOT)
+        w.positions = [positions_run(t.cpu().numpy(), len(family.PREFIX), family.EOT)
                        for t in tokens[first: first + w.traced_batches]]
         attempted += w.traced_batches * B
     memory_peak = torch.cuda.max_memory_allocated() if cuda else 0
@@ -211,7 +213,7 @@ def _run(cell, seed, seconds, trace, device, ph, out_dir, faults, tmp) -> Dict[s
     if cuda:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    checks = check(cell, seed, pool, window_tokens, window_rows, device,
+    checks = check(cell, family, seed, pool, window_tokens, window_rows, device,
                    lower="lower" in faults)
     t_ref = time.perf_counter() - t_ref
     failed = w.batches * B - done
@@ -220,31 +222,32 @@ def _run(cell, seed, seconds, trace, device, ph, out_dir, faults, tmp) -> Dict[s
             "window": w, "memory_peak_bytes": memory_peak, "reference_s": t_ref}
 
 
-def check(cell, seed, pool, window_tokens, window_rows, device,
+def check(cell, family, seed, pool, window_tokens, window_rows, device,
           lower: bool = False) -> Dict[str, Dict]:
     """The served tokens of a seeded sample of the window's utterances, the
     longest among them, against the reference's logits; the forced prefix
     exactly. lower: the control's tokens in the served ones' place."""
     limits = cell["limits"]
+    prefix, eot = family.PREFIX, family.EOT
     flat = [(b, r) for b in range(len(window_tokens)) for r in range(window_tokens[b].shape[0])]
-    prefix_errors = sum(int(np.any(window_tokens[b][r, :len(BYTE_PREFIX)]
-                                   != np.asarray(BYTE_PREFIX))) for b, r in flat)
+    prefix_errors = sum(int(np.any(window_tokens[b][r, :len(prefix)] != np.asarray(prefix)))
+                        for b, r in flat)
 
     def served(b, r):
         t = window_tokens[b][r]
-        hits = np.nonzero(t[len(BYTE_PREFIX):] == BYTE_EOT)[0]
-        return len(t) - len(BYTE_PREFIX) if not hits.size else int(hits[0]) + 1
+        hits = np.nonzero(t[len(prefix):] == eot)[0]
+        return len(t) - len(prefix) if not hits.size else int(hits[0]) + 1
 
     k = int(cell["traffic"]["serve"]["check_utterances"])
     longest = max(flat, key=lambda br: served(*br))
     rng = np.random.default_rng([seed, 11])
     rest = [flat[i] for i in rng.permutation(len(flat)) if flat[i] != longest][: k - 1]
     sample = [longest] + rest
-    gaps = R.served_gaps(cell["config"], seed,
-                         [pool.audio(window_rows[b][r]) for b, r in sample],
-                         [window_tokens[b][r].tolist() for b, r in sample],
-                         len(BYTE_PREFIX), BYTE_EOT, device, lower=lower,
-                         law=cell["traffic"].get("weights"))
+    gaps = family.served_gaps(cell["config"], seed,
+                              [pool.audio(window_rows[b][r]) for b, r in sample],
+                              [window_tokens[b][r].tolist() for b, r in sample],
+                              len(prefix), eot, device, lower=lower,
+                              law=cell["traffic"].get("weights"))
     out = {"logit_gap": max(gaps), "prefix_errors": float(prefix_errors)}
     if not limits:        # readings for the limits: every number
         return {k_: {"value": v, "limit": None} for k_, v in out.items()}
