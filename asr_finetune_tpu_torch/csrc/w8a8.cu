@@ -31,7 +31,8 @@
 //  * quantize_rows_kernel: one block of 128 threads per row holds its
 //    chunks of the row in registers (as few as K needs, so that many blocks
 //    stay resident and their loads in flight), reduces the amax and writes
-//    the fp32 scale xs and the int8 row x8 (m, K).
+//    the fp32 scale xs and the int8 row x8 (m, K). Rows longer than 8192
+//    take quantize_rows_stream_kernel, which reads the row twice.
 //  * w8a8_wgmma_kernel: warp-specialised. A producer warpgroup (one lane
 //    issues, the rest give their registers to the consumers) keeps a
 //    4-stage ring of 128-byte K slices of x8 and w_nk in flight by TMA
@@ -57,8 +58,10 @@
 // round half to even (rintf), and the epilogue's multiplies and add in the
 // order written with __fmul_rn / __fadd_rn, so no FMA contraction merges
 // them. The result then equals the plain version (ops/w8a8_fused.w8a8_plain)
-// bit for bit. The wrapper raises on K % 16 and N % 8 (TMA row pitches) and
-// on K > 8192 (the quantize pass's registers).
+// bit for bit. The wrapper raises on K % 16 and N % 8 (TMA row pitches).
+// A row longer than MAX_K = 8192 (the quantize pass's registers) takes
+// quantize_rows_stream_kernel, which reads it twice; the GEMM streams any K
+// (the int32 sum stays exact: 127^2 K < 2^31 up to K = 133,000).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -144,9 +147,58 @@ quantize_rows_kernel(const T* __restrict__ x, const float* __restrict__ keep,
   }
 }
 
+// The same for a row longer than MAX_K (an expert's down-projection, K
+// 18944): it does not fit in registers, so the block reads it twice from
+// memory (the second pass mostly from the L2), once for the amax (none where
+// row_amax is given) and once to quantize, 8 elements a thread at a time.
+template <typename T>
+__global__ void __launch_bounds__(QTHREADS)
+quantize_rows_stream_kernel(const T* __restrict__ x, const float* __restrict__ keep,
+                            const float* __restrict__ row_amax, float* __restrict__ xs,
+                            int8_t* __restrict__ x8, int K) {
+  __shared__ float red[QTHREADS / 32];
+  griddep_launch();
+  const int row = blockIdx.x;
+  const T* xr = x + (long long)row * K;
+  float amax = 0.f;
+  if (row_amax == nullptr) {   // uniform: the block takes it whole
+    for (int k = threadIdx.x * 8; k < K; k += QTHREADS * 8) {
+      float v[8];
+      load8(xr + k, v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (keep != nullptr) v[i] *= keep[k + i];
+        amax = fmaxf(amax, fabsf(v[i]));
+      }
+    }
+    amax = block_reduce<true>(amax, red);
+  } else {
+    amax = row_amax[row];
+  }
+  const float s = __fmul_rn(fmaxf(amax, 1e-8f), 1.f / 127.f);
+  if (threadIdx.x == 0) xs[row] = s;
+  int8_t* dst = x8 + (long long)row * K;
+  for (int k = threadIdx.x * 8; k < K; k += QTHREADS * 8) {
+    float v[8];
+    load8(xr + k, v);
+    int q[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (keep != nullptr) v[i] *= keep[k + i];
+      q[i] = quantize(v[i], s);
+    }
+    *reinterpret_cast<uint2*>(dst + k) =
+        make_uint2(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]));
+  }
+}
+
 template <typename T>
 cudaError_t quantize_rows(const T* x, const float* keep, const float* row_amax, float* xs,
                           int8_t* x8, int m, int K, cudaStream_t st) {
+  if (K > MAX_K) {
+    quantize_rows_stream_kernel<T><<<m, QTHREADS, 0, st>>>(x, keep, row_amax, xs, x8, K);
+    return cudaGetLastError();
+  }
   const int chunks = (K / 8 + QTHREADS - 1) / QTHREADS;
   if (chunks <= 2)
     quantize_rows_kernel<T, 2><<<m, QTHREADS, 0, st>>>(x, keep, row_amax, xs, x8, K);
@@ -328,7 +380,7 @@ template <typename T>
 cudaError_t w8a8(const void* x, const int8_t* w_nk, const float* w_scale, const float* keep,
                  const float* addend, const float* row_amax, float* xs, int8_t* x8, void* y,
                  int m, int K, int N, int wide, cudaStream_t st) {
-  if (m < 1 || K < 1 || N < 1 || K % 16 != 0 || N % 8 != 0 || K > MAX_K ||
+  if (m < 1 || K < 1 || N < 1 || K % 16 != 0 || N % 8 != 0 ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return cudaErrorInvalidValue;
   const cudaError_t e =
@@ -344,7 +396,7 @@ cudaError_t w8a8(const void* x, const int8_t* w_nk, const float* w_scale, const 
 // row-major (the K-major copy of w_q8), w_scale (N,) fp32, keep (K,) fp32 or
 // null, addend (m, N) fp32 or null, row_amax (m,) fp32 or null; x, y, addend
 // contiguous, 16-byte aligned, K % 16 == 0, N % 8 == 0 (TMA's rule for a row
-// pitch and a base), K <= 8192. Scratch: xs (m,) fp32, x8 (m, K) int8.
+// pitch and a base). Scratch: xs (m,) fp32, x8 (m, K) int8.
 // wide: the 128 x 256 tile, else 64 x 128.
 extern "C" int w8a8_fwd(int dtype, const void* x, const int8_t* w_nk, const float* w_scale,
                         const float* keep, const float* addend, const float* row_amax,

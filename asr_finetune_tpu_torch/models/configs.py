@@ -1,4 +1,4 @@
-"""Whisper model size configurations (tiny → large-v3).
+"""Whisper model size configurations (tiny → large-v3), and Uni-MoE-2.0-Omni.
 
 Capability parity with the reference's model registry
 (reference: finetune/training/models/whisper_models.py:79-113, which loads
@@ -120,10 +120,71 @@ WHISPER_CONFIGS = {
 }
 
 
-def get_config(model_type: str) -> WhisperConfig:
+@dataclasses.dataclass(frozen=True)
+class UniMoEConfig:
+    """Uni-MoE-2.0-Omni's speech-to-text path (models/unimoe.py): a Whisper
+    encoder, mean-pooled to `audio_pool` frames a token and projected
+    linearly into a decoder-only GQA language model whose every layer has
+    fixed, dynamic and null experts. Field names are the published
+    config.json's (HIT-TMG/Uni-MoE-2.0-Omni)."""
+
+    encoder: WhisperConfig
+    hidden_size: int = 3584
+    num_hidden_layers: int = 28
+    num_attention_heads: int = 28
+    num_key_value_heads: int = 4
+    vocab_size: int = 152064
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 1e6
+    shared_intermediate_size: int = 2368
+    mlp_fixed_expert_num: int = 2
+    dynamic_intermediate_size: int = 18944
+    mlp_dynamic_expert_num: int = 4
+    mlp_dynamic_null_expert_num: int = 1
+    mlp_dynamic_top_p: float = 0.7
+    mlp_dynamic_top_k: int = 2
+    audio_pool: int = 5            # encoder frames a token: 1500 → 300, 10 a second
+    sot_token_id: int = 151644     # <|im_start|>
+    eos_token_id: int = 151645     # <|im_end|>
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def num_mel_bins(self) -> int:
+        return self.encoder.num_mel_bins
+
+    @property
+    def whisper_hidden_size(self) -> int:
+        return self.encoder.d_model
+
+
+UNIMOE_CONFIGS = {
+    "Uni-MoE-2.0-Omni": UniMoEConfig(encoder=WHISPER_CONFIGS["large-v3"]),
+    # miniature config for unit tests (not a released model): test-nano's
+    # encoder, a 2-layer LM of d 64 with 4 query and 2 KV heads of 16, a
+    # byte vocabulary and its two special ids
+    "test-unimoe": UniMoEConfig(
+        encoder=WHISPER_CONFIGS["test-nano"], hidden_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, vocab_size=288,
+        shared_intermediate_size=32, dynamic_intermediate_size=48,
+        sot_token_id=272, eos_token_id=273),
+}
+
+# the published config.json's own model_type names the model too
+UNIMOE_ALIASES = {"grin_qwen2_vl": "Uni-MoE-2.0-Omni"}
+
+
+def get_config(model_type: str):
     """Resolve a model type like "openai/whisper-tiny",
-    "distil-whisper/distil-large-v3", or a bare key like "tiny"."""
+    "distil-whisper/distil-large-v3", or a bare key like "tiny" to its
+    WhisperConfig; "HIT-TMG/Uni-MoE-2.0-Omni" (or its config.json's
+    model_type "grin_qwen2_vl", or "test-unimoe") to its UniMoEConfig."""
     key = model_type.rsplit("/", 1)[-1]          # drop the HF org prefix
+    key = UNIMOE_ALIASES.get(key, key)
+    if key in UNIMOE_CONFIGS:
+        return UNIMOE_CONFIGS[key]
     if "whisper-" in key:
         key = key.split("whisper-")[-1]          # openai/whisper-<key>
     if key not in WHISPER_CONFIGS:

@@ -24,10 +24,12 @@ decoder's; csrc/w8a8.cu says how the kernel is laid out (a quantize pass,
 then one wgmma s8 GEMM over TMA-loaded K-major operands with its epilogue,
 on a 64 x 128 or a 128 x 256 tile, `wide_for`).
 On the card the weight is read from `w_nk` (N, K), the K-major copy of
-w_q8 that ops/quant.add_k_major_copies makes once beside every int8 weight:
-the wrapper raises when it is missing or does not match w_q8, and never
-transposes. It equals the plain version bit for bit: IEEE division, round
-half to even, the epilogue's steps rounded one by one. The plain version
+w_q8 that ops/quant.add_k_major_copies makes once beside every int8 weight
+(a base held only K-major, models/unimoe.py, passes w_q8 as the view
+w_nk.t()): the wrapper raises when it is missing, and never transposes.
+K is unbounded: rows past 8192 take a two-pass quantize kernel. It equals
+the plain version bit for bit: IEEE division, round half to even, the
+epilogue's steps rounded one by one. The plain version
 takes the integer product as a float64 product of the int8 values, exact
 while every partial sum stays below 2^53 (127^2 K is far below it).
 
@@ -49,7 +51,6 @@ from . import _build
 LAUNCHES = {"w8a8": 0}
 INV_127 = float(np.float32(1.0) / np.float32(127.0))   # XLA's constant for x / 127
 WIDE_M, WIDE_N = 128, 256   # the kernel's wide output tile (else 64 x 128)
-MAX_K = 8192                # the quantize pass holds a row in registers
 
 
 def reset_launches() -> None:
@@ -127,11 +128,12 @@ def _w8a8_cuda(x, w_q8, w_scale, keep, addend, w_nk, row_amax):
     if K % 16 or N % 8 or w_nk.data_ptr() % 16 or x.data_ptr() % 16:
         raise ValueError(f"w8a8: TMA needs K % 16 == 0, N % 8 == 0 and 16-byte aligned "
                          f"x and weight copy; got K {K}, N {N}")
-    if K > MAX_K:
-        raise ValueError(f"w8a8: the quantize pass holds a row in registers, K <= {MAX_K}; "
-                         f"got K {K}")
     x_p = _operand(x, x.dtype, (m, K), dev, "x")
-    _operand(w_q8, torch.int8, (K, N), dev, "w_q8")
+    # the kernel never reads w_q8: it may be the transposed view of w_nk, the
+    # one copy a base holds where it keeps only the K-major layout (ops/quant.py)
+    if w_q8.dtype != torch.int8 or tuple(w_q8.shape) != (K, N) or w_q8.device != dev:
+        raise ValueError(f"w8a8: w_q8 must be an int8 tensor of shape {(K, N)} on {dev}; "
+                         f"got {w_q8.dtype} {tuple(w_q8.shape)} on {w_q8.device}")
     w_p = _operand(w_nk, torch.int8, (N, K), dev, "w_nk (the K-major copy of w_q8)")
     s_p = _operand(w_scale.reshape(-1), torch.float32, (N,), dev, "w_scale")
     k_p = _operand(keep, torch.float32, (K,), dev, "keep")

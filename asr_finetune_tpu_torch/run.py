@@ -3,9 +3,11 @@
 `build_model` loads a native checkpoint (the JAX export) or an HF checkpoint
 directory from --model_path, or random-initialises --model_type (smoke-test
 mode: byte-fallback tokenizer, special ids aligned with it, as the JAX
-build_model does), on --device. For serving (`train=False`), --bf16 casts
-the matmul weights to bf16 once here; for full fine-tuning the weights stay
-fp32 masters and the step casts them at use, as the JAX train step does.
+build_model does), on --device; --model_type HIT-TMG/Uni-MoE-2.0-Omni builds
+the audio LM of models/unimoe.py for PEFT-int8 training (`_build_unimoe`).
+For serving (`train=False`), --bf16 casts the matmul weights to bf16 once
+here; for full fine-tuning the weights stay fp32 masters and the step
+casts them at use, as the JAX train step does.
 With --peft (JAX run.py:87-106) it also draws the LoRA/AdaLoRA adapters
 (--lora_targets all: encoder and decoder q/v) and freezes the base: int8
 per output channel with --load_in_8bit (the other leaves stay fp32), else
@@ -58,6 +60,7 @@ from .data.parquet import ParquetCollator, ParquetFeatureReader
 from .data.pipeline import DataPipeline, IndexSampler, device_prefetch
 from .device import resolve_device
 from .models import native_io
+from .models import unimoe
 from .models import whisper as W
 from .models.configs import WhisperConfig, get_config
 from .models.convert_hf import load_pretrained
@@ -111,6 +114,8 @@ def build_model(args, train: bool = False,
     scales) and its K-major copies made from the slices."""
     hp = hp or {}
     device = resolve_device(args.device)
+    if not args.model_path and unimoe.is_unimoe(get_config(args.model_type)):
+        return _build_unimoe(args, get_config(args.model_type), device, train, hp)
     if args.model_path:
         if native_io.is_native_checkpoint(args.model_path):
             params, cfg = native_io.load_params(args.model_path, device)
@@ -171,6 +176,40 @@ def build_model(args, train: bool = False,
             begin_suppress = gen_cfg.get("begin_suppress_tokens")
     return BuiltModel(cfg, params, tokenizer, device, suppress, begin_suppress,
                       adapters, lcfg)
+
+
+def _build_unimoe(args, cfg, device: torch.device, train: bool,
+                  hp: Dict[str, Any]) -> BuiltModel:
+    """Uni-MoE-2.0-Omni (models/unimoe.py) from its random init, for PEFT
+    training over the int8 base (--peft --load_in_8bit): the LM's and the
+    projector's weights are made int8, layer by layer, in their one
+    K-major copy, and the Whisper encoder is quantized as Whisper's is
+    (both layouts under --int8_matmul). Serving, other training modes and
+    --tp > 1 raise: the port has no decode loop for this model, and its 25 B
+    parameters fit one card only as an int8 base."""
+    if not train:
+        raise NotImplementedError(unimoe.NO_DECODE)
+    if not (args.peft and args.load_in_8bit):
+        raise NotImplementedError("Uni-MoE-2.0-Omni trains in the port as PEFT over the "
+                                  "int8 base only: pass --peft --load_in_8bit")
+    if args.tp > 1:
+        raise NotImplementedError("Uni-MoE-2.0-Omni runs on one rank a model (--tp 1): "
+                                  "its LM layers have no tensor-parallel split in the port")
+    params = unimoe.init_params(cfg, seed=args.random_seed, device=device, int8=True)
+    lcfg = lora_lib.LoraConfig(
+        rank=int(hp.get("rank", args.lora_rank)), alpha=float(hp.get("alpha", args.lora_alpha)),
+        adalora=args.adalora, target_rank=args.adalora_target_rank or None)
+    g = torch.Generator(device=device)
+    g.manual_seed(args.random_seed + 1)
+    adapters = lora_lib.init_adapters(g, cfg, lcfg, encoder=args.lora_targets == "all",
+                                      device=device)
+    params = quant_lib.quantize_tree_int8(params)          # the encoder's
+    if args.int8_matmul:
+        params = quant_lib.add_k_major_copies(params)      # the encoder's alone
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return BuiltModel(cfg, params, unimoe.tokenizer(cfg), device, adapters=adapters,
+                      lora=lcfg)
 
 
 def _tp_split(params: Dict[str, Any], cfg: WhisperConfig, train: bool) -> Dict[str, Any]:

@@ -29,6 +29,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.configs import UniMoEConfig
 from ..parallel import mesh
 from .optim import leaves
 
@@ -76,14 +77,23 @@ def init_adapters(g: torch.Generator, model_cfg, cfg: LoraConfig,
     """The adapter tree models/whisper.py reads: decoder self and cross
     attention q/v, and with encoder=True (--lora_targets all) the encoder's
     self-attention q/v too. `g` draws every `a`, in a fixed order; the
-    numbers differ from the JAX package's (jax.random)."""
-    d = model_cfg.d_model
-    Ld, Le = model_cfg.decoder_layers, model_cfg.encoder_layers
-    out: Params = {"decoder": {
-        blk: {t: _init_adapter(g, Ld, d, d, cfg, device) for t in TARGETS}
-        for blk in ("self_attn", "cross_attn")}}
+    numbers differ from the JAX package's (jax.random). For Uni-MoE
+    (models/unimoe.py) the LM's q (d → d) and v (d → its KV width) under
+    "lm" take the decoder's place, beside the Whisper encoder's."""
+    if isinstance(model_cfg, UniMoEConfig):
+        d, L = model_cfg.hidden_size, model_cfg.num_hidden_layers
+        kv = model_cfg.num_key_value_heads * model_cfg.head_dim
+        out: Params = {"lm": {"q": _init_adapter(g, L, d, d, cfg, device),
+                              "v": _init_adapter(g, L, d, kv, cfg, device)}}
+        model_cfg = model_cfg.encoder
+    else:
+        d, Ld = model_cfg.d_model, model_cfg.decoder_layers
+        out = {"decoder": {
+            blk: {t: _init_adapter(g, Ld, d, d, cfg, device) for t in TARGETS}
+            for blk in ("self_attn", "cross_attn")}}
     if encoder:
-        out["encoder"] = {t: _init_adapter(g, Le, d, d, cfg, device) for t in TARGETS}
+        de, Le = model_cfg.d_model, model_cfg.encoder_layers
+        out["encoder"] = {t: _init_adapter(g, Le, de, de, cfg, device) for t in TARGETS}
     return out
 
 
@@ -195,15 +205,20 @@ def adalora_update_mask(adapters: Params, grads: Params, sens: Params,
             for _, s in stacks]                                  # (L, r) each
     if step % cfg.delta_t != 0:
         return mask, new_sens
-    all_imp = torch.stack(imps)                                  # (n_ad, L, r)
-    n_ad, L, _ = all_imp.shape
+    n_ad, L = len(imps), imps[0].shape[0]
     budget = rank_budget(step, max_steps, cfg)
-    k_total = int(np.round(budget * np.float32(n_ad) * np.float32(L)))
-    flat = all_imp.reshape(-1)
+    if all(i.shape[0] == L for i in imps):
+        k_total = int(np.round(budget * np.float32(n_ad) * np.float32(L)))
+    else:       # stacks of other depths (an encoder beside an LM): the budget a layer
+        k_total = int(np.round(budget * np.float32(sum(i.shape[0] for i in imps))))
+    flat = torch.cat([i.reshape(-1) for i in imps])
     order = torch.sort(flat, descending=True).values
     thresh = order[min(max(k_total - 1, 0), flat.numel() - 1)]
-    keep = (all_imp >= thresh).float()
-    masks = {path: keep[i][:, None, :] for i, (path, _) in enumerate(stacks)}
+    keep = (flat >= thresh).float()
+    masks, off = {}, 0
+    for (path, _), imp in zip(stacks, imps):
+        masks[path] = keep[off: off + imp.numel()].view(imp.shape)[:, None, :]
+        off += imp.numel()
 
     def build(m_old, prefix=""):
         if not isinstance(m_old, dict):

@@ -83,6 +83,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..models import unimoe
 from ..models import whisper as W
 from ..models.configs import WhisperConfig
 from ..ops import logmel as logmel_ops
@@ -185,13 +186,25 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """(mean token loss, num_tokens, orth_reg or None) of one (micro)batch.
     PEFT: `adapters` with `rank_mask` applied to e in the forward. augment:
-    SpecAugment of the features (`spec_augment_stream`), in training."""
+    SpecAugment of the features (`spec_augment_stream`), in training. A
+    Uni-MoE config (models/unimoe.py) runs its audio LM: the loss covers the
+    labels, the transcript and end-token positions after the audio tokens,
+    through its untied head."""
     peft = cfg.mode == "peft"
     if peft:
         adapters = lora_lib.apply_rank_mask(adapters, rank_mask)
     mel = _get_mel(batch, cfg)
     if augment is not None:
         mel = augment(mel)
+    if unimoe.is_unimoe(model_cfg):
+        # the LM's hidden states of the text positions, the untied head
+        out = unimoe.forward(params, mel, batch["decoder_input_ids"].long(), model_cfg,
+                             compute_dtype=cfg.compute_dtype, remat=cfg.remat,
+                             attn_impl=cfg.attn_impl, adapters=adapters if peft else None,
+                             dropout=dropout, quant=cfg.quant, fused_qkv=cfg.fused_qkv)
+        loss, n = fused_cross_entropy(out, params["lm"]["head"], batch["labels"],
+                                      cfg.label_smoothing, embed_grad=not peft)
+        return loss, n, _orth_reg(adapters, cfg)
     out = W.forward(params, mel, batch["decoder_input_ids"].long(), model_cfg,
                     compute_dtype=cfg.compute_dtype, remat=cfg.remat,
                     attn_impl=cfg.attn_impl,
@@ -207,11 +220,16 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
                                       embed_grad=not peft)
     else:
         loss, n = W.cross_entropy(out, batch["labels"], cfg.label_smoothing)
-    reg = None
+    return loss, n, _orth_reg(adapters, cfg)
+
+
+def _orth_reg(adapters: Optional[Params], cfg: TrainStepConfig) -> Optional[torch.Tensor]:
+    """AdaLoRA's orthogonality regulariser of the (rank-masked) adapters, or
+    None outside AdaLoRA."""
     lcfg = cfg.lora
-    if peft and lcfg is not None and lcfg.adalora and lcfg.orth_reg_weight > 0:
-        reg = lora_lib.orth_regularizer(adapters, lcfg.orth_reg_weight)
-    return loss, n, reg
+    if cfg.mode == "peft" and lcfg is not None and lcfg.adalora and lcfg.orth_reg_weight > 0:
+        return lora_lib.orth_regularizer(adapters, lcfg.orth_reg_weight)
+    return None
 
 
 def split_rows(cfg: TrainStepConfig) -> TrainStepConfig:

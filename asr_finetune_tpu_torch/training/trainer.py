@@ -53,6 +53,7 @@ from ..data.pipeline import to_device
 from ..evaluation import decode as decode_lib
 from ..evaluation import wer as wer_lib
 from ..evaluation.normalize import normalize
+from ..models import unimoe
 from ..models.configs import WhisperConfig
 from ..models.whisper import IGNORE_ID
 from ..ops import logmel as logmel_ops
@@ -137,6 +138,11 @@ class Trainer:
         self.placement = placement or Placement(device)
         self._train_step = make_train_step(model_cfg, opt, step_cfg, self.placement)
         self._eval_loss_step = make_eval_loss_step(model_cfg, step_cfg, rows_of_batch=True)
+        self.last_eval_metrics: Dict[str, float] = {}
+        if unimoe.is_unimoe(model_cfg):
+            # no serving path yet: an evaluation computes its loss, and WER raises
+            self._decode = unimoe.no_decode
+            return
         forced = tokenizer.prefix_tokens(cfg.language, cfg.task,
                                          predict_timestamps=cfg.return_timestamps)
         sp = tokenizer.special
@@ -151,7 +157,6 @@ class Trainer:
             no_timestamps_id=sp.no_timestamps,
             kv_int8=cfg.decode_kv_int8, w_int8=cfg.decode_w_int8,
             quant=step_cfg.quant)
-        self.last_eval_metrics: Dict[str, float] = {}
 
     # ------------------------------------------------------------------ eval
 

@@ -187,7 +187,12 @@ TRAIN_STEPS, TRAIN_UTTS, TRAIN_GEN_LEN = 4, 20, 32
 W8A8_SHAPES = (("encoder q/k/v/o", B * T_ENC, D, D), ("encoder fc1", B * T_ENC, D, FF),
                ("encoder fc2", B * T_ENC, FF, D), ("decoder q/k/v/o", B * CROSS_TQ, D, D),
                ("decoder fc1", B * CROSS_TQ, D, FF), ("decoder fc2", B * CROSS_TQ, FF, D),
-               ("encoder q|k|v fused", B * T_ENC, D, 3 * D))
+               ("encoder q|k|v fused", B * T_ENC, D, 3 * D),
+               # Uni-MoE-2.0-Omni's dynamic experts at about one expert's rows
+               # of a batch of 8: the down-projection's K past 8192 (the
+               # two-pass quantize kernel), the gate/up's N
+               ("unimoe expert down", 1536, 18944, 3584),
+               ("unimoe expert gate/up", 1536, 3584, 18944))
 T_PAD = 1536                                     # T_ENC padded to 128 ((BH, T, hd) layout)
 # fp32 gradients of one train step at large-v3 width, 2+2 layers: the
 # largest over the leaves of max |diff| / max |grad|, kernels against plain
@@ -1008,7 +1013,8 @@ def check_attention_bwd(rows):
 
 def check_w8a8(rows):
     """Phase 3d: the W8A8 kernel against its plain version at the PEFT main
-    path's six product shapes, bf16 and fp32, pure and with the outlier
+    path's seven product shapes and Uni-MoE's two expert shapes (the
+    down-projection's K 18944), bf16 and fp32, pure and with the outlier
     keep-mask and addend of the dynamic top-8 form (on inputs with a few
     large feature columns): equal bit for bit. In bf16 (the main path's)
     times, per shape, the kernel, the plain version, torch._int_mm on the

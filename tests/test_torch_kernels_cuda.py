@@ -750,6 +750,11 @@ W8A8_CASES = {
     "one pass": (2000, 1008, 2200, True),
     "K 5120": (300, 5120, 3840, False),
     "wide ragged": (1000, 1280, 2056, True),
+    # Uni-MoE's expert products at about one expert's rows of a batch of 8:
+    # the down-projection's K past the quantize pass's 8192 (its two-pass
+    # kernel), and the gate/up's wide N
+    "K 18944": (1536, 18944, 3584, True),
+    "N 18944": (1536, 3584, 18944, True),
 }
 
 
@@ -815,9 +820,9 @@ def test_w8a8_with_the_row_amax_supplied_matches_plain_bitwise(dev, dtype, shape
 
 def test_w8a8_rejects_a_missing_or_mismatched_copy(dev):
     """On the card the wrapper raises, and launches nothing, without the
-    K-major copy, with one of another shape, dtype or device, at a K that
-    is no multiple of 16 or an N no multiple of 8 (TMA's row pitches), and
-    at a K beyond the quantize pass's 8192; it never transposes."""
+    K-major copy, with one of another shape, dtype or device, and at a K
+    that is no multiple of 16 or an N no multiple of 8 (TMA's row pitches);
+    it never transposes. (A K beyond 8192 runs: the cases above.)"""
     g = torch.Generator(device=dev).manual_seed(3)
     x = _rn(g, dev, 64, 256)
     w8, ws = _int8(_rn(g, dev, 256, 128, scale=0.05))
@@ -833,11 +838,27 @@ def test_w8a8_rejects_a_missing_or_mismatched_copy(dev):
     w3, s3 = _int8(_rn(g, dev, 256, 124, scale=0.05))
     with pytest.raises(ValueError, match="N % 8"):
         WF.w8a8(x, w3, s3, w_nk=w3.t().contiguous())
-    x4 = _rn(g, dev, 8, 8208)
-    w4, s4 = _int8(_rn(g, dev, 8208, 8, scale=0.05))
-    with pytest.raises(ValueError, match="8192"):
-        WF.w8a8(x4, w4, s4, w_nk=w4.t().contiguous())
     assert WF.LAUNCHES["w8a8"] == 0
+
+
+@pytest.mark.parametrize("K,N", [(18944, 3584), (3584, 18944), (1280, 3584)])
+def test_w8a8_over_a_k_major_only_base(dev, K, N):
+    """A base held only K-major (models/unimoe.py) passes w_q8 as the view
+    w_nk.t(): the kernel reads w_nk alone and gives what the plain version
+    gives from the view; the straight-through backward dequantizes the
+    view, dy @ (w_nk · s)."""
+    g = torch.Generator(device=dev).manual_seed(K + N)
+    w8, ws = _int8(_rn(g, dev, K, N, scale=0.05))
+    w_nk = w8.t().contiguous()
+    x = _rn(g, dev, 300, K, dtype=torch.bfloat16).requires_grad_()
+    WF.reset_launches()
+    y = Q.int8_matmul(x, w_nk.t(), ws, Q.QuantConfig(matmul=True), w_nk)
+    assert WF.LAUNCHES["w8a8"] == 1
+    assert torch.equal(y, WF.w8a8_plain(x.detach(), w_nk.t(), ws))
+    dy = _rn(g, dev, 300, N, dtype=torch.bfloat16)
+    (y.float() * dy.float()).sum().backward()
+    want = dy @ (w_nk.to(torch.bfloat16) * ws.reshape(-1, 1).to(torch.bfloat16))
+    _close(x.grad, want, torch.bfloat16)
 
 
 def test_int8_matmul_grad_on_the_card(dev):
